@@ -7,10 +7,14 @@ prints no result):
 
 1. the card: name and power limit as nvidia-smi reports them;
 2. build: both Q1 kernels from spark_rapids_tpu_torch/csrc with nvcc for
-   sm_90a;
+   sm_90a; ptxas's registers and spills, and q1_agg_simt's geometry
+   (resident blocks an SM, shared memory a block);
 3. kernels: each kernel against its plain PyTorch version on the card at
-   n in {100, 12345, 2^15, 2^24} and with a validity mask (counts exact,
-   sums rtol 1e-4);
+   n in {100, 12345, 2^15, 2^24} and with a validity mask, at n around a
+   multiple of 4, one block's step and one wave's step, and on columns
+   sliced 1, 2 or 3 elements in (all alike: the head path; mixed: the
+   scalar loop) (counts exact, sums rtol 1e-4); two launches at 2^24 give
+   identical bytes;
 4. main path, with every launch counter set to 0 first: entry()'s step at
    2^16 rows, q1_step_best("cuda") at 2^24 and the tensor-core step at 2^24,
    each against the numpy oracle; then framework Q1 at 2^24 rows through
@@ -18,7 +22,9 @@ prints no result):
    against a numpy float64 oracle (keys and counts exact, rtol 1e-9); the
    counters must show every kernel launched;
 5. timing: each kernel's median time by CUDA events against its bound, its
-   plain version's time, and the framework's best-of-5 warm collect().
+   device time split into the main kernel and the partials pass
+   (torch.profiler), its plain version's time, and the framework's
+   best-of-5 warm collect().
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -38,8 +44,8 @@ SIZES = (100, 12345, 1 << 15, N_BIG)
 RTOL_KERNEL = 1e-4  # f32 sums in another order (tests/test_q1_kernels.py)
 RTOL_FRAMEWORK = 1e-9  # float64 sums in another order
 BYTES_PER_ROW = 29  # four int32/f32 + three f32 + one bool, read once
-#: f32 ops a row for the masked reductions: 16 groups x 6 measures x 2
-SIMT_OPS_PER_ROW = 192
+#: f32 ops a row in q1_agg_simt: 8 for the measures, 6 adds into the slots
+SIMT_OPS_PER_ROW = 14
 #: tensor-core ops a row: 2 TF32 MMAs of 16x8x8 per 8 rows, 2 ops a MAC
 MMA_OPS_PER_ROW = 2 * 2 * 16 * 8 * 8 // 8
 #: published dense peaks (NVIDIA data sheets): memory B/s, f32 and TF32 op/s
@@ -110,9 +116,9 @@ def time_ms(fn, iters: int, reps: int = 5, warmup: int = 3) -> float:
 
 
 def profile_device(fn, iters: int):
-    """torch.profiler over `iters` calls: (device-busy ms per call, the
-    five device ops with most time as (name, ms per call)). Busy time sums
-    the device time of every kernel and copy."""
+    """torch.profiler over `iters` calls: (device-busy ms per call, every
+    device op as (name, ms per call), most time first). Busy time sums the
+    device time of every kernel and copy."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -129,7 +135,23 @@ def profile_device(fn, iters: int):
               if ev.device_type == DeviceType.CUDA
               and ev.self_device_time_total > 0]
     per_op.sort(key=lambda kv: -kv[1])
-    return sum(ms for _, ms in per_op), [(k[:60], ms) for k, ms in per_op[:5]]
+    return sum(ms for _, ms in per_op), per_op
+
+
+def op_ms(per_op, name: str) -> float:
+    """Device ms per call of the ops whose name holds `name`."""
+    found = [ms for key, ms in per_op if name in key]
+    check(bool(found), f"profiler shows no {name}")
+    return sum(found)
+
+
+def sliced_batch(n: int, offsets, seed: int = 7):
+    """make_example_batch's columns, each a contiguous slice starting
+    offsets[c] elements in (data pointers off their 16-byte alignment)."""
+    from spark_rapids_tpu_torch.kernels.q1 import Q1Inputs, make_example_batch
+    full, cutoff = make_example_batch(n + max(offsets), seed=seed,
+                                      device="cuda")
+    return Q1Inputs(*(t[o:o + n] for t, o in zip(full, offsets))), cutoff
 
 
 def lineitem(n: int):
@@ -212,6 +234,7 @@ def main() -> int:
     from spark_rapids_tpu_torch.kernels import build, q1_cuda
     from spark_rapids_tpu_torch.kernels.q1 import (make_example_batch,
                                                    q1_reference_numpy)
+    from spark_rapids_tpu_torch.kernels.q1_cuda import mma_blocks, simt_plan
     from spark_rapids_tpu_torch.session import TorchSession
     import spark_rapids_tpu_torch.functions as F
 
@@ -228,27 +251,47 @@ def main() -> int:
     build.build_all([q1_cuda.SOURCE])
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for line in build.BUILD_LOG.get(q1_cuda.SOURCE, (0, ""))[1].splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             print("  " + line.strip())
+    geo = q1_cuda.simt_geometry(torch.device("cuda", 0))
+    print(f"q1_agg_simt geometry: {geo}", flush=True)
+    check(geo.spill_bytes == 0, "q1_agg_simt spills to local memory")
 
     # 3. each kernel against its plain version on the card
     kernels = {"q1_agg_simt": (q1_cuda.q1_agg_simt, q1_cuda.q1_agg_simt_plain),
                "q1_agg_mma": (q1_cuda.q1_agg_mma, q1_cuda.q1_agg_mma_plain)}
     max_err = {k: 0.0 for k in kernels}
-    cases = [(n, None) for n in SIZES] + [(1 << 12, 3), (N_BIG, 3)]
-    for n, mask_every in cases:
-        batch, cutoff = make_example_batch(n, seed=7, device="cuda")
+    block_step = 4 * geo.threads  # rows a block covers in one vector step
+    wave_step = block_step * geo.blocks_per_sm * geo.sms
+    aligned = (0,) * 8
+    cases = ([(n, None, aligned) for n in SIZES]
+             + [(1 << 12, 3, aligned), (N_BIG, 3, aligned)]
+             + [(n, None, aligned) for n in
+                (0, 1, 3, 4, 5, 4095, 4097, 4098, 4099, block_step - 1,
+                 block_step, block_step + 1, block_step + 5, wave_step - 1,
+                 wave_step, wave_step + 3)]
+             + [(n, mask, offsets) for n in (5, 12345, wave_step + 3)
+                for mask, offsets in ((None, (1,) * 8), (3, (2,) * 8),
+                                      (None, (3,) * 8),
+                                      (3, (0, 1, 2, 3, 1, 2, 3, 0)))])
+    for n, mask_every, offsets in cases:
+        batch, cutoff = sliced_batch(n, offsets)
         if mask_every:
             batch.valid[::mask_every] = False
         for kname, (kernel, plain) in kernels.items():
             before = q1_cuda.launches[kname]
             err = compare_sums(kernel(batch, cutoff), plain(batch, cutoff),
-                               f"{kname} n={n} mask={mask_every}")
+                               f"{kname} n={n} mask={mask_every} "
+                               f"offsets={offsets}")
             check(q1_cuda.launches[kname] == before + 1,
                   f"{kname} launch counter did not rise")
             if n == N_BIG and mask_every is None:
                 max_err[kname] = err
-        print(f"kernels vs plain ok: n={n} mask={mask_every}", flush=True)
+                again = kernel(batch, cutoff)
+                check(torch.equal(again, kernel(batch, cutoff)),
+                      f"{kname}: two launches at 2^24 differ")
+    print(f"kernels vs plain ok: {len(cases)} cases; two launches at 2^24 "
+          "identical", flush=True)
 
     # 4. the main path, counters from 0
     q1_cuda.reset_launch_counts()
@@ -281,6 +324,15 @@ def main() -> int:
         check(launches[kname] > 0, f"{kname} never launched on the main path")
 
     # 5. timing
+    ptrs = [t.data_ptr() for t in big]
+    geometry = {
+        "q1_agg_simt": {
+            "grid": simt_plan(N_BIG, ptrs[:7], ptrs[7], geo.sms,
+                              geo.blocks_per_sm, geo.threads).blocks,
+            "blocks_per_sm": geo.blocks_per_sm,
+            "threads": geo.threads, "registers": geo.registers,
+            "smem_bytes_per_block": geo.smem_bytes},
+        "q1_agg_mma": {"grid": mma_blocks(N_BIG, geo.sms)}}
     lines = []
     for kname, (kernel, plain) in kernels.items():
         ops_per_row = SIMT_OPS_PER_ROW if kname == "q1_agg_simt" \
@@ -289,7 +341,7 @@ def main() -> int:
         bytes_ms = (BYTES_PER_ROW * N_BIG + 16 * q1_cuda.WIDTH[kname] * 4) \
             / mem_bps * 1e3
         ops_ms = ops_per_row * N_BIG / peak * 1e3
-        device_ms, _ = profile_device(lambda: kernel(big, big_cut), 10)
+        device_ms, per_op = profile_device(lambda: kernel(big, big_cut), 10)
         before = q1_cuda.launches[kname]
         (q1_cuda.q1_step_simt if kname == "q1_agg_simt"
          else q1_cuda.q1_step_mma)(big, big_cut)
@@ -309,7 +361,10 @@ def main() -> int:
                                 warmup=1),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "rows": N_BIG})
+            "library_ms": None, "rows": N_BIG,
+            "kernel_device_ms": op_ms(per_op, f"{kname}_kernel"),
+            "pass_device_ms": op_ms(per_op, "q1_sum_partials_kernel"),
+            **geometry[kname]})
     print(json.dumps({"kernels": lines, "card": smi}), flush=True)
 
     rows = q.collect()  # warm-up
@@ -326,7 +381,8 @@ def main() -> int:
         "batches": len(df._plan.batches()),
         "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / (best * 1e3),
-        "top_device_ops_ms": top}, "card": smi}), flush=True)
+        "top_device_ops_ms": [(k[:60], ms) for k, ms in top[:5]]},
+        "card": smi}), flush=True)
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -119,3 +119,84 @@ def test_wrapper_rejects_mixed_inputs():
     bad = batch._replace(tax=batch.tax[:32])
     with pytest.raises(ValueError):
         q1_cuda._check(bad)
+
+
+# --- q1_agg_simt's launch plan (the host half of the kernel) ---------------
+
+_BASE = 0x7F0000000000  # 256-byte aligned, as the caching allocator gives
+_PLAN_OFFSETS = {  # element offset of each column (7 words, then valid)
+    "aligned": (0,) * 8,
+    "all_1": (1,) * 8,
+    "all_2": (2,) * 8,
+    "all_3": (3,) * 8,
+    "mixed": (0, 1, 2, 3, 1, 2, 3, 0),
+    "valid_only": (0,) * 7 + (1,),
+}
+
+
+def _plan_ptrs(offsets):
+    words = [_BASE + (c << 20) + 4 * o for c, o in enumerate(offsets[:7])]
+    return words, _BASE + (7 << 20) + offsets[7]
+
+
+@pytest.mark.parametrize("offsets", list(_PLAN_OFFSETS.values()),
+                         ids=list(_PLAN_OFFSETS))
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 4095, 12345, (1 << 16) + 3])
+def test_simt_plan_covers_rows_once(n, offsets):
+    words, valid = _plan_ptrs(offsets)
+    plan = q1_cuda.simt_plan(n, words, valid, sms=132, blocks_per_sm=2,
+                             threads=256)
+    assert plan.head >= 0 and plan.body >= 0 and plan.tail >= 0
+    assert plan.head + plan.body + plan.tail == n
+    assert plan.body % 4 == 0
+    # the rows the kernel's two loops visit, as csrc/q1_agg.cu walks them
+    vector = (plan.head + 4 * np.arange(plan.body // 4)[:, None]
+              + np.arange(4)).ravel()
+    j = np.arange(n - plan.body)
+    scalar = np.where(j < plan.head, j, j + plan.body)
+    rows = np.concatenate([vector, scalar])
+    assert rows.size == n
+    np.testing.assert_array_equal(np.bincount(rows, minlength=n),
+                                  np.ones(n, np.int64))
+    if plan.body:
+        assert all((p + 4 * plan.head) % 16 == 0 for p in words)
+        assert (valid + plan.head) % 4 == 0
+    if len(set(offsets)) == 1:  # one shared alignment: vectors past 3 rows
+        assert plan.head <= 3 and plan.tail <= 3
+    else:
+        assert plan.body == 0
+    work = max(plan.body // 4, n - plan.body)
+    assert 1 <= plan.blocks <= 132 * 2
+    assert plan.blocks * 256 >= work or plan.blocks == 132 * 2
+
+
+def test_simt_plan_grid_is_one_resident_wave():
+    words, valid = _plan_ptrs(_PLAN_OFFSETS["aligned"])
+    big = q1_cuda.simt_plan(1 << 24, words, valid, sms=132, blocks_per_sm=2,
+                            threads=256)
+    assert big == q1_cuda.SimtPlan(head=0, body=1 << 24, tail=0, blocks=264)
+    small = q1_cuda.simt_plan(4096, words, valid, sms=132, blocks_per_sm=2,
+                              threads=256)
+    assert small.blocks == 4  # 1024 quads, 256 a block
+    # a column one element off the others sends every row to the scalar loop
+    odd = q1_cuda.simt_plan(100, [words[0] + 4] + words[1:], valid, sms=132,
+                            blocks_per_sm=2, threads=256)
+    assert (odd.head, odd.body, odd.tail, odd.blocks) == (100, 0, 0, 1)
+
+
+@pytest.mark.parametrize("offsets", [(1,) * 8, (2,) * 8, (3,) * 8,
+                                     (0, 1, 2, 3, 1, 2, 3, 0)],
+                         ids=["all_1", "all_2", "all_3", "mixed"])
+def test_simt_on_sliced_columns_matches_reference(offsets):
+    n = 12345
+    full, cutoff = _ref_batch(n + 3, seed=11, mask_every=3)
+    sliced = {k: np.asarray(v)[o:o + n]
+              for (k, v), o in zip(full._asdict().items(), offsets)}
+    want = ref_q1.q1_step(ref_q1.Q1Inputs(**{k: jnp.asarray(v)
+                                            for k, v in sliced.items()}),
+                          jnp.int32(cutoff))
+    port_full = _to_port(full)
+    port = port_q1.Q1Inputs(*(t[o:o + n] for t, o in zip(port_full, offsets)))
+    assert all(t.is_contiguous() for t in port)
+    assert port.quantity.data_ptr() != port_full.quantity.data_ptr()
+    _assert_step_equal(q1_cuda.q1_step_simt(port, cutoff), want)

@@ -24,13 +24,27 @@ prints no result):
 5. timing: each kernel's median time by CUDA events against its bound, its
    device time split into the main kernel and the partials pass
    (torch.profiler), its plain version's time, and the framework's
-   best-of-5 warm collect().
+   best-of-5 warm collect();
+6. both device paths of the planning route (optimizer -> CPU plan ->
+   override engine -> transitions), each against a numpy float64 oracle
+   (keys and counts exact, sums and averages rtol 1e-9):
+   (a) TPC-H Q6 at 2^24 rows on the compiled stage;
+   (b) Q1 at 2^24 on the general sort-based aggregate (compiled stage off,
+       test mode on: the whole plan must convert), two collects identical;
+   (c) Q1 at 2^22 over batchSizeRows=2^20: the out-of-core sort fallback;
+   (d) a group by l_shipdate (2191 keys) past maxGroups=1024: the compiled
+       stage re-runs on the general path and counts the re-run;
+   (e) Q1 with ORDER BY its keys at 2^24: six rows in key order.
+   (a) and (b) each print a line: best of 3 warm collect(), Mrows/s, device
+   busy ms, idle share and the top five device ops.
 
 The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -117,8 +131,8 @@ def time_ms(fn, iters: int, reps: int = 5, warmup: int = 3) -> float:
 
 def profile_device(fn, iters: int):
     """torch.profiler over `iters` calls: (device-busy ms per call, every
-    device op as (name, ms per call), most time first). Busy time sums the
-    device time of every kernel and copy."""
+    device op as (name, ms per call), most time first, device ops a call).
+    Busy time sums the device time of every kernel and copy."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -135,7 +149,9 @@ def profile_device(fn, iters: int):
               if ev.device_type == DeviceType.CUDA
               and ev.self_device_time_total > 0]
     per_op.sort(key=lambda kv: -kv[1])
-    return sum(ms for _, ms in per_op), per_op
+    launches = sum(ev.count for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA) / iters
+    return sum(ms for _, ms in per_op), per_op, launches
 
 
 def op_ms(per_op, name: str) -> float:
@@ -224,6 +240,152 @@ def check_framework_rows(rows, oracle) -> None:
             else:
                 check(abs(g - v) <= RTOL_FRAMEWORK * abs(v),
                       f"framework {key} {k}: {g} vs {v}")
+
+
+def q6_query(F, df):
+    """bench.py's _framework_q6."""
+    return (df.filter((F.col("l_shipdate") >= 8766)
+                      & (F.col("l_shipdate") < 9131)
+                      & (F.col("l_discount") >= 0.05)
+                      & (F.col("l_discount") <= 0.07)
+                      & (F.col("l_quantity") < 24))
+            .agg(F.sum(F.col("l_extendedprice") * F.col("l_discount"))
+                 .alias("revenue")))
+
+
+def q6_oracle(cols) -> float:
+    ship, disc = cols["l_shipdate"], cols["l_discount"]
+    keep = ((ship >= 8766) & (ship < 9131) & (disc >= 0.05) & (disc <= 0.07)
+            & (cols["l_quantity"] < 24))
+    return float(np.sum(cols["l_extendedprice"][keep] * disc[keep]))
+
+
+def check_close(got: float, want: float, what: str) -> None:
+    check(abs(got - want) <= RTOL_FRAMEWORK * abs(want),
+          f"{what}: {got} vs {want}")
+
+
+def shipdate_query(F, df):
+    return df.groupBy("l_shipdate").agg(
+        F.sum(F.col("l_quantity")).alias("q"), F.count("*").alias("n"),
+        F.min(F.col("l_discount")).alias("lo"),
+        F.max(F.col("l_tax")).alias("hi"))
+
+
+def check_shipdate_rows(rows, cols) -> None:
+    """Rows of shipdate_query against numpy over the day (min/max exact)."""
+    day = cols["l_shipdate"] - 8766
+    cnt = np.bincount(day)
+    qty = np.bincount(day, weights=cols["l_quantity"])
+    lo = np.full(len(cnt), np.inf)
+    hi = np.full(len(cnt), -np.inf)
+    np.minimum.at(lo, day, cols["l_discount"])
+    np.maximum.at(hi, day, cols["l_tax"])
+    got = {r["l_shipdate"]: r for r in rows}
+    days = np.nonzero(cnt)[0]
+    check(set(got) == {8766 + int(d) for d in days},
+          f"shipdate keys: {len(got)} vs {len(days)}")
+    for d in days:
+        r = got[8766 + int(d)]
+        check(r["n"] == cnt[d], f"shipdate {d} count {r['n']} != {cnt[d]}")
+        check_close(r["q"], qty[d], f"shipdate {d} sum")
+        check(r["lo"] == lo[d] and r["hi"] == hi[d],
+              f"shipdate {d} min/max {r['lo']}, {r['hi']}")
+
+
+def quiet_plan(q) -> str:
+    """The plan explain() prints, without printing it."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return q.explain()
+
+
+def timed_line(key: str, q, rows: int, smi: str, **extra) -> None:
+    """Best of 3 warm collect()s, then one profiled collect: one JSON line."""
+    q.collect()  # warm-up
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        q.collect()
+        best = min(best, time.perf_counter() - t0)
+    busy_ms, top, ops = profile_device(q.collect, 1)
+    print(json.dumps({key: {
+        "rows": rows, "best_collect_s": best, "mrows_per_s": rows / best / 1e6,
+        "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / (best * 1e3),
+        "device_ops": ops,
+        "top_device_ops_ms": [(k[:60], ms) for k, ms in top[:5]], **extra},
+        "card": smi}), flush=True)
+
+
+def general_paths(F, TorchSession, df, cols, oracle, smi) -> None:
+    """Phase 6: (a)-(e) over the planning route, on both device paths.
+    ``df``: the 2^24-row lineitem cached by phase 4's default session;
+    ``oracle``: framework_oracle of its columns."""
+    # (a) Q6 on the compiled stage
+    q6 = q6_query(F, df)
+    check("TorchCompiledAggStage[keys=<global>]" in quiet_plan(q6),
+          "Q6 plan lacks the global compiled stage")
+    rows = q6.collect()
+    check(len(rows) == 1, f"Q6 gave {len(rows)} rows")
+    check_close(rows[0]["revenue"], q6_oracle(cols), "Q6 revenue")
+    print("(a) Q6 on the compiled stage at 2^24 ok", flush=True)
+    timed_line("q6_compiled", q6, N_BIG, smi)
+
+    # (b) Q1 on the general sort-based aggregate, whole plan on the device
+    general = TorchSession({"spark.rapids.tpu.agg.compiledStage.enabled":
+                            "false", "spark.rapids.sql.test.enabled": "true",
+                            "spark.rapids.sql.batchSizeRows": str(N_BIG)},
+                           device="cuda")
+    q1g = framework_query(F, general.createDataFrame(cols).device_cache())
+    plan = quiet_plan(q1g)
+    check("  DeviceToHostExec\n  * TorchHashAggregate[keys=2]" in plan
+          and "TorchCompiledAggStage" not in plan,
+          "general Q1 plan is not DeviceToHostExec over TorchHashAggregate")
+    first, second = q1g.collect(), q1g.collect()
+    check_framework_rows(first, oracle)
+    check(first == second, "two collects of the general path differ")
+    print("(b) Q1 on the general path at 2^24 ok; two collects identical",
+          flush=True)
+    timed_line("q1_general", q1g, N_BIG, smi)
+    del q1g, general
+    torch.cuda.empty_cache()
+
+    # (c) the out-of-core sort fallback: 2^22 rows in four 2^20-row runs
+    n_mid = 1 << 22
+    mid = lineitem(n_mid)
+    ooc = TorchSession({"spark.rapids.tpu.agg.compiledStage.enabled": "false",
+                        "spark.rapids.sql.batchSizeRows": str(1 << 20)},
+                       device="cuda")
+    mid_df = ooc.createDataFrame(mid).device_cache()
+    check(len(mid_df._plan.batches()) == 4, "expected four cached runs")
+    check_framework_rows(framework_query(F, mid_df).collect(),
+                         framework_oracle(mid))
+    check(ooc.counters["sort_fallback_runs"] == 1,
+          f"sort fallback ran {ooc.counters['sort_fallback_runs']} times")
+    print("(c) Q1 out of core at 2^22 (four runs) ok", flush=True)
+
+    # (d) the compiled stage's runtime fallback: 2191 keys > maxGroups
+    fb = TorchSession({"spark.rapids.tpu.agg.compiled.maxGroups": "1024"},
+                      device="cuda")
+    qd = shipdate_query(F, fb.createDataFrame(mid).device_cache())
+    check("TorchCompiledAggStage" in quiet_plan(qd),
+          "shipdate plan lacks the compiled stage")
+    before = fb.counters["fallback_runs"]
+    check_shipdate_rows(qd.collect(), mid)
+    check(fb.counters["fallback_runs"] == before + 1,
+          "the compiled stage did not re-run on the general path")
+    print("(d) compiled stage re-ran on the general path (fallback_runs "
+          f"{before} -> {fb.counters['fallback_runs']}) ok", flush=True)
+    del mid_df, qd, ooc, fb
+    torch.cuda.empty_cache()
+
+    # (e) TPC-H Q1 as written: ORDER BY the group keys
+    qe = framework_query(F, df).orderBy("l_returnflag", "l_linestatus")
+    check("TorchSort" in quiet_plan(qe), "ordered Q1 plan lacks TorchSort")
+    rows = qe.collect()
+    keys = [(r["l_returnflag"], r["l_linestatus"]) for r in rows]
+    check(keys == sorted(oracle), f"ordered Q1 keys {keys}")
+    check_framework_rows(rows, oracle)
+    print("(e) Q1 ORDER BY at 2^24 ok: six rows in key order", flush=True)
 
 
 def main() -> int:
@@ -341,7 +503,8 @@ def main() -> int:
         bytes_ms = (BYTES_PER_ROW * N_BIG + 16 * q1_cuda.WIDTH[kname] * 4) \
             / mem_bps * 1e3
         ops_ms = ops_per_row * N_BIG / peak * 1e3
-        device_ms, per_op = profile_device(lambda: kernel(big, big_cut), 10)
+        device_ms, per_op, _ = profile_device(lambda: kernel(big, big_cut),
+                                              10)
         before = q1_cuda.launches[kname]
         (q1_cuda.q1_step_simt if kname == "q1_agg_simt"
          else q1_cuda.q1_step_mma)(big, big_cut)
@@ -374,15 +537,19 @@ def main() -> int:
         rows = q.collect()
         best = min(best, time.perf_counter() - t0)
     check_framework_rows(rows, oracle)
-    busy_ms, top = profile_device(q.collect, 1)
+    busy_ms, top, ops = profile_device(q.collect, 1)
     print(json.dumps({"framework_q1": {
         "rows": N_BIG, "best_collect_s": best,
         "mrows_per_s": N_BIG / best / 1e6, "device_cache_s": cache_s,
         "batches": len(df._plan.batches()),
         "device_busy_ms": busy_ms,
-        "idle_share": 1.0 - busy_ms / (best * 1e3),
+        "idle_share": 1.0 - busy_ms / (best * 1e3), "device_ops": ops,
         "top_device_ops_ms": [(k[:60], ms) for k, ms in top[:5]]},
         "card": smi}), flush=True)
+
+    # 6. both device paths of the planning route
+    general_paths(F, TorchSession, df, cols, oracle, smi)
+
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

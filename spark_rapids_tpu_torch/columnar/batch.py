@@ -170,6 +170,20 @@ class TorchColumnarBatch:
                 cols.append(TorchColumnVector(c.dtype, c.data[start:end], v, n))
         return TorchColumnarBatch(cols, n, self.names)
 
+    def to_host(self) -> "TorchColumnarBatch":
+        """The same batch on the CPU (a no-op for a host batch). A string
+        column downloads only the bytes its rows use: a gathered column
+        keeps its source's byte buffer (``gather``)."""
+        cpu = lambda t: None if t is None else t.cpu()  # noqa: E731
+        cols = []
+        for c in self.columns:
+            offsets = cpu(c.offsets)
+            data = c.data if offsets is None \
+                else c.data[:int(offsets[c.num_rows])]
+            cols.append(TorchColumnVector(c.dtype, cpu(data), cpu(c.validity),
+                                          c.num_rows, offsets=offsets))
+        return TorchColumnarBatch(cols, self.num_rows, self.names)
+
     def to_device(self, device, bucket: bool = True) -> "TorchColumnarBatch":
         """Upload an unpadded host table, padded to the bucket capacity."""
         n = self.num_rows
@@ -197,39 +211,111 @@ class TorchColumnarBatch:
         return TorchColumnarBatch(cols, n, self.names)
 
 
+def gather(batch: TorchColumnarBatch, indices: torch.Tensor, out_rows: int,
+           out_capacity: Optional[int] = None,
+           byte_capacity: Optional[int] = None) -> TorchColumnarBatch:
+    """Row gather across all columns (reference ``gather``, cuDF
+    ``Table.gather``). ``indices`` is an integer tensor on the batch's
+    device; entries past ``out_rows`` are padding, and out-of-range entries
+    (e.g. -1) give null rows.
+
+    The indices must be distinct (a permutation or a subset, as every
+    caller passes): a string column's bytes then fit in the input's byte
+    buffer, so no host sync sizes the output. A caller that knows a
+    smaller bound on the output's bytes passes it as ``byte_capacity``."""
+    cap = out_capacity if out_capacity is not None \
+        else bucket_capacity(out_rows)
+    dev = batch.device
+    idx = indices[:cap].to(torch.int64)
+    if idx.shape[0] < cap:
+        idx = torch.cat([idx, torch.full((cap - idx.shape[0],), -1,
+                                         dtype=torch.int64, device=dev)])
+    valid_idx = (idx >= 0) & (idx < batch.num_rows)
+    mask = valid_idx & (torch.arange(cap, device=dev) < out_rows)
+    safe = torch.where(valid_idx, idx, 0)
+    cols = []
+    for c in batch.columns:
+        v = mask if c.validity is None else (c.validity[safe] & mask)
+        if c.offsets is None:
+            data = torch.where(v, c.data[safe],
+                               torch.zeros((), dtype=c.data.dtype, device=dev))
+            cols.append(TorchColumnVector(c.dtype, data, v, out_rows))
+        else:
+            cols.append(_gather_strings(c, safe, v, out_rows, byte_capacity))
+    return TorchColumnarBatch(cols, out_rows, batch.names)
+
+
+def _gather_strings(c: TorchColumnVector, safe: torch.Tensor,
+                    valid: torch.Tensor, out_rows: int,
+                    byte_capacity: Optional[int] = None) -> TorchColumnVector:
+    """Byte gather without a host sync: each output byte finds its row by a
+    binary search over the output offsets."""
+    dev = c.device
+    starts = c.offsets[:-1][safe].to(torch.int64)
+    lens = torch.where(valid, c.offsets[1:][safe].to(torch.int64) - starts, 0)
+    offs = torch.zeros(safe.shape[0] + 1, dtype=torch.int64, device=dev)
+    offs[1:] = torch.cumsum(lens, 0)
+    nbytes = c.data.shape[0]
+    if byte_capacity is not None:
+        nbytes = min(nbytes, max(byte_capacity, 1))
+    pos = torch.arange(nbytes, dtype=torch.int64, device=dev)
+    row = torch.searchsorted(offs[1:], pos, right=True).clamp(
+        max=safe.shape[0] - 1)
+    src = (starts[row] + pos - offs[row]).clamp(0, c.data.shape[0] - 1)
+    data = torch.where(pos < offs[-1], c.data[src],
+                       torch.zeros((), dtype=torch.uint8, device=dev))
+    return TorchColumnVector(c.dtype, data, valid, out_rows,
+                             offsets=offs.to(torch.int32))
+
+
 def compact(batch: TorchColumnarBatch, mask: torch.Tensor
             ) -> TorchColumnarBatch:
     """Keep the rows where ``mask`` (over the capacity) is True, packed to
-    the front of a batch of bucketed capacity (reference ``compact``)."""
+    the front of a batch of bucketed capacity (reference ``compact``); the
+    kept row count is the one host sync."""
     keep = mask & torch.arange(batch.capacity, device=mask.device).lt(
         batch.num_rows)
     idx = torch.nonzero(keep).flatten()
-    n = int(idx.shape[0])
-    cap = bucket_capacity(n)
-    dev = mask.device
+    return gather(batch, idx, int(idx.shape[0]))
+
+
+def concat_batches(batches: List[TorchColumnarBatch]) -> TorchColumnarBatch:
+    """Concatenate batches on their device (reference ``concat_batches``).
+    String bytes land at device-computed positions, so no host sync reads
+    any batch's byte count."""
+    if len(batches) == 1:
+        return batches[0]
+    total = sum(b.num_rows for b in batches)
+    cap = bucket_capacity(total)
+    dev = batches[0].device
+    row_off = np.cumsum([0] + [b.num_rows for b in batches])
     cols = []
-    for c in batch.columns:
+    for ci, c0 in enumerate(batches[0].columns):
+        parts = [b.columns[ci] for b in batches]
         v = None
-        if c.validity is not None:
+        if any(p.validity is not None for p in parts):
             v = torch.zeros(cap, dtype=torch.bool, device=dev)
-            v[:n] = c.validity[idx]
-        if c.offsets is not None:
-            starts = c.offsets[:-1][idx].to(torch.int64)
-            lens = (c.offsets[1:][idx] - c.offsets[:-1][idx]).to(torch.int64)
-            offs = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
-            offs[1:n + 1] = torch.cumsum(lens, 0)
-            offs[n + 1:] = offs[n]
-            total = int(offs[n])
-            pos = (torch.arange(total, device=dev)
-                   - torch.repeat_interleave(offs[:n], lens)
-                   + torch.repeat_interleave(starts, lens))
-            data = torch.zeros(bucket_capacity(max(total, 1)),
-                               dtype=torch.uint8, device=dev)
-            data[:total] = c.data[pos]
-            cols.append(TorchColumnVector(c.dtype, data, v, n,
-                                          offsets=offs.to(torch.int32)))
-        else:
-            data = torch.zeros(cap, dtype=c.data.dtype, device=dev)
-            data[:n] = c.data[idx]
-            cols.append(TorchColumnVector(c.dtype, data, v, n))
-    return TorchColumnarBatch(cols, n, batch.names)
+            for p, off in zip(parts, row_off):
+                v[off:off + p.num_rows] = p.validity_or_true()[:p.num_rows]
+        if c0.offsets is None:
+            data = torch.zeros(cap, dtype=c0.data.dtype, device=dev)
+            for p, off in zip(parts, row_off):
+                data[off:off + p.num_rows] = p.data[:p.num_rows]
+            cols.append(TorchColumnVector(c0.dtype, data, v, total))
+            continue
+        byte_cap = sum(p.data.shape[0] for p in parts)
+        data = torch.zeros(byte_cap + 1, dtype=torch.uint8, device=dev)
+        offs = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+        base = torch.zeros((), dtype=torch.int64, device=dev)
+        for p, off in zip(parts, row_off):
+            n, width = p.num_rows, p.data.shape[0]
+            used = p.offsets[n].to(torch.int64)
+            at = torch.arange(width, dtype=torch.int64, device=dev)
+            # bytes past this batch's last row go to the dump slot
+            data[torch.where(at < used, base + at, byte_cap)] = p.data
+            offs[off:off + n] = p.offsets[:n].to(torch.int64) + base
+            base = base + used
+        offs[total:] = base
+        cols.append(TorchColumnVector(c0.dtype, data[:max(byte_cap, 1)], v,
+                                      total, offsets=offs.to(torch.int32)))
+    return TorchColumnarBatch(cols, total, batches[0].names)

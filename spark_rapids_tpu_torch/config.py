@@ -1,7 +1,11 @@
-"""Typed configuration: ``RapidsConf`` and the keys the Q1 path reads.
+"""Typed configuration: ``RapidsConf`` and the keys the ported slices read.
 
-Port of the Q1 subset of ``spark_rapids_tpu/config.py``. Keys keep the
-reference's strings, so one settings dict configures both packages.
+Port of a subset of ``spark_rapids_tpu/config.py``: the keys of the Q1 and
+Q6 paths and of the planning route (optimizer, override engine,
+transitions). Keys keep the reference's strings, so one settings dict
+configures both packages. The per-operator switches
+``spark.rapids.sql.exec.<Exec>`` and ``spark.rapids.sql.expression.<Expr>``
+are read by ``RapidsConf.is_op_enabled`` without a declared entry.
 """
 
 from __future__ import annotations
@@ -38,6 +42,37 @@ SQL_ENABLED = ConfEntry(
     "Enable (true) or disable (false) device acceleration of SQL plans.",
     True, _parse_bool)
 
+SQL_MODE = ConfEntry(
+    "spark.rapids.sql.mode",
+    "executeOnTPU runs converted plans on the device; explainOnly only "
+    "reports what would run there and returns the CPU plan.",
+    "executeOnTPU", str)
+
+EXPLAIN = ConfEntry(
+    "spark.rapids.sql.explain",
+    "NONE, NOT_ON_TPU (log the reasons operators stay on the CPU) or ALL.",
+    "NOT_ON_TPU", str)
+
+TEST_ASSERT_ON_TPU = ConfEntry(
+    "spark.rapids.sql.test.enabled",
+    "Testing only: fail if any operator in the plan did not convert to the "
+    "device.", False, _parse_bool)
+
+OPTIMIZER_ENABLED = ConfEntry(
+    "spark.rapids.sql.optimizer.enabled",
+    "Cost-based optimizer over the tagged plan (not yet ported: true "
+    "raises).", False, _parse_bool)
+
+LOGICAL_COLUMN_PRUNING = ConfEntry(
+    "spark.rapids.tpu.optimizer.columnPruning.enabled",
+    "Logical column pruning: projections restricted to the columns an "
+    "operator's ancestors reference.", True, _parse_bool)
+
+VARIABLE_FLOAT_AGG_ENABLED = ConfEntry(
+    "spark.rapids.sql.variableFloatAgg.enabled",
+    "Allow float sum/avg aggregations whose result can vary with the "
+    "order of accumulation; false keeps them on the CPU.", True, _parse_bool)
+
 ANSI_ENABLED = ConfEntry(
     "spark.sql.ansi.enabled",
     "ANSI mode: arithmetic overflow and invalid casts raise instead of "
@@ -69,9 +104,19 @@ class RapidsConf:
     def get(self, entry: ConfEntry) -> Any:
         return entry.get(self._settings)
 
+    def is_op_enabled(self, key: str, default: bool = True) -> bool:
+        """A per-operator switch (``spark.rapids.sql.exec.<Exec>``,
+        ``spark.rapids.sql.expression.<Expr>``)."""
+        raw = self._settings.get(key)
+        return default if raw is None else _parse_bool(raw)
+
     @property
     def sql_enabled(self) -> bool:
         return self.get(SQL_ENABLED)
+
+    @property
+    def explain_only(self) -> bool:
+        return str(self.get(SQL_MODE)).lower() == "explainonly"
 
     @property
     def ansi_enabled(self) -> bool:

@@ -1,26 +1,40 @@
 """Physical plan base classes and reference binding.
 
-Port of ``PhysicalPlan``, ``TaskContext`` and ``bind_references`` from
-``spark_rapids_tpu/execs/base.py``. Operator metrics, the plan-cache clone
-protocol and the tracing hooks of the reference are not yet ported.
+Port of ``PhysicalPlan``, ``CpuExec``, ``TaskContext`` and
+``bind_references`` from ``spark_rapids_tpu/execs/base.py``. Operator
+metrics, the plan-cache clone protocol and the tracing hooks of the
+reference are not yet ported; the session's ``counters`` stand in for the
+few the port reads.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Iterator, List, Optional, Sequence
+
+import torch
 
 from ..config import RapidsConf
 from ..expressions.base import AttributeReference, EvalContext, Expression
 
 
 class TaskContext:
-    """Per-task execution context (partition id, conf)."""
+    """Per-task execution context: partition id, conf, the session's device
+    (where ``HostToDeviceExec`` uploads) and the session's event counters
+    (``fallback_runs``, ``sort_fallback_runs``)."""
 
-    def __init__(self, partition_id: int = 0,
-                 conf: Optional[RapidsConf] = None):
+    def __init__(self, partition_id: int, conf: RapidsConf,
+                 device: torch.device, counters: Optional[Counter] = None):
         self.partition_id = partition_id
-        self.conf = conf or RapidsConf()
+        self.conf = conf
+        self.device = device
+        self.counters = counters if counters is not None else Counter()
         self.eval_ctx = EvalContext(self.conf, partition_id=partition_id)
+
+    def for_partition(self, partition_id: int) -> "TaskContext":
+        """The context of another partition of the same query."""
+        return TaskContext(partition_id, self.conf, self.device,
+                           self.counters)
 
 
 class PhysicalPlan:
@@ -35,6 +49,11 @@ class PhysicalPlan:
     def output(self) -> List[AttributeReference]:
         raise NotImplementedError
 
+    @property
+    def is_tpu(self) -> bool:
+        """Runs on the device (the reference's name for the property)."""
+        return isinstance(self, TorchExec)
+
     def node_desc(self) -> str:
         return type(self).__name__
 
@@ -46,7 +65,7 @@ class PhysicalPlan:
 
     def tree_string(self, indent: int = 0) -> str:
         """One line a node; '*' marks operators that run on the device."""
-        mark = "*" if isinstance(self, TorchExec) else " "
+        mark = "*" if self.is_tpu else " "
         lines = ["  " * indent + mark + " " + self.node_desc()]
         for c in self.children:
             lines.append(c.tree_string(indent + 1))
@@ -57,6 +76,11 @@ class PhysicalPlan:
         for c in self.children:
             out.extend(c.collect_nodes())
         return out
+
+
+class CpuExec(PhysicalPlan):
+    """Host operator: the planner's output and the override engine's input
+    (reference CpuExec). Host batches are TorchColumnarBatch on the CPU."""
 
 
 class TorchExec(PhysicalPlan):

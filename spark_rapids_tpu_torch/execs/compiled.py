@@ -17,10 +17,12 @@ run. The algorithm is the reference's:
 * per-batch carries merge on the host, where the tiny result table is
   finalized and projected.
 
-Where the reference falls back to the general aggregate (a domain past
-``maxGroups``, a value outside the measured domain), the port raises: the
-general aggregate is not yet ported. The reference's spill, retry, chaos
-and tracing hooks around the stage are not yet ported either.
+Where a run turns out ineligible (a domain past ``maxGroups``, a value
+outside the measured domain), the stage re-runs its original aggregate
+subtree (``fallback``) on the general device path, as the reference does,
+and counts the re-run in ``TaskContext.counters["fallback_runs"]``. The
+reference also re-runs on a device out-of-memory; that waits with the
+retry framework, as do its spill, chaos and tracing hooks.
 """
 
 from __future__ import annotations
@@ -52,10 +54,8 @@ _DEVICE_EXPRS = (Literal, AttributeReference, Alias, A.Add, A.Subtract,
                  P.And, P.Or, P.Not, Cast)
 
 
-def _not_ported(why: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"compiled aggregation stage: {why}; the general aggregate it "
-        "falls back to is not yet ported")
+class _StageFallback(Exception):
+    """Internal: abandon the compiled path, run the original subtree."""
 
 
 # ---------------------------------------------------------------------------
@@ -252,35 +252,22 @@ def _int_stats(col: TorchColumnVector) -> Tuple[Optional[int], Optional[int]]:
     return stats
 
 
-#: string keys are packed into one int64 (up to 7 bytes + the length)
-_MAX_PACKED_KEY_BYTES = 7
-
-
 def _encode_strings(col: TorchColumnVector):
     """Dictionary-encode a string column on its device: (sorted distinct
     values, int32 codes over the capacity with -1 for nulls and padding)."""
-    offs = col.offsets.to(torch.int64)
-    lens = offs[1:] - offs[:-1]
-    valid = col.validity_or_true()
-    maxlen = int(torch.where(valid, lens, 0).max()) if col.capacity else 0
-    if maxlen > _MAX_PACKED_KEY_BYTES:
+    from .aggregates import (MAX_PACKED_KEY_BYTES, pack_string_keys,
+                             string_key_overflow, unpack_string_key)
+    if bool(string_key_overflow(col)):
         raise NotImplementedError(
-            f"string group keys longer than {_MAX_PACKED_KEY_BYTES} bytes "
+            f"string group keys longer than {MAX_PACKED_KEY_BYTES} bytes "
             "not yet ported")
-    key = lens << 56
-    last = max(col.data.numel() - 1, 0)
-    for j in range(maxlen):
-        byte = col.data[(offs[:-1] + j).clamp(max=last)].to(torch.int64)
-        key = key | (torch.where(j < lens, byte, 0) << (8 * j))
-    uniq, inv = torch.unique(key[valid], sorted=True, return_inverse=True)
+    valid = col.validity_or_true()
+    uniq, inv = torch.unique(pack_string_keys(col)[valid], sorted=True,
+                             return_inverse=True)
     codes = torch.full((col.capacity,), -1, dtype=torch.int32,
                        device=col.device)
     codes[valid] = inv.to(torch.int32)
-    values = []
-    for k in uniq.cpu().tolist():
-        n = k >> 56
-        values.append(bytes((k >> (8 * j)) & 0xFF for j in range(n)).decode())
-    return values, codes
+    return [unpack_string_key(k) for k in uniq.cpu().tolist()], codes
 
 
 def _string_codes(col: TorchColumnVector, domain: _KeyDomain) -> torch.Tensor:
@@ -579,9 +566,11 @@ def _np_finalize(fn: AggregateFunction, st: Optional[Dict], idx: np.ndarray):
 class TorchCompiledAggStageExec(TorchExec):
     """The fused scan→filter→project→group-by stage."""
 
-    def __init__(self, spec: _StageSpec, max_groups: int):
+    def __init__(self, spec: _StageSpec, fallback: PhysicalPlan,
+                 max_groups: int):
         super().__init__([spec.source])
         self.spec = spec
+        self.fallback = fallback
         self.max_groups = max_groups
 
     @property
@@ -597,7 +586,18 @@ class TorchCompiledAggStageExec(TorchExec):
 
     def internal_do_execute_columnar(self, idx: int,
                                      ctx: TaskContext) -> Iterator:
-        yield self._run_compiled(ctx)
+        try:
+            result = self._run_compiled(ctx)
+        except _StageFallback:
+            result = None
+        if result is None:
+            # re-run on the general (sort-based) device path
+            ctx.counters["fallback_runs"] += 1
+            for p in range(self.fallback.num_partitions()):
+                yield from self.fallback.execute_partition(
+                    p, ctx.for_partition(p))
+            return
+        yield result
 
     def _run_compiled(self, ctx: TaskContext) -> TorchColumnarBatch:
         spec = self.spec
@@ -607,7 +607,7 @@ class TorchCompiledAggStageExec(TorchExec):
         # pass 1: collect batches + key statistics (memoized on the
         # column objects, so cached relations pay once)
         for p in range(src.num_partitions()):
-            for b in src.execute_partition(p, TaskContext(p, ctx.conf)):
+            for b in src.execute_partition(p, ctx.for_partition(p)):
                 if b.num_rows:
                     self._update_domains(b, domains)
                     held.append(b)
@@ -615,14 +615,15 @@ class TorchCompiledAggStageExec(TorchExec):
         for d in domains:
             G *= d.size
         if G > self.max_groups:
-            raise _not_ported(f"{G} groups exceed maxGroups "
-                              f"{self.max_groups}")
+            raise _StageFallback(f"{G} groups exceed maxGroups "
+                                 f"{self.max_groups}")
         # pass 2: one stage run per batch; the host reads the carries once
         # every batch is queued
         outs = [self._run_batch(b, domains, ctx) for b in held]
         host = [[t.cpu().numpy() for t in out] for out in outs]
         if any(bool(h[0]) for h in host):
-            raise _not_ported("a key value fell outside its measured domain")
+            raise _StageFallback("a key value fell outside its measured "
+                                 "domain")
         return self._assemble(domains, [h[1:] for h in host], ctx)
 
     def _update_domains(self, b: TorchColumnarBatch,
@@ -633,8 +634,8 @@ class TorchCompiledAggStageExec(TorchExec):
             if isinstance(d.dtype, StringType):
                 _string_codes(col, d)  # grows the global dictionary
                 if len(d.values) + 1 > self.max_groups:
-                    raise _not_ported("string key dictionary exceeds "
-                                      "maxGroups")
+                    raise _StageFallback("string key dictionary exceeds "
+                                         "maxGroups")
             elif not isinstance(d.dtype, BooleanType):
                 lo, hi = _int_stats(col)
                 if lo is not None:
@@ -729,7 +730,7 @@ def compile_agg_stages(plan: PhysicalPlan, conf) -> PhysicalPlan:
     def rewrite(node: PhysicalPlan) -> PhysicalPlan:
         spec = try_extract_stage(node)
         if spec is not None:
-            return TorchCompiledAggStageExec(spec, max_groups)
+            return TorchCompiledAggStageExec(spec, node, max_groups)
         node.children = [rewrite(c) for c in node.children]
         return node
 

@@ -1,61 +1,63 @@
-"""Host → device transitions and the device scan.
+"""Host ↔ device transitions and the device scan (port of
+``spark_rapids_tpu/execs/transitions.py``).
 
-``TorchDeviceScanExec`` ports ``TpuDeviceScanExec``: it serves
-device-resident cached batches with no upload, and its column objects stay
-the same across runs, so statistics memoized on them survive between
-queries. ``TorchLocalTableScanExec`` stands in for the reference's
-``CpuLocalTableScanExec`` followed by ``HostToDeviceExec``: the CPU execs
-and the override engine that inserts the transition are not yet ported.
+Host batches are TorchColumnarBatch on the CPU, so the transitions are an
+upload and a download; the reference's row ↔ columnar leg collapses away.
+``HostToDeviceExec`` uploads to ``TaskContext.device``, the session's
+device: the plan itself names no device.
+
+``TorchDeviceScanExec`` serves device-resident cached batches with no
+upload, and its column objects stay the same across runs, so statistics
+memoized on them survive between queries. ``CpuDeviceScanExec`` is its CPU
+view, which the override engine converts.
 """
 
 from __future__ import annotations
 
 from typing import Iterator
 
-import torch
-
-from .base import TaskContext, TorchExec
+from .base import CpuExec, PhysicalPlan, TaskContext, TorchExec
 
 
-def _partition_bounds(rows: int, n: int, idx: int):
-    base = rows // n
-    start = idx * base + min(idx, rows % n)
-    return start, base + (1 if idx < rows % n else 0)
+class HostToDeviceExec(TorchExec):
+    """Upload host batches to the session's device, padded to the bucket
+    capacity (reference HostToDeviceExec)."""
+
+    def __init__(self, child: PhysicalPlan):
+        super().__init__([child])
+
+    @property
+    def output(self):
+        return self.children[0].output
+
+    def internal_do_execute_columnar(self, idx: int,
+                                     ctx: TaskContext) -> Iterator:
+        names = [a.name for a in self.output]
+        for t in self.children[0].execute_partition(idx, ctx):
+            yield t.to_device(ctx.device).rename(names)
 
 
-class TorchLocalTableScanExec(TorchExec):
-    """Slice a host table into partitions and batchSizeRows batches and
-    upload each batch to ``device``."""
+class CpuDeviceScanExec(CpuExec):
+    """CPU view of a device-cached relation (downloads per batch)."""
 
-    def __init__(self, table, num_partitions: int, output,
-                 device: torch.device):
+    def __init__(self, batches, output):
         super().__init__([])
-        self.table = table
-        self._num_partitions = max(1, num_partitions)
+        self.batches = list(batches)
         self._output = list(output)
-        self.device = device
 
     @property
     def output(self):
         return self._output
 
     def num_partitions(self) -> int:
-        return self._num_partitions
+        return max(1, len(self.batches))
 
     def node_desc(self) -> str:
-        return (f"TorchLocalTableScan[{self.table.num_rows} rows, "
-                f"{self._num_partitions} partitions]")
+        return f"CpuDeviceScan[{len(self.batches)} batches]"
 
-    def internal_do_execute_columnar(self, idx: int,
-                                     ctx: TaskContext) -> Iterator:
-        names = [a.name for a in self._output]
-        start, count = _partition_bounds(self.table.num_rows,
-                                         self._num_partitions, idx)
-        step = ctx.conf.batch_size_rows
-        for off in range(0, max(count, 1), step):
-            chunk = self.table.slice(start + off, min(step, count - off))
-            if chunk.num_rows or count == 0:
-                yield chunk.to_device(self.device).rename(names)
+    def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
+        if idx < len(self.batches):
+            yield self.batches[idx].to_host()
 
 
 class TorchDeviceScanExec(TorchExec):
@@ -81,3 +83,19 @@ class TorchDeviceScanExec(TorchExec):
                                      ctx: TaskContext) -> Iterator:
         if idx < len(self.batches):
             yield self.batches[idx].rename([a.name for a in self._output])
+
+
+class DeviceToHostExec(CpuExec):
+    """Download device batches to host batches (reference
+    DeviceToHostExec)."""
+
+    def __init__(self, child: PhysicalPlan):
+        super().__init__([child])
+
+    @property
+    def output(self):
+        return self.children[0].output
+
+    def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
+        for b in self.children[0].execute_partition(idx, ctx):
+            yield b.to_host()

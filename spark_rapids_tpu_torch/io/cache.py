@@ -24,3 +24,7 @@ class DeviceCachedRelation(LogicalPlan):
 
     def batches(self) -> List:
         return self._batches
+
+    def node_desc(self) -> str:
+        return (f"DeviceCachedRelation[{self.num_rows} rows, "
+                f"{len(self._batches)} batches]")

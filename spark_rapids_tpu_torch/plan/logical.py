@@ -1,7 +1,9 @@
 """Logical plan nodes + analysis (attribute resolution, type coercion).
 
-Port of the LocalRelation/Project/Filter/Aggregate part of
+Port of the LocalRelation/Project/Filter/Aggregate/Sort part of
 ``spark_rapids_tpu/plan/logical.py`` with Spark's implicit-cast coercion.
+``node_desc`` strings are the reference's, so the optimized logical plan
+in ``explain()`` reads the same in both packages.
 """
 
 from __future__ import annotations
@@ -33,6 +35,15 @@ class LogicalPlan:
             raise ValueError(f"ambiguous column {name!r}")
         return matches[0]
 
+    def tree_string(self, indent: int = 0) -> str:
+        lines = ["  " * indent + self.node_desc()]
+        for c in self.children:
+            lines.append(c.tree_string(indent + 1))
+        return "\n".join(lines)
+
+    def node_desc(self) -> str:
+        return type(self).__name__
+
 
 class LocalRelation(LogicalPlan):
     """In-memory host table (a CPU ``TorchColumnarBatch``), optionally
@@ -47,6 +58,9 @@ class LocalRelation(LogicalPlan):
     @property
     def output(self) -> List[AttributeReference]:
         return self._output
+
+    def node_desc(self) -> str:
+        return f"LocalRelation[{self.table.num_rows} rows]"
 
 
 class Project(LogicalPlan):
@@ -66,6 +80,9 @@ class Project(LogicalPlan):
     def output(self) -> List[AttributeReference]:
         return self._output
 
+    def node_desc(self) -> str:
+        return f"Project[{', '.join(e.pretty() for e in self.exprs)}]"
+
 
 class Filter(LogicalPlan):
     def __init__(self, condition: Expression, child: LogicalPlan):
@@ -82,6 +99,40 @@ class Filter(LogicalPlan):
     @property
     def output(self) -> List[AttributeReference]:
         return self.child.output
+
+    def node_desc(self) -> str:
+        return f"Filter[{self.condition.pretty()}]"
+
+
+class SortOrder:
+    def __init__(self, child: Expression, ascending: bool = True,
+                 nulls_first: Optional[bool] = None):
+        self.child = child
+        self.ascending = ascending
+        # Spark's default: NULLS FIRST for ASC, NULLS LAST for DESC
+        self.nulls_first = nulls_first if nulls_first is not None \
+            else ascending
+
+    def pretty(self) -> str:
+        d = "ASC" if self.ascending else "DESC"
+        n = "NULLS FIRST" if self.nulls_first else "NULLS LAST"
+        return f"{self.child.pretty()} {d} {n}"
+
+
+class Sort(LogicalPlan):
+    def __init__(self, order: Sequence[SortOrder], global_sort: bool,
+                 child: LogicalPlan):
+        self.children = (child,)
+        self.order = [SortOrder(resolve_expression(o.child, child),
+                                o.ascending, o.nulls_first) for o in order]
+        self.global_sort = global_sort
+
+    @property
+    def output(self) -> List[AttributeReference]:
+        return self.children[0].output
+
+    def node_desc(self) -> str:
+        return f"Sort[{', '.join(o.pretty() for o in self.order)}]"
 
 
 class Aggregate(LogicalPlan):
@@ -100,6 +151,11 @@ class Aggregate(LogicalPlan):
     @property
     def output(self) -> List[AttributeReference]:
         return self._output
+
+    def node_desc(self) -> str:
+        g = ", ".join(e.pretty() for e in self.grouping)
+        a = ", ".join(e.pretty() for e in self.aggregates)
+        return f"Aggregate[groupBy=({g}) agg=({a})]"
 
 
 def _aliased(e: Expression) -> Expression:

@@ -1,46 +1,47 @@
-"""Planner: analyzed logical plan → physical plan of device operators.
+"""Planner: analyzed logical plan → CPU physical plan (port of
+``spark_rapids_tpu/plan/planner.py``).
 
-The reference (``spark_rapids_tpu/plan/planner.py``) plans CPU execs and
-lets ``TpuOverrides`` retarget them to the device. Until the CPU execs and
-the override engine are ported, this planner plans device execs directly,
-for the node kinds the port has: LocalRelation, DeviceCachedRelation,
-Project, Filter and Aggregate. The compiled-stage post-pass
-(``execs.compiled.compile_agg_stages``) then runs as in the reference.
+The plan is all-CPU; ``TorchOverrides`` then retargets it to the device, as
+the reference does, for the node kinds the port has: LocalRelation,
+DeviceCachedRelation, Project, Filter, Aggregate and Sort.
+
+The reference distributes a grouped aggregate over more than one partition
+through a hash exchange on the grouping keys (``per_partition=True``). The
+port has no exchange yet: such an aggregate plans as one
+``per_partition=False`` aggregate, which reads every partition of its
+child, as the reference's own non-per-partition branch does. The exchange
+arrives with the shuffle.
 """
 
 from __future__ import annotations
 
-import torch
-
 from ..config import RapidsConf
+from ..execs import cpu as CE
 from ..execs.base import PhysicalPlan
 from . import logical as L
 
 
-def plan_physical(plan: L.LogicalPlan, conf: RapidsConf,
-                  device: torch.device) -> PhysicalPlan:
-    from ..execs.aggregates import TorchHashAggregateExec
-    from ..execs.basic import TorchFilterExec, TorchProjectExec
-    from ..execs.transitions import (TorchDeviceScanExec,
-                                     TorchLocalTableScanExec)
+def plan_physical(plan: L.LogicalPlan, conf: RapidsConf) -> PhysicalPlan:
+    from ..execs.aggregates import CpuHashAggregateExec
+    from ..execs.transitions import CpuDeviceScanExec
     from ..io.cache import DeviceCachedRelation
     if isinstance(plan, DeviceCachedRelation):
-        return TorchDeviceScanExec(plan.batches(), plan.output)
+        return CpuDeviceScanExec(plan.batches(), plan.output)
     if isinstance(plan, L.LocalRelation):
-        return TorchLocalTableScanExec(plan.table, plan.num_partitions,
-                                       plan.output, device)
+        return CE.CpuLocalTableScanExec(plan.table, plan.num_partitions,
+                                        plan.output)
     if isinstance(plan, L.Project):
-        return TorchProjectExec(plan.exprs,
-                                plan_physical(plan.child, conf, device),
-                                plan.output)
+        return CE.CpuProjectExec(plan.exprs, plan_physical(plan.child, conf),
+                                 plan.output)
     if isinstance(plan, L.Filter):
-        return TorchFilterExec(plan.condition,
-                               plan_physical(plan.child, conf, device))
+        return CE.CpuFilterExec(plan.condition,
+                                plan_physical(plan.child, conf))
+    if isinstance(plan, L.Sort):
+        return CE.CpuSortExec(plan.order, plan.global_sort,
+                              plan_physical(plan.children[0], conf))
     if isinstance(plan, L.Aggregate):
-        # the compiled stage aggregates every partition globally, so the
-        # reference's hash exchange below a grouped aggregate is not needed
-        return TorchHashAggregateExec(
-            plan.grouping, plan.aggregates,
-            plan_physical(plan.children[0], conf, device), plan.output)
+        return CpuHashAggregateExec(plan.grouping, plan.aggregates,
+                                    plan_physical(plan.children[0], conf),
+                                    plan.output)
     raise NotImplementedError(
         f"planning {type(plan).__name__} not yet ported")

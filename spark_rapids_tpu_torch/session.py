@@ -1,14 +1,17 @@
-"""User-facing session + DataFrame API (the Q1 subset of
+"""User-facing session + DataFrame API (a subset of
 ``spark_rapids_tpu/session.py``).
 
-Execution: logical plan → planner (device execs) → compiled-stage pass →
-partition loop, run directly by ``DataFrame.collect``. The reference's
-optimizer, scheduler and override engine come in later slices.
+Execution, as in the reference: logical plan → optimizer (column pruning)
+→ planner (CPU physical plan) → ``TorchOverrides`` (retarget to the
+device, transitions, compiled aggregation stages) → partition loop, run
+directly by ``DataFrame.collect``. The reference's scheduler (admission,
+deadlines, plan cache) comes in a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from collections import Counter
+from typing import Any, Dict, List, Optional, Union
 
 from .config import RapidsConf
 from .device import DeviceLike, resolve_device
@@ -99,6 +102,18 @@ class Column:
     def alias(self, name: str) -> "Column":
         return Column(Alias(self._expr, name))
 
+    def asc(self) -> "L.SortOrder":
+        return L.SortOrder(self._expr, True)
+
+    def desc(self) -> "L.SortOrder":
+        return L.SortOrder(self._expr, False)
+
+    def asc_nulls_last(self) -> "L.SortOrder":
+        return L.SortOrder(self._expr, True, nulls_first=False)
+
+    def desc_nulls_first(self) -> "L.SortOrder":
+        return L.SortOrder(self._expr, False, nulls_first=True)
+
     name = alias
 
     def __repr__(self) -> str:
@@ -149,13 +164,28 @@ class DataFrame:
     def agg(self, *aggs) -> "DataFrame":
         return GroupedData(self, []).agg(*aggs)
 
+    def sort(self, *cols, ascending: Union[bool, List[bool], None] = None
+             ) -> "DataFrame":
+        order = []
+        for i, c in enumerate(cols):
+            if isinstance(c, L.SortOrder):
+                order.append(c)
+            else:
+                e = UnresolvedAttribute(c) if isinstance(c, str) else _expr(c)
+                asc = ascending[i] if isinstance(ascending, list) else (
+                    ascending if ascending is not None else True)
+                order.append(L.SortOrder(e, asc))
+        return DataFrame(L.Sort(order, True, self._plan), self.session)
+
+    orderBy = sort
+
     def device_cache(self) -> "DataFrame":
         """Materialize once into device-resident batches (batchSizeRows
         rows each) and replace the plan with a device scan: repeated
         queries skip the upload and keep per-column key statistics."""
         from .io.cache import DeviceCachedRelation
         return DataFrame(DeviceCachedRelation(self.session._execute_batches(
-            self._plan), self._plan.output), self.session)
+            self._plan, on_device=True), self._plan.output), self.session)
 
     def collect(self) -> List[Dict[str, Any]]:
         """Execute and fetch all rows as dicts (the reference's shape)."""
@@ -166,9 +196,32 @@ class DataFrame:
         return rows
 
     def explain(self) -> str:
-        s = self.session._physical_plan(self._plan).tree_string()
+        """The applied optimizer rules, the optimized logical plan and the
+        physical plan ('*' marks device operators), as the reference prints
+        them (its ``planCache=`` line waits with the scheduler)."""
+        from .plan.optimizer import explain_logical, optimize_logical
+        conf = self.session._rapids_conf()
+        optimized, rules = optimize_logical(self._plan, conf)
+        lines = []
+        if rules:
+            lines.append(f"appliedRules={', '.join(rules)}")
+            lines.append("== Optimized Logical Plan ==")
+            lines.append(explain_logical(optimized))
+            lines.append("== Physical Plan ==")
+        lines.append(self.session._final_plan(optimized, conf).tree_string())
+        s = "\n".join(lines)
         print(s)
         return s
+
+    def explain_fallback(self) -> str:
+        """What would not run on the device, and why."""
+        from .plan.optimizer import optimize_logical
+        from .plan.overrides import TorchOverrides
+        from .plan.planner import plan_physical
+        conf = self.session._rapids_conf()
+        optimized, _ = optimize_logical(self._plan, conf)
+        return TorchOverrides.explain_plan(plan_physical(optimized, conf),
+                                           conf)
 
 
 class GroupedData:
@@ -184,13 +237,17 @@ class GroupedData:
 
 class TorchSession:
     """The SparkSession analogue on one torch device: ``cuda`` unless the
-    caller passes ``device="cpu"``."""
+    caller passes ``device="cpu"``. ``counters`` counts the session's
+    runtime events: ``fallback_runs`` (a compiled stage re-ran on the
+    general path), ``sort_fallback_runs`` (a grouped aggregate sorted out
+    of core)."""
 
     def __init__(self, conf: Optional[Dict[str, str]] = None,
                  device: DeviceLike = None):
         self._settings: Dict[str, str] = {k: str(v)
                                           for k, v in (conf or {}).items()}
         self.device = resolve_device(device)
+        self.counters: Counter = Counter()
 
     def _rapids_conf(self) -> RapidsConf:
         return RapidsConf(self._settings)
@@ -209,22 +266,27 @@ class TorchSession:
             raise TypeError(f"cannot create DataFrame from {type(data)}")
         return DataFrame(L.LocalRelation(table, num_partitions), self)
 
-    def _physical_plan(self, plan: L.LogicalPlan):
-        from .execs.compiled import compile_agg_stages
+    def _final_plan(self, optimized: L.LogicalPlan, conf: RapidsConf):
+        from .plan.overrides import TorchOverrides
         from .plan.planner import plan_physical
-        conf = self._rapids_conf()
-        if not conf.sql_enabled:
-            raise NotImplementedError(
-                "spark.rapids.sql.enabled=false (CPU execution) not yet "
-                "ported")
-        return compile_agg_stages(plan_physical(plan, conf, self.device),
-                                  conf)
+        return TorchOverrides.apply(plan_physical(optimized, conf), conf)
 
-    def _execute_batches(self, plan: L.LogicalPlan) -> List:
+    def _execute_batches(self, plan: L.LogicalPlan,
+                         on_device: bool = False) -> List:
+        """Run a query: host batches, or with ``on_device`` the device
+        batches under the final download."""
         from .execs.base import TaskContext
-        final = self._physical_plan(plan)
+        from .execs.transitions import DeviceToHostExec, HostToDeviceExec
+        from .plan.optimizer import optimize_logical
         conf = self._rapids_conf()
+        final = self._final_plan(optimize_logical(plan, conf)[0], conf)
+        if on_device:
+            while isinstance(final, DeviceToHostExec):
+                final = final.children[0]
+            if not final.is_tpu:  # a host plan (e.g. a bare table): upload
+                final = HostToDeviceExec(final)
         out = []
         for p in range(final.num_partitions()):
-            out.extend(final.execute_partition(p, TaskContext(p, conf)))
+            out.extend(final.execute_partition(
+                p, TaskContext(p, conf, self.device, self.counters)))
         return out

@@ -223,6 +223,81 @@ def from_arrow(at) -> DataType:
         raise NotImplementedError(f"arrow type {at} not yet ported") from None
 
 
+# ---------------------------------------------------------------------------
+# TypeSig: the can-this-run-on-the-device matrix (reference types.py:324)
+# ---------------------------------------------------------------------------
+
+
+class TypeEnum:
+    BOOLEAN = "BOOLEAN"
+    BYTE = "BYTE"
+    SHORT = "SHORT"
+    INT = "INT"
+    LONG = "LONG"
+    FLOAT = "FLOAT"
+    DOUBLE = "DOUBLE"
+    DATE = "DATE"
+    STRING = "STRING"
+    DECIMAL = "DECIMAL"
+    NULL = "NULL"
+    STRUCT = "STRUCT"
+
+
+_TYPE_ENUMS = ((BooleanType, TypeEnum.BOOLEAN), (ByteType, TypeEnum.BYTE),
+               (ShortType, TypeEnum.SHORT), (IntegerType, TypeEnum.INT),
+               (LongType, TypeEnum.LONG), (FloatType, TypeEnum.FLOAT),
+               (DoubleType, TypeEnum.DOUBLE), (DateType, TypeEnum.DATE),
+               (StringType, TypeEnum.STRING), (DecimalType, TypeEnum.DECIMAL),
+               (NullType, TypeEnum.NULL), (StructType, TypeEnum.STRUCT))
+
+
+def _type_enum_of(dt: DataType) -> str:
+    for cls, te in _TYPE_ENUMS:
+        if isinstance(dt, cls):
+            return te
+    raise NotImplementedError(f"type {dt} not yet ported")
+
+
+class TypeSig:
+    """A set of supported ``TypeEnum``s; ``check(dt)`` returns None when
+    supported or a human-readable reason (reference TypeSig)."""
+
+    def __init__(self, initial: Iterable[str] = ()):
+        self.types = frozenset(initial)
+
+    def __add__(self, other: "TypeSig") -> "TypeSig":
+        return TypeSig(self.types | other.types)
+
+    def supports(self, dt: DataType) -> bool:
+        return self.check(dt) is None
+
+    def check(self, dt: DataType) -> Optional[str]:
+        if _type_enum_of(dt) not in self.types:
+            return f"{dt.simple_string()} is not supported"
+        if isinstance(dt, StructType):
+            for f in dt.fields:
+                r = self.check(f.data_type)
+                if r:
+                    return f"struct field {f.name}: {r}"
+        return None
+
+
+class TypeSigs:
+    """Standard signatures over the types the port carries. No decimal
+    expression is ported, so DECIMAL is in no signature and a decimal
+    column keeps its operator on the CPU."""
+    BOOLEAN = TypeSig([TypeEnum.BOOLEAN])
+    integral = TypeSig([TypeEnum.BYTE, TypeEnum.SHORT, TypeEnum.INT,
+                        TypeEnum.LONG])
+    fp = TypeSig([TypeEnum.FLOAT, TypeEnum.DOUBLE])
+    numeric = integral + fp
+    STRING = TypeSig([TypeEnum.STRING])
+    DATE = TypeSig([TypeEnum.DATE])
+    NULL = TypeSig([TypeEnum.NULL])
+    comparable = numeric + BOOLEAN + STRING + DATE + NULL
+    all_basic = comparable
+
+
 def numeric_promote(a: DataType, b: DataType) -> DataType:
     """Spark's binary-arithmetic common type for non-decimal numerics."""
     order = [ByteT, ShortT, IntegerT, LongT, FloatT, DoubleT]

@@ -194,10 +194,38 @@ def test_filter_project_without_aggregate():
 
 
 def test_ineligible_group_key_raises_not_yet_ported():
+    """A float group key is ineligible for the compiled stage: the plan
+    takes the general sort-based aggregate, whose rows match the
+    reference's."""
+    cols = {"d": np.array([1.0, 2.0, 1.0]), "v": np.array([1, 2, 3], np.int64)}
     s = TorchSession(device="cpu")
-    df = s.createDataFrame({"d": np.array([1.0, 2.0, 1.0]),
-                            "v": np.array([1, 2, 3], np.int64)})
-    q = df.groupBy("d").agg(TF.sum(TF.col("v")).alias("s"))
-    assert "TorchCompiledAggStage" not in q.explain()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        q.collect()
+    q = s.createDataFrame(cols).groupBy("d").agg(
+        TF.sum(TF.col("v")).alias("s"))
+    plan = q.explain()
+    assert "TorchCompiledAggStage" not in plan
+    assert "TorchHashAggregate[keys=1]" in plan
+    want = TpuSession().createDataFrame(pa.table(cols)).groupBy("d").agg(
+        RF.sum(RF.col("v")).alias("s")).collect()
+    _assert_rows_equal(want, q.collect(), keys=("d",))
+
+
+def test_max_groups_exceeded_reruns_on_the_general_path():
+    """A key domain past maxGroups: the compiled stage re-runs its
+    aggregate on the general path, counts the re-run, and the rows match
+    the reference's."""
+    table = _lineitem_table(4096)
+    conf = {"spark.rapids.tpu.agg.compiled.maxGroups": "64",
+            "spark.rapids.sql.batchSizeRows": "1500"}
+
+    def query(F, df):
+        return df.groupBy("l_shipdate").agg(
+            F.sum(F.col("l_quantity")).alias("q"), F.count("*").alias("n"))
+
+    want = query(RF, TpuSession(conf).createDataFrame(table)
+                 .device_cache()).collect()
+    s = TorchSession(conf, device="cpu")
+    q = query(TF, s.createDataFrame(table).device_cache())
+    assert "TorchCompiledAggStage" in q.explain()
+    got = q.collect()
+    assert s.counters["fallback_runs"] == 1
+    _assert_rows_equal(want, got, keys=("l_shipdate",))

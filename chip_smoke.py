@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: TPC-H Q1 end to end.
+"""Smoke run of the PyTorch/CUDA port on one GPU: TPC-H Q1, Q6 and q3 end
+to end.
 
     python3 chip_smoke.py
 
@@ -36,7 +37,26 @@ prints no result):
        stage re-runs on the general path and counts the re-run;
    (e) Q1 with ORDER BY its keys at 2^24: six rows in key order.
    (a) and (b) each print a line: best of 3 warm collect(), Mrows/s, device
-   busy ms, idle share and the top five device ops.
+   busy ms, idle share and the top five device ops;
+7. TPC-H q3 (customer ⋈ orders ⋈ lineitem, group by order, top 10 by
+   revenue) over the port's datagen tables (seed 42), each against a numpy
+   oracle (np.searchsorted joins, np.add.reduceat sums; keys exact, revenue
+   rtol 1e-9):
+   (a) 2^24 lineitem rows device-cached in one batch: the compiled star-join
+       stage (dims=1), no re-run, two collects identical;
+   (b) 2^22 rows in 4 partitions, 8 shuffle partitions, compiled join stage
+       off: hash exchanges (n=4) under the symmetric shuffled join, and a
+       broadcast join; the same rows as the compiled stage on those tables;
+   (c) 2^18 rows in 4 partitions: broadcast joins only;
+   (d) maxDimRows below the dimension's rows: the compiled join stage
+       re-runs on the general path (fallbackReruns 0 -> 1);
+   (e) hash partition ids of 2^24 int64 keys, n=16: the card's equal the
+       CPU's bit for bit;
+   (f) c_mktsegment = 'BUILDING' over 2^24 customer-shaped rows: the count
+       equals numpy's.
+   (a) and (b) print the timing line of phase 6, (a) with the
+   device_cache() seconds, and (a) the cost of the deterministic grouped
+   sum (stable sort + segmented sum against one index_add_).
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -388,6 +408,284 @@ def general_paths(F, TorchSession, df, cols, oracle, smi) -> None:
     print("(e) Q1 ORDER BY at 2^24 ok: six rows in key order", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: TPC-H q3
+# ---------------------------------------------------------------------------
+
+Q3_SEGMENT = "BUILDING"
+
+
+def q3_groups_query(F, t):
+    """benchmarks/tpch.py q3 without ORDER BY / LIMIT, written against the
+    port: every (order, date, revenue) group."""
+    li, orders, cust = t["lineitem"], t["orders"], t["customer"]
+    return (cust.filter(F.col("c_mktsegment") == Q3_SEGMENT)
+            .join(orders, on=cust["c_custkey"] == orders["o_custkey"])
+            .join(li, on=orders["o_orderkey"] == li["l_orderkey"])
+            .withColumn("revenue",
+                        F.col("l_extendedprice") * (1 - F.col("l_discount")))
+            .groupBy("o_orderkey", "o_orderdate")
+            .agg(F.sum(F.col("revenue")).alias("revenue")))
+
+
+def q3_query(F, t):
+    """benchmarks/tpch.py q3, written against the port."""
+    return q3_groups_query(F, t).sort(F.col("revenue").desc()).limit(10)
+
+
+def strings_equal(col, word: str) -> np.ndarray:
+    """numpy: which rows of a host string column (offsets + bytes) equal
+    ``word``."""
+    w = np.frombuffer(word.encode(), np.uint8)
+    offs = col.offsets.astype(np.int64)
+    hit = np.diff(offs) == len(w)
+    for k, b in enumerate(w):
+        hit &= col.chars[np.minimum(offs[:-1] + k, len(col.chars) - 1)] == b
+    return hit
+
+
+def q3_oracle(host):
+    """numpy float64 q3: every group (order key → (order date, revenue))
+    and the top 10 rows."""
+    cust, orders = host["customer"][0], host["orders"][0]
+    li = host["lineitem"][0]
+    building = strings_equal(cust["c_mktsegment"], Q3_SEGMENT)
+    ck = cust["c_custkey"]
+    ci = np.minimum(np.searchsorted(ck, orders["o_custkey"]), len(ck) - 1)
+    keep = (ck[ci] == orders["o_custkey"]) & building[ci]
+    okey, odate = orders["o_orderkey"][keep], orders["o_orderdate"][keep]
+    by_key = np.argsort(okey, kind="stable")
+    okey, odate = okey[by_key], odate[by_key]
+    lkey = li["l_orderkey"].astype(np.int64)
+    oi = np.minimum(np.searchsorted(okey, lkey), max(len(okey) - 1, 0))
+    hit = okey[oi] == lkey
+    rev = li["l_extendedprice"] * (1 - li["l_discount"])
+    g, rev = oi[hit], rev[hit]
+    perm = np.argsort(g, kind="stable")
+    g, rev = g[perm], rev[perm]
+    starts = np.flatnonzero(np.r_[True, g[1:] != g[:-1]])
+    sums = np.add.reduceat(rev, starts)
+    groups = {int(okey[g[s]]): (odate[g[s]], float(v))
+              for s, v in zip(starts, sums)}
+    top = sorted(groups.items(), key=lambda kv: -kv[1][1])[:10]
+    return groups, top
+
+
+def check_q3_rows(rows, top, what: str) -> None:
+    check(len(rows) == len(top), f"{what}: {len(rows)} rows, want {len(top)}")
+    for r, (k, (d, v)) in zip(rows, top):
+        check(r["o_orderkey"] == k and np.datetime64(r["o_orderdate"]) == d,
+              f"{what}: row {r} != ({k}, {d})")
+        check_close(r["revenue"], v, f"{what}: revenue of order {k}")
+
+
+def check_q3_groups(rows, groups, what: str) -> None:
+    """Every group of the oracle, none other: keys and dates exact, revenue
+    within RTOL_FRAMEWORK."""
+    check(len(rows) == len(groups), f"{what}: {len(rows)} groups, want "
+          f"{len(groups)}")
+    keys = np.array([r["o_orderkey"] for r in rows], np.int64)
+    order = np.argsort(keys)
+    want = np.array(sorted(groups), np.int64)
+    check(np.array_equal(keys[order], want), f"{what}: the key sets differ")
+    dates = np.array([r["o_orderdate"] for r in rows], "datetime64[D]")
+    want_dates = np.array([groups[k][0] for k in want], "datetime64[D]")
+    bad = np.flatnonzero(dates[order] != want_dates)
+    check(not len(bad), f"{what}: {len(bad)} dates differ, first at order "
+          f"{want[bad[0]] if len(bad) else None}")
+    rev = np.array([r["revenue"] for r in rows], np.float64)[order]
+    want_rev = np.array([groups[k][1] for k in want], np.float64)
+    bad = np.flatnonzero(np.abs(rev - want_rev)
+                         > RTOL_FRAMEWORK * np.abs(want_rev))
+    check(not len(bad), f"{what}: {len(bad)} revenues differ, first at "
+          f"order {want[bad[0]] if len(bad) else None}")
+
+
+def plan_child_of(plan: str, parent: str) -> str:
+    """The plan line right under the first line naming ``parent``."""
+    lines = plan.splitlines()
+    at = next((i for i, ln in enumerate(lines) if parent in ln), None)
+    return lines[at + 1] if at is not None and at + 1 < len(lines) else ""
+
+
+def group_sum_cost(rows: int, groups: int, smi) -> None:
+    """What the stage's deterministic float sum costs: one stable sort of
+    the group codes plus a fixed-order segmented sum, against one
+    ``index_add_`` (atomics, no fixed order), at q3's shapes (the last
+    group is the stage's dropped-rows slot, which it does not sum)."""
+    from spark_rapids_tpu_torch.execs.compiled_join import _GroupOrder
+    g = torch.from_numpy(np.random.default_rng(1).integers(
+        0, groups + 1, rows)).cuda()
+    x = torch.rand(rows, dtype=torch.float64, device="cuda")
+    det = _GroupOrder(g, groups + 1).sum(x)
+    atomic = torch.zeros(groups + 1, dtype=torch.float64,
+                         device="cuda").index_add_(0, g, x)
+    torch.testing.assert_close(det[:-1], atomic[:-1], rtol=1e-9, atol=1e-9)
+    print(json.dumps({"deterministic_group_sum": {
+        "rows": rows, "groups": groups + 1,
+        "sort_and_segment_sum_ms": time_ms(
+            lambda: _GroupOrder(g, groups + 1).sum(x), 5, reps=3),
+        "index_add_ms": time_ms(lambda: torch.zeros(
+            groups + 1, dtype=torch.float64, device="cuda").index_add_(
+                0, g, x), 5, reps=3)},
+        "card": smi}), flush=True)
+
+
+def q3_paths(F, TorchSession, smi, device: str = "cuda", big: int = N_BIG,
+             mid: int = 1 << 22, small: int = 1 << 18,
+             mid_conf=None) -> None:
+    """Phase 7: (a)-(f). A run with ``device="cpu"`` and small sizes checks
+    the script's own logic off the card: it skips the timing lines, and
+    ``mid_conf`` (e.g. a lower autoBroadcastJoinThreshold) gives (b) its
+    2^22 plan shape at a small size."""
+    on_card = device == "cuda"
+
+    def release():
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+    from spark_rapids_tpu_torch.columnar.batch import TorchColumnarBatch
+    from spark_rapids_tpu_torch.columnar.vector import TorchColumnVector
+    from spark_rapids_tpu_torch.config import RapidsConf
+    from spark_rapids_tpu_torch.datagen import q3_frames, q3_host_tables
+    from spark_rapids_tpu_torch.execs.base import TaskContext
+    from spark_rapids_tpu_torch.expressions.base import AttributeReference
+    from spark_rapids_tpu_torch.shuffle.partitioner import hash_partition_ids
+    from spark_rapids_tpu_torch.types import LongT
+    base = {"spark.rapids.shuffle.mode": "ICI",
+            "spark.sql.shuffle.partitions": "8"}
+
+    # (a) the compiled star-join stage at 2^24 lineitem rows
+    host = q3_host_tables(big, 1)
+    groups, top = q3_oracle(host)
+    s = TorchSession(dict(base, **{"spark.rapids.sql.batchSizeRows":
+                                   str(big)}), device=device)
+    t = q3_frames(s, host)
+    t0 = time.perf_counter()
+    t["lineitem"] = t["lineitem"].device_cache()
+    release()
+    cache_s = time.perf_counter() - t0
+    qa = q3_query(F, t)
+    check("TorchCompiledJoinAggStage[keys=o_orderkey, o_orderdate, dims=1]"
+          in quiet_plan(qa), "q3 plan lacks the compiled join stage")
+    first, second = qa.collect(), qa.collect()
+    check_q3_rows(first, top, "q3 compiled 2^24")
+    check(first == second, "two collects of the compiled join stage differ")
+    check_q3_groups(q3_groups_query(F, t).collect(), groups,
+                    "q3 compiled 2^24 without the limit")
+    check(s.counters["fallbackReruns"] == 0, "the compiled join stage re-ran")
+    print(f"(a) q3 on the compiled join stage at 2^24 ok: top 10 and all "
+          f"{len(groups)} groups equal the oracle; two collects identical",
+          flush=True)
+    if on_card:
+        timed_line("q3_compiled", qa, big, smi, device_cache_s=cache_s,
+                   groups=len(groups))
+        group_sum_cost(big, 1 << 20, smi)
+    check(s.counters["fallbackReruns"] == 0, "the compiled join stage re-ran")
+    del qa, t, s, host
+    release()
+
+    # (b) the general path at 2^22: exchanges, symmetric and broadcast joins
+    host = q3_host_tables(mid, 4)
+    groups, top = q3_oracle(host)
+    g = TorchSession(dict(base, **{
+        "spark.rapids.tpu.join.compiledStage.enabled": "false"},
+        **(mid_conf or {})), device=device)
+    qb = q3_query(F, q3_frames(g, host))
+    plan = quiet_plan(qb)
+    check("TorchShuffleExchange[hash, n=4]" in plan_child_of(
+              plan, "TorchShuffledSymmetricHashJoin[inner]")
+          and "TorchBroadcastHashJoin[inner]" in plan,
+          "general q3 plan lacks the exchange under the symmetric join or "
+          "the broadcast join:\n" + plan)
+    rows_b = qb.collect()
+    check_q3_rows(rows_b, top, "q3 general 2^22")
+    c = TorchSession(dict(base, **{"spark.rapids.sql.batchSizeRows":
+                                   str(mid)}), device=device)
+    tc = q3_frames(c, host)
+    tc["lineitem"] = tc["lineitem"].device_cache()
+    qc = q3_query(F, tc)
+    check("TorchCompiledJoinAggStage" in quiet_plan(qc),
+          "q3 plan at 2^22 lacks the compiled join stage")
+    rows_c = qc.collect()
+    check([(r["o_orderkey"], r["o_orderdate"]) for r in rows_b]
+          == [(r["o_orderkey"], r["o_orderdate"]) for r in rows_c],
+          "general and compiled q3 keys differ at 2^22")
+    for rb, rc in zip(rows_b, rows_c):
+        check_close(rb["revenue"], rc["revenue"], "general vs compiled")
+    print("(b) q3 general at 2^22 ok (hash exchanges, symmetric and "
+          "broadcast joins); equal to the compiled stage's rows", flush=True)
+    if on_card:
+        timed_line("q3_general", qb, mid, smi, groups=len(groups))
+
+    # (d) the compiled join stage's re-run: maxDimRows below the dimension
+    d = TorchSession(dict(base, **{"spark.rapids.sql.batchSizeRows":
+                                   str(mid),
+                                   "spark.rapids.tpu.join.compiled."
+                                   "maxDimRows": "16"}), device=device)
+    td = q3_frames(d, host)
+    td["lineitem"] = td["lineitem"].device_cache()
+    qd = q3_query(F, td)
+    check("TorchCompiledJoinAggStage" in quiet_plan(qd),
+          "re-run plan lacks the compiled join stage")
+    before = d.counters["fallbackReruns"]
+    check_q3_rows(qd.collect(), top, "q3 re-run 2^22")
+    check(d.counters["fallbackReruns"] == before + 1,
+          "the compiled join stage did not re-run")
+    print(f"(d) compiled join stage re-ran (fallbackReruns {before} -> "
+          f"{d.counters['fallbackReruns']}) ok", flush=True)
+    del qb, qc, qd, tc, td, g, c, d, host
+    release()
+
+    # (c) q3_general_4part's shape: 2^18 rows, broadcast joins only
+    host = q3_host_tables(small, 4)
+    qs = q3_query(F, q3_frames(TorchSession(dict(base, **{
+        "spark.rapids.tpu.join.compiledStage.enabled": "false"}),
+        device=device), host))
+    plan = quiet_plan(qs)
+    check("TorchBroadcastHashJoin" in plan and "Exchange" not in plan
+          and "Symmetric" not in plan, "q3 at 2^18 is not broadcast-only")
+    check_q3_rows(qs.collect(), q3_oracle(host)[1], "q3 general 2^18")
+    print("(c) q3 general at 2^18 ok (broadcast joins only)", flush=True)
+
+    # (e) hash partition ids at 2^24 int64 keys, n = 16
+    keys = np.random.default_rng(0).integers(0, 1 << 40, big)
+    key = AttributeReference("k", LongT, ordinal=0)
+
+    def partition_ids(dev: str):
+        col = TorchColumnVector(LongT, torch.from_numpy(keys).to(dev), None,
+                                big)
+        batch = TorchColumnarBatch([col], big)
+        ctx = TaskContext(0, RapidsConf(), torch.device(dev))
+        return lambda: hash_partition_ids(batch, [key], 16, ctx)
+
+    on_device = partition_ids(device)
+    pid = on_device()
+    check(torch.equal(pid.cpu(), partition_ids("cpu")()),
+          "partition ids differ card vs CPU")
+    if on_card:
+        print(json.dumps({"hash_partition_ids": {
+            "rows": big, "n": 16, "ms": time_ms(on_device, 5, reps=3),
+            "counts": torch.bincount(pid.long(), minlength=16).tolist()},
+            "card": smi}), flush=True)
+    print("(e) hash partition ids at 2^24 equal the CPU's ok", flush=True)
+
+    # (f) string equality over 2^24 customer-shaped rows
+    from spark_rapids_tpu_torch import datagen as dg
+    spec = next(c for c in dg.tpch_customer(big).columns
+                if c.name == "c_mktsegment")
+    seg, _ = spec.generate(dg._cell_rng(42, "customer", "c_mktsegment", 0),
+                           big)
+    f = TorchSession(device=device).createDataFrame({"c_mktsegment": seg})
+    got = f.filter(F.col("c_mktsegment") == Q3_SEGMENT).agg(
+        F.count("*").alias("n")).collect()[0]["n"]
+    want_n = int(strings_equal(seg, Q3_SEGMENT).sum())
+    check(got == want_n, f"BUILDING count {got} != numpy {want_n}")
+    print(f"(f) c_mktsegment = 'BUILDING' over 2^24 rows ok ({got})",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -549,6 +847,11 @@ def main() -> int:
 
     # 6. both device paths of the planning route
     general_paths(F, TorchSession, df, cols, oracle, smi)
+    del df, q, big, cols
+    torch.cuda.empty_cache()
+
+    # 7. TPC-H q3: joins, the hash exchange, TopN, the star-join stage
+    q3_paths(F, TorchSession, smi)
 
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

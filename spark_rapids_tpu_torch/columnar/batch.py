@@ -14,9 +14,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..types import (BooleanType, StringType, StructField,
+from ..types import (BooleanType, StringT, StringType, StructField,
                      StructType, from_arrow, from_numpy_dtype)
-from .vector import TorchColumnVector, bucket_capacity
+from .vector import HostStrings, TorchColumnVector, bucket_capacity
 
 
 class TorchColumnarBatch:
@@ -53,6 +53,25 @@ class TorchColumnarBatch:
     def rename(self, names: List[str]) -> "TorchColumnarBatch":
         return TorchColumnarBatch(self.columns, self.num_rows, list(names))
 
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the logical rows as Arrow counts them for a table
+        (``pyarrow.Table.nbytes``): the values, four bytes of offsets a
+        string row, a validity bitmap where a column has one; booleans are
+        bit-packed. The broadcast-versus-shuffle choice reads it."""
+        n = self.num_rows
+        total = 0
+        for c in self.columns:
+            if c.validity is not None:
+                total += (n + 7) // 8
+            if c.offsets is not None:
+                total += 4 * n + int(c.offsets[n]) - int(c.offsets[0])
+            elif isinstance(c.dtype, BooleanType):
+                total += (n + 7) // 8
+            else:
+                total += n * c.data.element_size()
+        return total
+
     def to_pylist(self) -> List[dict]:
         """Host rows as dicts (the reference ``collect()`` shape)."""
         names = self.names or [f"c{i}" for i in range(len(self.columns))]
@@ -65,18 +84,25 @@ class TorchColumnarBatch:
     def from_numpy_columns(columns: Dict[str, np.ndarray],
                            validity: Optional[Dict[str, np.ndarray]] = None
                            ) -> "TorchColumnarBatch":
-        """Name → numpy array (+ optional name → bool validity) → host
-        table. Types follow the numpy dtypes; 'S'/'U'/object are strings."""
+        """Name → numpy array or ``HostStrings`` (+ optional name → bool
+        validity) → host table. Types follow the numpy dtypes; 'S'/'U'/
+        object are strings, ``datetime64[D]`` dates."""
         validity = validity or {}
-        arrays = {k: np.asarray(v) for k, v in columns.items()}
+        arrays = {k: v if isinstance(v, HostStrings) else np.asarray(v)
+                  for k, v in columns.items()}
         lens = {len(v) for v in arrays.values()}
         if len(lens) > 1:
             raise ValueError(f"columns differ in length: {sorted(lens)}")
         n = lens.pop() if lens else 0
         cols = []
         for name, vals in arrays.items():
-            dtype = from_numpy_dtype(vals.dtype)
             valid = validity.get(name)
+            if isinstance(vals, HostStrings):
+                cols.append(TorchColumnVector.from_strings(
+                    StringT, vals.offsets, vals.chars, valid, capacity=n,
+                    bucket=False))
+                continue
+            dtype = from_numpy_dtype(vals.dtype)
             if vals.dtype.kind == "O" and not isinstance(dtype, StringType):
                 raise NotImplementedError("object column of non-strings")
             cols.append(TorchColumnVector.from_numpy(dtype, vals, valid,
@@ -219,10 +245,10 @@ def gather(batch: TorchColumnarBatch, indices: torch.Tensor, out_rows: int,
     device; entries past ``out_rows`` are padding, and out-of-range entries
     (e.g. -1) give null rows.
 
-    The indices must be distinct (a permutation or a subset, as every
-    caller passes): a string column's bytes then fit in the input's byte
-    buffer, so no host sync sizes the output. A caller that knows a
-    smaller bound on the output's bytes passes it as ``byte_capacity``."""
+    With distinct indices (a permutation or a subset) a string column's
+    bytes fit in the input's byte buffer, so no host sync sizes the output.
+    A caller that knows another bound on the output's bytes (a smaller one,
+    or a larger one when indices repeat) passes it as ``byte_capacity``."""
     cap = out_capacity if out_capacity is not None \
         else bucket_capacity(out_rows)
     dev = batch.device
@@ -255,9 +281,8 @@ def _gather_strings(c: TorchColumnVector, safe: torch.Tensor,
     lens = torch.where(valid, c.offsets[1:][safe].to(torch.int64) - starts, 0)
     offs = torch.zeros(safe.shape[0] + 1, dtype=torch.int64, device=dev)
     offs[1:] = torch.cumsum(lens, 0)
-    nbytes = c.data.shape[0]
-    if byte_capacity is not None:
-        nbytes = min(nbytes, max(byte_capacity, 1))
+    nbytes = c.data.shape[0] if byte_capacity is None \
+        else max(byte_capacity, 1)
     pos = torch.arange(nbytes, dtype=torch.int64, device=dev)
     row = torch.searchsorted(offs[1:], pos, right=True).clamp(
         max=safe.shape[0] - 1)
@@ -266,6 +291,16 @@ def _gather_strings(c: TorchColumnVector, safe: torch.Tensor,
                        torch.zeros((), dtype=torch.uint8, device=dev))
     return TorchColumnVector(c.dtype, data, valid, out_rows,
                              offsets=offs.to(torch.int32))
+
+
+def slice_batch(batch: TorchColumnarBatch, start: int,
+                length: int) -> TorchColumnarBatch:
+    """Rows [start, start + length) of a device batch, clipped to its rows
+    (reference ``slice_batch``)."""
+    n = max(0, min(length, batch.num_rows - start))
+    idx = torch.arange(start, start + bucket_capacity(n),
+                       device=batch.device)
+    return gather(batch, idx, n)
 
 
 def compact(batch: TorchColumnarBatch, mask: torch.Tensor

@@ -10,7 +10,7 @@ padding, zero-filled and never valid.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List, Optional
+from typing import Any, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,6 +31,25 @@ def bucket_capacity(n: int, enabled: bool = True, minimum: int = 16) -> int:
 def row_mask(num_rows: int, capacity: int, device) -> torch.Tensor:
     """True for logical rows, False for padding."""
     return torch.arange(capacity, device=device) < num_rows
+
+
+class HostStrings(NamedTuple):
+    """A host string column already in Arrow layout: int32 offsets [n+1]
+    and the uint8 bytes (what the data generator builds, vectorized)."""
+    offsets: np.ndarray
+    chars: np.ndarray
+
+    def __len__(self) -> int:
+        return len(self.offsets) - 1
+
+    @staticmethod
+    def concat(parts: Sequence["HostStrings"]) -> "HostStrings":
+        offs, base = [np.zeros(1, np.int64)], 0
+        for p in parts:
+            offs.append(p.offsets[1:].astype(np.int64) + base)
+            base += int(p.offsets[-1])
+        return HostStrings(np.concatenate(offs).astype(np.int32),
+                           np.concatenate([p.chars for p in parts]))
 
 
 def strings_to_buffers(values: np.ndarray):

@@ -87,8 +87,8 @@ def _bind_agg_refs(expr: Expression, num_keys: int,
 
 class CpuHashAggregateExec(_HostEngineNotPorted):
     """Grouped aggregate on the host (reference ``CpuHashAggregateExec``).
-    ``per_partition``: the child is hash-distributed by the grouping keys;
-    the port plans no exchange yet, so the planner never sets it."""
+    ``per_partition``: the child is hash-distributed by the grouping keys
+    (a hash exchange below), so each partition aggregates on its own."""
 
     def __init__(self, grouping: Sequence[Expression],
                  aggregates: Sequence[Expression], child: PhysicalPlan,
@@ -427,10 +427,10 @@ def _merge_global_states(fn: AggregateFunction,
 
 
 class TorchHashAggregateExec(TorchExec):
-    """Sort-based grouped aggregation on the device (complete mode). With
-    no exchange below it (the hash exchange is not yet ported), it reads
-    every partition of its child into one aggregation, as the reference's
-    ``per_partition=False`` branch does."""
+    """Sort-based grouped aggregation on the device (complete mode). Over a
+    hash exchange (``per_partition``) each partition aggregates its own
+    groups; otherwise it reads every partition of its child into one
+    aggregation."""
 
     def __init__(self, grouping: Sequence[Expression],
                  aggregates: Sequence[Expression], child: PhysicalPlan,

@@ -21,7 +21,7 @@ from ..expressions.base import AttributeReference, EvalContext, Expression
 class TaskContext:
     """Per-task execution context: partition id, conf, the session's device
     (where ``HostToDeviceExec`` uploads) and the session's event counters
-    (``fallback_runs``, ``sort_fallback_runs``)."""
+    (``fallback_runs``, ``fallbackReruns``, ``sort_fallback_runs``)."""
 
     def __init__(self, partition_id: int, conf: RapidsConf,
                  device: torch.device, counters: Optional[Counter] = None):

@@ -1,5 +1,6 @@
-"""Project and filter operators on torch batches (port of TpuProjectExec
-and TpuFilterExec from ``spark_rapids_tpu/execs/basic.py``). Expressions
+"""Project, filter and limit operators on torch batches (port of
+TpuProjectExec, TpuFilterExec, TpuLocalLimitExec and TpuGlobalLimitExec
+from ``spark_rapids_tpu/execs/basic.py``). Expressions
 evaluate eagerly; the reference's per-operator jit cache and spill/retry
 wrappers are not yet ported."""
 
@@ -9,7 +10,8 @@ from typing import Iterator, List, Sequence
 
 import torch
 
-from ..columnar.batch import TorchColumnarBatch, compact
+from ..columnar.batch import (TorchColumnarBatch, compact, concat_batches,
+                             slice_batch)
 from ..expressions.base import AttributeReference, Expression, to_column
 from .base import PhysicalPlan, TaskContext, TorchExec, bind_all, bind_references
 
@@ -59,3 +61,59 @@ class TorchFilterExec(TorchExec):
             if c.validity is not None:
                 mask = mask & c.validity  # null predicate drops the row
             yield compact(batch, mask)
+
+
+class TorchLocalLimitExec(TorchExec):
+    """The first n rows of each partition."""
+
+    def __init__(self, n: int, child: PhysicalPlan):
+        super().__init__([child])
+        self.n = n
+
+    @property
+    def output(self):
+        return self.children[0].output
+
+    def internal_do_execute_columnar(self, idx: int,
+                                     ctx: TaskContext) -> Iterator:
+        remaining = self.n
+        for b in self.children[0].execute_partition(idx, ctx):
+            if remaining <= 0:
+                break
+            if b.num_rows <= remaining:
+                remaining -= b.num_rows
+                yield b
+            else:
+                yield slice_batch(b, 0, remaining)
+                remaining = 0
+
+
+class TorchGlobalLimitExec(TorchExec):
+    """Rows [offset, offset + n) of the partitions read in order."""
+
+    def __init__(self, n: int, child: PhysicalPlan, offset: int = 0):
+        super().__init__([child])
+        self.n = n
+        self.offset = offset
+
+    @property
+    def output(self):
+        return self.children[0].output
+
+    def num_partitions(self) -> int:
+        return 1
+
+    def internal_do_execute_columnar(self, idx: int,
+                                     ctx: TaskContext) -> Iterator:
+        got: List[TorchColumnarBatch] = []
+        need = self.offset + self.n
+        child = self.children[0]
+        for p in range(child.num_partitions()):
+            for b in child.execute_partition(p, ctx.for_partition(p)):
+                got.append(b)
+                if sum(x.num_rows for x in got) >= need:
+                    break
+        if got:
+            out = slice_batch(concat_batches(got), self.offset, self.n)
+            if out.num_rows:
+                yield out

@@ -134,11 +134,32 @@ def _refs(e: Expression) -> List[int]:
             if a.ordinal is not None]
 
 
-def try_extract_stage(agg) -> Optional[_StageSpec]:
-    """Match TorchHashAggregateExec over a project/filter chain over a
-    device source; None when ineligible."""
-    from .aggregates import TorchHashAggregateExec, split_result_exprs
+def walk_pure_chain(node: PhysicalPlan):
+    """Walk a device-pure filter/project chain downward: (the node under
+    it, its layers bottom-up), or None when an expression is not
+    device-pure. Identity forwards may carry any type (string keys)."""
     from .basic import TorchFilterExec, TorchProjectExec
+    chain: List[Tuple] = []  # top-down
+    while isinstance(node, (TorchProjectExec, TorchFilterExec)):
+        if isinstance(node, TorchProjectExec):
+            for e in node.exprs:
+                inner = e.children[0] if isinstance(e, Alias) else e
+                if not isinstance(inner, AttributeReference) \
+                        and not _device_pure(e):
+                    return None
+            chain.append(("project", list(node.exprs), list(node.output)))
+        else:
+            if not _device_pure(node.condition):
+                return None
+            chain.append(("filter", node.condition))
+        node = node.children[0]
+    return node, list(reversed(chain))
+
+
+def try_extract_stage(agg) -> Optional[_StageSpec]:
+    """Match TorchHashAggregateExec over [exchange] over a project/filter
+    chain over a device source; None when ineligible."""
+    from .aggregates import TorchHashAggregateExec, split_result_exprs
 
     if not isinstance(agg, TorchHashAggregateExec):
         return None
@@ -151,24 +172,15 @@ def try_extract_stage(agg) -> Optional[_StageSpec]:
         return None
 
     node = agg.children[0]
-    chain: List[Tuple] = []  # top-down
-    while isinstance(node, (TorchProjectExec, TorchFilterExec)):
-        if isinstance(node, TorchProjectExec):
-            for e in node.exprs:
-                inner = e.children[0] if isinstance(e, Alias) else e
-                if isinstance(inner, AttributeReference):
-                    continue  # identity forward (strings allowed here)
-                if not _device_pure(e):
-                    return None
-            chain.append(("project", list(node.exprs), list(node.output)))
-        else:
-            if not _device_pure(node.condition):
-                return None
-            chain.append(("filter", node.condition))
+    # an exchange below a grouped aggregate only redistributes rows; the
+    # stage aggregates globally, so it is skipped
+    from ..shuffle.exchange import TorchShuffleExchangeExec
+    while isinstance(node, TorchShuffleExchangeExec):
         node = node.children[0]
-    if not isinstance(node, TorchExec):
+    walked = walk_pure_chain(node)
+    if walked is None or not isinstance(walked[0], TorchExec):
         return None
-    layers = list(reversed(chain))  # bottom-up execution order
+    node, layers = walked
 
     # group keys must forward untouched to a source column
     key_source_ordinals = []
@@ -302,6 +314,32 @@ def _is_fp(dtype: DataType) -> bool:
     return isinstance(dtype, (FloatType, DoubleType))
 
 
+def apply_layers(batch: TorchColumnarBatch, layers, mask: torch.Tensor,
+                 eval_ctx):
+    """Run a stage's filter/project layers (bottom-up) over a full-capacity
+    batch: a filter narrows the row mask, a projection forwards or computes
+    columns. Returns (the top batch, the mask)."""
+    cap = batch.capacity
+    for layer in layers:
+        if layer[0] == "filter":
+            c = to_column(layer[1].eval_device(batch, eval_ctx), batch)
+            m = c.data.to(torch.bool)
+            if c.validity is not None:
+                m = m & c.validity
+            mask = mask & m
+            continue
+        new_cols = []
+        for e, a in zip(layer[1], layer[2]):
+            src = e.children[0] if isinstance(e, Alias) else e
+            if isinstance(src, AttributeReference) and src.ordinal is not None:
+                new_cols.append(batch.columns[src.ordinal])
+            else:
+                new_cols.append(to_column(e.eval_device(batch, eval_ctx),
+                                          batch, a.dtype))
+        batch = TorchColumnarBatch(new_cols, cap)
+    return batch, mask
+
+
 def _build_stage_fn(spec: _StageSpec, cap: int,
                     domains: List[_KeyDomain], eval_ctx):
     """Build the stage function fn(rowmask, *flat) -> (oob, rowcount,
@@ -348,27 +386,8 @@ def _build_stage_fn(spec: _StageSpec, cap: int,
                     source_attrs[o].dtype,
                     torch.zeros(cap, dtype=torch.int32, device=dev),
                     torch.zeros(cap, dtype=torch.bool, device=dev), cap)
-        batch = TorchColumnarBatch(cols, cap)
-        mask = rowmask
-        for layer in layers:
-            if layer[0] == "filter":
-                c = to_column(layer[1].eval_device(batch, eval_ctx), batch)
-                m = c.data.to(torch.bool)
-                if c.validity is not None:
-                    m = m & c.validity
-                mask = mask & m
-            else:
-                exprs, outs = layer[1], layer[2]
-                new_cols = []
-                for e, a in zip(exprs, outs):
-                    src = e.children[0] if isinstance(e, Alias) else e
-                    if isinstance(src, AttributeReference) \
-                            and src.ordinal is not None:
-                        new_cols.append(batch.columns[src.ordinal])
-                    else:
-                        new_cols.append(to_column(
-                            e.eval_device(batch, eval_ctx), batch, a.dtype))
-                batch = TorchColumnarBatch(new_cols, cap)
+        batch, mask = apply_layers(TorchColumnarBatch(cols, cap), layers,
+                                   rowmask, eval_ctx)
 
         # combined group code + out-of-domain detection
         code = torch.zeros(cap, dtype=torch.int32, device=dev)
@@ -579,6 +598,14 @@ class TorchCompiledAggStageExec(TorchExec):
 
     def num_partitions(self) -> int:
         return 1
+
+    def collect_nodes(self):
+        # the fallback subtree holds exchanges whose blocks the session
+        # releases when the query ends
+        out = super().collect_nodes()
+        seen = {id(n) for n in out}
+        return out + [n for n in self.fallback.collect_nodes()
+                      if id(n) not in seen]
 
     def node_desc(self) -> str:
         keys = ", ".join(g.name for g in self.spec.grouping) or "<global>"

@@ -101,3 +101,49 @@ class CpuSortExec(_HostEngineNotPorted):
     def num_partitions(self) -> int:
         return 1 if self.global_sort else self.children[0].num_partitions()
 
+
+
+class CpuLocalLimitExec(_HostEngineNotPorted):
+    def __init__(self, n: int, child: PhysicalPlan):
+        super().__init__([child])
+        self.n = n
+
+    @property
+    def output(self):
+        return self.children[0].output
+
+
+class CpuGlobalLimitExec(_HostEngineNotPorted):
+    def __init__(self, n: int, child: PhysicalPlan, offset: int = 0):
+        super().__init__([child])
+        self.n = n
+        self.offset = offset
+
+    @property
+    def output(self):
+        return self.children[0].output
+
+    def num_partitions(self) -> int:
+        return 1
+
+
+class CpuTopNExec(_HostEngineNotPorted):
+    """ORDER BY ... LIMIT n as one operator (Spark TakeOrderedAndProject)."""
+
+    def __init__(self, n: int, order: List[SortOrder], child: PhysicalPlan,
+                 offset: int = 0):
+        super().__init__([child])
+        self.n = n
+        self.offset = offset
+        self.order = [SortOrder(bind_references(o.child, child.output),
+                                o.ascending, o.nulls_first) for o in order]
+
+    @property
+    def output(self):
+        return self.children[0].output
+
+    def num_partitions(self) -> int:
+        return 1
+
+    def node_desc(self) -> str:
+        return f"CpuTopN[n={self.n}]"

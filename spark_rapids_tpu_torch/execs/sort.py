@@ -1,5 +1,5 @@
-"""Device sort exec (port of ``spark_rapids_tpu/execs/sort.py``: the
-in-core sort and ``TorchSortExec``; TopN waits with limit).
+"""Device sort execs (port of ``spark_rapids_tpu/execs/sort.py``: the
+in-core sort, ``TorchSortExec`` and ``TorchTopNExec``).
 
 Algorithm: an order-preserving integer encoding per key, iterated stable
 sorts (least-significant key first) and one gather. The reference ranks
@@ -13,7 +13,8 @@ from __future__ import annotations
 
 from typing import Iterator, List
 
-from ..columnar.batch import TorchColumnarBatch, concat_batches, gather
+from ..columnar.batch import (TorchColumnarBatch, concat_batches, gather,
+                             slice_batch)
 from ..columnar.vector import TorchColumnVector
 from ..expressions.base import to_column
 from ..plan.logical import SortOrder
@@ -104,3 +105,50 @@ class TorchSortExec(TorchExec):
                 ooc.close()
         if batches:
             yield sort_batch(concat_batches(batches), self.order, ctx)
+
+
+class TorchTopNExec(TorchExec):
+    """ORDER BY ... LIMIT n: a running top-n a partition (sort the running
+    rows with the next batch, keep offset + n), then one merge of the
+    partitions' tops (reference TpuTopNExec, Spark's
+    TakeOrderedAndProject)."""
+
+    def __init__(self, n: int, order: List[SortOrder], child: PhysicalPlan,
+                 offset: int = 0):
+        super().__init__([child])
+        self.n = n
+        self.offset = offset
+        self.order = [SortOrder(bind_references(o.child, child.output),
+                                o.ascending, o.nulls_first) for o in order]
+
+    @property
+    def output(self):
+        return self.children[0].output
+
+    def num_partitions(self) -> int:
+        return 1
+
+    def node_desc(self) -> str:
+        keys = ", ".join(o.pretty() for o in self.order)
+        return f"TorchTopN[n={self.n}, {keys}]"
+
+    def _topn_of_partition(self, p: int, ctx: TaskContext, keep: int):
+        running = None
+        for b in self.children[0].execute_partition(p, ctx.for_partition(p)):
+            cand = b if running is None else concat_batches([running, b])
+            s = sort_batch(cand, self.order, ctx)
+            running = slice_batch(s, 0, min(keep, s.num_rows))
+        return running
+
+    def internal_do_execute_columnar(self, idx: int,
+                                     ctx: TaskContext) -> Iterator:
+        keep = self.offset + self.n
+        tops = [t for t in (self._topn_of_partition(p, ctx, keep)
+                            for p in range(self.children[0].num_partitions()))
+                if t is not None]
+        if not tops:
+            return
+        s = sort_batch(concat_batches(tops), self.order, ctx)
+        out = slice_batch(s, self.offset, self.n)
+        if out.num_rows:
+            yield out

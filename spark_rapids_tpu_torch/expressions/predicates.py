@@ -2,14 +2,15 @@
 
 Port of ``spark_rapids_tpu/expressions/predicates.py`` (fixed-width
 operands): NaN equals NaN and sorts above every other double; AND/OR use
-Kleene three-valued logic. String comparisons are not yet ported.
+Kleene three-valued logic. String operands compare on the device in
+UTF-8 byte order (``strings.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..columnar.vector import row_mask
+from ..columnar.vector import TorchScalar, row_mask
 from ..types import BooleanT, DataType, StringType
 from .base import (BinaryExpression, UnaryExpression, _DEFAULT_CTX,
                    device_parts, make_column)
@@ -44,12 +45,28 @@ class BinaryComparison(BinaryExpression):
     def pretty(self) -> str:
         return f"({self.children[0].pretty()} {self.symbol} {self.children[1].pretty()})"
 
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        if not isinstance(self.left.dtype, StringType):
+            return super().eval_device(batch, ctx)
+        from .strings import string_compare
+        l = self.left.eval_device(batch, ctx)
+        r = self.right.eval_device(batch, ctx)
+        if isinstance(l, TorchScalar) and isinstance(r, TorchScalar):
+            if l.value is None or r.value is None:
+                return TorchScalar(BooleanT, None)
+            a, b = l.value.encode(), r.value.encode()
+            sign = torch.tensor([(a > b) - (a < b)], dtype=torch.int8)
+            return TorchScalar(BooleanT, bool(self._sign_cmp(sign)[0]))
+        return string_compare(self, l, r, batch)
+
     def _compute(self, l, r, ctx, valid):
-        if isinstance(self.left.dtype, StringType):
-            raise NotImplementedError("string comparison not yet ported")
         return self._device_cmp(l, r)
 
     def _device_cmp(self, l, r):
+        raise NotImplementedError
+
+    def _sign_cmp(self, sign):
+        """The comparison from a three-way sign (strings)."""
         raise NotImplementedError
 
 
@@ -59,12 +76,18 @@ class EqualTo(BinaryComparison):
     def _device_cmp(self, l, r):
         return nan_aware_eq(l, r)
 
+    def _sign_cmp(self, sign):
+        return sign == 0
+
 
 class LessThan(BinaryComparison):
     symbol = "<"
 
     def _device_cmp(self, l, r):
         return nan_aware_lt(l, r)
+
+    def _sign_cmp(self, sign):
+        return sign < 0
 
 
 class LessThanOrEqual(BinaryComparison):
@@ -73,6 +96,9 @@ class LessThanOrEqual(BinaryComparison):
     def _device_cmp(self, l, r):
         return nan_aware_le(l, r)
 
+    def _sign_cmp(self, sign):
+        return sign <= 0
+
 
 class GreaterThan(BinaryComparison):
     symbol = ">"
@@ -80,12 +106,18 @@ class GreaterThan(BinaryComparison):
     def _device_cmp(self, l, r):
         return nan_aware_lt(r, l)
 
+    def _sign_cmp(self, sign):
+        return sign > 0
+
 
 class GreaterThanOrEqual(BinaryComparison):
     symbol = ">="
 
     def _device_cmp(self, l, r):
         return nan_aware_le(r, l)
+
+    def _sign_cmp(self, sign):
+        return sign >= 0
 
 
 class _Kleene(BinaryExpression):

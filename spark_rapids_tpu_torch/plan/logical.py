@@ -1,7 +1,8 @@
 """Logical plan nodes + analysis (attribute resolution, type coercion).
 
-Port of the LocalRelation/Project/Filter/Aggregate/Sort part of
-``spark_rapids_tpu/plan/logical.py`` with Spark's implicit-cast coercion.
+Port of the LocalRelation/Project/Filter/Limit/Sort/Aggregate/Join part
+of ``spark_rapids_tpu/plan/logical.py`` with Spark's implicit-cast
+coercion.
 ``node_desc`` strings are the reference's, so the optimized logical plan
 in ``explain()`` reads the same in both packages.
 """
@@ -104,6 +105,20 @@ class Filter(LogicalPlan):
         return f"Filter[{self.condition.pretty()}]"
 
 
+class Limit(LogicalPlan):
+    def __init__(self, n: int, child: LogicalPlan, offset: int = 0):
+        self.children = (child,)
+        self.n = n
+        self.offset = offset
+
+    @property
+    def output(self) -> List[AttributeReference]:
+        return self.children[0].output
+
+    def node_desc(self) -> str:
+        return f"Limit[{self.n}]"
+
+
 class SortOrder:
     def __init__(self, child: Expression, ascending: bool = True,
                  nulls_first: Optional[bool] = None):
@@ -156,6 +171,69 @@ class Aggregate(LogicalPlan):
         g = ", ".join(e.pretty() for e in self.grouping)
         a = ", ".join(e.pretty() for e in self.aggregates)
         return f"Aggregate[groupBy=({g}) agg=({a})]"
+
+
+class Join(LogicalPlan):
+    """Equi-join: ``left_keys[i] = right_keys[i]`` for every i, plus an
+    optional residual ``condition`` over both sides."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan, join_type: str,
+                 left_keys: Sequence[Expression] = (),
+                 right_keys: Sequence[Expression] = (),
+                 condition: Optional[Expression] = None):
+        self.children = (left, right)
+        self.join_type = join_type.lower().replace("_", "")
+        self.left_keys = [resolve_expression(k, left) for k in left_keys]
+        self.right_keys = [resolve_expression(k, right) for k in right_keys]
+        self.condition = (resolve_expression(condition,
+                                             _JoinScope(left, right))
+                          if condition is not None else None)
+
+    @property
+    def left(self) -> LogicalPlan:
+        return self.children[0]
+
+    @property
+    def right(self) -> LogicalPlan:
+        return self.children[1]
+
+    @property
+    def output(self) -> List[AttributeReference]:
+        jt = self.join_type
+        if jt in ("inner", "cross"):
+            return self.left.output + self.right.output
+        if jt in ("leftouter", "left"):
+            return self.left.output + [_as_nullable(a)
+                                       for a in self.right.output]
+        if jt in ("rightouter", "right"):
+            return [_as_nullable(a) for a in self.left.output] \
+                + self.right.output
+        if jt in ("fullouter", "outer", "full"):
+            return ([_as_nullable(a) for a in self.left.output]
+                    + [_as_nullable(a) for a in self.right.output])
+        if jt in ("leftsemi", "semi", "leftanti", "anti"):
+            return self.left.output
+        raise ValueError(f"unknown join type {self.join_type}")
+
+    def node_desc(self) -> str:
+        keys = ", ".join(f"{l.pretty()}={r.pretty()}"
+                         for l, r in zip(self.left_keys, self.right_keys))
+        return f"Join[{self.join_type}]({keys})"
+
+
+def _as_nullable(a: AttributeReference) -> AttributeReference:
+    return AttributeReference(a.name, a.dtype, True, expr_id=a.expr_id)
+
+
+class _JoinScope(LogicalPlan):
+    """Both sides of a join, for resolving its condition."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan):
+        self.children = (left, right)
+
+    @property
+    def output(self) -> List[AttributeReference]:
+        return self.children[0].output + self.children[1].output
 
 
 def _aliased(e: Expression) -> Expression:

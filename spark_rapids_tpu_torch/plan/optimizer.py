@@ -1,14 +1,20 @@
 """Logical optimizer, run before ``plan_physical`` (port of the
-column-pruning rule of ``spark_rapids_tpu/plan/optimizer.py``).
+cost-based join swap and the column-pruning rule of
+``spark_rapids_tpu/plan/optimizer.py``).
+
+**joinStrategy** — an inner equi-join whose right (build) side is
+estimated larger than its left by ``joinStrategy.swapRatio``
+(``plan/cbo.py``) swaps its inputs, so the smaller side is built or
+broadcast; a restoring Project keeps the original column order.
 
 **columnPruning** — top-down required-column analysis through Project,
-Filter, Sort and Aggregate: unreferenced projections and aggregate columns
-drop, and an in-memory relation under an aggregate (whose scan yields
-full-width batches) gets a pass-through Project, so device batches carry
-only the referenced columns.
+Filter, Limit, Sort, Aggregate and Join: unreferenced projections and
+aggregate columns drop, and an in-memory relation under an aggregate or a
+join (whose scan yields full-width batches) gets a pass-through Project,
+so device batches carry only the referenced columns.
 
-The reference's other two rules wait for the nodes they rewrite:
-pushdown through a ``Repartition`` and the cost-based join swap.
+The reference's third rule, pushdown through a ``Repartition``, waits for
+the node it rewrites.
 
 Every rule keeps expression OBJECT identity for unchanged subtrees and the
 ``expr_id`` of every attribute of a rebuilt node, since
@@ -21,11 +27,13 @@ from __future__ import annotations
 import copy
 from typing import List, Optional, Set, Tuple
 
-from ..config import LOGICAL_COLUMN_PRUNING, RapidsConf
+from ..config import (LOGICAL_COLUMN_PRUNING, LOGICAL_JOIN_STRATEGY,
+                      LOGICAL_JOIN_SWAP_RATIO, RapidsConf)
 from ..expressions.base import AttributeReference
 from . import logical as L
 
 RULE_PRUNE = "ColumnPruning"
+RULE_JOIN = "CostBasedJoin"
 
 
 def _tag(node, rule: str):
@@ -79,6 +87,31 @@ def _rebuild_with_children(plan: L.LogicalPlan, children) -> L.LogicalPlan:
     return new
 
 
+def _join_swap(plan: L.LogicalPlan, conf: RapidsConf,
+               applied: Set[str]) -> L.LogicalPlan:
+    children = [_join_swap(c, conf, applied) for c in plan.children]
+    plan = _rebuild_with_children(plan, children)
+    if not (isinstance(plan, L.Join) and plan.join_type == "inner"
+            and plan.left_keys and not getattr(plan, "_opt_swapped", False)):
+        return plan
+    from .cbo import estimate_logical_bytes
+    est_l = estimate_logical_bytes(plan.left)
+    est_r = estimate_logical_bytes(plan.right)
+    ratio = conf.get(LOGICAL_JOIN_SWAP_RATIO)
+    if est_l is None or est_r is None or est_r <= est_l * ratio:
+        return plan
+    # the keys and condition are resolved: the constructor keeps the same
+    # expression objects, and the restoring Project keeps the original
+    # output attributes (and their order) for the parent
+    original = plan.output
+    swapped = L.Join(plan.right, plan.left, "inner", plan.right_keys,
+                     plan.left_keys, plan.condition)
+    swapped._opt_swapped = True
+    _tag(swapped, RULE_JOIN)
+    applied.add(RULE_JOIN)
+    return _tag(L.Project(original, swapped), RULE_JOIN)
+
+
 def _prune(plan: L.LogicalPlan, required: Optional[Set[int]],
            applied: Set[str]) -> L.LogicalPlan:
     """required=None means "every output column" (the query root, or a
@@ -105,6 +138,10 @@ def _prune(plan: L.LogicalPlan, required: Optional[Set[int]],
             else (required | _refs(plan.condition))
         return _rebuild_with_children(plan,
                                       (_prune(plan.child, need, applied),))
+
+    if isinstance(plan, L.Limit):
+        return _rebuild_with_children(
+            plan, (_prune(plan.children[0], required, applied),))
 
     if isinstance(plan, L.Sort):
         need = None if required is None \
@@ -140,8 +177,26 @@ def _prune(plan: L.LogicalPlan, required: Optional[Set[int]],
         applied.add(RULE_PRUNE)
         return _tag(new, RULE_PRUNE)
 
+    if isinstance(plan, L.Join):
+        key_cond = (_refs_all(plan.left_keys) | _refs_all(plan.right_keys)
+                    | _refs(plan.condition))
+        want = None if required is None else (required | key_cond)
+        new_children = []
+        for side in plan.children:
+            side_need = None if want is None else \
+                (want & {a.expr_id for a in side.output})
+            pruned = _prune(side, side_need, applied)
+            if side_need and any(a.expr_id not in side_need
+                                 for a in pruned.output):
+                # a side that cannot narrow itself (an in-memory relation)
+                # is projected down, so the join moves only what it needs
+                pruned = _passthrough_project(pruned, side_need, RULE_PRUNE)
+                applied.add(RULE_PRUNE)
+            new_children.append(pruned)
+        return _rebuild_with_children(plan, new_children)
+
     # relations and unknown nodes: no pruning below; a wrapping Aggregate
-    # projects their output down instead
+    # or Join projects their output down instead
     return plan
 
 
@@ -150,6 +205,8 @@ def optimize_logical(plan: L.LogicalPlan,
     """Run the enabled rules; returns (optimized plan, applied rule
     names). A disabled or no-op pipeline returns the input plan."""
     applied: Set[str] = set()
+    if conf.get(LOGICAL_JOIN_STRATEGY):
+        plan = _join_swap(plan, conf, applied)
     if conf.get(LOGICAL_COLUMN_PRUNING):
         plan = _prune(plan, None, applied)
     return plan, sorted(applied)

@@ -1,10 +1,12 @@
 """TorchOverrides: the plan-override engine retargeting CPU operators to
 the device (port of the engine and the Project/Filter/device-scan/sort/
-aggregate rules of ``spark_rapids_tpu/plan/overrides.py``).
+aggregate/join/exchange/TopN/limit rules of
+``spark_rapids_tpu/plan/overrides.py``).
 
 Flow: CPU physical plan → wrap in a PlanMeta tree → tag (reasons) →
 convert supported subtrees to device execs → insert HostToDevice /
-DeviceToHost at the boundaries → compiled aggregation stages. Explain and
+DeviceToHost at the boundaries → compiled join stages → compiled
+aggregation stages. Explain and
 fallback reporting (``spark.rapids.sql.explain``) and the explainOnly mode
 are the reference's. Later slices add their operators with
 ``register_exec``. Segment fusion (``execs/fusion.py``) and batch
@@ -22,8 +24,12 @@ from ..execs import basic as TB
 from ..execs import cpu as CE
 from ..execs.aggregates import CpuHashAggregateExec
 from ..execs.base import CpuExec, PhysicalPlan
+from ..execs.broadcast import CpuBroadcastHashJoinExec
+from ..execs.joins import CpuShuffledHashJoinExec
 from ..execs.transitions import (CpuDeviceScanExec, DeviceToHostExec,
                                  HostToDeviceExec)
+from ..shuffle.exchange import CpuShuffleExchangeExec
+from ..types import StringType
 from .meta import PlanMeta
 
 log = logging.getLogger("spark_rapids_tpu_torch")
@@ -134,6 +140,67 @@ def _convert_aggregate(meta: PlanMeta, children):
                                   p.output, per_partition=p.per_partition)
 
 
+def _tag_hash_join(meta: PlanMeta) -> None:
+    p = meta.plan
+    meta.add_exprs(p.left_keys)
+    meta.add_exprs(p.right_keys)
+    if p.condition is not None:
+        meta.add_exprs([p.condition])
+        meta.will_not_work_on_tpu(
+            "join with a residual condition not yet ported")
+    if p.join_type != "inner":
+        meta.will_not_work_on_tpu(f"{p.join_type} join not yet ported")
+    if any(isinstance(k.dtype, StringType)
+           for k in list(p.left_keys) + list(p.right_keys)):
+        meta.will_not_work_on_tpu("string join keys not yet ported")
+
+
+def _convert_hash_join(meta: PlanMeta, children):
+    from ..config import SYMMETRIC_JOIN_ENABLED
+    from ..execs.joins import (TorchShuffledHashJoinExec,
+                               TorchShuffledSymmetricHashJoinExec)
+    p = meta.plan
+    cls = TorchShuffledSymmetricHashJoinExec \
+        if meta.conf.get(SYMMETRIC_JOIN_ENABLED) else TorchShuffledHashJoinExec
+    return cls(children[0], children[1], p.join_type, p.left_keys,
+               p.right_keys, p.condition, p.output,
+               per_partition=p.per_partition)
+
+
+def _convert_broadcast_join(meta: PlanMeta, children):
+    from ..execs.broadcast import TorchBroadcastHashJoinExec
+    p = meta.plan
+    return TorchBroadcastHashJoinExec(children[0], children[1], p.join_type,
+                                      p.left_keys, p.right_keys, p.condition,
+                                      p.output)
+
+
+def _tag_exchange(meta: PlanMeta) -> None:
+    meta.add_exprs(meta.plan.keys)
+
+
+def _convert_exchange(meta: PlanMeta, children):
+    from ..config import AQE_COALESCE_ENABLED, AQE_SKEW_JOIN_ENABLED
+    from ..shuffle.exchange import TorchShuffleExchangeExec
+    for entry in (AQE_COALESCE_ENABLED, AQE_SKEW_JOIN_ENABLED):
+        if meta.conf.get(entry):
+            raise NotImplementedError(
+                f"AQE shuffle readers not yet ported ({entry.key}=true)")
+    p = meta.plan
+    return TorchShuffleExchangeExec(children[0], p.partitioning, p.keys,
+                                    p.num_partitions())
+
+
+def _tag_top_n(meta: PlanMeta) -> None:
+    meta.add_exprs([o.child for o in meta.plan.order])
+
+
+def _convert_top_n(meta: PlanMeta, children):
+    from ..execs.sort import TorchTopNExec
+    p = meta.plan
+    return TorchTopNExec(p.n, p.order, children[0], p.offset)
+
+
 register_exec(CE.CpuProjectExec, "projection",
               "spark.rapids.sql.exec.ProjectExec", _tag_project,
               _convert_project)
@@ -147,6 +214,25 @@ register_exec(CE.CpuSortExec, "sort", "spark.rapids.sql.exec.SortExec",
 register_exec(CpuHashAggregateExec, "hash aggregate",
               "spark.rapids.sql.exec.HashAggregateExec", _tag_aggregate,
               _convert_aggregate)
+register_exec(CpuShuffledHashJoinExec, "shuffled hash join",
+              "spark.rapids.sql.exec.ShuffledHashJoinExec", _tag_hash_join,
+              _convert_hash_join)
+register_exec(CpuBroadcastHashJoinExec, "broadcast hash join",
+              "spark.rapids.sql.exec.BroadcastHashJoinExec", _tag_hash_join,
+              _convert_broadcast_join)
+register_exec(CpuShuffleExchangeExec, "shuffle exchange",
+              "spark.rapids.sql.exec.ShuffleExchangeExec", _tag_exchange,
+              _convert_exchange)
+register_exec(CE.CpuTopNExec, "top-N (sort+limit fusion)",
+              "spark.rapids.sql.exec.TakeOrderedAndProjectExec", _tag_top_n,
+              _convert_top_n)
+register_exec(CE.CpuLocalLimitExec, "local limit",
+              "spark.rapids.sql.exec.LocalLimitExec", None,
+              lambda m, ch: TB.TorchLocalLimitExec(m.plan.n, ch[0]))
+register_exec(CE.CpuGlobalLimitExec, "global limit",
+              "spark.rapids.sql.exec.GlobalLimitExec", None,
+              lambda m, ch: TB.TorchGlobalLimitExec(m.plan.n, ch[0],
+                                                    m.plan.offset))
 
 
 # ---------------------------------------------------------------------------
@@ -185,7 +271,9 @@ class TorchOverrides:
         converted = meta.convert_if_needed()
         final = TorchTransitionOverrides.apply(converted, conf)
         from ..execs.compiled import compile_agg_stages
-        return compile_agg_stages(final, conf)
+        from ..execs.compiled_join import compile_join_agg_stages
+        # join stages first: a join pipeline gets the fused star-join stage
+        return compile_agg_stages(compile_join_agg_stages(final, conf), conf)
 
     @staticmethod
     def explain_plan(plan: PhysicalPlan, conf: RapidsConf) -> str:

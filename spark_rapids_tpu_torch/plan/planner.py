@@ -3,19 +3,19 @@
 
 The plan is all-CPU; ``TorchOverrides`` then retargets it to the device, as
 the reference does, for the node kinds the port has: LocalRelation,
-DeviceCachedRelation, Project, Filter, Aggregate and Sort.
+DeviceCachedRelation, Project, Filter, Limit, Sort, Aggregate and equi-Join.
 
-The reference distributes a grouped aggregate over more than one partition
-through a hash exchange on the grouping keys (``per_partition=True``). The
-port has no exchange yet: such an aggregate plans as one
-``per_partition=False`` aggregate, which reads every partition of its
-child, as the reference's own non-per-partition branch does. The exchange
-arrives with the shuffle.
+A grouped aggregate over more than one partition, and a join that cannot
+broadcast its build side, distribute their input through hash exchanges on
+their keys (``per_partition``), as in the reference. Cartesian and nested
+loop joins (no equi-keys) and dynamic partition pruning (scans of
+partitioned files) are not yet ported.
 """
 
 from __future__ import annotations
 
-from ..config import RapidsConf
+from ..config import (AUTO_BROADCAST_JOIN_THRESHOLD, LOGICAL_JOIN_STRATEGY,
+                      SHUFFLE_PARTITIONS, RapidsConf)
 from ..execs import cpu as CE
 from ..execs.base import PhysicalPlan
 from . import logical as L
@@ -25,6 +25,7 @@ def plan_physical(plan: L.LogicalPlan, conf: RapidsConf) -> PhysicalPlan:
     from ..execs.aggregates import CpuHashAggregateExec
     from ..execs.transitions import CpuDeviceScanExec
     from ..io.cache import DeviceCachedRelation
+    from ..shuffle.exchange import CpuShuffleExchangeExec
     if isinstance(plan, DeviceCachedRelation):
         return CpuDeviceScanExec(plan.batches(), plan.output)
     if isinstance(plan, L.LocalRelation):
@@ -36,12 +37,68 @@ def plan_physical(plan: L.LogicalPlan, conf: RapidsConf) -> PhysicalPlan:
     if isinstance(plan, L.Filter):
         return CE.CpuFilterExec(plan.condition,
                                 plan_physical(plan.child, conf))
+    if isinstance(plan, L.Limit):
+        inner = plan.children[0]
+        if isinstance(inner, L.Sort) and inner.global_sort:
+            # Limit(Sort) → TopN: a top-n a partition and one merge
+            return CE.CpuTopNExec(plan.n, inner.order,
+                                  plan_physical(inner.children[0], conf),
+                                  plan.offset)
+        # the local limit keeps offset + n rows: the global one skips offset
+        return CE.CpuGlobalLimitExec(
+            plan.n, CE.CpuLocalLimitExec(plan.n + plan.offset,
+                                         plan_physical(inner, conf)),
+            plan.offset)
     if isinstance(plan, L.Sort):
         return CE.CpuSortExec(plan.order, plan.global_sort,
                               plan_physical(plan.children[0], conf))
     if isinstance(plan, L.Aggregate):
-        return CpuHashAggregateExec(plan.grouping, plan.aggregates,
-                                    plan_physical(plan.children[0], conf),
+        child = plan_physical(plan.children[0], conf)
+        if plan.grouping and child.num_partitions() > 1:
+            # distribute by the grouping keys: each output partition holds
+            # whole groups
+            n = min(conf.get(SHUFFLE_PARTITIONS),
+                    max(child.num_partitions(), 2))
+            child = CpuShuffleExchangeExec(child, "hash", plan.grouping, n)
+            return CpuHashAggregateExec(plan.grouping, plan.aggregates, child,
+                                        plan.output, per_partition=True)
+        return CpuHashAggregateExec(plan.grouping, plan.aggregates, child,
                                     plan.output)
+    if isinstance(plan, L.Join):
+        return _plan_join(plan, conf)
     raise NotImplementedError(
         f"planning {type(plan).__name__} not yet ported")
+
+
+def _plan_join(plan: L.Join, conf: RapidsConf) -> PhysicalPlan:
+    from ..execs.broadcast import (BROADCAST_RIGHT_TYPES,
+                                   CpuBroadcastHashJoinExec,
+                                   estimated_size_bytes)
+    from ..execs.joins import CpuShuffledHashJoinExec
+    from ..shuffle.exchange import CpuShuffleExchangeExec
+    if not plan.left_keys:
+        raise NotImplementedError(
+            "joins without equi-keys (cartesian, nested loop) not yet "
+            "ported")
+    left = plan_physical(plan.left, conf)
+    right = plan_physical(plan.right, conf)
+    threshold = conf.get(AUTO_BROADCAST_JOIN_THRESHOLD)
+    r_size = estimated_size_bytes(right)
+    if r_size is None and conf.get(LOGICAL_JOIN_STRATEGY):
+        # no table to size the build side from: the logical estimate
+        from .cbo import estimate_logical_bytes
+        r_size = estimate_logical_bytes(plan.right)
+    args = (plan.join_type, plan.left_keys, plan.right_keys, plan.condition,
+            plan.output)
+    if (threshold > 0 and r_size is not None and r_size <= threshold
+            and plan.join_type in BROADCAST_RIGHT_TYPES
+            and left.num_partitions() > 1):
+        return CpuBroadcastHashJoinExec(left, right, *args)
+    if left.num_partitions() > 1 or right.num_partitions() > 1:
+        n = min(conf.get(SHUFFLE_PARTITIONS),
+                max(left.num_partitions(), right.num_partitions(), 2))
+        left = CpuShuffleExchangeExec(left, "hash", plan.left_keys, n)
+        right = CpuShuffleExchangeExec(right, "hash", plan.right_keys, n)
+        return CpuShuffledHashJoinExec(left, right, *args,
+                                       per_partition=True)
+    return CpuShuffledHashJoinExec(left, right, *args)

@@ -1,10 +1,10 @@
 """User-facing session + DataFrame API (a subset of
 ``spark_rapids_tpu/session.py``).
 
-Execution, as in the reference: logical plan → optimizer (column pruning)
-→ planner (CPU physical plan) → ``TorchOverrides`` (retarget to the
-device, transitions, compiled aggregation stages) → partition loop, run
-directly by ``DataFrame.collect``. The reference's scheduler (admission,
+Execution, as in the reference: logical plan → optimizer (join swap,
+column pruning) → planner (CPU physical plan) → ``TorchOverrides``
+(retarget to the device, transitions, compiled join and aggregation
+stages) → partition loop, run directly by ``DataFrame.collect``. The reference's scheduler (admission,
 deadlines, plan cache) comes in a later slice.
 """
 
@@ -133,9 +133,32 @@ class DataFrame:
         self._plan = plan
         self.session = session
 
+    def __getitem__(self, name: str) -> Column:
+        """A resolved reference to one of this frame's columns (it keeps
+        naming this frame's column through a join)."""
+        return Column(self._plan.resolve_name(name))
+
     @property
     def columns(self) -> List[str]:
         return [a.name for a in self._plan.output]
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(L.Limit(n, self._plan), self.session)
+
+    def join(self, other: "DataFrame", on=None, how: str = "inner"
+             ) -> "DataFrame":
+        """Equi-join on a Column condition (an AND of column equalities,
+        e.g. ``a["k"] == b["k"]``); other conjuncts become the residual
+        condition. Mismatched key types widen to a common type."""
+        if on is None or isinstance(on, (str, list, tuple)):
+            raise NotImplementedError(
+                "join on column names not yet ported: pass a Column "
+                "condition")
+        left, right = self._plan, other._plan
+        lk, rk, residual = _extract_equi_keys(_expr(on), left, right)
+        lk, rk = _coerce_join_keys(lk, rk)
+        return DataFrame(L.Join(left, right, how, lk, rk, residual),
+                         self.session)
 
     def filter(self, condition) -> "DataFrame":
         return DataFrame(L.Filter(_expr(condition), self._plan), self.session)
@@ -224,6 +247,82 @@ class DataFrame:
                                            conf)
 
 
+def _coerce_join_keys(lk: List[Expression], rk: List[Expression]):
+    """Widen mismatched equi-join key types to a common type (Spark's
+    findWiderTypeForTwo): the two sides of a shuffled join must hash the
+    same width, since murmur3 hashes int32 and int64 differently."""
+    from .expressions.cast import Cast
+    from .types import (ByteType, DecimalType, DoubleT, DoubleType,
+                        FloatType, IntegerType, LongType, ShortType)
+    order = {ByteType: 0, ShortType: 1, IntegerType: 2, LongType: 3,
+             FloatType: 4, DoubleType: 5}
+    out_l, out_r = [], []
+    for a, b in zip(lk, rk):
+        ta, tb = a.dtype, b.dtype
+        if isinstance(ta, DecimalType) or isinstance(tb, DecimalType):
+            if repr(ta) != repr(tb):
+                raise ValueError(f"join key type mismatch {ta} vs {tb}: "
+                                 "cast one side explicitly")
+            out_l.append(a)
+            out_r.append(b)
+            continue
+        if type(ta) is type(tb):
+            out_l.append(a)
+            out_r.append(b)
+            continue
+        ra, rb = order.get(type(ta)), order.get(type(tb))
+        if ra is None or rb is None:
+            raise ValueError(f"join key type mismatch {ta} vs {tb}: cast "
+                             "one side explicitly")
+        if (ra <= 3) != (rb <= 3):
+            common = DoubleT  # integral vs fractional
+        else:
+            common = ta if ra >= rb else tb
+        out_l.append(a if type(ta) is type(common) else Cast(a, common))
+        out_r.append(b if type(tb) is type(common) else Cast(b, common))
+    return out_l, out_r
+
+
+def _extract_equi_keys(cond: Expression, left, right):
+    """Split an AND-tree of EqualTo(left side, right side) into the key
+    lists + the residual condition."""
+    from .expressions.base import AttributeReference
+    from .expressions.predicates import And, EqualTo
+    left_ids = {a.expr_id for a in left.output}
+    right_ids = {a.expr_id for a in right.output}
+    conjuncts: List[Expression] = []
+
+    def flatten(e):
+        if isinstance(e, And):
+            flatten(e.children[0])
+            flatten(e.children[1])
+        else:
+            conjuncts.append(e)
+
+    def ids(e):
+        return {x.expr_id for x in
+                e.collect(lambda n: isinstance(n, AttributeReference))}
+
+    flatten(cond)
+    lk, rk, residual = [], [], []
+    for c in conjuncts:
+        if isinstance(c, EqualTo):
+            a, b = c.children
+            if ids(a) <= left_ids and ids(b) <= right_ids:
+                lk.append(a)
+                rk.append(b)
+                continue
+            if ids(a) <= right_ids and ids(b) <= left_ids:
+                lk.append(b)
+                rk.append(a)
+                continue
+        residual.append(c)
+    res = None
+    for c in residual:
+        res = c if res is None else And(res, c)
+    return lk, rk, res
+
+
 class GroupedData:
     def __init__(self, df: DataFrame, keys: List[Expression]):
         self._df = df
@@ -238,9 +337,9 @@ class GroupedData:
 class TorchSession:
     """The SparkSession analogue on one torch device: ``cuda`` unless the
     caller passes ``device="cpu"``. ``counters`` counts the session's
-    runtime events: ``fallback_runs`` (a compiled stage re-ran on the
-    general path), ``sort_fallback_runs`` (a grouped aggregate sorted out
-    of core)."""
+    runtime events: ``fallback_runs`` (a compiled aggregation stage re-ran
+    on the general path), ``fallbackReruns`` (a compiled join stage did),
+    ``sort_fallback_runs`` (a grouped aggregate sorted out of core)."""
 
     def __init__(self, conf: Optional[Dict[str, str]] = None,
                  device: DeviceLike = None):
@@ -252,12 +351,14 @@ class TorchSession:
     def _rapids_conf(self) -> RapidsConf:
         return RapidsConf(self._settings)
 
-    def createDataFrame(self, data, num_partitions: int = 1) -> DataFrame:
-        """From a dict of numpy arrays (or lists), a list of dicts, or a
+    def createDataFrame(self, data, num_partitions: int = 1,
+                        validity=None) -> DataFrame:
+        """From a dict of numpy arrays, lists or ``HostStrings`` (with an
+        optional dict of bool ``validity`` arrays), a list of dicts, or a
         ``pyarrow.Table``."""
         from .columnar.batch import TorchColumnarBatch
         if isinstance(data, dict):
-            table = TorchColumnarBatch.from_numpy_columns(data)
+            table = TorchColumnarBatch.from_numpy_columns(data, validity)
         elif isinstance(data, list) and data and isinstance(data[0], dict):
             table = TorchColumnarBatch.from_pylist(data)
         elif type(data).__module__.startswith("pyarrow"):
@@ -286,7 +387,13 @@ class TorchSession:
             if not final.is_tpu:  # a host plan (e.g. a bare table): upload
                 final = HostToDeviceExec(final)
         out = []
-        for p in range(final.num_partitions()):
-            out.extend(final.execute_partition(
-                p, TaskContext(p, conf, self.device, self.counters)))
+        try:
+            for p in range(final.num_partitions()):
+                out.extend(final.execute_partition(
+                    p, TaskContext(p, conf, self.device, self.counters)))
+        finally:
+            # the query's shuffle blocks leave the device with it
+            for node in final.collect_nodes():
+                if hasattr(node, "cleanup_shuffle"):
+                    node.cleanup_shuffle()
         return out

@@ -235,6 +235,10 @@ def _both(conf, table, query, parts=1, cached=False, ref_conf=None,
 def test_general_path_matches_reference(query, n, batch_rows, nulls, parts,
                                         cached):
     conf = dict(GENERAL, **{"spark.rapids.sql.batchSizeRows": str(batch_rows)})
+    if batch_rows < n:
+        # one shuffle partition: the grouped aggregate's hash exchange
+        # gathers every row into one reduce partition, past batchSizeRows
+        conf["spark.sql.shuffle.partitions"] = "1"
     fn = _q1 if query == "q1" else _q6
     # the out-of-core cases run the reference out of core as well
     want, got, s, plan = _both(conf, _lineitem_table(n, nulls), fn, parts,

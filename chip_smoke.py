@@ -1,12 +1,14 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: TPC-H Q1, Q6 and q3 end
-to end.
+"""Smoke run of the PyTorch/CUDA port on one GPU: TPC-H Q1, Q6, q3, q4,
+q13 and q18 end to end.
 
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero; without a CUDA device it exits 2 and
 prints no result):
 
-1. the card: name and power limit as nvidia-smi reports them;
+1. the card: name and power limit as nvidia-smi reports them, and
+   whether ``import pyarrow`` succeeds on the machine (the port does not
+   use it);
 2. build: both Q1 kernels from spark_rapids_tpu_torch/csrc with nvcc for
    sm_90a; ptxas's registers and spills, and q1_agg_simt's geometry
    (resident blocks an SM, shared memory a block);
@@ -56,7 +58,26 @@ prints no result):
        equals numpy's.
    (a) and (b) print the timing line of phase 6, (a) with the
    device_cache() seconds, and (a) the cost of the deterministic grouped
-   sum (stable sort + segmented sum against one index_add_).
+   sum (stable sort + segmented sum against one index_add_);
+8. TPC-H q4, q13 and q18 (semi, anti and outer joins, string keys past
+   7 bytes, LIKE) over the same tables, each against a numpy oracle
+   (keys, dates, prices and counts exact):
+   (a) q18 at 2^24 lineitem rows device-cached in one batch: the compiled
+       star-join stage (dims=1: orders ⋉ big ⋈ customer), no re-run; the
+       top 100 rows and, without sort and limit, every group; two
+       collects identical;
+   (b) q4, q13 and q18 at 2^22 in benchmarks/tpch.py's layout (4 + 4
+       partitions, 8 shuffle partitions, ICI), default conf; two collects
+       identical each;
+   (c) q18 at 2^22 with the join stage off: a semi, a symmetric and a
+       broadcast hash join;
+   (d) every hash-join type (inner, left/right/full outer, left semi,
+       left anti) with and without a residual condition over 2^20 probe
+       rows, on int64 keys and on string keys of 0-40 bytes with nulls;
+       LIKE over 2^24 strings with '%NOT%', 'PROMO%', '%BRASS', '_-%' and
+       an escaped '%'.
+   (a) and each query of (b) print phase 6's timing line and their
+   physical plan.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -433,6 +454,59 @@ def q3_query(F, t):
     return q3_groups_query(F, t).sort(F.col("revenue").desc()).limit(10)
 
 
+def q4_query(F, t):
+    """benchmarks/tpch.py q4, written against the port: orders in a quarter
+    with a late lineitem (a left semi join), counted by priority."""
+    li, orders = t["lineitem"], t["orders"]
+    late = li.filter(F.col("l_commitdate") < F.col("l_receiptdate"))
+    return (orders.filter((F.col("o_orderdate") >= 8582)
+                          & (F.col("o_orderdate") < 8674))
+            .join(late, on=orders["o_orderkey"] == late["l_orderkey"],
+                  how="leftsemi")
+            .groupBy("o_orderpriority")
+            .agg(F.count_star().alias("order_count"))
+            .sort("o_orderpriority"))
+
+
+def q13_query(F, t):
+    """benchmarks/tpch.py q13, written against the port: a left outer join
+    of customers to orders whose priority is not LIKE '%NOT%', then the
+    distribution of order counts."""
+    orders, cust = t["orders"], t["customer"]
+    sel = orders.filter(~F.col("o_orderpriority").like("%NOT%"))
+    per_cust = (cust.join(sel, on=cust["c_custkey"] == sel["o_custkey"],
+                          how="left")
+                .groupBy("c_custkey")
+                .agg(F.count(F.col("o_orderkey")).alias("c_count")))
+    return (per_cust.groupBy("c_count")
+            .agg(F.count_star().alias("custdist"))
+            .sort(F.col("custdist").desc(), F.col("c_count").desc()))
+
+
+def q18_groups_query(F, t):
+    """benchmarks/tpch.py q18 without ORDER BY / LIMIT, written against the
+    port: orders of more than 150 units (a left semi join against a grouped
+    lineitem), with their customer and their lineitems' quantity."""
+    li, orders, cust = t["lineitem"], t["orders"], t["customer"]
+    big = (li.groupBy("l_orderkey")
+           .agg(F.sum(F.col("l_quantity")).alias("total_qty"))
+           .filter(F.col("total_qty") > 150))
+    return (orders
+            .join(big, on=orders["o_orderkey"] == big["l_orderkey"],
+                  how="leftsemi")
+            .join(cust, on=orders["o_custkey"] == cust["c_custkey"])
+            .join(li, on=orders["o_orderkey"] == li["l_orderkey"])
+            .groupBy("c_name", "c_custkey", "o_orderkey", "o_orderdate",
+                     "o_totalprice")
+            .agg(F.sum(F.col("l_quantity")).alias("sum_qty")))
+
+
+def q18_query(F, t):
+    """benchmarks/tpch.py q18, written against the port."""
+    return (q18_groups_query(F, t)
+            .sort(F.col("o_totalprice").desc(), "o_orderdate").limit(100))
+
+
 def strings_equal(col, word: str) -> np.ndarray:
     """numpy: which rows of a host string column (offsets + bytes) equal
     ``word``."""
@@ -533,11 +607,13 @@ def group_sum_cost(rows: int, groups: int, smi) -> None:
 
 def q3_paths(F, TorchSession, smi, device: str = "cuda", big: int = N_BIG,
              mid: int = 1 << 22, small: int = 1 << 18,
-             mid_conf=None) -> None:
+             mid_conf=None, tables=None) -> None:
     """Phase 7: (a)-(f). A run with ``device="cpu"`` and small sizes checks
     the script's own logic off the card: it skips the timing lines, and
     ``mid_conf`` (e.g. a lower autoBroadcastJoinThreshold) gives (b) its
-    2^22 plan shape at a small size."""
+    2^22 plan shape at a small size. ``tables`` keeps the host tables for
+    phase 8."""
+    tables = {} if tables is None else tables
     on_card = device == "cuda"
 
     def release():
@@ -548,7 +624,7 @@ def q3_paths(F, TorchSession, smi, device: str = "cuda", big: int = N_BIG,
     from spark_rapids_tpu_torch.columnar.batch import TorchColumnarBatch
     from spark_rapids_tpu_torch.columnar.vector import TorchColumnVector
     from spark_rapids_tpu_torch.config import RapidsConf
-    from spark_rapids_tpu_torch.datagen import q3_frames, q3_host_tables
+    from spark_rapids_tpu_torch.datagen import q3_frames
     from spark_rapids_tpu_torch.execs.base import TaskContext
     from spark_rapids_tpu_torch.expressions.base import AttributeReference
     from spark_rapids_tpu_torch.shuffle.partitioner import hash_partition_ids
@@ -557,7 +633,7 @@ def q3_paths(F, TorchSession, smi, device: str = "cuda", big: int = N_BIG,
             "spark.sql.shuffle.partitions": "8"}
 
     # (a) the compiled star-join stage at 2^24 lineitem rows
-    host = q3_host_tables(big, 1)
+    host = tpch_host(tables, big, 1)
     groups, top = q3_oracle(host)
     s = TorchSession(dict(base, **{"spark.rapids.sql.batchSizeRows":
                                    str(big)}), device=device)
@@ -587,7 +663,7 @@ def q3_paths(F, TorchSession, smi, device: str = "cuda", big: int = N_BIG,
     release()
 
     # (b) the general path at 2^22: exchanges, symmetric and broadcast joins
-    host = q3_host_tables(mid, 4)
+    host = tpch_host(tables, mid, 4)
     groups, top = q3_oracle(host)
     g = TorchSession(dict(base, **{
         "spark.rapids.tpu.join.compiledStage.enabled": "false"},
@@ -639,7 +715,7 @@ def q3_paths(F, TorchSession, smi, device: str = "cuda", big: int = N_BIG,
     release()
 
     # (c) q3_general_4part's shape: 2^18 rows, broadcast joins only
-    host = q3_host_tables(small, 4)
+    host = tpch_host(tables, small, 4)
     qs = q3_query(F, q3_frames(TorchSession(dict(base, **{
         "spark.rapids.tpu.join.compiledStage.enabled": "false"}),
         device=device), host))
@@ -686,6 +762,394 @@ def q3_paths(F, TorchSession, smi, device: str = "cuda", big: int = N_BIG,
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: TPC-H q4, q13 and q18; every hash-join type; LIKE
+# ---------------------------------------------------------------------------
+
+
+def host_strings(col, rows=None) -> list:
+    """Python strings of a host string column (offsets + bytes), of every
+    row or of the rows given."""
+    offs = col.offsets.astype(np.int64)
+    raw = col.chars.tobytes()
+    rows = range(len(offs) - 1) if rows is None else rows
+    return [raw[offs[i]:offs[i + 1]].decode() for i in rows]
+
+
+def word_codes(col, words) -> np.ndarray:
+    """numpy: each row's index in ``words`` (-1 for none) of a host string
+    column built from those words."""
+    code = np.full(len(col.offsets) - 1, -1, np.int64)
+    for i, w in enumerate(words):
+        code[strings_equal(col, w)] = i
+    return code
+
+
+def tpch_host(tables: dict, rows: int, parts: int):
+    """``datagen.tpch_host_tables`` memoized in ``tables`` (main's), so the
+    phases share one build of each size."""
+    from spark_rapids_tpu_torch.datagen import tpch_host_tables
+    if (rows, parts) not in tables:
+        tables[rows, parts] = tpch_host_tables(rows, parts)
+    return tables[rows, parts]
+
+
+def q4_oracle(host):
+    """numpy q4: [(priority, order count)] in priority order."""
+    from spark_rapids_tpu_torch.datagen import _PRIORITIES
+    orders, li = host["orders"][0], host["lineitem"][0]
+    n_o = len(orders["o_orderkey"])
+    late = li["l_commitdate"] < li["l_receiptdate"]
+    has_late = np.zeros(n_o, bool)
+    has_late[li["l_orderkey"][late]] = True
+    od = orders["o_orderdate"].astype(np.int64)
+    sel = (od >= 8582) & (od < 8674) & has_late[orders["o_orderkey"]]
+    code = word_codes(orders["o_orderpriority"], _PRIORITIES)
+    counts = np.bincount(code[sel], minlength=len(_PRIORITIES))
+    return sorted((p, int(c)) for p, c in zip(_PRIORITIES, counts) if c)
+
+
+def q13_oracle(host):
+    """numpy q13: [(c_count, custdist)] by custdist, then c_count, both
+    descending."""
+    from spark_rapids_tpu_torch.datagen import _PRIORITIES
+    orders, cust = host["orders"][0], host["customer"][0]
+    code = word_codes(orders["o_orderpriority"], _PRIORITIES)
+    not_like = ~np.isin(code, [i for i, p in enumerate(_PRIORITIES)
+                               if "NOT" in p])
+    ck = cust["c_custkey"]
+    ok = orders["o_custkey"][not_like].astype(np.int64)
+    ci = np.minimum(np.searchsorted(ck, ok), len(ck) - 1)
+    c_count = np.bincount(ci[ck[ci] == ok], minlength=len(ck))
+    dist = np.bincount(c_count)
+    return sorted(((int(c), int(n)) for c, n in enumerate(dist) if n),
+                  key=lambda cn: (-cn[1], -cn[0]))
+
+
+def q18_oracle(host):
+    """numpy q18: every group (o_orderkey → (c_name, c_custkey,
+    o_orderdate, o_totalprice, sum_qty)) and the top 100 rows."""
+    orders, cust, li = (host[k][0] for k in ("orders", "customer",
+                                             "lineitem"))
+    n_o = len(orders["o_orderkey"])
+    # float64 sums of integer quantities are exact (far below 2^53)
+    qty = np.bincount(li["l_orderkey"], weights=li["l_quantity"],
+                      minlength=n_o).astype(np.int64)
+    ck = cust["c_custkey"]
+    ok = orders["o_custkey"].astype(np.int64)
+    ci = np.minimum(np.searchsorted(ck, ok), len(ck) - 1)
+    sel = np.flatnonzero((qty[orders["o_orderkey"]] > 150) & (ck[ci] == ok))
+    okey = orders["o_orderkey"][sel]
+    names = host_strings(cust["c_name"], ci[sel])
+    groups = {int(k): (nm, int(ck[c]), d, float(p), int(qty[k]))
+              for k, nm, c, d, p in zip(okey, names, ci[sel],
+                                        orders["o_orderdate"][sel],
+                                        orders["o_totalprice"][sel])}
+    top = sorted(groups.items(), key=lambda kv: (-kv[1][3], kv[1][2]))[:100]
+    return groups, top
+
+
+def q18_row(r):
+    return (r["o_orderkey"], (r["c_name"], r["c_custkey"],
+                              np.datetime64(r["o_orderdate"], "D"),
+                              r["o_totalprice"], r["sum_qty"]))
+
+
+def check_q18(rows, want, what: str) -> None:
+    """Rows in the oracle's order, every value exact."""
+    check(len(rows) == len(want), f"{what}: {len(rows)} rows, want "
+          f"{len(want)}")
+    for r, w in zip(rows, want):
+        check(q18_row(r) == w, f"{what}: row {r} != {w}")
+
+
+def check_q18_groups(rows, groups, what: str) -> None:
+    got = dict(q18_row(r) for r in rows)
+    check(len(got) == len(rows) == len(groups), f"{what}: {len(rows)} "
+          f"groups, want {len(groups)}")
+    bad = [k for k, v in groups.items() if got.get(k) != v]
+    check(not bad, f"{what}: {len(bad)} groups differ, first at order "
+          f"{bad[:1]}")
+
+
+def physical_plan(q) -> str:
+    return quiet_plan(q).split("== Physical Plan ==")[-1].strip("\n")
+
+
+def join_oracle(lk, lv, rk, rv, cond: bool):
+    """numpy: the (probe row, build row) pairs of an equi-join on lk = rk
+    (-1: null, never matching), with ``lv < rv`` when ``cond`` (NaN:
+    null)."""
+    order = np.argsort(rk, kind="stable")
+    ok_r = order[rk[order] >= 0]
+    sk = rk[ok_r]
+    lo = np.searchsorted(sk, lk, "left")
+    hi = np.searchsorted(sk, lk, "right")
+    cnt = np.where(lk >= 0, hi - lo, 0)
+    li = np.repeat(np.arange(len(lk)), cnt)
+    starts = np.repeat(lo - (np.cumsum(cnt) - cnt), cnt)
+    ri = ok_r[starts + np.arange(len(li))]
+    if cond:
+        keep = lv[li] < rv[ri]  # False where either side is NaN
+        li, ri = li[keep], ri[keep]
+    return li, ri
+
+
+def join_types(F, TorchSession, smi, device: str, probe: int) -> None:
+    """Phase 8 (d): every hash-join type, with and without the residual
+    lv < rv, over ``probe`` probe rows (four partitions) and a build side
+    of probe/16 rows, on int64 keys and on string keys of 0–40 bytes
+    (nulls in both); each output's (probe id, build id) multiset against
+    the numpy oracle."""
+    from spark_rapids_tpu_torch import datagen as dg
+    rng = np.random.default_rng(8)
+    n_r = max(probe // 16, 1)
+    dom = max(probe // 8, 1)
+    vocab = [""] + [("customer#%09d" % i)[:rng.integers(0, 19)]
+                    + "é" * int(i % 3) + "z" * int(rng.integers(0, 21))
+                    for i in range(1, dom)]
+    vocab = list(dict.fromkeys(vocab))  # distinct: a word's index is its key
+    sides = {}
+    for name, n in (("l", probe), ("r", n_r)):
+        key = rng.integers(0, len(vocab), n)
+        null = rng.random(n) < 0.05
+        v = rng.uniform(0, 1, n)
+        vnull = rng.random(n) < 0.05
+        sides[name] = (np.where(null, -1, key), np.where(vnull, np.nan, v),
+                       {f"{name}k": key, f"{name}s": dg._strings_from_words(
+                           vocab, key), f"{name}v": v,
+                        f"{name}id": np.arange(n, dtype=np.int64)},
+                       {f"{name}k": ~null, f"{name}s": ~null,
+                        f"{name}v": ~vnull})
+    s = TorchSession(device=device)
+    frames = {name: s.createDataFrame(cols, num_partitions=4 if name == "l"
+                                      else 1, validity=valid)
+              for name, (_, _, cols, valid) in sides.items()}
+    L, R = frames["l"], frames["r"]
+    (lk, lv, _, _), (rk, rv, _, _) = sides["l"], sides["r"]
+    checked = 0
+    for keys in ("int64", "string"):
+        on = (L["lk"] == R["rk"]) if keys == "int64" else \
+            (L["ls"] == R["rs"])
+        for cond in (False, True):
+            li, ri = join_oracle(lk, lv, rk, rv, cond)
+            pairs = np.stack([li, ri], 1)
+            un_l = np.setdiff1d(np.arange(len(lk)), li)
+            un_r = np.setdiff1d(np.arange(len(rk)), ri)
+            none_l = np.full(len(un_r), -1)
+            none_r = np.full(len(un_l), -1)
+            want = {
+                "inner": pairs,
+                "leftouter": np.concatenate([pairs, np.stack(
+                    [un_l, none_r], 1)]),
+                "rightouter": np.concatenate([pairs, np.stack(
+                    [none_l, un_r], 1)]),
+                "fullouter": np.concatenate([pairs, np.stack(
+                    [un_l, none_r], 1), np.stack([none_l, un_r], 1)]),
+                "leftsemi": np.unique(li)[:, None],
+                "leftanti": un_l[:, None]}
+            for jt, w in want.items():
+                q = L.join(R, on=(on & (L["lv"] < R["rv"])) if cond else on,
+                           how=jt)
+                got = host_ids(s, q, ("lid", "rid")[:w.shape[1]])
+                w = w[np.lexsort(w.T[::-1])]
+                check(np.array_equal(got, w), f"{jt} join on {keys} keys "
+                      f"cond={cond}: {len(got)} rows, want {len(w)}")
+                checked += 1
+    print(f"(d) {checked} joins (6 types x residual or not x int64 or "
+          f"string keys) over {probe} probe rows ok", flush=True)
+
+
+def host_ids(s, q, names) -> np.ndarray:
+    """The query's id columns as one sorted int64 array (-1 for null),
+    read from its host batches without building Python rows."""
+    cols = q.columns
+    parts = []
+    for b in s._execute_batches(q._plan):
+        n = b.num_rows
+        block = []
+        for name in names:
+            c = b.columns[cols.index(name)]
+            v = c.data[:n].numpy().astype(np.int64)
+            if c.validity is not None:
+                v = np.where(c.validity[:n].numpy(), v, -1)
+            block.append(v)
+        parts.append(np.stack(block, 1))
+    out = np.concatenate(parts) if parts else np.zeros((0, len(names)),
+                                                        np.int64)
+    return out[np.lexsort(out.T[::-1])]
+
+
+LIKE_PATTERNS = ("%NOT%", "PROMO%", "%BRASS", "_-%", "%\\%%")
+
+
+def like_regex(pattern: str) -> str:
+    """The oracle's reading of a LIKE pattern (escape '\\') as a regex."""
+    import re
+    out, i = [], 0
+    while i < len(pattern):
+        ch = pattern[i]
+        if ch == "\\" and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        out.append(".*" if ch == "%" else "." if ch == "_"
+                   else re.escape(ch))
+        i += 1
+    return "".join(out)
+
+
+def like_paths(F, TorchSession, smi, device: str, rows: int) -> None:
+    """Phase 8 (d), LIKE: over ``rows`` strings shaped like o_orderpriority,
+    p_type and c_name (and a few with '%'), each pattern's match mask
+    against Python's regex over the vocabulary, and a filter's count."""
+    import re
+    from spark_rapids_tpu_torch import datagen as dg
+    from spark_rapids_tpu_torch.columnar.batch import TorchColumnarBatch
+    from spark_rapids_tpu_torch.expressions.base import AttributeReference
+    from spark_rapids_tpu_torch.expressions.strings import Like
+    from spark_rapids_tpu_torch.types import StringT
+    vocab = (dg._PRIORITIES
+             + [f"{a} {b} {c}" for a in ("PROMO", "STANDARD", "ECONOMY")
+                for b in ("BRUSHED", "PLATED") for c in ("BRASS", "TIN")]
+             + ["100% COTTON", "%", "", "5-LOWEST", "-"]
+             + ["customer#%09d" % i for i in range(20)])
+    idx = np.random.default_rng(4).integers(0, len(vocab), rows)
+    col = dg._strings_from_words(vocab, idx)
+    batch = TorchColumnarBatch.from_numpy_columns({"s": col}).to_device(
+        device)
+    df = TorchSession(device=device).createDataFrame({"s": col})
+    ref = AttributeReference("s", StringT, ordinal=0)
+    for pat in LIKE_PATTERNS:
+        e = Like(ref, pat)
+        rx = re.compile(like_regex(pat), re.DOTALL)
+        hit = np.array([bool(rx.fullmatch(w)) for w in vocab])[idx]
+        got = e.eval_device(batch).data[:rows].cpu().numpy()
+        check(np.array_equal(got, hit), f"LIKE {pat!r}: "
+              f"{int((got != hit).sum())} rows differ")
+        n = df.filter(F.col("s").like(pat)).agg(
+            F.count_star().alias("n")).collect()[0]["n"]
+        check(n == int(hit.sum()), f"LIKE {pat!r} count {n} != {hit.sum()}")
+    if device == "cuda":
+        e = Like(ref, "%NOT%")
+        print(json.dumps({"like": {
+            "rows": rows, "pattern": "%NOT%",
+            "ms": time_ms(lambda: e.eval_device(batch), 5, reps=3)},
+            "card": smi}), flush=True)
+    print(f"(d) LIKE over {rows} rows ok: {', '.join(LIKE_PATTERNS)}",
+          flush=True)
+
+
+def tpch_more_paths(F, TorchSession, smi, tables: dict,
+                    device: str = "cuda", big: int = N_BIG,
+                    mid: int = 1 << 22, probe: int = 1 << 20,
+                    like_rows: int = N_BIG) -> None:
+    """Phase 8: (a)-(d). With ``device="cpu"`` and small sizes it checks
+    the script's own logic off the card (no timing lines)."""
+    on_card = device == "cuda"
+    from spark_rapids_tpu_torch.datagen import tpch_frames
+    base = {"spark.rapids.shuffle.mode": "ICI",
+            "spark.sql.shuffle.partitions": "8"}
+
+    def release():
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+    def timed(key, q, rows, **extra):
+        print(f"{key} plan:\n{physical_plan(q)}", flush=True)
+        if on_card:
+            timed_line(key, q, rows, smi, **extra)
+
+    # (a) q18 on the compiled star-join stage at 2^24, one cached batch
+    host = tpch_host(tables, big, 1)
+    groups, top = q18_oracle(host)
+    s = TorchSession(dict(base, **{"spark.rapids.sql.batchSizeRows":
+                                   str(big)}), device=device)
+    t = tpch_frames(s, host)
+    t0 = time.perf_counter()
+    t["lineitem"] = t["lineitem"].device_cache()
+    release()
+    cache_s = time.perf_counter() - t0
+    qa = q18_query(F, t)
+    check("TorchCompiledJoinAggStage[keys=c_name, c_custkey, o_orderkey, "
+          "o_orderdate, o_totalprice, dims=1]" in quiet_plan(qa),
+          "q18 plan lacks the compiled join stage")
+    first, second = qa.collect(), qa.collect()
+    check_q18(first, top, "q18 compiled 2^24")
+    check(first == second, "two collects of q18 on the join stage differ")
+    check_q18_groups(q18_groups_query(F, t).collect(), groups,
+                     "q18 compiled 2^24 without the limit")
+    check(s.counters["fallbackReruns"] == 0, "the q18 join stage re-ran")
+    print(f"(a) q18 on the compiled join stage at {big} ok: top 100 and all "
+          f"{len(groups)} groups equal the oracle; two collects identical",
+          flush=True)
+    timed("q18_compiled", qa, big, device_cache_s=cache_s,
+          groups=len(groups))
+    check(s.counters["fallbackReruns"] == 0, "the q18 join stage re-ran")
+    del qa, t, s
+    release()
+
+    # (b) q4, q13 and q18 in benchmarks/tpch.py's layout, default conf
+    host = tpch_host(tables, mid, 4)
+    oracles = {"q4": q4_oracle(host), "q13": q13_oracle(host),
+               "q18": q18_oracle(host)[1]}
+    # at 2^22 the semi join's build side is past the broadcast threshold:
+    # both packages shuffle it (at 4,096 rows both broadcast it)
+    plans = {"q4": ("TorchCompiledAggStage[keys=o_orderpriority]",
+                    "HashJoin[leftsemi]"),
+             "q13": ("TorchShuffledSymmetricHashJoin[left]",
+                     "TorchShuffleExchange[hash"),
+             "q18": ("TorchCompiledJoinAggStage[keys=c_name",)}
+    for name, query in (("q4", q4_query), ("q13", q13_query),
+                        ("q18", q18_query)):
+        s = TorchSession(base, device=device)
+        q = query(F, tpch_frames(s, host))
+        plan = quiet_plan(q)
+        check(all(p in plan for p in plans[name]),
+              f"{name} plan at {mid}:\n{plan}")
+        first, second = q.collect(), q.collect()
+        check(first == second, f"two collects of {name} differ")
+        if name == "q18":
+            check_q18(first, oracles[name], f"{name} {mid}")
+        else:
+            keys = ("o_orderpriority", "order_count") if name == "q4" \
+                else ("c_count", "custdist")
+            got = [(r[keys[0]], r[keys[1]]) for r in first]
+            check(got == oracles[name], f"{name} {mid}: {got[:5]} vs "
+                  f"{oracles[name][:5]}")
+        check(s.counters["fallbackReruns"] == 0, f"{name} re-ran")
+        print(f"(b) {name} at {mid} in the benchmark layout ok "
+              f"({len(first)} rows equal the oracle; two collects "
+              "identical)", flush=True)
+        timed(f"{name}_general", q, mid)
+        del q, s
+        release()
+
+    # (c) q18 with the join stage off: broadcast semi, symmetric, broadcast
+    s = TorchSession(dict(base, **{
+        "spark.rapids.tpu.join.compiledStage.enabled": "false"}),
+        device=device)
+    qc = q18_query(F, tpch_frames(s, host))
+    plan = quiet_plan(qc)
+    check("HashJoin[leftsemi]" in plan
+          and "TorchShuffledSymmetricHashJoin[inner]" in plan
+          and "TorchBroadcastHashJoin[inner]" in plan,
+          f"q18 with the join stage off:\n{plan}")
+    check_q18(qc.collect(), oracles["q18"], f"q18 general {mid}")
+    print(f"(c) q18 at {mid} on a semi, a symmetric and a broadcast join "
+          "ok", flush=True)
+    print(f"q18_joins plan:\n{physical_plan(qc)}", flush=True)
+    del qc, s
+    release()
+
+    # (d) every join type; LIKE
+    join_types(F, TorchSession, smi, device, probe)
+    release()
+    like_paths(F, TorchSession, smi, device, like_rows)
+    release()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -704,6 +1168,11 @@ def main() -> int:
     mem_bps, f32_ops, tf32_ops = card_peaks(name)
     print(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
+    # the parquet scan's host side leans on pyarrow in the reference: is it
+    # on this machine? (the port does not import it)
+    has_pyarrow = subprocess.run([sys.executable, "-c", "import pyarrow"],
+                                 capture_output=True).returncode == 0
+    print(f"import pyarrow: {'ok' if has_pyarrow else 'fails'}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
 
     # 2. build
@@ -851,7 +1320,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 7. TPC-H q3: joins, the hash exchange, TopN, the star-join stage
-    q3_paths(F, TorchSession, smi)
+    tables: dict = {}
+    q3_paths(F, TorchSession, smi, tables=tables)
+    torch.cuda.empty_cache()
+
+    # 8. TPC-H q4, q13 and q18; every hash-join type; LIKE
+    tpch_more_paths(F, TorchSession, smi, tables)
 
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

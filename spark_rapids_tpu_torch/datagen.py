@@ -1,5 +1,6 @@
-"""Deterministic TPC-H data generator: the q3 tables (port of the
-lineitem/orders/customer part of ``spark_rapids_tpu/datagen.py``).
+"""Deterministic TPC-H data generator: lineitem, orders and customer, the
+tables of q3, q4, q13 and q18 (port of that part of
+``spark_rapids_tpu/datagen.py``).
 
 Every column is a pure function of (seed, table, column, partition): each
 draws from its own numpy stream in exactly the reference's order, so the
@@ -273,12 +274,12 @@ def tpch_customer(scale_rows: int) -> TableSpec:
     ])
 
 
-def q3_host_tables(rows: int, parts: int = 4) -> Dict[str, Tuple]:
-    """lineitem, orders and customer at lineitem-row scale ``rows`` as the
-    reference's benchmark loads them (``benchmarks/tpch.py``
-    ``load_tables``): seed 42, orders rows/4 and customer rows/40;
-    lineitem and orders in ``parts`` partitions, customer in one. Each
-    table as (host columns, validity, partitions)."""
+def tpch_host_tables(rows: int, parts: int = 4) -> Dict[str, Tuple]:
+    """lineitem, orders and customer (what TPC-H q3, q4, q13 and q18 read)
+    at lineitem-row scale ``rows`` as the reference's benchmark loads them
+    (``benchmarks/tpch.py`` ``load_tables``): seed 42, orders rows/4 and
+    customer rows/40; lineitem and orders in ``parts`` partitions,
+    customer in one. Each table as (host columns, validity, partitions)."""
     n_orders = max(rows // 4, 1)
     n_cust = max(rows // 40, 1)
     return {name: spec.generate(42, n, p) + (p,) for name, spec, n, p in (
@@ -287,13 +288,19 @@ def q3_host_tables(rows: int, parts: int = 4) -> Dict[str, Tuple]:
         ("customer", tpch_customer(n_cust), n_cust, 1))}
 
 
-def q3_frames(session, host: Dict[str, Tuple]):
-    """``q3_host_tables``' tables as the session's DataFrames."""
+def tpch_frames(session, host: Dict[str, Tuple]):
+    """``tpch_host_tables``' tables as the session's DataFrames."""
     return {name: session.createDataFrame(cols, num_partitions=p,
                                           validity=valid)
             for name, (cols, valid, p) in host.items()}
 
 
-def q3_tables(session, rows: int, parts: int = 4):
-    """``q3_host_tables`` as the session's DataFrames."""
-    return q3_frames(session, q3_host_tables(rows, parts))
+def tpch_tables(session, rows: int, parts: int = 4):
+    """``tpch_host_tables`` as the session's DataFrames."""
+    return tpch_frames(session, tpch_host_tables(rows, parts))
+
+
+# the names these had when q3 was their only reader
+q3_host_tables = tpch_host_tables
+q3_frames = tpch_frames
+q3_tables = tpch_tables

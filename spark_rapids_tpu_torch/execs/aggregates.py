@@ -15,8 +15,8 @@ port reduces the contiguous segments instead:
 * integer min/max: ``scatter_reduce`` (min and max are exact in any order).
 
 The host reads one number a batch, the group count that sizes the group
-table, together with the check that every string key fits its packed
-encoding. Rows stay on the device throughout. Over ``batchSizeRows`` rows
+table, and one a string key, its longest string (it picks the key
+encoding). Rows stay on the device throughout. Over ``batchSizeRows`` rows
 a grouped aggregate sorts out of core and aggregates key-aligned slices
 (``_sort_fallback``); a global one merges per-chunk states
 (``_global_chunked``). The reference's opjit-traced and fused one-launch
@@ -35,6 +35,7 @@ from ..columnar.batch import TorchColumnarBatch, concat_batches, gather
 from ..columnar.vector import TorchColumnVector, bucket_capacity, row_mask
 from ..expressions.aggregates import AggregateFunction, Count
 from ..expressions.base import AttributeReference, Expression, to_column
+from ..expressions.strings import longest_string, string_key_codes
 from ..types import DoubleT, LongT, StringType, is_fixed_width
 from .base import (PhysicalPlan, TaskContext, TorchExec, bind_all,
                    bind_references)
@@ -117,40 +118,6 @@ class CpuHashAggregateExec(_HostEngineNotPorted):
 # ---------------------------------------------------------------------------
 
 _INT64_SIGN = -2**63
-#: string keys are packed into one int64 (up to 7 bytes + the length)
-MAX_PACKED_KEY_BYTES = 7
-
-
-def pack_string_keys(col: TorchColumnVector) -> torch.Tensor:
-    """Each string of up to 7 bytes as one int64 whose signed order is the
-    strings' byte-wise lexicographic order: the bytes big-endian in bits
-    63..8 (zero padded), the length in bits 7..0, the top bit flipped.
-    Equal strings give equal keys, so the one encoding serves grouping and
-    sorting. Longer strings are cut: ``string_key_overflow`` detects them.
-    Nulls and padding rows carry 0."""
-    offs = col.offsets.to(torch.int64)
-    starts = offs[:-1]
-    lens = offs[1:] - starts
-    key = lens.clamp(max=MAX_PACKED_KEY_BYTES)
-    last = col.data.numel() - 1
-    for j in range(MAX_PACKED_KEY_BYTES if last >= 0 else 0):
-        byte = col.data[(starts + j).clamp(max=last)].to(torch.int64)
-        key = key | (torch.where(j < lens, byte, 0) << (56 - 8 * j))
-    return torch.where(col.validity_or_true(), key ^ _INT64_SIGN, 0)
-
-
-def string_key_overflow(col: TorchColumnVector) -> torch.Tensor:
-    """Device bool: some valid string is longer than the packed 7 bytes."""
-    offs = col.offsets.to(torch.int64)
-    return (col.validity_or_true()
-            & (offs[1:] - offs[:-1] > MAX_PACKED_KEY_BYTES)).any()
-
-
-def unpack_string_key(key: int) -> str:
-    """Host decode of one ``pack_string_keys`` value."""
-    u = (key ^ _INT64_SIGN) % (1 << 64)
-    n = u & 0xFF
-    return bytes((u >> (56 - 8 * j)) & 0xFF for j in range(n)).decode()
 
 
 def _sortable_bits(col: TorchColumnVector) -> torch.Tensor:
@@ -178,13 +145,13 @@ def _sortable_bits(col: TorchColumnVector) -> torch.Tensor:
 
 def encode_group_keys(cols: List[TorchColumnVector], num_rows: int,
                       capacity: int):
-    """Per-key (sortable_value, validity) pairs; strings are packed
-    (``pack_string_keys``: equality and lexicographic order preserved).
-    Null lanes carry 0, so two nulls compare equal whatever payload an
-    expression left under them."""
+    """Per-key (sortable_value, validity) pairs; strings take their key
+    codes (``expressions.strings.string_key_codes``: byte order and
+    equality preserved, any length). Null lanes carry 0, so two nulls
+    compare equal whatever payload an expression left under them."""
     out = []
     for c in cols:
-        vals = pack_string_keys(c) if isinstance(c.dtype, StringType) \
+        vals = string_key_codes([c])[0] if isinstance(c.dtype, StringType) \
             else _sortable_bits(c)
         if c.validity is not None:
             vals = torch.where(c.validity, vals,
@@ -566,14 +533,7 @@ class TorchHashAggregateExec(TorchExec):
             perm = lex_sort_permutation(enc, n, cap)
             _, seg_ids, ng = segment_boundaries(enc, perm,
                                                 row_mask(n, cap, dev))
-            checks = [ng.to(torch.int64)] + [
-                string_key_overflow(c).to(torch.int64) for c in key_cols
-                if isinstance(c.dtype, StringType)]
-            n_groups, *overflow = torch.stack(checks).tolist()  # host sync
-            if any(overflow):
-                raise NotImplementedError(
-                    f"string group keys longer than {MAX_PACKED_KEY_BYTES} "
-                    "bytes not yet ported")
+            n_groups = int(ng)  # host sync: it sizes the group table
             g_cap = bucket_capacity(max(n_groups, 1))
             bounds = torch.searchsorted(
                 seg_ids[:n], torch.arange(g_cap + 1, dtype=seg_ids.dtype,
@@ -588,11 +548,14 @@ class TorchHashAggregateExec(TorchExec):
             # each group's key from the first row of its segment
             first = torch.cat([segs.perm, segs.perm.new_full((1,), -1)])[
                 segs.bounds[:-1]]
-            # string keys are at most MAX_PACKED_KEY_BYTES (checked above)
+            # a group's string key is at most the longest (known from the
+            # encode)
+            longest = longest_string([c for c in key_cols
+                                      if c.offsets is not None])
             out_keys = gather(TorchColumnarBatch(key_cols, n), first,
                               segs.n_groups, segs.g_cap,
                               byte_capacity=segs.g_cap
-                              * MAX_PACKED_KEY_BYTES).columns
+                              * max(longest, 1)).columns
         return self._project_result(
             TorchColumnarBatch(out_keys + agg_cols, segs.n_groups), out_keys,
             result_exprs, ctx)

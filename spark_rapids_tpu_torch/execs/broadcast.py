@@ -3,8 +3,9 @@
 The build side (right) materializes once per exec instance, as the
 reference's broadcast relation does, and every partition of the stream
 side (left) probes it, so the stream keeps its partitioning and needs no
-exchange. ``estimated_size_bytes`` sizes a build side from its table for
-the planner's broadcast-versus-shuffle choice.
+exchange. A right-side build supports Spark's BuildRight join types
+(``BROADCAST_RIGHT_TYPES``). ``estimated_size_bytes`` sizes a build side
+from its table for the planner's broadcast-versus-shuffle choice.
 """
 
 from __future__ import annotations
@@ -50,13 +51,16 @@ class TorchBroadcastHashJoinExec(TorchShuffledHashJoinExec):
                                      ctx: TaskContext) -> Iterator:
         right = self._build_side(ctx)
         stream = list(self.children[0].execute_partition(idx, ctx))
-        if not stream or right is None or not right.num_rows:
-            return  # inner join: nothing to emit
+        if not stream:
+            return
         left = concat_batches(stream)
-        if left.num_rows:
-            out = self._join(left, right, ctx)
-            if out.num_rows:
-                yield out
+        if not left.num_rows:
+            return
+        # with an empty build side inner and semi joins emit nothing, anti
+        # joins the stream, left outer joins the stream null-extended
+        out = self._join_pair(left, right, ctx)
+        if out is not None and out.num_rows:
+            yield out
 
 
 class CpuBroadcastHashJoinExec(CpuShuffledHashJoinExec):

@@ -32,7 +32,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..columnar.batch import TorchColumnarBatch
+from ..columnar.batch import TorchColumnarBatch, gather
 from ..columnar.vector import TorchColumnVector, row_mask
 from ..expressions import arithmetic as A
 from ..expressions import predicates as P
@@ -266,20 +266,24 @@ def _int_stats(col: TorchColumnVector) -> Tuple[Optional[int], Optional[int]]:
 
 def _encode_strings(col: TorchColumnVector):
     """Dictionary-encode a string column on its device: (sorted distinct
-    values, int32 codes over the capacity with -1 for nulls and padding)."""
-    from .aggregates import (MAX_PACKED_KEY_BYTES, pack_string_keys,
-                             string_key_overflow, unpack_string_key)
-    if bool(string_key_overflow(col)):
-        raise NotImplementedError(
-            f"string group keys longer than {MAX_PACKED_KEY_BYTES} bytes "
-            "not yet ported")
+    values, int32 codes over the capacity with -1 for nulls and padding).
+    The codes come from the strings' key codes (byte order, any length);
+    only the distinct values come to the host."""
+    from ..expressions.strings import string_key_codes
     valid = col.validity_or_true()
-    uniq, inv = torch.unique(pack_string_keys(col)[valid], sorted=True,
+    uniq, inv = torch.unique(string_key_codes([col])[0][valid], sorted=True,
                              return_inverse=True)
     codes = torch.full((col.capacity,), -1, dtype=torch.int32,
                        device=col.device)
     codes[valid] = inv.to(torch.int32)
-    return [unpack_string_key(k) for k in uniq.cpu().tolist()], codes
+    # one row a distinct value: the first that holds it
+    rows = torch.nonzero(valid).flatten()
+    first = torch.full((uniq.shape[0],), col.capacity, dtype=torch.int64,
+                       device=col.device).scatter_reduce_(
+                           0, inv, rows, "amin")
+    values = gather(TorchColumnarBatch([col], col.num_rows), first,
+                    uniq.shape[0]).columns[0].to_pylist()
+    return values, codes
 
 
 def _string_codes(col: TorchColumnVector, domain: _KeyDomain) -> torch.Tensor:

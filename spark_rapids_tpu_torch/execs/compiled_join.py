@@ -71,13 +71,16 @@ class _JoinStageFallback(Exception):
 class _DimSpec:
     """One build side: ``plan`` materializes once; the fact probes its
     ``key_ordinals`` columns with the values at ``probe_locs`` (each
-    ("fact", o) or ("dim", earlier dim index, o))."""
+    ("fact", o) or ("dim", earlier dim index, o)). A ``semi`` dimension (the
+    right side of a left semi join) only filters: its build keeps the first
+    row of each key, and the stage reads none of its columns."""
 
     def __init__(self, plan: PhysicalPlan, key_ordinals: List[int],
-                 probe_locs: List):
+                 probe_locs: List, semi: bool):
         self.plan = plan
         self.key_ordinals = list(key_ordinals)
         self.probe_locs = list(probe_locs)
+        self.semi = semi
         self.payload_ordinals: List[int] = []  # columns the stage gathers
 
 
@@ -129,13 +132,13 @@ def _unwrap_widening_cast(e: Expression) -> Expression:
 
 
 def _flatten_join_tree(node: PhysicalPlan):
-    """A tree of inner hash joins → (leaves, conditions); a condition is
-    (left key attrs, right key attrs)."""
+    """A tree of inner and left semi hash joins → (leaves, conditions); a
+    condition is (left key attrs, right key attrs, is semi)."""
     _, join_cls = _join_classes()
     node = _strip_exchanges(node)
     if not isinstance(node, join_cls):
         return [node], []
-    if node.join_type != "inner" \
+    if node.join_type not in ("inner", "leftsemi", "semi") \
             or node.condition is not None or not node.left_keys \
             or len(node.left_keys) != len(node.right_keys):
         raise _Ineligible()
@@ -143,9 +146,17 @@ def _flatten_join_tree(node: PhysicalPlan):
     rks = [_unwrap_widening_cast(k) for k in node.right_keys]
     if not all(isinstance(k, AttributeReference) for k in lks + rks):
         raise _Ineligible()
+    semi = node.join_type in ("leftsemi", "semi")
     l_leaves, l_conds = _flatten_join_tree(node.children[0])
-    r_leaves, r_conds = _flatten_join_tree(node.children[1])
-    return l_leaves + r_leaves, l_conds + r_conds + [(lks, rks)]
+    if semi:
+        # the side a semi join probes against must be a single leaf
+        r_node = _strip_exchanges(node.children[1])
+        if isinstance(r_node, join_cls):
+            raise _Ineligible()
+        r_leaves, r_conds = [r_node], []
+    else:
+        r_leaves, r_conds = _flatten_join_tree(node.children[1])
+    return l_leaves + r_leaves, l_conds + r_conds + [(lks, rks, semi)]
 
 
 def _estimate_rows(plan: PhysicalPlan) -> int:
@@ -237,7 +248,7 @@ def try_extract_join_stage(agg) -> Optional[_JoinStageSpec]:
         for g in grouping:
             src = _identity_source_ordinal(g.ordinal, top_layers)
             loc = col_loc.get(src) if src is not None else None
-            if loc is None or loc[0] != "dim" \
+            if loc is None or loc[0] != "dim" or dims[loc[1]].semi \
                     or group_dim not in (None, loc[1]):
                 raise _Ineligible()
             group_dim = loc[1]
@@ -255,6 +266,8 @@ def try_extract_join_stage(agg) -> Optional[_JoinStageSpec]:
             if loc is None or not _traceable(top_output[o].dtype):
                 raise _Ineligible()
             if loc[0] == "dim":
+                if dims[loc[1]].semi:
+                    raise _Ineligible()
                 _add_payload(dims[loc[1]], loc[2])
         for d in dims:  # probe values read from earlier dims gather too
             for loc in d.probe_locs:
@@ -298,13 +311,15 @@ def _order_dims(conds, leaves, leaf_loc, fact_idx):
     while pending:
         progressed = False
         for cond in list(pending):
-            lks, rks = cond
+            lks, rks, semi = cond
             l_locs = [leaf_loc.get(k.expr_id) for k in lks]
             r_locs = [leaf_loc.get(k.expr_id) for k in rks]
             if any(x is None for x in l_locs + r_locs):
                 raise _Ineligible()
-            for p_locs, d_locs, d_attrs in ((l_locs, r_locs, rks),
-                                            (r_locs, l_locs, lks)):
+            # a semi join's dimension can only be its right side
+            orientations = ((l_locs, r_locs, rks),) if semi else \
+                ((l_locs, r_locs, rks), (r_locs, l_locs, lks))
+            for p_locs, d_locs, d_attrs in orientations:
                 d_leaves = {loc[0] for loc in d_locs}
                 if len(d_leaves) != 1:
                     continue
@@ -317,7 +332,8 @@ def _order_dims(conds, leaves, leaf_loc, fact_idx):
                 for p_leaf, p_ord in p_locs:
                     if p_leaf == fact_idx:
                         probe_locs.append(("fact", p_ord))
-                    elif p_leaf in dim_of_leaf:
+                    elif p_leaf in dim_of_leaf \
+                            and not dims[dim_of_leaf[p_leaf]].semi:
                         probe_locs.append(("dim", dim_of_leaf[p_leaf],
                                            p_ord))
                     else:
@@ -326,7 +342,7 @@ def _order_dims(conds, leaves, leaf_loc, fact_idx):
                     dim_of_leaf[d_leaf] = len(dims)
                     dims.append(_DimSpec(leaves[d_leaf],
                                          [loc[1] for loc in d_locs],
-                                         probe_locs))
+                                         probe_locs, semi))
                     pending.remove(cond)
                     progressed = True
                     break
@@ -656,7 +672,11 @@ class TorchCompiledJoinAggStageExec(TorchExec):
         dup = torch.zeros(n, dtype=torch.bool, device=dev)
         if n > 1:
             dup[1:] = keys[1:] == keys[:-1]
-        if bool(dup.any()):
+        if d.semi:
+            # a semi join only asks whether a key exists: its first row
+            order, keys = order[~dup], keys[~dup]
+            n = int(keys.shape[0])
+        elif bool(dup.any()):
             raise _JoinStageFallback("duplicate dimension keys (fan-out)")
         dense = bool(len(parts) == 1 and n and
                      int(keys[-1]) - int(keys[0]) == n - 1)
@@ -682,7 +702,7 @@ class TorchCompiledJoinAggStageExec(TorchExec):
         tables, flats, caps, dense, entries = [], [], [], [], []
         for d in spec.dims:
             key = (_dim_structure(d.plan), tuple(d.key_ordinals),
-                   tuple(d.payload_ordinals), str(ctx.device),
+                   tuple(d.payload_ordinals), d.semi, str(ctx.device),
                    ctx.conf.get(ANSI_ENABLED))
             srcs = _dim_sources(d.plan)
             hit = _DIM_BUILD_CACHE.get(key)

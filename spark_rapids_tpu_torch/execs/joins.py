@@ -1,13 +1,14 @@
 """Hash joins on the device: the shuffled and the symmetric shuffled hash
-join, and the CPU plan node (port of ``spark_rapids_tpu/execs/joins.py``,
-inner equi-joins on fixed-width keys).
+join, and the CPU plan node (port of ``spark_rapids_tpu/execs/joins.py``:
+every hash-join type, with residual conditions).
 
 The matcher is the reference's sorted-build / range-probe design:
 
 1. each side's keys become one comparable int64 a row: a single key its
-   order-preserving bits (``_sortable_bits``), several keys a dense rank
-   over both sides (a joint lexicographic sort), so equal values (and only
-   those) compare equal; a row with a null key never matches;
+   order-preserving bits (``_sortable_bits``; a string its key code,
+   ranked jointly over both sides), several keys a dense rank over both
+   sides (a joint lexicographic sort), so equal values (and only those)
+   compare equal; a row with a null key never matches;
 2. the build side sorts stably by that code, valid rows first;
 3. two ``searchsorted`` calls give every probe row its range of matching
    build rows; the candidate count is the ONE host read, and it sizes the
@@ -19,10 +20,15 @@ The matcher is the reference's sorted-build / range-probe design:
 The reference hashes the keys first (``_mix64``) and verifies equality
 after expanding the candidate ranges, so it reads a second count; equal
 codes here ARE equal keys, so every candidate is a match and the one read
-suffices. Left/right/full outer, semi and anti joins, residual conditions,
-string keys and the sub-partitioning of sides past ``batchSizeRows`` are
-not yet ported: the override engine keeps such a join on the CPU, whose
-execution is not yet ported either.
+suffices. Then, as in the reference's ``_join``: a residual condition
+filters the pairs; inner joins return them; the other types count the
+surviving pairs per probe row and flag the build rows they reach: semi
+and anti joins keep the probe rows with and without a match, in order,
+and outer joins append the unmatched rows, null-extended, after the
+pairs (left first, then right). Not yet ported: the sub-partitioning of
+sides past ``batchSizeRows`` (a partition joins in one piece, so past
+that size its row order, not its rows, differs from the reference's) and
+joins without equi-keys (cartesian, nested loop).
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ from typing import Iterator, List, Optional, Sequence
 
 import torch
 
-from ..columnar.batch import TorchColumnarBatch, concat_batches, gather
+from ..columnar.batch import (TorchColumnarBatch, compact, concat_batches,
+                             gather)
 from ..columnar.vector import TorchColumnVector, bucket_capacity, row_mask
 from ..expressions.base import AttributeReference, Expression, to_column
 from ..types import StringType
@@ -52,14 +59,19 @@ def encode_fixed_key_pair(lc: TorchColumnVector, rc: TorchColumnVector,
 
 def _encode_sides(left_cols: List[TorchColumnVector],
                   right_cols: List[TorchColumnVector]):
-    """Per-key (int64 code, validity) lists of both sides."""
+    """Per-key (int64 code, validity) lists of both sides. String keys take
+    their key codes over both sides at once (the reference
+    dictionary-encodes the union of both sides)."""
+    from ..expressions.strings import string_key_codes
     l_enc: list = []
     r_enc: list = []
     for lc, rc in zip(left_cols, right_cols):
-        if isinstance(lc.dtype, StringType) or isinstance(rc.dtype,
-                                                          StringType):
-            raise NotImplementedError("string join keys not yet ported")
-        encode_fixed_key_pair(lc, rc, l_enc, r_enc)
+        if isinstance(lc.dtype, StringType):
+            lv, rv = string_key_codes([lc, rc])
+            l_enc.append((lv, lc.validity))
+            r_enc.append((rv, rc.validity))
+        else:
+            encode_fixed_key_pair(lc, rc, l_enc, r_enc)
     return l_enc, r_enc
 
 
@@ -152,9 +164,21 @@ def gather_pairs(batch: TorchColumnarBatch, idx: torch.Tensor, rows: int,
                   byte_capacity=_string_bytes(batch, idx) or None)
 
 
+_LEFT_OUTER = ("leftouter", "left", "fullouter", "outer", "full")
+_RIGHT_OUTER = ("rightouter", "right", "fullouter", "outer", "full")
+_SEMI = ("leftsemi", "semi")
+_ANTI = ("leftanti", "anti")
+
+
+def _all_null_cols(attrs_or_cols, num_rows: int, capacity: int, device):
+    """All-null columns of the given attributes' (or columns') types."""
+    return [TorchColumnVector.from_scalar(None, c.dtype, num_rows, capacity,
+                                          device) for c in attrs_or_cols]
+
+
 class TorchShuffledHashJoinExec(TorchExec):
-    """Equi-join building on the right side (reference
-    GpuShuffledHashJoinExec, Spark's BuildRight)."""
+    """Equi-join with an optional residual condition, building on the
+    right side (reference GpuShuffledHashJoinExec, Spark's BuildRight)."""
 
     def __init__(self, left: PhysicalPlan, right: PhysicalPlan,
                  join_type: str, left_keys: Sequence[Expression],
@@ -163,14 +187,12 @@ class TorchShuffledHashJoinExec(TorchExec):
                  output: List[AttributeReference],
                  per_partition: bool = False):
         super().__init__([left, right])
-        if join_type != "inner" or condition is not None:
-            raise NotImplementedError(
-                f"{join_type} join with condition={condition is not None} "
-                "not yet ported")
         self.join_type = join_type
         self.left_keys = bind_all(list(left_keys), left.output)
         self.right_keys = bind_all(list(right_keys), right.output)
-        self.condition = None
+        self.condition = (bind_references(condition,
+                                          left.output + right.output)
+                          if condition is not None else None)
         self._output = output
         # both sides hash-partitioned by the keys below: partitions join
         # independently
@@ -200,15 +222,45 @@ class TorchShuffledHashJoinExec(TorchExec):
                                      ctx: TaskContext) -> Iterator:
         left = self._collect_side(self.children[0], ctx, idx)
         right = self._collect_side(self.children[1], ctx, idx)
-        if left is None or right is None or not left.num_rows \
-                or not right.num_rows:
-            return  # an inner join with an empty side is empty
-        out = self._join(left, right, ctx)
-        if out.num_rows:
+        out = self._join_pair(left, right, ctx)
+        if out is not None and out.num_rows:
             yield out
+
+    def _join_pair(self, left: Optional[TorchColumnarBatch],
+                   right: Optional[TorchColumnarBatch],
+                   ctx: TaskContext) -> Optional[TorchColumnarBatch]:
+        """One pair of sides, with the reference's empty-side results."""
+        jt = self.join_type
+        names = [a.name for a in self._output]
+        l_empty = left is None or not left.num_rows
+        r_empty = right is None or not right.num_rows
+        if l_empty and r_empty:
+            return None
+        if l_empty:
+            if jt in _RIGHT_OUTER:
+                nulls = _all_null_cols(self.children[0].output,
+                                       right.num_rows, right.capacity,
+                                       right.device)
+                return TorchColumnarBatch(nulls + right.columns,
+                                          right.num_rows, names)
+            return None
+        if r_empty:
+            if jt in _ANTI:
+                return left.rename(names)
+            if jt in _LEFT_OUTER:
+                # a right outer join has nothing to pad without right rows
+                nulls = _all_null_cols(self.children[1].output,
+                                       left.num_rows, left.capacity,
+                                       left.device)
+                return TorchColumnarBatch(left.columns + nulls,
+                                          left.num_rows, names)
+            return None
+        return self._join(left, right, ctx)
 
     def _join(self, left: TorchColumnarBatch, right: TorchColumnarBatch,
               ctx: TaskContext) -> TorchColumnarBatch:
+        jt = self.join_type
+        names = [a.name for a in self._output]
         lk = [to_column(k.eval_device(left, ctx.eval_ctx), left, k.dtype)
               for k in self.left_keys]
         rk = [to_column(k.eval_device(right, ctx.eval_ctx), right, k.dtype)
@@ -217,24 +269,78 @@ class TorchShuffledHashJoinExec(TorchExec):
         # probe = left, build = right
         pi, bi, n, out_cap = _device_equi_join(r_enc, right.num_rows, l_enc,
                                                left.num_rows)
-        lg = gather_pairs(left, pi, n, out_cap)
-        rg = gather_pairs(right, bi, n, out_cap)
-        return TorchColumnarBatch(lg.columns + rg.columns, n,
-                                  [a.name for a in self._output])
+        joined = TorchColumnarBatch(
+            gather_pairs(left, pi, n, out_cap).columns
+            + gather_pairs(right, bi, n, out_cap).columns, n)
+        pair_keep = pi >= 0
+        if self.condition is not None:
+            cond = to_column(self.condition.eval_device(joined, ctx.eval_ctx),
+                             joined)
+            keep = cond.data.to(torch.bool)
+            if cond.validity is not None:
+                keep = keep & cond.validity
+            pair_keep = pair_keep & keep
+            joined = compact(joined, keep)
+        if jt in ("inner", "cross"):
+            return joined.rename(names)
+
+        # bookkeeping over the pairs that survive the condition
+        l_cap, r_cap, dev = left.capacity, right.capacity, left.device
+        match_cnt = torch.zeros(l_cap + 1, dtype=torch.int64, device=dev)
+        match_cnt.index_add_(0, torch.where(pair_keep, pi, l_cap),
+                             torch.ones_like(pi))
+        matched_l = match_cnt[:l_cap] > 0
+        lmask = row_mask(left.num_rows, l_cap, dev)
+        if jt in _SEMI:
+            return compact(left, matched_l & lmask).rename(names)
+        if jt in _ANTI:
+            return compact(left, ~matched_l & lmask).rename(names)
+        parts = [joined] if joined.num_rows else []
+        if jt in _LEFT_OUTER:
+            unmatched = compact(left, ~matched_l & lmask)
+            if unmatched.num_rows:
+                nulls = _all_null_cols(right.columns, unmatched.num_rows,
+                                       unmatched.capacity, dev)
+                parts.append(TorchColumnarBatch(unmatched.columns + nulls,
+                                                unmatched.num_rows))
+        if jt in _RIGHT_OUTER:
+            matched_r = torch.zeros(r_cap + 1, dtype=torch.bool, device=dev)
+            matched_r[torch.where(pair_keep, bi, r_cap)] = True
+            unmatched = compact(right, ~matched_r[:r_cap]
+                                & row_mask(right.num_rows, r_cap, dev))
+            if unmatched.num_rows:
+                nulls = _all_null_cols(left.columns, unmatched.num_rows,
+                                       unmatched.capacity, dev)
+                parts.append(TorchColumnarBatch(nulls + unmatched.columns,
+                                                unmatched.num_rows))
+        return concat_batches(parts or [joined]).rename(names)
+
+
+#: the join type of the same join with its sides swapped (semi and anti
+#: joins are bound to their left side and do not flip)
+_MIRROR_JOIN = {"inner": "inner", "cross": "cross",
+                "leftouter": "rightouter", "left": "rightouter",
+                "rightouter": "leftouter", "right": "leftouter",
+                "fullouter": "fullouter", "outer": "fullouter",
+                "full": "fullouter"}
 
 
 class TorchShuffledSymmetricHashJoinExec(TorchShuffledHashJoinExec):
     """Builds each partition on whichever side materialized smaller: when
-    the left is smaller the sides flip (an inner join is its own mirror),
-    and the output columns are put back in order."""
+    the left is smaller the sides flip, the join type mirrors (a left outer
+    join becomes a right outer one), and the output columns are put back
+    in order. Semi and anti joins keep their orientation."""
 
     def __init__(self, left, right, join_type, left_keys, right_keys,
                  condition, output, per_partition: bool = False):
         super().__init__(left, right, join_type, left_keys, right_keys,
                          condition, output, per_partition)
-        self._twin = TorchShuffledHashJoinExec(
-            right, left, join_type, right_keys, left_keys,
-            condition, list(right.output) + list(left.output), per_partition)
+        self._twin = None
+        if join_type in _MIRROR_JOIN:
+            self._twin = TorchShuffledHashJoinExec(
+                right, left, _MIRROR_JOIN[join_type], right_keys, left_keys,
+                condition, list(right.output) + list(left.output),
+                per_partition)
         self._n_left_cols = len(left.output)
 
     def node_desc(self) -> str:
@@ -242,7 +348,7 @@ class TorchShuffledSymmetricHashJoinExec(TorchShuffledHashJoinExec):
 
     def _join(self, left: TorchColumnarBatch, right: TorchColumnarBatch,
               ctx: TaskContext) -> TorchColumnarBatch:
-        if left.num_rows < right.num_rows:
+        if self._twin is not None and left.num_rows < right.num_rows:
             out = self._twin._join(right, left, ctx)
             nl = self._n_left_cols
             cols = out.columns[len(out.columns) - nl:] + \

@@ -2,15 +2,16 @@
 (port of ``spark_rapids_tpu/execs/oocsort.py``).
 
 Each input batch is sorted in-core into a run, and its keys' int64
-encodings (8 bytes a row a key) are copied to the host. The global order is
+encodings are copied to the host: 8 bytes a row a fixed-width key, and a
+string key as its 8-byte words and its length (``string_words``), which
+compare across runs once padded to one width. The global order is
 one ``np.lexsort`` over every run's keys; each output slice gathers its
 rows run by run and finish-sorts in-core. For aggregation, slice ends snap
 to group-key boundaries so no group straddles two output batches.
 
 Sorted runs stay on the device: the reference parks them in its spill
-catalog (device → host → disk), which is not yet ported. String keys are
-int64 like the others here (their packed encoding), so the host never
-holds a string.
+catalog (device → host → disk), which is not yet ported. The host holds
+only int64 key words, never a string.
 """
 
 from __future__ import annotations
@@ -22,7 +23,17 @@ import torch
 
 from ..columnar.batch import (TorchColumnarBatch, bucket_capacity,
                               concat_batches, gather)
+from ..expressions.strings import PADDING_WORD, longest_string, string_words
 from ..plan.logical import SortOrder
+
+
+def _run_key_words(col) -> List[torch.Tensor]:
+    """A key column's int64 words for the host merge: its sortable bits
+    (fixed width), or its ``string_words`` at this run's width."""
+    from .aggregates import _sortable_bits
+    if col.offsets is not None:
+        return string_words(col, -(-longest_string([col]) // 8))
+    return [_sortable_bits(col).to(torch.int64)]
 
 
 class OutOfCoreSorter:
@@ -30,54 +41,60 @@ class OutOfCoreSorter:
         self.order = order
         self.ctx = ctx
         self.runs: List[TorchColumnarBatch] = []
-        # per run, per key: (int64 values, validity or None) on the host
-        self.run_keys: List[List[Tuple[np.ndarray, Optional[np.ndarray]]]] = []
+        # per run, per key: (int64 words, validity or None) on the host
+        self.run_keys: List[List[Tuple[List[np.ndarray],
+                                       Optional[np.ndarray]]]] = []
         self.total_rows = 0
 
     def add_batch(self, batch: TorchColumnarBatch) -> None:
         """Sort the run in-core and snapshot its host keys."""
         from .sort import sort_permutation
-        perm, enc = sort_permutation(batch, self.order, self.ctx)
+        perm, key_cols = sort_permutation(batch, self.order, self.ctx)
         n = batch.num_rows
         self.runs.append(gather(batch, perm, n, out_capacity=batch.capacity))
         rows = perm[:n]
         self.run_keys.append([
-            (vals[rows].to(torch.int64).cpu().numpy(),
-             None if valid is None else valid[rows].cpu().numpy())
-            for vals, valid in enc])
+            ([w[rows].cpu().numpy() for w in _run_key_words(c)],
+             None if c.validity is None else c.validity[rows].cpu().numpy())
+            for c in key_cols])
         self.total_rows += n
 
     # -- host-side global order --------------------------------------------
 
     def _transformed_keys(self) -> List[np.ndarray]:
-        """Per sort key, TWO int64 arrays over all runs — (null_flag, value)
-        — so ascending np.lexsort yields the requested order without a
-        sentinel encoding."""
+        """Per sort key, its null flag and then its words as int64 arrays
+        over all runs, so ascending np.lexsort yields the requested order
+        without a sentinel encoding. A string key's runs pad their words to
+        the widest run's, before the length."""
         out = []
         for ki, o in enumerate(self.order):
             parts = [rk[ki] for rk in self.run_keys]
-            v = np.concatenate([p[0] for p in parts]) if parts else \
-                np.array([], dtype=np.int64)
+            width = max((len(p[0]) for p in parts), default=1)
+            words = [p[0][:-1] + [np.full(len(p[0][-1]), PADDING_WORD,
+                                          np.int64)] * (width - len(p[0]))
+                     + p[0][-1:] for p in parts]
             valid = np.concatenate(
-                [p[1] if p[1] is not None else np.ones(len(p[0]), bool)
+                [p[1] if p[1] is not None else np.ones(len(p[0][0]), bool)
                  for p in parts]) if parts else np.array([], dtype=bool)
-            if not o.ascending:
-                v = np.int64(-1) ^ v
-            v = np.where(valid, v, 0)  # the flag key orders the nulls
             flag = np.where(valid, 1, 0) if o.nulls_first \
                 else np.where(valid, 0, 1)
             out.append(flag.astype(np.int64))
-            out.append(v)
+            for i in range(width):
+                v = np.concatenate([w[i] for w in words]) if parts else \
+                    np.array([], dtype=np.int64)
+                if not o.ascending:
+                    v = np.int64(-1) ^ v
+                out.append(np.where(valid, v, 0))  # the flag orders nulls
         return out
 
     def _global_order(self):
         """→ (run_id, row_id, keys) arrays in global sorted order."""
         run_ids = np.concatenate(
-            [np.full(len(rk[0][0]), i, dtype=np.int32)
+            [np.full(len(rk[0][0][0]), i, dtype=np.int32)
              for i, rk in enumerate(self.run_keys)]) \
             if self.run_keys else np.array([], np.int32)
         row_ids = np.concatenate(
-            [np.arange(len(rk[0][0]), dtype=np.int64)
+            [np.arange(len(rk[0][0][0]), dtype=np.int64)
              for rk in self.run_keys]) if self.run_keys else \
             np.array([], np.int64)
         keys = self._transformed_keys()

@@ -4,8 +4,8 @@ in-core sort, ``TorchSortExec`` and ``TorchTopNExec``).
 Algorithm: an order-preserving integer encoding per key, iterated stable
 sorts (least-significant key first) and one gather. The reference ranks
 string keys on the host with ``pyarrow``; the port sorts them by their
-packed encoding (``aggregates.pack_string_keys``), which is lexicographic
-for strings of up to 7 bytes and computed on the device. Past
+key codes (``expressions.strings.string_key_codes``: UTF-8 byte order,
+any length), computed on the device. Past
 ``batchSizeRows`` rows a global sort goes out of core (execs/oocsort.py).
 """
 
@@ -15,36 +15,21 @@ from typing import Iterator, List
 
 from ..columnar.batch import (TorchColumnarBatch, concat_batches, gather,
                              slice_batch)
-from ..columnar.vector import TorchColumnVector
 from ..expressions.base import to_column
 from ..plan.logical import SortOrder
-from ..types import StringType
-from .aggregates import (MAX_PACKED_KEY_BYTES, encode_group_keys,
-                         lex_sort_permutation, string_key_overflow)
+from .aggregates import encode_group_keys, lex_sort_permutation
 from .base import PhysicalPlan, TaskContext, TorchExec, bind_references
-
-
-def encode_sort_keys(cols: List[TorchColumnVector], num_rows: int,
-                     capacity: int):
-    """(sortable int values, validity) per key; strings longer than the
-    packed 7 bytes raise (one host check a string key)."""
-    for c in cols:
-        if isinstance(c.dtype, StringType) and bool(string_key_overflow(c)):
-            raise NotImplementedError(
-                f"string sort keys longer than {MAX_PACKED_KEY_BYTES} bytes "
-                "not yet ported")
-    return encode_group_keys(cols, num_rows, capacity)
 
 
 def sort_permutation(batch: TorchColumnarBatch, order: List[SortOrder],
                      ctx: TaskContext):
-    """(permutation over the capacity, encoded keys) of one batch."""
+    """(permutation over the capacity, key columns) of one batch."""
     key_cols = [to_column(o.child.eval_device(batch, ctx.eval_ctx), batch,
                           o.child.dtype) for o in order]
-    enc = encode_sort_keys(key_cols, batch.num_rows, batch.capacity)
+    enc = encode_group_keys(key_cols, batch.num_rows, batch.capacity)
     perm = lex_sort_permutation(enc, batch.num_rows, batch.capacity,
                                 [(o.ascending, o.nulls_first) for o in order])
-    return perm, enc
+    return perm, key_cols
 
 
 def sort_batch(batch: TorchColumnarBatch, order: List[SortOrder],

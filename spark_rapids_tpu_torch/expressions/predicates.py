@@ -176,4 +176,4 @@ class Not(UnaryExpression):
                            c.num_rows)
 
     def pretty(self) -> str:
-        return f"(NOT {self.child.pretty()})"
+        return f"NOT {self.child.pretty()}"

@@ -1,5 +1,6 @@
-"""pyspark.sql.functions-compatible surface (the Q1 subset of
-``spark_rapids_tpu/functions.py``)."""
+"""pyspark.sql.functions-compatible surface (the subset of
+``spark_rapids_tpu/functions.py`` that TPC-H q1, q3, q4, q6, q13 and q18
+use)."""
 
 from __future__ import annotations
 
@@ -32,6 +33,15 @@ def sum(c) -> Column:  # noqa: A001
 def count(c) -> Column:
     return Column(_G.Count(_expr_or_col(c) if not isinstance(c, str) or c != "*"
                            else Literal(1)))
+
+
+def count_star() -> Column:
+    return Column(_G.Count(Literal(1)))
+
+
+def like(c, pattern: str) -> Column:
+    from .expressions.strings import Like
+    return Column(Like(_expr_or_col(c), pattern))
 
 
 def avg(c) -> Column:

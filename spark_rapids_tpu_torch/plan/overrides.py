@@ -29,7 +29,6 @@ from ..execs.joins import CpuShuffledHashJoinExec
 from ..execs.transitions import (CpuDeviceScanExec, DeviceToHostExec,
                                  HostToDeviceExec)
 from ..shuffle.exchange import CpuShuffleExchangeExec
-from ..types import StringType
 from .meta import PlanMeta
 
 log = logging.getLogger("spark_rapids_tpu_torch")
@@ -146,22 +145,16 @@ def _tag_hash_join(meta: PlanMeta) -> None:
     meta.add_exprs(p.right_keys)
     if p.condition is not None:
         meta.add_exprs([p.condition])
-        meta.will_not_work_on_tpu(
-            "join with a residual condition not yet ported")
-    if p.join_type != "inner":
-        meta.will_not_work_on_tpu(f"{p.join_type} join not yet ported")
-    if any(isinstance(k.dtype, StringType)
-           for k in list(p.left_keys) + list(p.right_keys)):
-        meta.will_not_work_on_tpu("string join keys not yet ported")
 
 
 def _convert_hash_join(meta: PlanMeta, children):
     from ..config import SYMMETRIC_JOIN_ENABLED
-    from ..execs.joins import (TorchShuffledHashJoinExec,
+    from ..execs.joins import (_MIRROR_JOIN, TorchShuffledHashJoinExec,
                                TorchShuffledSymmetricHashJoinExec)
     p = meta.plan
     cls = TorchShuffledSymmetricHashJoinExec \
-        if meta.conf.get(SYMMETRIC_JOIN_ENABLED) else TorchShuffledHashJoinExec
+        if meta.conf.get(SYMMETRIC_JOIN_ENABLED) \
+        and p.join_type in _MIRROR_JOIN else TorchShuffledHashJoinExec
     return cls(children[0], children[1], p.join_type, p.left_keys,
                p.right_keys, p.condition, p.output,
                per_partition=p.per_partition)

@@ -45,6 +45,7 @@ def _register_builtin_exprs() -> None:
     from ..expressions import base as B
     from ..expressions import cast as C
     from ..expressions import predicates as P
+    from ..expressions import strings as S
     sig_all = TypeSigs.all_basic
     register_expr(B.Literal, sig_all, "literal value")
     register_expr(B.AttributeReference, sig_all, "column reference")
@@ -61,6 +62,7 @@ def _register_builtin_exprs() -> None:
     register_expr(P.And, TypeSigs.BOOLEAN, "logical AND (Kleene)")
     register_expr(P.Or, TypeSigs.BOOLEAN, "logical OR (Kleene)")
     register_expr(P.Not, TypeSigs.BOOLEAN, "logical NOT")
+    register_expr(S.Like, TypeSigs.BOOLEAN, "SQL LIKE with % and _")
     register_expr(AGG.Sum, TypeSigs.numeric, "sum aggregate")
     register_expr(AGG.Average, TypeSigs.numeric, "average aggregate")
     # min/max of strings reduce on the host in the reference (pyarrow);

@@ -99,6 +99,10 @@ class Column:
         from .expressions.predicates import Not
         return Column(Not(self._expr))
 
+    def like(self, pattern: str) -> "Column":
+        from .expressions.strings import Like
+        return Column(Like(self._expr, pattern))
+
     def alias(self, name: str) -> "Column":
         return Column(Alias(self._expr, name))
 

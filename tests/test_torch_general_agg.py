@@ -196,28 +196,29 @@ def _assert_rows_equal(want, got, keys, ordered=False):
 _REF_ROWS = {}
 
 
-def _reference_rows(conf, table, query, cached, parts=1):
-    """The reference's rows, once per (conf, table, query) in this module.
-    By default the reference runs one partition: its answer does not depend
-    on the partitioning, and its multi-partition plan adds a shuffle
-    exchange that only costs compile time here."""
-    key = (tuple(sorted(conf.items())), id(table), query, parts)
+def _reference_rows(conf, table, query):
+    """The reference's rows, once per (conf, table, query) in this module,
+    over one partition of the host table: its answer depends on neither
+    the partitioning nor the caching nor the batch size (out of core or
+    not), and each of those shapes only costs the reference compile time
+    here."""
+    conf = {k: v for k, v in conf.items()
+            if k not in ("spark.rapids.sql.batchSizeRows",
+                         "spark.sql.shuffle.partitions")}
+    key = (tuple(sorted(conf.items())), id(table), query)
     if key not in _REF_ROWS:
-        df = TpuSession(dict(conf)).createDataFrame(table,
-                                                    num_partitions=parts)
-        _REF_ROWS[key] = query(RF, df.device_cache() if cached else df) \
-            .collect()
+        _REF_ROWS[key] = query(RF, TpuSession(dict(conf)).createDataFrame(
+            table)).collect()
     return _REF_ROWS[key]
 
 
-def _both(conf, table, query, parts=1, cached=False, ref_conf=None,
-          ref_parts=1):
+def _both(conf, table, query, parts=1, cached=False, ref_conf=None):
     """(reference rows, port rows, port session, port plan); the reference
-    runs ``ref_conf`` (default: the port's conf) over ``ref_parts``."""
+    runs ``ref_conf`` (default: the port's conf)."""
     s = TorchSession(dict(conf), device="cpu")
     port = s.createDataFrame(table, num_partitions=parts)
     q = query(TF, port.device_cache() if cached else port)
-    want = _reference_rows(ref_conf or conf, table, query, cached, ref_parts)
+    want = _reference_rows(ref_conf or conf, table, query)
     return want, q.collect(), s, q.explain()
 
 
@@ -226,10 +227,10 @@ def _both(conf, table, query, parts=1, cached=False, ref_conf=None,
     ("q1", 20000, 1 << 20, False, 1, False),
     ("q1", 4096, 1 << 20, True, 1, True),
     ("q1", 4096, 1 << 20, False, 3, False),
-    ("q1", 1500, 1000, True, 3, True),
+    ("q1", 4096, 1000, True, 3, True),
     ("q6", 4096, 1 << 20, False, 1, True),
     ("q6", 20000, 1 << 20, True, 1, False),
-    ("q6", 1500, 1000, False, 3, True),
+    ("q6", 4096, 1000, False, 3, True),
 ], ids=["q1-4096", "q1-20000", "q1-nulls", "q1-3parts", "q1-ooc-nulls",
         "q6-4096", "q6-20000-nulls", "q6-chunked"])
 def test_general_path_matches_reference(query, n, batch_rows, nulls, parts,
@@ -240,10 +241,10 @@ def test_general_path_matches_reference(query, n, batch_rows, nulls, parts,
         # gathers every row into one reduce partition, past batchSizeRows
         conf["spark.sql.shuffle.partitions"] = "1"
     fn = _q1 if query == "q1" else _q6
-    # the out-of-core cases run the reference out of core as well
+    # the out-of-core cases share the reference's rows with the in-core
+    # cases over the same table
     want, got, s, plan = _both(conf, _lineitem_table(n, nulls), fn, parts,
-                               cached, ref_parts=parts if batch_rows < n
-                               else 1)
+                               cached)
     assert "TorchHashAggregate" in plan and "TorchCompiledAggStage" not in plan
     keys = ("l_returnflag", "l_linestatus") if query == "q1" else ()
     _assert_rows_equal(want, got, keys)

@@ -13,6 +13,7 @@ whole aggregate without the limit, as a set keyed by o_orderkey."""
 import functools
 
 import numpy as np
+import pyarrow as pa
 import pytest
 import torch
 
@@ -184,18 +185,24 @@ def test_exchange_blocks_leave_with_the_query():
     assert ShuffleCatalog.get().num_blocks() == before
 
 
-def _star_tables(s, dense: bool):
+def _star_tables(s, dense: bool, strings: bool = False):
     """A fact and a dimension, the dimension's rows unique on (d1, d2), or
     with ``dense`` on d1 alone, whose values are then contiguous; a
-    dimension column ``g`` repeats."""
+    dimension column ``g`` repeats. With ``strings`` two string columns:
+    ``name`` is unique a row (16 bytes, the first 13 shared), ``tag``
+    repeats (14-18 bytes)."""
     rng = np.random.default_rng(9)
     n_dim, n_fact = 300, 5000
     perm = rng.permutation(n_dim).astype(np.int64)
     d1, d2 = perm // 3, (perm % 3 + 9000).astype("datetime64[D]")
     if dense:
         d1 = perm + 5
-    dim = s.createDataFrame({"d1": d1, "d2": d2,
-                             "g": rng.integers(0, 40, n_dim)})
+    cols = {"d1": d1, "d2": d2, "g": rng.integers(0, 40, n_dim)}
+    if strings:
+        cols["name"] = np.array([f"customer#{p:07d}" for p in perm], object)
+        cols["tag"] = np.array(["shared-prefix-" + "x" * (p % 5)
+                                for p in perm], object)
+    dim = s.createDataFrame(cols)
     fact = s.createDataFrame({
         "f1": rng.integers(0, 110, n_fact).astype(np.int32),
         "f2": (rng.integers(0, 4, n_fact) + 9000).astype("datetime64[D]"),
@@ -206,7 +213,8 @@ def _star_tables(s, dense: bool):
 def _star_query(F, s, group, dense: bool):
     """The star tables joined on (f1, f2) = (d1, d2), or with ``dense`` on
     f1 = d1 alone, grouped by ``group``: sum, count and max of v."""
-    fact, dim = _star_tables(s, dense)
+    fact, dim = _star_tables(s, dense, strings=bool(
+        {"name", "tag"} & set(group)))
     on = fact["f1"] == dim["d1"]
     if not dense:
         on = on & (fact["f2"] == dim["d2"])
@@ -228,18 +236,33 @@ def _assert_star_groups_equal(want, got):
                                rtol=1e-9)
 
 
-STAR_CASES = pytest.mark.parametrize("group,rerun,dense", [
-    (("d1", "d2"), False, False), (("g",), True, False),
-    (("d1",), False, True)],
-    ids=["composite-key", "non-unique-group", "dense-key"])
+_STAR = {"composite-key": (("d1", "d2"), False, False),
+         "non-unique-group": (("g",), True, False),
+         "dense-key": (("d1",), False, True),
+         "string-group-key": (("name",), False, False),
+         "repeating-string-group-key": (("tag",), True, False)}
+
+
+def _star_cases(ids):
+    return pytest.mark.parametrize("group,rerun,dense",
+                                   [_STAR[i] for i in ids], ids=ids)
+
+
+STAR_CASES = _star_cases(list(_STAR))
+#: the repeating string key re-runs like the repeating int key, and the
+#: reference's re-run over string columns compiles for ~6 s on the CPU
+REF_STAR_CASES = _star_cases([i for i in _STAR
+                              if i != "repeating-string-group-key"])
 
 
 @STAR_CASES
 def test_compiled_join_stage_matches_general_joins(group, rerun, dense):
     """Two join keys pack into the dimension's monotone composite; a single
     contiguous key probes by subtraction; grouping by a dimension column
-    that repeats across dimension rows re-runs on the general joins. Each
-    gives the general path's groups."""
+    that repeats across dimension rows re-runs on the general joins; a
+    string group key past 7 bytes that is unique a row groups by the
+    dimension's row and is gathered at finalize. Each gives the general
+    path's groups."""
     def groups(conf):
         s = TorchSession(dict(BASE, **conf), device="cpu")
         q = _star_query(TF, s, group, dense)
@@ -252,7 +275,7 @@ def test_compiled_join_stage_matches_general_joins(group, rerun, dense):
     _assert_star_groups_equal(want, got)
 
 
-@STAR_CASES
+@REF_STAR_CASES
 def test_compiled_join_stage_matches_reference(group, rerun, dense):
     """The star-join stage's branches against the reference's stage over
     the same tables: the port takes the branch the case names (a composite
@@ -297,3 +320,35 @@ def test_group_sum_leaves_the_dropped_rows_out():
     torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
     counts = _GroupOrder(gcode, G).sum(torch.ones(4000, dtype=torch.int64))
     assert torch.equal(counts, torch.bincount(gcode, minlength=G))
+
+
+def _semi_star_query(F, s):
+    """The star tables' fact, semi-joined to a table whose keys repeat and
+    hold nulls, joined to the dimension, grouped by the dimension's row."""
+    fact, dim = _star_tables(s, False)
+    rng = np.random.default_rng(12)
+    sdim = s.createDataFrame(pa.table({"k": pa.array(
+        rng.integers(0, 80, 200), mask=rng.random(200) < 0.1)}))
+    kept = fact.join(sdim, on=fact["f1"] == sdim["k"], how="leftsemi")
+    return (kept.join(dim, on=(kept["f1"] == dim["d1"])
+                      & (kept["f2"] == dim["d2"]))
+            .groupBy("d1", "d2").agg(F.sum(F.col("v")).alias("s"),
+                                     F.count("*").alias("c"),
+                                     F.max(F.col("v")).alias("m")))
+
+
+def test_compiled_join_stage_semi_dimension_matches_reference():
+    """A left semi join inside the star: its right side becomes a filtering
+    dimension (the first row of each key), in both packages, with the
+    reference's groups and no re-run."""
+    ref = TpuSession(dict(BASE, **REF_ONLY_OFF))
+    rq = _semi_star_query(_ref_functions(), ref)
+    assert "TpuCompiledJoinAggStage[keys=d1, d2, dims=2]" in rq.explain()
+    want = _star_groups(rq.collect(), ("d1", "d2"))
+    assert sum(m.get("fallbackReruns", 0)
+               for m in ref.last_query_metrics("DEBUG").values()) == 0
+    s = TorchSession(BASE, device="cpu")
+    q = _semi_star_query(TF, s)
+    assert "TorchCompiledJoinAggStage[keys=d1, d2, dims=2]" in q.explain()
+    _assert_star_groups_equal(want, _star_groups(q.collect(), ("d1", "d2")))
+    assert s.counters["fallbackReruns"] == 0

@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: TPC-H Q1, Q6, q3, q4,
-q13 and q18 end to end.
+q13 and q18 end to end, and the parquet scan.
 
     python3 chip_smoke.py
 
@@ -7,8 +7,8 @@ Phases (any failure exits nonzero; without a CUDA device it exits 2 and
 prints no result):
 
 1. the card: name and power limit as nvidia-smi reports them, and
-   whether ``import pyarrow`` succeeds on the machine (the port does not
-   use it);
+   whether ``import pyarrow`` succeeds on the machine (the scan needs it:
+   the phase fails without it);
 2. build: both Q1 kernels from spark_rapids_tpu_torch/csrc with nvcc for
    sm_90a; ptxas's registers and spills, and q1_agg_simt's geometry
    (resident blocks an SM, shared memory a block);
@@ -77,7 +77,32 @@ prints no result):
        LIKE over 2^24 strings with '%NOT%', 'PROMO%', '%BRASS', '_-%' and
        an escaped '%'.
    (a) and each query of (b) print phase 6's timing line and their
-   physical plan.
+   physical plan;
+9. the parquet scan (session.read.parquet → the device page decode →
+   the device operators), in a temporary directory deleted at exit:
+   (a) the port's datagen lineitem at 2^24 rows written in bench.py's
+       layout (parts of 2^21 rows through one writer, snappy, row groups
+       of 2^20: 16 row groups), its size printed; the pinned
+       host-to-device copy rate;
+   (b) bench.py's two scan_agg queries (a filter and a group by
+       l_returnflag; a group by three string columns) with the device
+       decode on and off (off: pyarrow reads one row group a chunk, so
+       both paths hand the aggregate the same batches), each against a
+       numpy oracle (keys and counts exact, float64 sums rtol 1e-9); on
+       and off identical, two collects identical, every fallback counter
+       0, the scan pruned to the query's columns;
+   (c) TPC-H Q1 over the same file on the compiled aggregation stage and
+       on the general aggregate (test mode on), against framework_oracle;
+   (d) one file an encoding class at 2^20 rows (PLAIN int32, int64,
+       float32, float64, date and timestamp; RLE_DICTIONARY; booleans;
+       nulls at densities 0, 1/2 and all; data page v2; every codec
+       pa.Codec has, none first; a dictionary that falls back to PLAIN
+       mid-chunk; BYTE_ARRAY strings of 0-40 bytes with nulls, plain and
+       dictionary) and a hive-partitioned directory, decoded on the card
+       and held byte for byte against pyarrow's read of the same file.
+   (b) and (c) print a timing line each: phase 6's fields, the file's
+   GB/s, and the scan's split (host stage, upload, device decode and
+   host decode ms, row groups, bytes staged) a collect.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -1150,6 +1175,471 @@ def tpch_more_paths(F, TorchSession, smi, tables: dict,
     release()
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the parquet scan
+# ---------------------------------------------------------------------------
+
+_RF, _LS = ["A", "N", "R"], ["F", "O"]
+
+
+def lineitem_arrow(cols):
+    """One datagen partition of lineitem as an Arrow table (bench.py's
+    file schema)."""
+    import pyarrow as pa
+
+    from spark_rapids_tpu_torch.columnar.vector import HostStrings
+    out = {}
+    for name, v in cols.items():
+        if isinstance(v, HostStrings):
+            out[name] = pa.StringArray.from_buffers(
+                len(v), pa.py_buffer(v.offsets.astype(np.int32)),
+                pa.py_buffer(v.chars))
+        else:
+            out[name] = pa.array(v)
+    return pa.table(out)
+
+
+def fixed_strings(col) -> np.ndarray:
+    """A host string column (offsets + bytes) as a numpy 'S' array."""
+    offs = col.offsets.astype(np.int64)
+    lens = np.diff(offs)
+    mat = np.zeros((len(lens), max(int(lens.max(initial=0)), 1)), np.uint8)
+    rows = np.repeat(np.arange(len(lens)), lens)
+    mat[rows, np.arange(int(offs[-1])) - np.repeat(offs[:-1], lens)] = \
+        col.chars[:int(offs[-1])]
+    return mat.view(f"S{mat.shape[1]}").ravel()
+
+
+def write_lineitem(path: str, rows: int, part_rows: int, row_group: int):
+    """bench.py's scan_agg file: datagen lineitem (seed 0) written a part
+    at a time through one writer, snappy, row groups of ``row_group`` rows.
+    Returns the host columns the oracles read (strings as 'S' arrays)."""
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.datagen import tpch_lineitem
+    spec = tpch_lineitem(rows)
+    writer, keep = None, {}
+    for part, offset in enumerate(range(0, rows, part_rows)):
+        n = min(part_rows, rows - offset)
+        cols, valid = spec.generate_partition(0, part, n, offset=offset)
+        check(not valid, "datagen lineitem has nulls")
+        t = lineitem_arrow(cols)
+        if writer is None:
+            writer = pq.ParquetWriter(path, t.schema, compression="snappy")
+        writer.write_table(t, row_group_size=row_group)
+        for name in ("l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                     "l_shipdate", "l_returnflag", "l_linestatus",
+                     "l_shipmode", "l_shipinstruct"):
+            v = cols[name]
+            v = fixed_strings(v) if hasattr(v, "chars") else v
+            keep.setdefault(name, []).append(v)
+    writer.close()
+    return {k: np.concatenate(v) for k, v in keep.items()}
+
+
+def scan_agg_query(F, df):
+    """bench.py's _scan_agg query."""
+    return (df.filter(F.col("l_quantity") < 30)
+            .groupBy("l_returnflag")
+            .agg(F.sum(F.col("l_extendedprice")).alias("sum_price"),
+                 F.sum(F.col("l_discount")).alias("sum_disc"),
+                 F.count(F.col("l_quantity")).alias("cnt")))
+
+
+def scan_agg_strings_query(F, df):
+    """bench.py's _scan_agg strings query: three string scan columns."""
+    return (df.groupBy("l_returnflag", "l_linestatus", "l_shipmode")
+            .agg(F.sum(F.col("l_quantity")).alias("sum_qty"),
+                 F.count(F.col("l_shipinstruct")).alias("cnt")))
+
+
+def word_unique(words: np.ndarray):
+    """np.unique of an 'S' array of at most 8 bytes a value, through
+    its uint64 view (keys as str, the inverse)."""
+    keys, inv = np.unique(words.astype("S8").view("<u8"), return_inverse=True)
+    return [k.decode() for k in keys.view("S8")], inv
+
+
+def scan_agg_oracle(cols):
+    """numpy scan_agg: {returnflag: (sum price, sum disc, count)}."""
+    keep = cols["l_quantity"] < 30
+    keys, inv = word_unique(cols["l_returnflag"][keep])
+    price = np.bincount(inv, weights=cols["l_extendedprice"][keep])
+    disc = np.bincount(inv, weights=cols["l_discount"][keep])
+    cnt = np.bincount(inv)
+    return {k: (price[i], disc[i], int(cnt[i])) for i, k in enumerate(keys)}
+
+
+def scan_agg_strings_oracle(cols):
+    """numpy strings query: {(rf, ls, shipmode): (sum qty, count)}."""
+    parts = [word_unique(cols[c])
+             for c in ("l_returnflag", "l_linestatus", "l_shipmode")]
+    code = np.zeros(len(cols["l_quantity"]), np.int64)
+    for keys, inv in parts:
+        code = code * len(keys) + inv
+    qty = np.bincount(code, weights=cols["l_quantity"].astype(np.float64))
+    cnt = np.bincount(code)
+    out = {}
+    for c in np.flatnonzero(cnt):
+        key, rest = [], int(c)
+        for keys, _ in reversed(parts):
+            key.append(keys[rest % len(keys)])
+            rest //= len(keys)
+        out[tuple(reversed(key))] = (int(qty[c]), int(cnt[c]))
+    return out
+
+
+def check_scan_agg(rows, oracle, what: str) -> None:
+    got = {r["l_returnflag"]: r for r in rows}
+    check(set(got) == set(oracle), f"{what}: keys {sorted(got)}")
+    for k, (price, disc, cnt) in oracle.items():
+        r = got[k]
+        check(r["cnt"] == cnt, f"{what} {k}: count {r['cnt']} != {cnt}")
+        check_close(r["sum_price"], price, f"{what} {k} sum_price")
+        check_close(r["sum_disc"], disc, f"{what} {k} sum_disc")
+
+
+def check_scan_agg_strings(rows, oracle, what: str) -> None:
+    got = {(r["l_returnflag"], r["l_linestatus"], r["l_shipmode"]):
+           (r["sum_qty"], r["cnt"]) for r in rows}
+    check(got == oracle, f"{what}: {len(got)} groups differ from the "
+          f"oracle's {len(oracle)}")
+
+
+def q1_oracle_cols(cols):
+    """framework_oracle's input from the scan file's columns."""
+    return {**cols, "l_shipdate": cols["l_shipdate"].astype(np.int32),
+            "l_quantity": cols["l_quantity"].astype(np.float64)}
+
+
+def scan_columns(plan: str):
+    """The column list of the plan's file scan."""
+    line = next(ln for ln in plan.splitlines() if "FileScanExec" in ln)
+    return sorted(line.split("cols=[")[1].split("]")[0].split(", "))
+
+
+def scan_timed_line(key: str, q, s, rows: int, file_bytes: int, smi: str,
+                    **extra) -> None:
+    """timed_line's fields (the caller's collects were the warm-up) plus
+    the scan's GB/s and the best collect's time split."""
+    from spark_rapids_tpu_torch.io.device_decode import decode_stats
+    best = float("inf")
+    for _ in range(3):
+        before, bytes0 = dict(s.counters), decode_stats()["bytes_staged"]
+        t0 = time.perf_counter()
+        q.collect()
+        took = time.perf_counter() - t0
+        if took < best:
+            best = took
+            split = {k: s.counters[k] - before.get(k, 0) for k in s.counters
+                     if k.startswith("scan.")}
+            staged = decode_stats()["bytes_staged"] - bytes0
+    busy_ms, top, ops = profile_device(q.collect, 1)
+    print(json.dumps({key: {
+        "rows": rows, "best_collect_s": best,
+        "mrows_per_s": rows / best / 1e6,
+        "file_gb_per_s": file_bytes / best / 1e9,
+        "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / (best * 1e3),
+        "device_ops": ops,
+        "top_device_ops_ms": [(k[:60], ms) for k, ms in top[:5]],
+        "host_decode_ms": split.get("scan.hostDecodeMs", 0.0),
+        "stage_ms": split.get("scan.stageMs", 0.0),
+        "upload_ms": split.get("scan.uploadMs", 0.0),
+        "device_decode_ms": split.get("scan.deviceDecodeMs", 0.0),
+        "row_groups": split.get("scan.rowGroups", 0),
+        "bytes_staged": staged, **extra}, "card": smi}), flush=True)
+
+
+def encoding_tables(n: int, seed: int = 9):
+    """One small table a device-decode encoding class: (name, table,
+    write options). Values from numpy with the seed."""
+    import pyarrow as pa
+    rng = np.random.default_rng(seed)
+
+    def nulls(k):
+        return None if k == 0 else (np.arange(n) % k == 0)
+
+    fixed = pa.table({
+        "i32": pa.array(rng.integers(-2**31, 2**31, n, dtype=np.int64)
+                        .astype(np.int32), mask=nulls(5)),
+        "i64": pa.array(rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64)),
+        "f32": pa.array(rng.normal(size=n).astype(np.float32),
+                        mask=nulls(7)),
+        "f64": pa.array(rng.normal(size=n)),
+        "date": pa.array(rng.integers(-20000, 20000, n).astype(np.int32),
+                         mask=nulls(3)).cast(pa.date32()),
+        "ts": pa.array(rng.integers(0, 2**52, n), mask=nulls(11)).cast(
+            pa.timestamp("us")),
+    })
+    lowcard = pa.table({
+        "k": pa.array(rng.integers(0, 40, n)),
+        "f": pa.array(rng.integers(0, 90, n) * 0.25, mask=nulls(4)),
+        "d": pa.array(rng.integers(8000, 8100, n).astype(np.int32))
+        .cast(pa.date32()),
+    })
+    bools = pa.table({
+        "b": pa.array(rng.random(n) < 0.3),
+        "b_null": pa.array(rng.random(n) < 0.5, mask=nulls(4)),
+        "b_all_null": pa.nulls(n, pa.bool_()),
+    })
+    densities = pa.table({
+        "none": pa.array(rng.integers(0, 1000, n)),
+        "half": pa.array(rng.integers(0, 1000, n), mask=nulls(2)),
+        "all": pa.nulls(n, pa.int64()),
+    })
+    # k bytes each, "é" being two
+    words = np.array(["é" * (k // 4) + "w" * (k - 2 * (k // 4))
+                      for k in range(41)], dtype=object)
+    lens = rng.integers(0, 41, n)
+    text = words[lens]
+    text[np.arange(n) % 6 == 0] = None
+    strings = pa.table({
+        "s": pa.array(text, pa.string()),
+        "key": pa.array(np.array(["alpha", "beta", "", "gamma-delta"],
+                                 dtype=object)[rng.integers(0, 4, n)]),
+    })
+    overflow = pa.table({"x": pa.array(np.arange(n, dtype=np.int64) * 7919),
+                         "y": pa.array(np.arange(n) / 3.0)})
+    out = [("plain", fixed, dict(use_dictionary=False)),
+           ("dictionary", lowcard, dict(use_dictionary=True)),
+           ("booleans", bools, {}),
+           ("null-densities", densities, {}),
+           ("page-v2", fixed, dict(data_page_version="2.0")),
+           ("dict-overflow", overflow,
+            dict(dictionary_pagesize_limit=1 << 16)),
+           ("strings-plain", strings, dict(use_dictionary=False)),
+           ("strings-dictionary", strings, dict(use_dictionary=True))]
+    for codec in ("NONE", "snappy", "gzip", "brotli", "zstd", "lz4"):
+        if codec == "NONE" or pa.Codec.is_available(codec):
+            out.append((f"codec-{codec}", fixed, dict(compression=codec)))
+    return out
+
+
+def arrow_equal_columns(batch, table, what: str) -> None:
+    """A host batch of the port against an Arrow table, byte for byte:
+    null masks, fixed-width values under them, strings' bytes."""
+    import pyarrow as pa
+    n = batch.num_rows
+    check(n == table.num_rows, f"{what}: {n} rows, want {table.num_rows}")
+    for name, col in zip(batch.names, batch.columns):
+        arr = table.column(name).combine_chunks()
+        valid = np.asarray(arr.is_valid().to_numpy(zero_copy_only=False))
+        got_valid = col.validity_or_true()[:n].numpy()
+        check(np.array_equal(got_valid, valid), f"{what} {name}: nulls")
+        if col.offsets is not None:
+            offs = np.frombuffer(arr.buffers()[1], np.int32, n + 1,
+                                 arr.offset * 4).astype(np.int64)
+            chars = np.frombuffer(arr.buffers()[2], np.uint8) \
+                if arr.buffers()[2] is not None else np.zeros(0, np.uint8)
+            got_offs = col.offsets[:n + 1].numpy().astype(np.int64)
+            lens = np.where(valid, np.diff(offs), 0)
+            check(np.array_equal(np.diff(got_offs), lens),
+                  f"{what} {name}: string lengths")
+            src = np.repeat(offs[:-1], lens) + (
+                np.arange(int(lens.sum())) - np.repeat(
+                    np.cumsum(lens) - lens, lens))
+            check(np.array_equal(col.data[:int(got_offs[-1])].numpy(),
+                                 chars[src]), f"{what} {name}: bytes")
+            continue
+        t = arr.type
+        if pa.types.is_date32(t):
+            arr = arr.cast(pa.int32())
+        elif pa.types.is_timestamp(t):
+            arr = arr.cast(pa.int64())
+        want = np.asarray(arr.fill_null(
+            False if pa.types.is_boolean(arr.type) else 0).to_numpy(
+            zero_copy_only=False))
+        got = col.data[:n].numpy()
+        if got.dtype.kind == "f":
+            got, want = got.view(f"i{got.itemsize}"), want.view(
+                f"i{want.itemsize}")
+        check(np.array_equal(np.where(valid, got, 0),
+                             np.where(valid, want, 0)),
+              f"{what} {name}: values")
+
+
+def encoding_classes(TorchSession, d: str, n: int, device: str) -> None:
+    """(d): one file an encoding class, decoded on the device and held
+    byte for byte against pyarrow's read of the same file; then a
+    hive-partitioned directory."""
+    import os
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.columnar.batch import concat_batches
+    from spark_rapids_tpu_torch.io.device_decode import FALLBACK_KEYS
+
+    def device_read(path, want):
+        s = TorchSession({}, device=device)
+        df = s.read.parquet(path)
+        batches = s._execute_batches(df._plan)
+        batch = concat_batches(batches).rename(df.columns)
+        for k in FALLBACK_KEYS:
+            check(s.counters[k] == 0, f"{path}: {k} = {s.counters[k]}")
+        check(s.counters["scan.rowGroups"] == want,
+              f"{path}: {s.counters['scan.rowGroups']} row groups decoded, "
+              f"want {want}")
+        return batch
+
+    names = []
+    tables = encoding_tables(n)
+    for name, table, opts in tables:
+        path = f"{d}/{name}.parquet"
+        opts = {"row_group_size": n // 4, "data_page_size": 1 << 16,
+                "compression": "snappy", **opts}
+        pq.write_table(table, path, **opts)
+        md = pq.ParquetFile(path).metadata
+        if name == "dict-overflow":
+            enc = set(md.row_group(0).column(0).encodings)
+            check({"PLAIN", "RLE_DICTIONARY"} <= enc,
+                  f"the writer did not fall back mid-chunk: {enc}")
+        want = pq.read_table(path)
+        want = pa.table({f.name: (want.column(f.name).cast(
+            pa.timestamp("us", tz="UTC")) if pa.types.is_timestamp(f.type)
+            else want.column(f.name)) for f in want.schema})
+        arrow_equal_columns(device_read(path, md.num_row_groups), want, name)
+        names.append(name)
+    # a hive-partitioned directory: two partition values, two files each
+    root = f"{d}/hive"
+    table = tables[0][1]
+    for k in (3, 7):
+        os.makedirs(f"{root}/part={k}")
+        for i in range(2):
+            pq.write_table(table.slice(i * n // 2, n // 2),
+                           f"{root}/part={k}/f{i}.parquet",
+                           row_group_size=n // 4)
+    got = device_read(root, 8)
+    want = pa.concat_tables([table.slice(i * n // 2, n // 2)
+                             for _ in (3, 7) for i in range(2)])
+    want = pa.table({f.name: (want.column(f.name).cast(
+        pa.timestamp("us", tz="UTC")) if pa.types.is_timestamp(f.type)
+        else want.column(f.name)) for f in want.schema})
+    want = want.append_column("part", pa.array([3] * n + [7] * n,
+                                               pa.int64()))
+    arrow_equal_columns(got, want, "hive")
+    names.append("hive")
+    print(f"(d) {len(names)} encoding classes at {n} rows decoded on the "
+          f"device equal pyarrow byte for byte: {', '.join(names)}",
+          flush=True)
+
+
+def copy_rate_gbps(nbytes: int = 256 << 20) -> float:
+    """Pinned host-to-device copy rate by CUDA events (median of 5)."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    ms = time_ms(lambda: dev.copy_(host, non_blocking=True), 1)
+    return nbytes / (ms / 1e3) / 1e9
+
+
+def scan_paths(F, TorchSession, smi, device: str = "cuda",
+               rows: int = N_BIG, part_rows: int = 1 << 21,
+               row_group: int = 1 << 20, enc_rows: int = 1 << 20) -> None:
+    """Phase 9: (a)-(d). With ``device="cpu"`` and small sizes it checks
+    the script's own logic off the card (no timing lines)."""
+    import os
+    import tempfile
+
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.io.device_decode import FALLBACK_KEYS
+    on_card = device == "cuda"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scan_") as d:
+        # (a) the file
+        path = os.path.join(d, "lineitem.parquet")
+        t0 = time.perf_counter()
+        cols = write_lineitem(path, rows, part_rows, row_group)
+        file_bytes = os.path.getsize(path)
+        n_rg = pq.ParquetFile(path).metadata.num_row_groups
+        check(n_rg == -(-rows // row_group), f"{n_rg} row groups")
+        print(f"(a) lineitem at {rows} rows written in "
+              f"{time.perf_counter() - t0:.1f} s: {file_bytes / 1e9:.3f} GB, "
+              f"{n_rg} row groups of {row_group}", flush=True)
+        if on_card:
+            rate = copy_rate_gbps()
+            print(json.dumps({"pinned_h2d_copy_gbps": rate,
+                              "hbm_bound_gbps": card_peaks(
+                                  torch.cuda.get_device_name(0))[0] / 1e9,
+                              "card": smi}), flush=True)
+
+        # (b) bench.py's scan_agg queries, device decode on and off; (c) Q1
+        on = {}
+        # the host path reads one row group a chunk, so both paths hand
+        # the aggregation the same batches and their rows compare exactly
+        off = {"spark.rapids.tpu.parquet.deviceDecode.enabled": "false",
+               "spark.rapids.sql.reader.chunked.maxDecodeBytes": "1"}
+        general = {"spark.rapids.tpu.agg.compiledStage.enabled": "false",
+                   "spark.rapids.sql.test.enabled": "true"}
+        t_case = time.perf_counter()
+        q1_oracle = framework_oracle(q1_oracle_cols(cols))
+        agg_oracle = scan_agg_oracle(cols)
+        strings_oracle = scan_agg_strings_oracle(cols)
+        del cols
+        print(f"  oracles: {time.perf_counter() - t_case:.1f} s", flush=True)
+        cases = [
+            ("scan_agg", scan_agg_query, (on, off),
+             lambda r, w: check_scan_agg(r, agg_oracle, w),
+             ["l_discount", "l_extendedprice", "l_quantity",
+              "l_returnflag"]),
+            ("scan_agg_strings", scan_agg_strings_query, (on, off),
+             lambda r, w: check_scan_agg_strings(r, strings_oracle, w),
+             ["l_linestatus", "l_quantity", "l_returnflag", "l_shipinstruct",
+              "l_shipmode"]),
+            ("q1_scan", framework_query, (on, general),
+             lambda r, w: check_framework_rows(r, q1_oracle),
+             ["l_discount", "l_extendedprice", "l_linestatus", "l_quantity",
+              "l_returnflag", "l_shipdate", "l_tax"])]
+        for key, query, confs, check_rows, want_cols in cases:
+            results = []
+            for conf in confs:
+                tag = "on" if conf is on else ("off" if conf is off
+                                               else "general")
+                t_case = time.perf_counter()
+                s = TorchSession(conf, device=device)
+                q = query(F, s.read.parquet(path))
+                plan = quiet_plan(q)
+                check(scan_columns(plan) == want_cols,
+                      f"{key} {tag}: scan columns {scan_columns(plan)}")
+                # count(l_shipinstruct) reads a string that is not a
+                # group key: that query plans the general aggregate
+                compiled = conf is not general and key != "scan_agg_strings"
+                check(("TorchCompiledAggStage" in plan) == compiled
+                      and "TorchFileScanExec" in plan,
+                      f"{key} {tag}: plan\n{plan}")
+                first, second = q.collect(), q.collect()
+                check_rows(first, f"{key} {tag}")
+                check(first == second, f"{key} {tag}: two collects differ")
+                for k in FALLBACK_KEYS:
+                    check(s.counters[k] == 0, f"{key} {tag}: {k} = "
+                          f"{s.counters[k]}")
+                if conf is not off:
+                    check(s.counters["scan.rowGroups"] == 2 * n_rg,
+                          f"{key} {tag}: {s.counters['scan.rowGroups']} "
+                          "row groups decoded")
+                results.append(sorted(first, key=str))
+                print(f"({'c' if key == 'q1_scan' else 'b'}) {key} decode "
+                      f"{tag} at {rows} rows ok ({len(first)} rows equal the "
+                      "oracle; two collects identical; no fallback)",
+                      flush=True)
+                if on_card:
+                    scan_timed_line(f"{key}_{tag}", q, s, rows, file_bytes,
+                                    smi)
+                print(f"  {key} {tag}: {time.perf_counter() - t_case:.1f} s",
+                      flush=True)
+                del q, s
+            if confs[1] is off:
+                check(results[0] == results[1],
+                      f"{key}: device decode on and off differ")
+            if on_card:
+                torch.cuda.empty_cache()
+
+        # (d) every encoding class, and a partitioned directory
+        t_case = time.perf_counter()
+        encoding_classes(TorchSession, d, enc_rows, device)
+        print(f"  (d): {time.perf_counter() - t_case:.1f} s", flush=True)
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1168,11 +1658,11 @@ def main() -> int:
     mem_bps, f32_ops, tf32_ops = card_peaks(name)
     print(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
-    # the parquet scan's host side leans on pyarrow in the reference: is it
-    # on this machine? (the port does not import it)
+    # the parquet scan's host side (footer, codecs, host reads) needs it
     has_pyarrow = subprocess.run([sys.executable, "-c", "import pyarrow"],
                                  capture_output=True).returncode == 0
     print(f"import pyarrow: {'ok' if has_pyarrow else 'fails'}", flush=True)
+    check(has_pyarrow, "pyarrow does not import: the parquet scan needs it")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
 
     # 2. build
@@ -1326,6 +1816,11 @@ def main() -> int:
 
     # 8. TPC-H q4, q13 and q18; every hash-join type; LIKE
     tpch_more_paths(F, TorchSession, smi, tables)
+    tables.clear()
+    torch.cuda.empty_cache()
+
+    # 9. the parquet scan: bench.py's scan_agg queries and Q1 from parquet
+    scan_paths(F, TorchSession, smi)
 
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..types import (BooleanType, StringT, StringType, StructField,
-                     StructType, from_arrow, from_numpy_dtype)
+from ..types import (BinaryType, BooleanType, StringT, StringType,
+                     StructField, StructType, from_arrow, from_numpy_dtype)
 from .vector import HostStrings, TorchColumnVector, bucket_capacity
 
 
@@ -150,9 +150,11 @@ class TorchColumnarBatch:
             n = len(arr)
             validity = (np.asarray(arr.is_valid()) if arr.null_count
                         else None)
-            if isinstance(dtype, StringType):
+            if isinstance(dtype, (StringType, BinaryType)):
                 if pa.types.is_large_string(arr.type):
                     arr = arr.cast(pa.string())
+                elif pa.types.is_large_binary(arr.type):
+                    arr = arr.cast(pa.binary())
                 bufs = arr.buffers()
                 offsets = np.frombuffer(bufs[1], np.int32, n + 1,
                                         arr.offset * 4).copy()

@@ -15,7 +15,8 @@ from typing import Any, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..types import DataType, DateType, NullType, StringType, is_fixed_width
+from ..types import (BinaryType, DataType, DateType, NullType, StringType,
+                     TimestampType, is_fixed_width)
 
 
 def bucket_capacity(n: int, enabled: bool = True, minimum: int = 16) -> int:
@@ -115,10 +116,12 @@ class TorchColumnVector:
                  else np.ones(n, np.bool_))
         if isinstance(self.dtype, NullType):
             return [None] * n
-        if isinstance(self.dtype, StringType):
+        if isinstance(self.dtype, (StringType, BinaryType)):
             offs = self.offsets[: n + 1].cpu().numpy().astype(np.int64)
             raw = self.data[: int(offs[-1]) if n else 0].cpu().numpy().tobytes()
-            return [raw[offs[i]:offs[i + 1]].decode() if valid[i] else None
+            text = isinstance(self.dtype, StringType)
+            return [(raw[offs[i]:offs[i + 1]].decode() if text
+                     else raw[offs[i]:offs[i + 1]]) if valid[i] else None
                     for i in range(n)]
         vals = self.data[:n].cpu().numpy()
         if isinstance(self.dtype, DateType):
@@ -126,6 +129,12 @@ class TorchColumnVector:
             epoch = datetime.date(1970, 1, 1)
             return [epoch + datetime.timedelta(days=int(v)) if ok else None
                     for v, ok in zip(vals, valid)]
+        if isinstance(self.dtype, TimestampType):
+            import datetime
+            epoch = datetime.datetime(1970, 1, 1,
+                                      tzinfo=datetime.timezone.utc)
+            return [epoch + datetime.timedelta(microseconds=int(v))
+                    if ok else None for v, ok in zip(vals, valid)]
         out = vals.tolist()
         if not valid.all():
             out = [v if ok else None for v, ok in zip(out, valid)]

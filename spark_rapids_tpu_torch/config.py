@@ -1,8 +1,8 @@
 """Typed configuration: ``RapidsConf`` and the keys the ported slices read.
 
 Port of a subset of ``spark_rapids_tpu/config.py``: the keys of the Q1,
-Q6 and q3 paths and of the planning route (optimizer, override engine,
-transitions, joins, the hash exchange). Keys keep the reference's strings, so one settings dict
+Q6 and q3 paths, of the planning route (optimizer, override engine,
+transitions, joins, the hash exchange) and of the parquet scan. Keys keep the reference's strings, so one settings dict
 configures both packages. The per-operator switches
 ``spark.rapids.sql.exec.<Exec>`` and ``spark.rapids.sql.expression.<Expr>``
 are read by ``RapidsConf.is_op_enabled`` without a declared entry.
@@ -172,6 +172,61 @@ COMPILED_JOIN_DIM_CACHE_SIZE = ConfEntry(
     "cache; each pins its device key and payload arrays.", 8,
     lambda v: int(str(v), 0))
 
+
+# ---------------------------------------------------------------------------
+# the parquet scan (reference config.py:813-903 and :945)
+# ---------------------------------------------------------------------------
+
+PARQUET_ENABLED = ConfEntry(
+    "spark.rapids.sql.format.parquet.enabled",
+    "Enable device parquet scans; false keeps the scan on the CPU, which "
+    "reads with pyarrow and hands host batches to the next operator.",
+    True, _parse_bool)
+
+PARQUET_DEVICE_DECODE_ENABLED = ConfEntry(
+    "spark.rapids.tpu.parquet.deviceDecode.enabled",
+    "Decode parquet pages on the device: the host parses the footer and "
+    "page headers, decompresses pages and walks the RLE run headers, then "
+    "uploads the raw page bytes once a row group and decodes every column "
+    "on the device. A column the device decode does not cover (INT96, "
+    "nested, other encodings) decodes on the host for that column only; "
+    "each such demotion is counted. False reads whole tables with pyarrow "
+    "and uploads them.", True, _parse_bool)
+
+PARQUET_DEVICE_DECODE_VERIFY = ConfEntry(
+    "spark.rapids.tpu.parquet.deviceDecode.verify",
+    "Cross-check every device-decoded row group against pyarrow's decode "
+    "of the same columns; a mismatch re-reads the row group on the host "
+    "(counted). Roughly doubles the scan's cost.", False, _parse_bool)
+
+PARQUET_READER_TYPE = ConfEntry(
+    "spark.rapids.sql.format.parquet.reader.type",
+    "AUTO, PERFILE, COALESCING or MULTITHREADED: how the host path reads "
+    "the files of a partition (AUTO: COALESCING for several files, else "
+    "PERFILE).", "AUTO", str)
+
+MULTITHREAD_READ_NUM_THREADS = ConfEntry(
+    "spark.rapids.sql.multiThreadedRead.numThreads",
+    "Thread-pool size of the MULTITHREADED host reader.", 8,
+    lambda v: int(str(v), 0))
+
+PARQUET_CHUNK_BYTES = ConfEntry(
+    "spark.rapids.sql.reader.chunked.maxDecodeBytes",
+    "PERFILE host reads stream row groups in chunks whose compressed size "
+    "stays under this many bytes (0 disables chunking).", 256 << 20,
+    lambda v: int(str(v), 0))
+
+PARQUET_REBASE_MODE_READ = ConfEntry(
+    "spark.rapids.sql.parquet.datetimeRebaseModeInRead",
+    "CORRECTED reads dates and timestamps of unmarked files as proleptic "
+    "Gregorian; LEGACY rebases them from the hybrid Julian calendar. Files "
+    "with Spark's legacy footer marker always rebase (on the host).",
+    "CORRECTED", str)
+
+FILECACHE_ENABLED = ConfEntry(
+    "spark.rapids.filecache.enabled",
+    "Cache remote scan inputs on local disk (not yet ported: true raises).",
+    False, _parse_bool)
 
 class RapidsConf:
     """Immutable snapshot of settings, one per query."""

@@ -5,7 +5,8 @@ reference's broadcast relation does, and every partition of the stream
 side (left) probes it, so the stream keeps its partitioning and needs no
 exchange. A right-side build supports Spark's BuildRight join types
 (``BROADCAST_RIGHT_TYPES``). ``estimated_size_bytes`` sizes a build side
-from its table for the planner's broadcast-versus-shuffle choice.
+from its table, or a file scan from its files, for the planner's
+broadcast-versus-shuffle choice.
 """
 
 from __future__ import annotations
@@ -72,11 +73,19 @@ class CpuBroadcastHashJoinExec(CpuShuffledHashJoinExec):
 
 def estimated_size_bytes(plan: PhysicalPlan) -> Optional[int]:
     """A build side's size from its in-memory table (Arrow's byte count,
-    ``TorchColumnarBatch.nbytes``), through single-child operators; None
-    when it cannot be sized so."""
+    ``TorchColumnarBatch.nbytes``) or its files, through single-child
+    operators; None when it cannot be sized so."""
+    import os
+
+    from ..io.parquet import CpuFileScanExec
     from .cpu import CpuLocalTableScanExec
     if isinstance(plan, CpuLocalTableScanExec):
         return plan.table.nbytes
+    if isinstance(plan, CpuFileScanExec):
+        try:  # the file bytes, times the reference's decode blowup of 3
+            return sum(os.path.getsize(p) for p in plan.paths) * 3
+        except OSError:
+            return None
     if len(plan.children) == 1:
         return estimated_size_bytes(plan.children[0])
     return None

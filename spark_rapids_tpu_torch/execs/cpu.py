@@ -1,11 +1,14 @@
 """CPU physical operators: what the planner emits and the override engine
 retargets (port of a subset of ``spark_rapids_tpu/execs/cpu.py``).
 
-``CpuLocalTableScanExec`` executes: it slices the host table (a
-TorchColumnarBatch on the CPU) into partitions and batchSizeRows batches.
-The reference evaluates the other CPU operators with ``pyarrow``; that host
-engine is not yet ported, so executing one of them raises instead of
-running silently. Such a node is left in a plan only when the override
+Two scans execute: ``CpuLocalTableScanExec`` slices the host table (a
+TorchColumnarBatch on the CPU) into partitions and batchSizeRows batches,
+and ``CpuFileScanExec`` (``io/parquet.py``) reads parquet files on the host
+with pyarrow into host batches (``TorchColumnarBatch.from_arrow``), so a
+plan whose scan stays on the CPU (``spark.rapids.sql.format.parquet.
+enabled=false``) feeds the device through the usual upload. The reference
+evaluates the other CPU operators with ``pyarrow``; that host engine is not
+yet ported, so executing one of them raises instead of running silently. Such a node is left in a plan only when the override
 engine kept it on the CPU, and ``explain_fallback()`` says why.
 """
 

@@ -25,10 +25,10 @@ filters the pairs; inner joins return them; the other types count the
 surviving pairs per probe row and flag the build rows they reach: semi
 and anti joins keep the probe rows with and without a match, in order,
 and outer joins append the unmatched rows, null-extended, after the
-pairs (left first, then right). Not yet ported: the sub-partitioning of
-sides past ``batchSizeRows`` (a partition joins in one piece, so past
-that size its row order, not its rows, differs from the reference's) and
-joins without equi-keys (cartesian, nested loop).
+pairs (left first, then right). Past ``batchSizeRows`` both sides split by
+the same key hash (seed 100) and the pairs join in part order, as in the
+reference. Not yet ported: joins without equi-keys (cartesian, nested
+loop).
 """
 
 from __future__ import annotations
@@ -40,7 +40,9 @@ import torch
 from ..columnar.batch import (TorchColumnarBatch, compact, concat_batches,
                              gather)
 from ..columnar.vector import TorchColumnVector, bucket_capacity, row_mask
+from ..config import BATCH_SIZE_ROWS
 from ..expressions.base import AttributeReference, Expression, to_column
+from ..shuffle.partitioner import hash_split_parts
 from ..types import StringType
 from .aggregates import (_sortable_bits, lex_sort_permutation,
                          segment_boundaries)
@@ -222,9 +224,25 @@ class TorchShuffledHashJoinExec(TorchExec):
                                      ctx: TaskContext) -> Iterator:
         left = self._collect_side(self.children[0], ctx, idx)
         right = self._collect_side(self.children[1], ctx, idx)
-        out = self._join_pair(left, right, ctx)
-        if out is not None and out.num_rows:
-            yield out
+        max_rows = ctx.conf.get(BATCH_SIZE_ROWS)
+        if (left is not None and left.num_rows and right is not None
+                and right.num_rows and self.left_keys
+                and max(left.num_rows, right.num_rows) > max_rows):
+            # sub-partitioning: a key lands in exactly one pair, so outer,
+            # semi and anti semantics compose. Seed 100, not the
+            # exchange's 42: co-partitioned sides share h42 % N, and the
+            # same seed would collapse into few parts.
+            k = max(2, -(-max(left.num_rows, right.num_rows) // max_rows))
+            pairs = zip(hash_split_parts(left, self.left_keys, k, ctx,
+                                         seed=100),
+                        hash_split_parts(right, self.right_keys, k, ctx,
+                                         seed=100))
+        else:
+            pairs = [(left, right)]
+        for lp, rp in pairs:
+            out = self._join_pair(lp, rp, ctx)
+            if out is not None and out.num_rows:
+                yield out
 
     def _join_pair(self, left: Optional[TorchColumnarBatch],
                    right: Optional[TorchColumnarBatch],

@@ -28,6 +28,9 @@ def estimate_logical_rows(plan) -> Optional[float]:
         return float(plan.table.num_rows)
     if name == "DeviceCachedRelation":
         return float(plan.num_rows)
+    if name == "FileScan":
+        from ..io.parquet import file_scan_rows
+        return file_scan_rows(plan.paths)
     if child is None:
         return None
     if name == "Filter":

@@ -1,8 +1,8 @@
 """Logical plan nodes + analysis (attribute resolution, type coercion).
 
-Port of the LocalRelation/Project/Filter/Limit/Sort/Aggregate/Join part
-of ``spark_rapids_tpu/plan/logical.py`` with Spark's implicit-cast
-coercion.
+Port of the LocalRelation/FileScan/Project/Filter/Limit/Sort/Aggregate/
+Join part of ``spark_rapids_tpu/plan/logical.py`` with Spark's
+implicit-cast coercion.
 ``node_desc`` strings are the reference's, so the optimized logical plan
 in ``explain()`` reads the same in both packages.
 """
@@ -62,6 +62,61 @@ class LocalRelation(LogicalPlan):
 
     def node_desc(self) -> str:
         return f"LocalRelation[{self.table.num_rows} rows]"
+
+
+class FileScan(LogicalPlan):
+    """Lazy file-source relation (reference GpuFileSourceScanExec); parquet
+    only. Without a user schema the columns come from the first file's
+    footer, with hive partition columns after them."""
+
+    def __init__(self, paths, fmt: str, schema_attrs=None, options=None,
+                 num_partitions=None):
+        self.paths = list(paths)
+        self.fmt = fmt
+        self.options = dict(options or {})
+        self.num_partitions = num_partitions
+        if schema_attrs is None:
+            schema_attrs = self._infer_schema()
+        self._output = schema_attrs
+
+    def _infer_schema(self):
+        from ..io.parquet import read_schema
+        from ..types import from_arrow
+        sch = read_schema(self.paths[0])
+        attrs = []
+        for f in sch:
+            try:
+                dtype = from_arrow(f.type)
+            except NotImplementedError:
+                dtype = _Unported(str(f.type))
+            attrs.append(AttributeReference(f.name, dtype, True))
+        for name, dtype in self.options.get("__partition_cols__", ()):
+            attrs.append(AttributeReference(name, dtype, True))
+        return attrs
+
+    @property
+    def output(self) -> List[AttributeReference]:
+        return self._output
+
+    def node_desc(self) -> str:
+        return f"FileScan[{self.fmt}, {len(self.paths)} files]"
+
+
+class _Unported(DataType):
+    """A file column's type the port cannot carry (nested types); the
+    planner raises if a query reads such a column."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def simple_string(self) -> str:
+        return self.name
+
+    def __eq__(self, other: object) -> bool:
+        return isinstance(other, _Unported) and other.name == self.name
+
+    def __hash__(self) -> int:
+        return hash(("unported", self.name))
 
 
 class Project(LogicalPlan):

@@ -9,9 +9,10 @@ broadcast; a restoring Project keeps the original column order.
 
 **columnPruning** — top-down required-column analysis through Project,
 Filter, Limit, Sort, Aggregate and Join: unreferenced projections and
-aggregate columns drop, and an in-memory relation under an aggregate or a
-join (whose scan yields full-width batches) gets a pass-through Project,
-so device batches carry only the referenced columns.
+aggregate columns drop, a file scan narrows its own output to the columns
+read, and an in-memory relation under an aggregate or a join (whose scan
+yields full-width batches) gets a pass-through Project, so device batches
+carry only the referenced columns.
 
 The reference's third rule, pushdown through a ``Repartition``, waits for
 the node it rewrites.
@@ -195,8 +196,21 @@ def _prune(plan: L.LogicalPlan, required: Optional[Set[int]],
             new_children.append(pruned)
         return _rebuild_with_children(plan, new_children)
 
-    # relations and unknown nodes: no pruning below; a wrapping Aggregate
-    # or Join projects their output down instead
+    if isinstance(plan, L.FileScan):
+        # a file scan narrows itself: it reads only the required columns
+        if required is None:
+            return plan
+        kept = [a for a in plan._output if a.expr_id in required] \
+            or plan._output[:1]
+        if len(kept) == len(plan._output):
+            return plan
+        new = copy.copy(plan)
+        new._output = kept
+        applied.add(RULE_PRUNE)
+        return _tag(new, RULE_PRUNE)
+
+    # in-memory relations and unknown nodes: no pruning below; a wrapping
+    # Aggregate or Join projects their output down instead
     return plan
 
 

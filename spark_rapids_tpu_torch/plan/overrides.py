@@ -1,6 +1,6 @@
 """TorchOverrides: the plan-override engine retargeting CPU operators to
-the device (port of the engine and the Project/Filter/device-scan/sort/
-aggregate/join/exchange/TopN/limit rules of
+the device (port of the engine and the Project/Filter/device-scan/
+file-scan/sort/aggregate/join/exchange/TopN/limit rules of
 ``spark_rapids_tpu/plan/overrides.py``).
 
 Flow: CPU physical plan → wrap in a PlanMeta tree → tag (reasons) →
@@ -28,6 +28,7 @@ from ..execs.broadcast import CpuBroadcastHashJoinExec
 from ..execs.joins import CpuShuffledHashJoinExec
 from ..execs.transitions import (CpuDeviceScanExec, DeviceToHostExec,
                                  HostToDeviceExec)
+from ..io.parquet import CpuFileScanExec
 from ..shuffle.exchange import CpuShuffleExchangeExec
 from .meta import PlanMeta
 
@@ -194,6 +195,23 @@ def _convert_top_n(meta: PlanMeta, children):
     return TorchTopNExec(p.n, p.order, children[0], p.offset)
 
 
+def _tag_file_scan(meta: PlanMeta) -> None:
+    # the planner already refused column types the port cannot carry
+    from ..config import PARQUET_ENABLED
+    if meta.plan.fmt == "parquet" and not meta.conf.get(PARQUET_ENABLED):
+        meta.will_not_work_on_tpu(
+            f"parquet scans disabled via {PARQUET_ENABLED.key}")
+
+
+def _convert_file_scan(meta: PlanMeta, children):
+    from ..io.parquet import TorchFileScanExec
+    p = meta.plan
+    return TorchFileScanExec(p.paths, p.fmt, p.output,
+                             pushed_filters=p.pushed_filters,
+                             options=p.options,
+                             num_partitions=p.num_partitions())
+
+
 register_exec(CE.CpuProjectExec, "projection",
               "spark.rapids.sql.exec.ProjectExec", _tag_project,
               _convert_project)
@@ -216,6 +234,9 @@ register_exec(CpuBroadcastHashJoinExec, "broadcast hash join",
 register_exec(CpuShuffleExchangeExec, "shuffle exchange",
               "spark.rapids.sql.exec.ShuffleExchangeExec", _tag_exchange,
               _convert_exchange)
+register_exec(CpuFileScanExec, "file scan",
+              "spark.rapids.sql.exec.FileSourceScanExec", _tag_file_scan,
+              _convert_file_scan)
 register_exec(CE.CpuTopNExec, "top-N (sort+limit fusion)",
               "spark.rapids.sql.exec.TakeOrderedAndProjectExec", _tag_top_n,
               _convert_top_n)

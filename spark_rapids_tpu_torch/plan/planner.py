@@ -3,7 +3,8 @@
 
 The plan is all-CPU; ``TorchOverrides`` then retargets it to the device, as
 the reference does, for the node kinds the port has: LocalRelation,
-DeviceCachedRelation, Project, Filter, Limit, Sort, Aggregate and equi-Join.
+DeviceCachedRelation, FileScan (with the pushable conjuncts of a Filter
+right above it), Project, Filter, Limit, Sort, Aggregate and equi-Join.
 
 A grouped aggregate over more than one partition, and a join that cannot
 broadcast its build side, distribute their input through hash exchanges on
@@ -31,10 +32,20 @@ def plan_physical(plan: L.LogicalPlan, conf: RapidsConf) -> PhysicalPlan:
     if isinstance(plan, L.LocalRelation):
         return CE.CpuLocalTableScanExec(plan.table, plan.num_partitions,
                                         plan.output)
+    if isinstance(plan, L.FileScan):
+        return _plan_file_scan(plan, ())
     if isinstance(plan, L.Project):
         return CE.CpuProjectExec(plan.exprs, plan_physical(plan.child, conf),
                                  plan.output)
     if isinstance(plan, L.Filter):
+        if isinstance(plan.child, L.FileScan):
+            # pushable conjuncts prune row groups; the exact Filter stays
+            # above (reference GpuParquetFileFilterHandler)
+            from ..io.base_scan import pushable, split_conjuncts
+            pushed = [c for c in split_conjuncts(plan.condition)
+                      if pushable(c)]
+            return CE.CpuFilterExec(plan.condition,
+                                    _plan_file_scan(plan.child, pushed))
         return CE.CpuFilterExec(plan.condition,
                                 plan_physical(plan.child, conf))
     if isinstance(plan, L.Limit):
@@ -68,6 +79,19 @@ def plan_physical(plan: L.LogicalPlan, conf: RapidsConf) -> PhysicalPlan:
         return _plan_join(plan, conf)
     raise NotImplementedError(
         f"planning {type(plan).__name__} not yet ported")
+
+
+def _plan_file_scan(plan: L.FileScan, pushed) -> PhysicalPlan:
+    """The CPU file scan of the columns a query reads; a column whose type
+    the port cannot carry (decimal, nested) stops the query here."""
+    from ..io.parquet import CpuFileScanExec
+    from .typechecks import scan_type_error
+    error = scan_type_error(plan.output)
+    if error:
+        raise NotImplementedError(error)
+    return CpuFileScanExec(plan.paths, plan.fmt, plan.output,
+                           pushed_filters=pushed, options=plan.options,
+                           num_partitions=plan.num_partitions)
 
 
 def _plan_join(plan: L.Join, conf: RapidsConf) -> PhysicalPlan:

@@ -7,7 +7,7 @@ on the device, the TypeSig its result may take. The tagging layer
 unregistered, produces an unsupported type, is switched off by
 ``spark.rapids.sql.expression.<Name>=false``, or is gated by
 ``conf_gate_reason``. Only the expression classes the port has are
-registered.
+registered. ``scan_type_error`` is the file scan's type check.
 """
 
 from __future__ import annotations
@@ -88,4 +88,21 @@ def conf_gate_reason(e, conf) -> Optional[str]:
             and not conf.get(VARIABLE_FLOAT_AGG_ENABLED):
         return ("float aggregation result can vary with parallelism; "
                 f"disabled via {VARIABLE_FLOAT_AGG_ENABLED.key}")
+    return None
+
+
+def scan_type_error(attrs) -> Optional[str]:
+    """Why a file scan cannot read its columns: the first one whose type
+    the port has no carrier for (``TypeSigs.scan``: no decimal, no nested
+    type). The planner raises it."""
+    from ..types import TypeSigs
+    for a in attrs:
+        try:
+            supported = TypeSigs.scan.check(a.dtype) is None
+        except NotImplementedError:
+            supported = False
+        if not supported:
+            return (f"scan of column {a.name}: type "
+                    f"{a.dtype.simple_string()} has no carrier in the port "
+                    "(not yet ported)")
     return None

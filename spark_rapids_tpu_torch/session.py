@@ -247,8 +247,20 @@ class DataFrame:
         from .plan.planner import plan_physical
         conf = self.session._rapids_conf()
         optimized, _ = optimize_logical(self._plan, conf)
-        return TorchOverrides.explain_plan(plan_physical(optimized, conf),
-                                           conf)
+        out = TorchOverrides.explain_plan(plan_physical(optimized, conf),
+                                          conf)
+        if _has_file_scan(optimized):
+            # the scan's demotions to the host so far in this session
+            from .io.device_decode import FALLBACK_KEYS
+            counts = ", ".join(f"{k}={self.session.counters[k]}"
+                               for k in FALLBACK_KEYS)
+            out += f"\nscan: parquet device decode, {counts}"
+        return out
+
+
+def _has_file_scan(plan: L.LogicalPlan) -> bool:
+    return isinstance(plan, L.FileScan) or any(
+        _has_file_scan(c) for c in plan.children)
 
 
 def _coerce_join_keys(lk: List[Expression], rk: List[Expression]):
@@ -343,7 +355,10 @@ class TorchSession:
     caller passes ``device="cpu"``. ``counters`` counts the session's
     runtime events: ``fallback_runs`` (a compiled aggregation stage re-ran
     on the general path), ``fallbackReruns`` (a compiled join stage did),
-    ``sort_fallback_runs`` (a grouped aggregate sorted out of core)."""
+    ``sort_fallback_runs`` (a grouped aggregate sorted out of core), and
+    the parquet scan's ``fallback_columns``, ``fallback_row_groups`` and
+    ``fallback_files`` (demotions to the host decode) and ``scan.*`` time
+    split (``io/parquet.TorchFileScanExec``)."""
 
     def __init__(self, conf: Optional[Dict[str, str]] = None,
                  device: DeviceLike = None):
@@ -354,6 +369,12 @@ class TorchSession:
 
     def _rapids_conf(self) -> RapidsConf:
         return RapidsConf(self._settings)
+
+    @property
+    def read(self):
+        """A ``DataFrameReader``: ``read.parquet(path)``."""
+        from .io.reader import DataFrameReader
+        return DataFrameReader(self)
 
     def createDataFrame(self, data, num_partitions: int = 1,
                         validity=None) -> DataFrame:

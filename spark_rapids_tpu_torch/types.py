@@ -2,7 +2,8 @@
 
 Port of the Q1 subset of ``spark_rapids_tpu/types.py``: the logical type
 hierarchy, the singletons, ``numeric_promote`` and the carrier maps. Dates
-are int32 days, strings are int32 offsets + uint8 bytes (no fixed carrier).
+are int32 days, timestamps int64 microseconds since the epoch (UTC),
+strings and binary int32 offsets + uint8 bytes (no fixed carrier).
 """
 
 from __future__ import annotations
@@ -123,8 +124,16 @@ class StringType(DataType):
     np_dtype = None  # int32 offsets + uint8 bytes
 
 
+class BinaryType(DataType):
+    np_dtype = None  # int32 offsets + uint8 bytes, as strings
+
+
 class DateType(DataType):
     np_dtype = np.dtype(np.int32)  # days since epoch
+
+
+class TimestampType(DataType):
+    np_dtype = np.dtype(np.int64)  # microseconds since epoch, UTC
 
 
 @dataclass(frozen=True)
@@ -166,7 +175,9 @@ LongT = LongType()
 FloatT = FloatType()
 DoubleT = DoubleType()
 StringT = StringType()
+BinaryT = BinaryType()
 DateT = DateType()
+TimestampT = TimestampType()
 
 _NP_TO_TORCH = {
     np.dtype(np.bool_): torch.bool,
@@ -211,8 +222,12 @@ def from_arrow(at) -> DataType:
     import pyarrow as pa
     if pa.types.is_string(at) or pa.types.is_large_string(at):
         return StringT
+    if pa.types.is_binary(at) or pa.types.is_large_binary(at):
+        return BinaryT
     if pa.types.is_date32(at):
         return DateT
+    if pa.types.is_timestamp(at):
+        return TimestampT
     if pa.types.is_null(at):
         return NullT
     if pa.types.is_decimal(at):
@@ -221,6 +236,22 @@ def from_arrow(at) -> DataType:
         return from_numpy_dtype(np.dtype(at.to_pandas_dtype()))
     except (NotImplementedError, TypeError):
         raise NotImplementedError(f"arrow type {at} not yet ported") from None
+
+
+def to_arrow(dt: DataType):
+    """Spark → Arrow type (the reference's ``to_arrow``) for the types the
+    port carries."""
+    import pyarrow as pa
+    fixed = {BooleanType: pa.bool_(), ByteType: pa.int8(),
+             ShortType: pa.int16(), IntegerType: pa.int32(),
+             LongType: pa.int64(), FloatType: pa.float32(),
+             DoubleType: pa.float64(), StringType: pa.string(),
+             BinaryType: pa.binary(), DateType: pa.date32(),
+             TimestampType: pa.timestamp("us", tz="UTC"),
+             NullType: pa.null()}
+    if type(dt) not in fixed:
+        raise NotImplementedError(f"arrow type of {dt} not yet ported")
+    return fixed[type(dt)]
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +268,9 @@ class TypeEnum:
     FLOAT = "FLOAT"
     DOUBLE = "DOUBLE"
     DATE = "DATE"
+    TIMESTAMP = "TIMESTAMP"
     STRING = "STRING"
+    BINARY = "BINARY"
     DECIMAL = "DECIMAL"
     NULL = "NULL"
     STRUCT = "STRUCT"
@@ -247,7 +280,9 @@ _TYPE_ENUMS = ((BooleanType, TypeEnum.BOOLEAN), (ByteType, TypeEnum.BYTE),
                (ShortType, TypeEnum.SHORT), (IntegerType, TypeEnum.INT),
                (LongType, TypeEnum.LONG), (FloatType, TypeEnum.FLOAT),
                (DoubleType, TypeEnum.DOUBLE), (DateType, TypeEnum.DATE),
-               (StringType, TypeEnum.STRING), (DecimalType, TypeEnum.DECIMAL),
+               (TimestampType, TypeEnum.TIMESTAMP),
+               (StringType, TypeEnum.STRING), (BinaryType, TypeEnum.BINARY),
+               (DecimalType, TypeEnum.DECIMAL),
                (NullType, TypeEnum.NULL), (StructType, TypeEnum.STRUCT))
 
 
@@ -296,6 +331,8 @@ class TypeSigs:
     NULL = TypeSig([TypeEnum.NULL])
     comparable = numeric + BOOLEAN + STRING + DATE + NULL
     all_basic = comparable
+    #: what a file scan can carry: the basic types, timestamps and binary
+    scan = all_basic + TypeSig([TypeEnum.TIMESTAMP, TypeEnum.BINARY])
 
 
 def numeric_promote(a: DataType, b: DataType) -> DataType:

@@ -1,5 +1,6 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: TPC-H Q1, Q6, q3, q4,
-q13 and q18 end to end, and the parquet scan.
+"""Smoke run of the PyTorch/CUDA port on one GPU: all 22 TPC-H queries of
+benchmarks/tpch.py end to end (as spark_rapids_tpu_torch/tpch.py writes
+them), and the parquet scan.
 
     python3 chip_smoke.py
 
@@ -17,7 +18,10 @@ prints no result):
    multiple of 4, one block's step and one wave's step, and on columns
    sliced 1, 2 or 3 elements in (all alike: the head path; mixed: the
    scalar loop) (counts exact, sums rtol 1e-4); two launches at 2^24 give
-   identical bytes;
+   identical bytes; the closest single PyTorch call, index_add_ of the
+   masked measures over the group ids at 2^24, timed (the kernels line's
+   library_ms) with its counts exact and its f32 atomic sums' error
+   against the plain version printed;
 4. main path, with every launch counter set to 0 first: entry()'s step at
    2^16 rows, q1_step_best("cuda") at 2^24 and the tensor-core step at 2^24,
    each against the numpy oracle; then framework Q1 at 2^24 rows through
@@ -102,9 +106,24 @@ prints no result):
        and held byte for byte against pyarrow's read of the same file.
    (b) and (c) print a timing line each: phase 6's fields, the file's
    GB/s, and the scan's split (host stage, upload, device decode and
-   host decode ms, row groups, bytes staged) a collect.
+   host decode ms, row groups, bytes staged) a collect;
+10. the other 16 TPC-H queries (q2, q5, q7-q12, q14-q17, q19-q22: the
+   five other tables, CASE WHEN, IN, casts, round, substring, distinct,
+   the nested-loop join) over phase 8's 2^22-row tables plus supplier,
+   part, partsupp, nation and region at the benchmark's ratios, each
+   against a numpy float64 oracle (searchsorted joins on unique keys,
+   np.unique + bincount groups; integers, strings and nulls exact, floats
+   rtol 1e-9, rows in the query's order), with the intermediates of the
+   queries whose answer can be null or zero (q8's numerator and
+   denominator, q17's per-part thresholds and the rows under them, q19's
+   rows by brand): first in benchmarks/tpch.py's layout (4 + 4
+   partitions, 8 shuffle partitions, ICI), each query's physical plan
+   and phase 6's timing line; then with every table in one partition and
+   lineitem device_cache()d in one batch. A line names any null or zero
+   in a result's first row.
 
-The last line is {"ok": true, "device": {...}}.
+The kernels line (phase 5) prints again before the card's name and power
+limit, and the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -112,6 +131,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -461,77 +481,6 @@ def general_paths(F, TorchSession, df, cols, oracle, smi) -> None:
 Q3_SEGMENT = "BUILDING"
 
 
-def q3_groups_query(F, t):
-    """benchmarks/tpch.py q3 without ORDER BY / LIMIT, written against the
-    port: every (order, date, revenue) group."""
-    li, orders, cust = t["lineitem"], t["orders"], t["customer"]
-    return (cust.filter(F.col("c_mktsegment") == Q3_SEGMENT)
-            .join(orders, on=cust["c_custkey"] == orders["o_custkey"])
-            .join(li, on=orders["o_orderkey"] == li["l_orderkey"])
-            .withColumn("revenue",
-                        F.col("l_extendedprice") * (1 - F.col("l_discount")))
-            .groupBy("o_orderkey", "o_orderdate")
-            .agg(F.sum(F.col("revenue")).alias("revenue")))
-
-
-def q3_query(F, t):
-    """benchmarks/tpch.py q3, written against the port."""
-    return q3_groups_query(F, t).sort(F.col("revenue").desc()).limit(10)
-
-
-def q4_query(F, t):
-    """benchmarks/tpch.py q4, written against the port: orders in a quarter
-    with a late lineitem (a left semi join), counted by priority."""
-    li, orders = t["lineitem"], t["orders"]
-    late = li.filter(F.col("l_commitdate") < F.col("l_receiptdate"))
-    return (orders.filter((F.col("o_orderdate") >= 8582)
-                          & (F.col("o_orderdate") < 8674))
-            .join(late, on=orders["o_orderkey"] == late["l_orderkey"],
-                  how="leftsemi")
-            .groupBy("o_orderpriority")
-            .agg(F.count_star().alias("order_count"))
-            .sort("o_orderpriority"))
-
-
-def q13_query(F, t):
-    """benchmarks/tpch.py q13, written against the port: a left outer join
-    of customers to orders whose priority is not LIKE '%NOT%', then the
-    distribution of order counts."""
-    orders, cust = t["orders"], t["customer"]
-    sel = orders.filter(~F.col("o_orderpriority").like("%NOT%"))
-    per_cust = (cust.join(sel, on=cust["c_custkey"] == sel["o_custkey"],
-                          how="left")
-                .groupBy("c_custkey")
-                .agg(F.count(F.col("o_orderkey")).alias("c_count")))
-    return (per_cust.groupBy("c_count")
-            .agg(F.count_star().alias("custdist"))
-            .sort(F.col("custdist").desc(), F.col("c_count").desc()))
-
-
-def q18_groups_query(F, t):
-    """benchmarks/tpch.py q18 without ORDER BY / LIMIT, written against the
-    port: orders of more than 150 units (a left semi join against a grouped
-    lineitem), with their customer and their lineitems' quantity."""
-    li, orders, cust = t["lineitem"], t["orders"], t["customer"]
-    big = (li.groupBy("l_orderkey")
-           .agg(F.sum(F.col("l_quantity")).alias("total_qty"))
-           .filter(F.col("total_qty") > 150))
-    return (orders
-            .join(big, on=orders["o_orderkey"] == big["l_orderkey"],
-                  how="leftsemi")
-            .join(cust, on=orders["o_custkey"] == cust["c_custkey"])
-            .join(li, on=orders["o_orderkey"] == li["l_orderkey"])
-            .groupBy("c_name", "c_custkey", "o_orderkey", "o_orderdate",
-                     "o_totalprice")
-            .agg(F.sum(F.col("l_quantity")).alias("sum_qty")))
-
-
-def q18_query(F, t):
-    """benchmarks/tpch.py q18, written against the port."""
-    return (q18_groups_query(F, t)
-            .sort(F.col("o_totalprice").desc(), "o_orderdate").limit(100))
-
-
 def strings_equal(col, word: str) -> np.ndarray:
     """numpy: which rows of a host string column (offsets + bytes) equal
     ``word``."""
@@ -646,6 +595,7 @@ def q3_paths(F, TorchSession, smi, device: str = "cuda", big: int = N_BIG,
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
 
+    from spark_rapids_tpu_torch import tpch
     from spark_rapids_tpu_torch.columnar.batch import TorchColumnarBatch
     from spark_rapids_tpu_torch.columnar.vector import TorchColumnVector
     from spark_rapids_tpu_torch.config import RapidsConf
@@ -667,13 +617,13 @@ def q3_paths(F, TorchSession, smi, device: str = "cuda", big: int = N_BIG,
     t["lineitem"] = t["lineitem"].device_cache()
     release()
     cache_s = time.perf_counter() - t0
-    qa = q3_query(F, t)
+    qa = tpch.q3(t)
     check("TorchCompiledJoinAggStage[keys=o_orderkey, o_orderdate, dims=1]"
           in quiet_plan(qa), "q3 plan lacks the compiled join stage")
     first, second = qa.collect(), qa.collect()
     check_q3_rows(first, top, "q3 compiled 2^24")
     check(first == second, "two collects of the compiled join stage differ")
-    check_q3_groups(q3_groups_query(F, t).collect(), groups,
+    check_q3_groups(tpch.q3_groups(t).collect(), groups,
                     "q3 compiled 2^24 without the limit")
     check(s.counters["fallbackReruns"] == 0, "the compiled join stage re-ran")
     print(f"(a) q3 on the compiled join stage at 2^24 ok: top 10 and all "
@@ -693,7 +643,7 @@ def q3_paths(F, TorchSession, smi, device: str = "cuda", big: int = N_BIG,
     g = TorchSession(dict(base, **{
         "spark.rapids.tpu.join.compiledStage.enabled": "false"},
         **(mid_conf or {})), device=device)
-    qb = q3_query(F, q3_frames(g, host))
+    qb = tpch.q3(q3_frames(g, host))
     plan = quiet_plan(qb)
     check("TorchShuffleExchange[hash, n=4]" in plan_child_of(
               plan, "TorchShuffledSymmetricHashJoin[inner]")
@@ -706,7 +656,7 @@ def q3_paths(F, TorchSession, smi, device: str = "cuda", big: int = N_BIG,
                                    str(mid)}), device=device)
     tc = q3_frames(c, host)
     tc["lineitem"] = tc["lineitem"].device_cache()
-    qc = q3_query(F, tc)
+    qc = tpch.q3(tc)
     check("TorchCompiledJoinAggStage" in quiet_plan(qc),
           "q3 plan at 2^22 lacks the compiled join stage")
     rows_c = qc.collect()
@@ -727,7 +677,7 @@ def q3_paths(F, TorchSession, smi, device: str = "cuda", big: int = N_BIG,
                                    "maxDimRows": "16"}), device=device)
     td = q3_frames(d, host)
     td["lineitem"] = td["lineitem"].device_cache()
-    qd = q3_query(F, td)
+    qd = tpch.q3(td)
     check("TorchCompiledJoinAggStage" in quiet_plan(qd),
           "re-run plan lacks the compiled join stage")
     before = d.counters["fallbackReruns"]
@@ -741,7 +691,7 @@ def q3_paths(F, TorchSession, smi, device: str = "cuda", big: int = N_BIG,
 
     # (c) q3_general_4part's shape: 2^18 rows, broadcast joins only
     host = tpch_host(tables, small, 4)
-    qs = q3_query(F, q3_frames(TorchSession(dict(base, **{
+    qs = tpch.q3(q3_frames(TorchSession(dict(base, **{
         "spark.rapids.tpu.join.compiledStage.enabled": "false"}),
         device=device), host))
     plan = quiet_plan(qs)
@@ -810,13 +760,19 @@ def word_codes(col, words) -> np.ndarray:
     return code
 
 
-def tpch_host(tables: dict, rows: int, parts: int):
-    """``datagen.tpch_host_tables`` memoized in ``tables`` (main's), so the
-    phases share one build of each size."""
+#: the tables phases 7 and 8 read
+Q3_TABLES = ("lineitem", "orders", "customer")
+
+
+def tpch_host(tables: dict, rows: int, parts: int, names=Q3_TABLES):
+    """``datagen.tpch_host_tables`` memoized in ``tables`` (main's) table
+    by table, so the phases share one build of each table and size."""
     from spark_rapids_tpu_torch.datagen import tpch_host_tables
-    if (rows, parts) not in tables:
-        tables[rows, parts] = tpch_host_tables(rows, parts)
-    return tables[rows, parts]
+    have = tables.setdefault((rows, parts), {})
+    missing = [n for n in names if n not in have]
+    if missing:
+        have.update(tpch_host_tables(rows, parts, missing))
+    return {n: have[n] for n in names}
 
 
 def q4_oracle(host):
@@ -1072,6 +1028,7 @@ def tpch_more_paths(F, TorchSession, smi, tables: dict,
     """Phase 8: (a)-(d). With ``device="cpu"`` and small sizes it checks
     the script's own logic off the card (no timing lines)."""
     on_card = device == "cuda"
+    from spark_rapids_tpu_torch import tpch
     from spark_rapids_tpu_torch.datagen import tpch_frames
     base = {"spark.rapids.shuffle.mode": "ICI",
             "spark.sql.shuffle.partitions": "8"}
@@ -1096,14 +1053,14 @@ def tpch_more_paths(F, TorchSession, smi, tables: dict,
     t["lineitem"] = t["lineitem"].device_cache()
     release()
     cache_s = time.perf_counter() - t0
-    qa = q18_query(F, t)
+    qa = tpch.q18(t)
     check("TorchCompiledJoinAggStage[keys=c_name, c_custkey, o_orderkey, "
           "o_orderdate, o_totalprice, dims=1]" in quiet_plan(qa),
           "q18 plan lacks the compiled join stage")
     first, second = qa.collect(), qa.collect()
     check_q18(first, top, "q18 compiled 2^24")
     check(first == second, "two collects of q18 on the join stage differ")
-    check_q18_groups(q18_groups_query(F, t).collect(), groups,
+    check_q18_groups(tpch.q18_groups(t).collect(), groups,
                      "q18 compiled 2^24 without the limit")
     check(s.counters["fallbackReruns"] == 0, "the q18 join stage re-ran")
     print(f"(a) q18 on the compiled join stage at {big} ok: top 100 and all "
@@ -1126,10 +1083,10 @@ def tpch_more_paths(F, TorchSession, smi, tables: dict,
              "q13": ("TorchShuffledSymmetricHashJoin[left]",
                      "TorchShuffleExchange[hash"),
              "q18": ("TorchCompiledJoinAggStage[keys=c_name",)}
-    for name, query in (("q4", q4_query), ("q13", q13_query),
-                        ("q18", q18_query)):
+    for name, query in (("q4", tpch.q4), ("q13", tpch.q13),
+                        ("q18", tpch.q18)):
         s = TorchSession(base, device=device)
-        q = query(F, tpch_frames(s, host))
+        q = query(tpch_frames(s, host))
         plan = quiet_plan(q)
         check(all(p in plan for p in plans[name]),
               f"{name} plan at {mid}:\n{plan}")
@@ -1155,7 +1112,7 @@ def tpch_more_paths(F, TorchSession, smi, tables: dict,
     s = TorchSession(dict(base, **{
         "spark.rapids.tpu.join.compiledStage.enabled": "false"}),
         device=device)
-    qc = q18_query(F, tpch_frames(s, host))
+    qc = tpch.q18(tpch_frames(s, host))
     plan = quiet_plan(qc)
     check("HashJoin[leftsemi]" in plan
           and "TorchShuffledSymmetricHashJoin[inner]" in plan
@@ -1640,6 +1597,410 @@ def scan_paths(F, TorchSession, smi, device: str = "cuda",
     print(f"phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the other 16 TPC-H queries
+# ---------------------------------------------------------------------------
+
+#: the TPC-H queries phase 10 runs (the ones phases 4-9 do not)
+REST_QUERIES = ("q2", "q5", "q7", "q8", "q9", "q10", "q11", "q12", "q14",
+                "q15", "q16", "q17", "q19", "q20", "q21", "q22")
+#: intermediates held beside the queries whose answer can be null or zero
+REST_PARTS = ("q8_parts", "q17_thresholds", "q17_passing", "q19_brands")
+
+
+def _lookup(keys: np.ndarray, probe: np.ndarray):
+    """numpy many-to-one join: each probe value's row in ``keys`` (unique
+    values) and whether it has one."""
+    order = np.argsort(keys, kind="stable")
+    sk = keys[order]
+    i = np.minimum(np.searchsorted(sk, probe), max(len(sk) - 1, 0))
+    return order[i], sk[i] == probe
+
+
+def _groups(*keys):
+    """numpy group-by: (the distinct key rows in order, each row's group)."""
+    k = np.stack([np.asarray(x, np.int64) for x in keys], 1)
+    uniq, inv = np.unique(k, axis=0, return_inverse=True)
+    return uniq, inv.ravel()
+
+
+def _days(col) -> np.ndarray:
+    return col.astype("datetime64[D]").astype(np.int64)
+
+
+def _year(days: np.ndarray) -> np.ndarray:
+    """``(days.cast("int") / 365).cast("int")``: double division, truncated
+    toward zero."""
+    return np.trunc(days / 365.0).astype(np.int64)
+
+
+def _word_mask(col, words, pred) -> np.ndarray:
+    """Rows of a host string column (built from ``words``) whose word
+    satisfies ``pred``."""
+    code = word_codes(col, words)
+    ok = np.array([pred(w) for w in words] + [False])
+    return ok[code]
+
+
+def _names(col, codes) -> list:
+    return host_strings(col, [int(c) for c in codes])
+
+
+def rest_oracles(T) -> dict:
+    """numpy float64 answers of phase 10's queries and intermediates over
+    the host tables ``T`` (name → columns), each as the list of rows the
+    query returns, in its order."""
+    from spark_rapids_tpu_torch import datagen as D
+    from spark_rapids_tpu_torch.tpch import Q22_CODES
+    li, o, c, s, p, ps, n, r = (T[k] for k in (
+        "lineitem", "orders", "customer", "supplier", "part", "partsupp",
+        "nation", "region"))
+    out = {}
+    n_name = host_strings(n["n_name"])
+    s_name = host_strings(s["s_name"])
+    rev = li["l_extendedprice"] * (1 - li["l_discount"])
+    ship, commit, receipt = (_days(li[k]) for k in (
+        "l_shipdate", "l_commitdate", "l_receiptdate"))
+    odate = _days(o["o_orderdate"])
+    oi, ohit = _lookup(o["o_orderkey"], li["l_orderkey"])
+    si, shit = _lookup(s["s_suppkey"], li["l_suppkey"])
+    pi, phit = _lookup(p["p_partkey"], li["l_partkey"])
+    oci, ochit = _lookup(c["c_custkey"], o["o_custkey"])
+    sni, snhit = _lookup(n["n_nationkey"], s["s_nationkey"])
+    cni, cnhit = _lookup(n["n_nationkey"], c["c_nationkey"])
+
+    def region_nations(name):
+        key = r["r_regionkey"][strings_equal(r["r_name"], name)]
+        return np.isin(n["n_regionkey"], key)
+
+    def nation_key(name):
+        return n["n_nationkey"][strings_equal(n["n_name"], name)]
+
+    types = D._TYPES
+
+    # q2: the minimum-cost European supplier of size-15 brass parts
+    eu_supp = snhit & region_nations("EUROPE")[sni]
+    psi, pshit = _lookup(s["s_suppkey"], ps["ps_suppkey"])
+    eps = pshit & eu_supp[psi]
+    mc_keys, mc_inv = np.unique(ps["ps_partkey"][eps], return_inverse=True)
+    mc = np.full(len(mc_keys), np.inf)
+    np.minimum.at(mc, mc_inv, ps["ps_supplycost"][eps])
+    brass = (p["p_size"] == 15) & _word_mask(p["p_type"], types,
+                                             lambda w: w.endswith("BRASS"))
+    ppi, pphit = _lookup(p["p_partkey"], ps["ps_partkey"])
+    big = eps & pphit & brass[ppi]
+    big &= ps["ps_supplycost"] == mc[np.minimum(np.searchsorted(
+        mc_keys, ps["ps_partkey"]), max(len(mc_keys) - 1, 0))]
+    mfgr = word_codes(p["p_mfgr"], [f"Manufacturer#{i}" for i in
+                                    range(1, 6)])
+    rows = [{"s_acctbal": float(s["s_acctbal"][psi[k]]),
+             "s_name": s_name[psi[k]], "n_name": n_name[sni[psi[k]]],
+             "p_partkey": int(ps["ps_partkey"][k]),
+             "p_mfgr": f"Manufacturer#{mfgr[ppi[k]] + 1}"}
+            for k in np.flatnonzero(big)]
+    out["q2"] = sorted(rows, key=lambda x: (-x["s_acctbal"], x["n_name"],
+                                            x["s_name"],
+                                            x["p_partkey"]))[:100]
+
+    # q5: revenue by Asian nation where customer and supplier share it
+    cust_nat = c["c_nationkey"][oci[oi]]
+    keep = (ohit & ochit[oi] & shit & (cust_nat == s["s_nationkey"][si])
+            & snhit[si] & region_nations("ASIA")[sni[si]]
+            & (odate[oi] >= 8766) & (odate[oi] < 9131))
+    g = sni[si][keep]
+    sums = np.bincount(g, weights=rev[keep], minlength=len(n_name))
+    out["q5"] = sorted(({"n_name": n_name[k], "revenue": float(sums[k])}
+                        for k in np.unique(g)), key=lambda x: -x["revenue"])
+
+    # q7: shipping between FRANCE and GERMANY by year
+    sn = sni[si]
+    cn = cni[oci[oi]]
+    fr, ge = (int(np.flatnonzero(strings_equal(n["n_name"], w))[0])
+              for w in ("FRANCE", "GERMANY"))
+    keep = ((ship >= 9131) & (ship <= 9861) & shit & ohit & ochit[oi]
+            & snhit[si] & cnhit[oci[oi]]
+            & (((sn == fr) & (cn == ge)) | ((sn == ge) & (cn == fr))))
+    uniq, inv = _groups(sn[keep], cn[keep], _year(ship[keep]))
+    sums = np.bincount(inv, weights=rev[keep], minlength=len(uniq))
+    out["q7"] = sorted(({"supp_nation": n_name[a], "cust_nation": n_name[b],
+                         "l_year": int(y), "revenue": float(v)}
+                        for (a, b, y), v in zip(uniq, sums)),
+                       key=lambda x: (x["supp_nation"], x["cust_nation"],
+                                      x["l_year"]))
+
+    # q8: BRAZIL's share of AMERICA's steel imports by order year
+    steel = strings_equal(p["p_type"], "ECONOMY ANODIZED STEEL")
+    brazil = int(np.flatnonzero(strings_equal(n["n_name"], "BRAZIL"))[0])
+    keep = (phit & steel[pi] & shit & ohit & ochit[oi] & cnhit[oci[oi]]
+            & region_nations("AMERICA")[cn] & snhit[si]
+            & (odate[oi] >= 9131) & (odate[oi] <= 9861))
+    years, inv = np.unique(_year(odate[oi][keep]), return_inverse=True)
+    vol = np.bincount(inv, weights=rev[keep], minlength=len(years))
+    bra = np.bincount(inv, weights=np.where(sn[keep] == brazil, rev[keep],
+                                            0.0), minlength=len(years))
+    out["q8"] = [{"o_year": int(y), "mkt_share": float(b / v)}
+                 for y, b, v in zip(years, bra, vol)]
+    out["q8_parts"] = [{"o_year": int(y), "brazil_volume": float(b),
+                        "volume": float(v)}
+                       for y, b, v in zip(years, bra, vol)]
+
+    # q9: profit on green parts by nation and year
+    green = _word_mask(p["p_name"], [f"{a} {b}" for a in D._COLORS
+                                     for b in ("metal", "steel", "satin")],
+                       lambda w: "green" in w)
+    width = int(max(ps["ps_suppkey"].max(), li["l_suppkey"].max())) + 1
+    ps_key = ps["ps_partkey"].astype(np.int64) * width + ps["ps_suppkey"]
+    check(len(np.unique(ps_key)) == len(ps_key),
+          "partsupp (part, supplier) pairs repeat")
+    qi, qhit = _lookup(ps_key, li["l_partkey"].astype(np.int64) * width
+                       + li["l_suppkey"])
+    keep = phit & green[pi] & shit & qhit & ohit & snhit[si]
+    amount = rev - ps["ps_supplycost"][qi] * li["l_quantity"]
+    uniq, inv = _groups(sn[keep], _year(odate[oi][keep]))
+    sums = np.bincount(inv, weights=amount[keep], minlength=len(uniq))
+    out["q9"] = sorted(({"n_name": n_name[a], "o_year": int(y),
+                         "sum_profit": float(v)}
+                        for (a, y), v in zip(uniq, sums)),
+                       key=lambda x: (x["n_name"], -x["o_year"]))
+
+    # q10: revenue lost to returns, top 20 customers
+    returned = strings_equal(li["l_returnflag"], "R")
+    ci = oci[oi]
+    keep = (returned & ohit & ochit[oi] & cnhit[ci] & (odate[oi] >= 8674)
+            & (odate[oi] < 8766))
+    custs, inv = np.unique(ci[keep], return_inverse=True)
+    sums = np.bincount(inv, weights=rev[keep], minlength=len(custs))
+    top = np.argsort(-sums, kind="stable")[:20]
+    names = _names(c["c_name"], custs[top])
+    phones = _names(c["c_phone"], custs[top])
+    out["q10"] = [{"c_custkey": int(c["c_custkey"][k]), "c_name": nm,
+                   "c_acctbal": float(c["c_acctbal"][k]), "c_phone": ph,
+                   "n_name": n_name[cni[k]], "revenue": float(v)}
+                  for k, nm, ph, v in zip(custs[top], names, phones,
+                                          sums[top])]
+
+    # q11: German stock worth more than 0.0001 of the national total
+    keep = pshit & snhit[psi] & np.isin(s["s_nationkey"][psi],
+                                        nation_key("GERMANY"))
+    value = ps["ps_supplycost"] * ps["ps_availqty"]
+    parts, inv = np.unique(ps["ps_partkey"][keep], return_inverse=True)
+    pv = np.bincount(inv, weights=value[keep], minlength=len(parts))
+    over = np.flatnonzero(pv > value[keep].sum() * 0.0001)
+    out["q11"] = sorted(({"ps_partkey": int(parts[k]),
+                          "part_value": float(pv[k])} for k in over),
+                        key=lambda x: (-x["part_value"], x["ps_partkey"]))
+
+    # q12: late MAIL/SHIP lines by priority
+    modes = word_codes(li["l_shipmode"], ["MAIL", "SHIP"])
+    keep = ((modes >= 0) & (commit < receipt) & (ship < commit)
+            & (receipt >= 8766) & (receipt < 9131) & ohit)
+    high = word_codes(o["o_orderpriority"], ["1-URGENT", "2-HIGH"]) >= 0
+    h = high[oi]
+    out["q12"] = [{"l_shipmode": m,
+                   "high_line_count": int((keep & h & (modes == i)).sum()),
+                   "low_line_count": int((keep & ~h & (modes == i)).sum())}
+                  for i, m in enumerate(["MAIL", "SHIP"])
+                  if (keep & (modes == i)).any()]
+
+    # q14: the promotion revenue share of one month
+    promo = _word_mask(p["p_type"], types, lambda w: w.startswith("PROMO"))
+    keep = (ship >= 9374) & (ship < 9404) & phit
+    out["q14"] = [{"promo_revenue": float(
+        100.0 * rev[keep & promo[pi]].sum() / rev[keep].sum())}]
+
+    # q15: the top supplier by rounded revenue of one quarter
+    keep = (ship >= 9496) & (ship < 9587)
+    supps, inv = np.unique(li["l_suppkey"][keep], return_inverse=True)
+    tot = np.bincount(inv, weights=rev[keep], minlength=len(supps))
+    tot = np.trunc(tot * 100.0 + np.where(tot >= 0, 0.5, -0.5)) / 100.0
+    top = np.flatnonzero(tot == tot.max())
+    ti, thit = _lookup(s["s_suppkey"], supps[top])
+    out["q15"] = sorted(({"s_suppkey": int(supps[k]), "s_name": s_name[i],
+                          "total_revenue": float(tot[k])}
+                         for k, i, ok in zip(top, ti, thit) if ok),
+                        key=lambda x: x["s_suppkey"])
+
+    # q16: suppliers per brand/type/size, complaining suppliers excluded
+    comments = D._SUPPLIER_COMMENTS
+    bad = _word_mask(s["s_comment"], comments,
+                     lambda w: re.fullmatch(".*Customer.*Complaints.*", w)
+                     is not None)
+    brands = word_codes(p["p_brand"], D._BRANDS)
+    tcode = word_codes(p["p_type"], types)
+    sel = ((brands != D._BRANDS.index("Brand#45"))
+           & ~_word_mask(p["p_type"], types,
+                         lambda w: w.startswith("MEDIUM POLISHED"))
+           & np.isin(p["p_size"], [49, 14, 23, 45, 19, 3, 36, 9]))
+    keep = pphit & sel[ppi] & ~(pshit & bad[psi])
+    uniq = np.unique(np.stack([brands[ppi][keep], tcode[ppi][keep],
+                               p["p_size"][ppi][keep].astype(np.int64),
+                               ps["ps_suppkey"][keep]], 1), axis=0)
+    grp, cnt = np.unique(uniq[:, :3], axis=0, return_counts=True)
+    out["q16"] = sorted(({"p_brand": D._BRANDS[b], "p_type": types[t],
+                          "p_size": int(z), "supplier_cnt": int(k)}
+                         for (b, t, z), k in zip(grp, cnt)),
+                        key=lambda x: (-x["supplier_cnt"], x["p_brand"],
+                                       x["p_type"], x["p_size"]))
+
+    # q17: lines under 0.2 * their part's average quantity
+    sel = (strings_equal(p["p_brand"], "Brand#23")
+           & strings_equal(p["p_container"], "MED BOX"))
+    j = phit & sel[pi]
+    parts, inv = np.unique(li["l_partkey"][j], return_inverse=True)
+    avg = np.bincount(inv, weights=li["l_quantity"][j].astype(np.float64),
+                      minlength=len(parts)) / np.bincount(
+                          inv, minlength=len(parts))
+    thresh = avg * 0.2
+    out["q17_thresholds"] = [{"th_partkey": int(k), "qty_thresh": float(v)}
+                             for k, v in zip(parts, thresh)]
+    passing = li["l_quantity"][j] < thresh[inv]
+    rows = [{"p_partkey": int(k), "l_quantity": int(q),
+             "l_extendedprice": float(e), "qty_thresh": float(v)}
+            for k, q, e, v in zip(li["l_partkey"][j][passing],
+                                  li["l_quantity"][j][passing],
+                                  li["l_extendedprice"][j][passing],
+                                  thresh[inv][passing])]
+    out["q17_passing"] = sorted(rows, key=lambda x: (
+        x["p_partkey"], x["l_quantity"], x["l_extendedprice"]))
+    out["q17"] = [{"avg_yearly": float(sum(x["l_extendedprice"] for x in
+                                           out["q17_passing"]) / 7.0)
+                   if rows else None}]
+
+    # q19: three bracketed part/quantity conditions
+    common = ((word_codes(li["l_shipmode"], ["AIR", "REG AIR"]) >= 0)
+              & strings_equal(li["l_shipinstruct"], "DELIVER IN PERSON")
+              & phit)
+    qty, size = li["l_quantity"], p["p_size"][pi]
+    cont = word_codes(p["p_container"], D._CONTAINERS)[pi]
+
+    def bracket(brand, prefix, lo, hi, top):
+        return ((brands[pi] == D._BRANDS.index(brand))
+                & np.isin(cont, [i for i, w in enumerate(D._CONTAINERS)
+                                 if w.startswith(prefix)])
+                & (qty >= lo) & (qty <= hi) & (size >= 1) & (size <= top))
+    hit = common & (bracket("Brand#12", "SM", 1, 11, 5)
+                    | bracket("Brand#23", "MED", 10, 20, 10)
+                    | bracket("Brand#34", "LG", 20, 30, 15))
+    out["q19"] = [{"revenue": float(rev[hit].sum()) if hit.any()
+                   else None}]
+    bcode = brands[pi][common]
+    out["q19_brands"] = [
+        {"p_brand": D._BRANDS[b], "lines": int((bcode == b).sum()),
+         "revenue": float(rev[common][bcode == b].sum())}
+        for b in sorted(np.unique(bcode), key=lambda b: D._BRANDS[b])]
+
+    # q20: EGYPT's suppliers with surplus forest-part stock
+    forest = _word_mask(p["p_name"], [f"{a} {b}" for a in D._COLORS
+                                      for b in ("metal", "steel", "satin")],
+                        lambda w: w.startswith("forest"))
+    fps = pphit & forest[ppi]
+    keep = (ship >= 8766) & (ship < 9131)
+    uniq, inv = _groups(li["l_partkey"][keep], li["l_suppkey"][keep])
+    half = np.bincount(inv, weights=li["l_quantity"][keep].astype(
+        np.float64), minlength=len(uniq)) * 0.5
+    hi_, hhit = _lookup(uniq[:, 0] * width + uniq[:, 1], ps_key)
+    qual = fps & hhit & (ps["ps_availqty"] > np.where(hhit, half[hi_], 0))
+    egypt = np.isin(s["s_nationkey"], nation_key("EGYPT"))
+    ok = np.isin(s["s_suppkey"], ps["ps_suppkey"][qual]) & egypt
+    out["q20"] = [{"s_name": w} for w in
+                  sorted(s_name[k] for k in np.flatnonzero(ok))]
+
+    # q21: Saudi suppliers who alone kept a multi-supplier order waiting
+    late = receipt > commit
+    lok = li["l_orderkey"].astype(np.int64)
+    pairs = np.unique(np.stack([lok, li["l_suppkey"]], 1), axis=0)
+    nsupp = np.bincount(pairs[:, 0], minlength=len(o["o_orderkey"]))
+    lpairs = np.unique(np.stack([lok[late], li["l_suppkey"][late]], 1),
+                       axis=0)
+    nlate = np.bincount(lpairs[:, 0], minlength=len(o["o_orderkey"]))
+    f_status = strings_equal(o["o_orderstatus"], "F")
+    keep = (late & ohit & f_status[oi] & shit
+            & np.isin(s["s_nationkey"][si], nation_key("SAUDI ARABIA"))
+            & (nsupp[lok] > 1) & (nlate[lok] == 1))
+    counts: dict = {}
+    for k in si[keep]:
+        counts[s_name[k]] = counts.get(s_name[k], 0) + 1
+    out["q21"] = sorted(({"s_name": k, "numwait": v}
+                         for k, v in counts.items()),
+                        key=lambda x: (-x["numwait"], x["s_name"]))[:100]
+
+    # q22: orderless customers above the cohort's average balance
+    code = np.array([ph[:2] for ph in host_strings(c["c_phone"])],
+                    dtype=object)
+    bal = c["c_acctbal"]
+    cohort = np.isin(code, Q22_CODES)
+    avg_bal = bal[cohort & (bal > 0.0)].mean()
+    keep = cohort & ~np.isin(c["c_custkey"], o["o_custkey"]) \
+        & (bal > avg_bal)
+    out["q22"] = [{"cntrycode": k, "numcust": int((code[keep] == k).sum()),
+                   "totacctbal": float(bal[keep][code[keep] == k].sum())}
+                  for k in sorted(set(code[keep]))]
+    return out
+
+
+def check_rest(rows, want, what: str) -> None:
+    """The oracle's rows in its order, the same columns; integers, strings
+    and nulls exact, floats within RTOL_FRAMEWORK."""
+    check(len(rows) == len(want), f"{what}: {len(rows)} rows, want "
+          f"{len(want)}")
+    for r, w in zip(rows, want):
+        check(list(r) == list(w), f"{what}: columns {list(r)} != "
+              f"{list(w)}")
+        for k, v in w.items():
+            g = r[k]
+            if isinstance(v, float) and g is not None:
+                check(abs(g - v) <= RTOL_FRAMEWORK * abs(v),
+                      f"{what}: {k} {g!r} != {v!r}")
+            else:
+                check(g == v, f"{what}: {k} {g!r} != {v!r} in {r}")
+
+
+def tpch_rest_paths(F, TorchSession, smi, tables: dict,
+                    device: str = "cuda", rows: int = 1 << 22) -> None:
+    """Phase 10. With ``device="cpu"`` and a small ``rows`` it checks the
+    script's oracles off the card (no timing lines)."""
+    from spark_rapids_tpu_torch import tpch
+    from spark_rapids_tpu_torch.datagen import TPCH_TABLES, tpch_frames
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    host = tpch_host(tables, rows, 4, TPCH_TABLES)
+    t_oracle = time.perf_counter()
+    oracles = rest_oracles({k: v[0] for k, v in host.items()})
+    print(f"phase 10 tables {t_oracle - t0:.1f} s, oracles "
+          f"{time.perf_counter() - t_oracle:.1f} s", flush=True)
+    for name in REST_QUERIES + REST_PARTS:
+        check(bool(oracles[name]), f"the oracle of {name} has no rows")
+    base = {"spark.rapids.shuffle.mode": "ICI",
+            "spark.sql.shuffle.partitions": "8"}
+    layouts = {"benchmark": (base, None),
+               "cached": (dict(base, **{"spark.rapids.sql.batchSizeRows":
+                                        str(rows)}), 1)}
+    for layout, (conf, parts) in layouts.items():
+        s = TorchSession(conf, device=device)
+        t = tpch_frames(s, host, parts)
+        if parts == 1:
+            t["lineitem"] = t["lineitem"].device_cache()
+        for name in REST_QUERIES + REST_PARTS:
+            q = getattr(tpch, name)(t)
+            got = q.collect()
+            check_rest(got, oracles[name], f"{name} {layout} {rows}")
+            weak = [k for k, v in got[0].items() if v is None or v == 0]
+            print(f"(10) {name} {layout} at {rows} ok: {len(got)} rows "
+                  f"equal the oracle" + (f"; null or zero in the first "
+                                         f"row: {weak}" if weak else ""),
+                  flush=True)
+            if layout == "benchmark" and name in REST_QUERIES:
+                print(f"{name}_benchmark plan:\n{physical_plan(q)}",
+                      flush=True)
+                if on_card:
+                    timed_line(f"{name}_benchmark", q, rows, smi)
+        del t, s
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1647,6 +2008,7 @@ def main() -> int:
     from spark_rapids_tpu_torch.entry import entry
     from spark_rapids_tpu_torch.kernels import build, q1_cuda
     from spark_rapids_tpu_torch.kernels.q1 import (make_example_batch,
+                                                   q1_group_and_measures,
                                                    q1_reference_numpy)
     from spark_rapids_tpu_torch.kernels.q1_cuda import mma_blocks, simt_plan
     from spark_rapids_tpu_torch.session import TorchSession
@@ -1711,6 +2073,30 @@ def main() -> int:
                       f"{kname}: two launches at 2^24 differ")
     print(f"kernels vs plain ok: {len(cases)} cases; two launches at 2^24 "
           "identical", flush=True)
+
+    # the closest single PyTorch call to both kernels: index_add_ of the
+    # masked, projected measures over the group ids (float atomics in no
+    # fixed order), at 2^24 rows
+    lib_batch, lib_cut = sliced_batch(N_BIG, aligned)
+    lib_group, lib_meas = q1_group_and_measures(lib_batch, lib_cut)
+    lib_gid = lib_group.long()
+
+    def library_call():
+        return torch.zeros((16, lib_meas.shape[1]), dtype=lib_meas.dtype,
+                           device="cuda").index_add_(0, lib_gid, lib_meas)
+    # it adds each group's ~10^6 rows into one f32 by atomics, so its sums
+    # drift further than the kernels' partials (reported, not gated); its
+    # counts are exact
+    lib = library_call().double().cpu()
+    plain = q1_cuda.q1_agg_simt_plain(lib_batch, lib_cut).double().cpu()
+    check(torch.equal(lib[:, 5:], plain[:, 5:]), "index_add_ counts differ")
+    check(bool(torch.isfinite(lib).all()), "index_add_ sums not finite")
+    library_ms = time_ms(library_call, 20)
+    print(json.dumps({"q1_library_index_add": {
+        "rows": N_BIG, "ms": library_ms, "max_rel_err_vs_plain": float(
+            ((lib - plain).abs() / plain.abs().clamp(min=1)).max())},
+        "card": smi}), flush=True)
+    del lib_batch, lib_group, lib_meas, lib_gid
 
     # 4. the main path, counters from 0
     q1_cuda.reset_launch_counts()
@@ -1781,11 +2167,12 @@ def main() -> int:
                                 warmup=1),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "rows": N_BIG,
+            "library_ms": library_ms, "rows": N_BIG,
             "kernel_device_ms": op_ms(per_op, f"{kname}_kernel"),
             "pass_device_ms": op_ms(per_op, "q1_sum_partials_kernel"),
             **geometry[kname]})
-    print(json.dumps({"kernels": lines, "card": smi}), flush=True)
+    kernels_line = json.dumps({"kernels": lines, "card": smi})
+    print(kernels_line, flush=True)
 
     rows = q.collect()  # warm-up
     best = float("inf")
@@ -1816,12 +2203,16 @@ def main() -> int:
 
     # 8. TPC-H q4, q13 and q18; every hash-join type; LIKE
     tpch_more_paths(F, TorchSession, smi, tables)
-    tables.clear()
     torch.cuda.empty_cache()
 
     # 9. the parquet scan: bench.py's scan_agg queries and Q1 from parquet
     scan_paths(F, TorchSession, smi)
 
+    # 10. the other 16 TPC-H queries over phase 8's 2^22-row tables
+    tpch_rest_paths(F, TorchSession, smi, tables)
+    tables.clear()
+
+    print(kernels_line, flush=True)  # again, near the end of the output
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -157,7 +157,8 @@ class TorchColumnarBatch:
                     arr = arr.cast(pa.binary())
                 bufs = arr.buffers()
                 offsets = np.frombuffer(bufs[1], np.int32, n + 1,
-                                        arr.offset * 4).copy()
+                                        arr.offset * 4).copy() if n \
+                    else np.zeros(1, np.int32)
                 base = int(offsets[0])
                 offsets -= base
                 chars = (np.frombuffer(bufs[2], np.uint8, int(offsets[-1]),
@@ -176,7 +177,8 @@ class TorchColumnarBatch:
             else:
                 phys = np.dtype(dtype.np_dtype)
                 vals = np.frombuffer(arr.buffers()[1], phys, n,
-                                     arr.offset * phys.itemsize)
+                                     arr.offset * phys.itemsize) if n \
+                    else np.zeros(0, phys)
             cols.append(TorchColumnVector.from_numpy(
                 dtype, vals, validity, capacity=n, bucket=False))
         return TorchColumnarBatch(cols, table.num_rows,
@@ -254,6 +256,10 @@ def gather(batch: TorchColumnarBatch, indices: torch.Tensor, out_rows: int,
     cap = out_capacity if out_capacity is not None \
         else bucket_capacity(out_rows)
     dev = batch.device
+    if not batch.capacity:  # nothing to gather from: every row is null
+        return TorchColumnarBatch(
+            [TorchColumnVector.from_scalar(None, c.dtype, out_rows, cap, dev)
+             for c in batch.columns], out_rows, batch.names)
     idx = indices[:cap].to(torch.int64)
     if idx.shape[0] < cap:
         idx = torch.cat([idx, torch.full((cap - idx.shape[0],), -1,

@@ -1,5 +1,5 @@
-"""Deterministic TPC-H data generator: lineitem, orders and customer, the
-tables of q3, q4, q13 and q18 (port of that part of
+"""Deterministic TPC-H data generator: the eight tables of the TPC-H
+schema that ``benchmarks/tpch.py`` reads (port of that part of
 ``spark_rapids_tpu/datagen.py``).
 
 Every column is a pure function of (seed, table, column, partition): each
@@ -216,8 +216,34 @@ _SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
 _SHIPINSTRUCT = ["DELIVER IN PERSON", "COLLECT COD", "NONE",
                  "TAKE BACK RETURN"]
 _PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
+_REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
+_NATIONS = ["ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT", "ETHIOPIA",
+            "FRANCE", "GERMANY", "INDIA", "INDONESIA", "IRAN", "IRAQ",
+            "JAPAN", "JORDAN", "KENYA", "MOROCCO", "MOZAMBIQUE", "PERU",
+            "CHINA", "ROMANIA", "SAUDI ARABIA", "VIETNAM", "RUSSIA",
+            "UNITED KINGDOM", "UNITED STATES"]
+_COLORS = ["almond", "antique", "aquamarine", "azure", "beige", "bisque",
+           "blanched", "blue", "blush", "brown", "burlywood", "burnished",
+           "chartreuse", "chiffon", "chocolate", "coral", "cornflower",
+           "cream", "cyan", "dark", "green", "forest", "frosted", "gainsboro",
+           "ghost", "goldenrod", "honeydew", "hot", "indian", "ivory"]
+_TYPES = [f"{a} {b} {c}"
+          for a in ("STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY",
+                    "PROMO")
+          for b in ("ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED")
+          for c in ("TIN", "NICKEL", "BRASS", "STEEL", "COPPER")]
+_BRANDS = [f"Brand#{i}{j}" for i in range(1, 6) for j in range(1, 6)]
+_CONTAINERS = [f"{a} {b}"
+               for a in ("SM", "MED", "LG", "JUMBO", "WRAP")
+               for b in ("CASE", "BOX", "BAG", "JAR", "PKG", "PACK", "CAN",
+                         "DRUM")]
 _SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
-N_NATIONS = 25
+_SUPPLIER_COMMENTS = [
+    "quick deliveries", "ironic packages", "silent deposits",
+    "Customer not Complaints noted", "regular accounts",
+    "slyly final Customer Complaints", "bold requests"]
+N_NATIONS = len(_NATIONS)
+N_REGIONS = len(_REGIONS)
 
 
 def tpch_lineitem(scale_rows: int) -> TableSpec:
@@ -274,25 +300,113 @@ def tpch_customer(scale_rows: int) -> TableSpec:
     ])
 
 
-def tpch_host_tables(rows: int, parts: int = 4) -> Dict[str, Tuple]:
-    """lineitem, orders and customer (what TPC-H q3, q4, q13 and q18 read)
-    at lineitem-row scale ``rows`` as the reference's benchmark loads them
-    (``benchmarks/tpch.py`` ``load_tables``): seed 42, orders rows/4 and
-    customer rows/40; lineitem and orders in ``parts`` partitions,
-    customer in one. Each table as (host columns, validity, partitions)."""
+def tpch_supplier(scale_rows: int) -> TableSpec:
+    return TableSpec("supplier", [
+        ColumnSpec("s_suppkey", "seq"),
+        ColumnSpec("s_name", "string", max_len=18),
+        ColumnSpec("s_nationkey", "seq", modulo=N_NATIONS),
+        ColumnSpec("s_acctbal", "double", min_val=-1000.0, max_val=10000.0),
+        # a minority of comments carry q16's exclusion phrase
+        ColumnSpec("s_comment", "choice", values=_SUPPLIER_COMMENTS),
+    ])
+
+
+def tpch_part(scale_rows: int) -> TableSpec:
+    return TableSpec("part", [
+        ColumnSpec("p_partkey", "seq"),
+        ColumnSpec("p_name", "choice", values=[
+            f"{a} {b}" for a in _COLORS for b in ("metal", "steel", "satin")]),
+        ColumnSpec("p_mfgr", "choice", values=[
+            f"Manufacturer#{i}" for i in range(1, 6)]),
+        ColumnSpec("p_type", "choice", values=_TYPES),
+        ColumnSpec("p_brand", "choice", values=_BRANDS),
+        ColumnSpec("p_container", "choice", values=_CONTAINERS),
+        ColumnSpec("p_size", "int", min_val=1, max_val=50),
+        ColumnSpec("p_retailprice", "double", min_val=900.0, max_val=2000.0),
+    ])
+
+
+def tpch_partsupp(n_parts: int, n_suppliers: int) -> TableSpec:
+    """Four suppliers a part: ps_partkey = (row // 4) % n_parts, inside
+    part's key domain for any row count; ps_suppkey is the affine layout
+    that lineitem's ``l_suppkey`` mirrors, so every lineitem (part,
+    supplier) pair exists here."""
+    n_s = max(n_suppliers, 1)
+
+    def _ps_suppkey(cols, rng, n, offset=0):
+        pk = cols["ps_partkey"].astype(np.int64)
+        j = np.arange(offset, offset + n) % 4
+        return (31 * pk + 7 * j) % n_s
+
+    return TableSpec("partsupp", [
+        ColumnSpec("ps_partkey", "seq", repeat=4, modulo=max(n_parts, 1)),
+        ColumnSpec("ps_suppkey", "derive", derive=_ps_suppkey),
+        ColumnSpec("ps_availqty", "int", min_val=1, max_val=9999),
+        ColumnSpec("ps_supplycost", "double", min_val=1.0, max_val=1000.0),
+    ])
+
+
+def tpch_nation() -> TableSpec:
+    return TableSpec("nation", [
+        ColumnSpec("n_nationkey", "seq"),
+        ColumnSpec("n_name", "choice", values=_NATIONS, sequential=True),
+        ColumnSpec("n_regionkey", "seq", modulo=N_REGIONS),
+    ])
+
+
+def tpch_region() -> TableSpec:
+    return TableSpec("region", [
+        ColumnSpec("r_regionkey", "seq"),
+        ColumnSpec("r_name", "choice", values=_REGIONS, sequential=True),
+    ])
+
+
+#: every TPC-H table, in ``benchmarks/tpch.py``'s order
+TPCH_TABLES = ("lineitem", "orders", "customer", "supplier", "part",
+               "partsupp", "nation", "region")
+
+
+def tpch_specs(rows: int, parts: int = 4) -> Dict[str, Tuple]:
+    """Each table's (spec, rows, partitions) at lineitem-row scale
+    ``rows``, at ``benchmarks/tpch.py``'s ratios (``load_tables``): orders
+    rows/4, customer rows/40, supplier rows/100, part rows/20, partsupp
+    four a part, 25 nations and 5 regions; lineitem and orders in
+    ``parts`` partitions, the others in one."""
     n_orders = max(rows // 4, 1)
     n_cust = max(rows // 40, 1)
-    return {name: spec.generate(42, n, p) + (p,) for name, spec, n, p in (
-        ("lineitem", tpch_lineitem(rows), rows, parts),
-        ("orders", tpch_orders(n_orders), n_orders, parts),
-        ("customer", tpch_customer(n_cust), n_cust, 1))}
+    n_supp = max(rows // 100, 1)
+    n_part = max(rows // 20, 1)
+    return {
+        "lineitem": (tpch_lineitem(rows), rows, parts),
+        "orders": (tpch_orders(n_orders), n_orders, parts),
+        "customer": (tpch_customer(n_cust), n_cust, 1),
+        "supplier": (tpch_supplier(n_supp), n_supp, 1),
+        "part": (tpch_part(n_part), n_part, 1),
+        "partsupp": (tpch_partsupp(n_part, n_supp), n_part * 4, 1),
+        "nation": (tpch_nation(), N_NATIONS, 1),
+        "region": (tpch_region(), N_REGIONS, 1),
+    }
 
 
-def tpch_frames(session, host: Dict[str, Tuple]):
-    """``tpch_host_tables``' tables as the session's DataFrames."""
-    return {name: session.createDataFrame(cols, num_partitions=p,
-                                          validity=valid)
-            for name, (cols, valid, p) in host.items()}
+def tpch_host_tables(rows: int, parts: int = 4,
+                     names: Sequence[str] = TPCH_TABLES) -> Dict[str, Tuple]:
+    """The TPC-H tables ``names`` (all eight by default) at lineitem-row
+    scale ``rows`` as the reference's benchmark loads them
+    (``benchmarks/tpch.py`` ``load_tables``, seed 42; ``tpch_specs``).
+    Each table as (host columns, validity, partitions)."""
+    specs = tpch_specs(rows, parts)
+    return {name: specs[name][0].generate(42, specs[name][1],
+                                          specs[name][2])
+            + (specs[name][2],) for name in names}
+
+
+def tpch_frames(session, host: Dict[str, Tuple],
+                parts: Optional[int] = None):
+    """``tpch_host_tables``' tables as the session's DataFrames, each in
+    its own partition count or, given ``parts``, in that many."""
+    return {name: session.createDataFrame(
+        cols, num_partitions=parts or p, validity=valid)
+        for name, (cols, valid, p) in host.items()}
 
 
 def tpch_tables(session, rows: int, parts: int = 4):

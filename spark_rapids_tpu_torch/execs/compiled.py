@@ -15,7 +15,7 @@ run. The algorithm is the reference's:
   chunk sized so the working set stays near 2^21 cells, into float64 /
   int64 accumulators (deterministic: no scatter, no atomics);
 * per-batch carries merge on the host, where the tiny result table is
-  finalized and projected.
+  finalized and projected, then goes back to the device.
 
 Where a run turns out ineligible (a domain past ``maxGroups``, a value
 outside the measured domain), the stage re-runs its original aggregate
@@ -35,6 +35,9 @@ import torch
 from ..columnar.batch import TorchColumnarBatch, gather
 from ..columnar.vector import TorchColumnVector, row_mask
 from ..expressions import arithmetic as A
+from ..expressions import conditional as CO
+from ..expressions import mathexprs as M
+from ..expressions import nullexprs as N
 from ..expressions import predicates as P
 from ..expressions.aggregates import (AggregateFunction, Average, Count, Max,
                                       Min, Sum)
@@ -47,11 +50,14 @@ from .base import PhysicalPlan, TaskContext, TorchExec
 
 _SUPPORTED_AGGS = (Sum, Count, Average, Min, Max)
 
-#: expression classes the stage can evaluate on the device
+#: expression classes the stage can evaluate on the device (the
+#: reference's: every registered expression that is not host-assisted;
+#: a string operand keeps its expression out, as there)
 _DEVICE_EXPRS = (Literal, AttributeReference, Alias, A.Add, A.Subtract,
                  A.Multiply, A.Divide, P.EqualTo, P.LessThan,
                  P.LessThanOrEqual, P.GreaterThan, P.GreaterThanOrEqual,
-                 P.And, P.Or, P.Not, Cast)
+                 P.And, P.Or, P.Not, P.In, P.InSet, N.IsNull, N.IsNotNull,
+                 CO.If, CO.CaseWhen, M.Round, Cast)
 
 
 class _StageFallback(Exception):
@@ -695,7 +701,9 @@ class TorchCompiledAggStageExec(TorchExec):
     def _assemble(self, domains: List[_KeyDomain], carries: List[Tuple],
                   ctx: TaskContext) -> TorchColumnarBatch:
         """Host work over the fetched carries: merge, finalize, decode keys,
-        project results over the tiny table (a CPU batch)."""
+        project results over the tiny table; the result goes to the task's
+        device for the operators above (a join or a sort may meet a device
+        batch there)."""
         from .aggregates import _bind_agg_refs
         spec = self.spec
         G = 1
@@ -708,7 +716,8 @@ class TorchCompiledAggStageExec(TorchExec):
         if not carries:
             if spec.grouping:  # grouped agg over empty input: no rows
                 return TorchColumnarBatch(
-                    [TorchColumnVector.from_scalar(None, a.dtype, 0, 0)
+                    [TorchColumnVector.from_scalar(None, a.dtype, 0,
+                                                   device=ctx.device)
                      for a in spec.output], 0, names)
             rowcount = np.zeros(G, np.int64)
             states: List[Optional[Dict]] = [None] * len(spec.agg_fns)
@@ -746,7 +755,7 @@ class TorchCompiledAggStageExec(TorchExec):
             bound = _bind_agg_refs(expr, ng, spec.grouping)
             out_cols.append(to_column(bound.eval_device(table, ctx.eval_ctx),
                                       table, attr.dtype))
-        return TorchColumnarBatch(out_cols, n, names)
+        return TorchColumnarBatch(out_cols, n, names).to_device(ctx.device)
 
 
 def compile_agg_stages(plan: PhysicalPlan, conf) -> PhysicalPlan:

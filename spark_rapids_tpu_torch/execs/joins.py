@@ -1,6 +1,7 @@
-"""Hash joins on the device: the shuffled and the symmetric shuffled hash
-join, and the CPU plan node (port of ``spark_rapids_tpu/execs/joins.py``:
-every hash-join type, with residual conditions).
+"""Joins on the device: the shuffled and the symmetric shuffled hash join,
+the broadcast nested loop join and the cartesian product, and their CPU
+plan nodes (port of ``spark_rapids_tpu/execs/joins.py``: every join type,
+with residual conditions).
 
 The matcher is the reference's sorted-build / range-probe design:
 
@@ -27,8 +28,8 @@ and anti joins keep the probe rows with and without a match, in order,
 and outer joins append the unmatched rows, null-extended, after the
 pairs (left first, then right). Past ``batchSizeRows`` both sides split by
 the same key hash (seed 100) and the pairs join in part order, as in the
-reference. Not yet ported: joins without equi-keys (cartesian, nested
-loop).
+reference. Joins without equi-keys expand the pair grid in blocks of
+``batchSizeRows`` pairs (``_pair_blocks``).
 """
 
 from __future__ import annotations
@@ -404,3 +405,235 @@ class CpuShuffledHashJoinExec(_HostEngineNotPorted):
 
     def node_desc(self) -> str:
         return f"CpuShuffledHashJoin[{self.join_type}]"
+
+
+# ---------------------------------------------------------------------------
+# joins without equi-keys: the broadcast nested loop join and the cartesian
+# product
+# ---------------------------------------------------------------------------
+
+
+def _pair_blocks(left: TorchColumnarBatch, right: TorchColumnarBatch,
+                 condition: Optional[Expression], ctx: TaskContext):
+    """The (left row, right row) grid, left-major, in blocks of whole left
+    rows of at most ``batchSizeRows`` pairs (at least one left row): for
+    each block the joined pairs (``condition`` applied), and the left and
+    right row of every pair that survived it."""
+    n_l, n_r = left.num_rows, right.num_rows
+    dev = left.device
+    step = max(1, ctx.conf.get(BATCH_SIZE_ROWS) // n_r)
+    for a in range(0, n_l, step):
+        rows = min(step, n_l - a)
+        total = rows * n_r
+        cap = bucket_capacity(total)
+        j = torch.arange(cap, device=dev)
+        live = j < total
+        li = torch.where(live, a + torch.div(j, n_r, rounding_mode="floor"),
+                         -1)
+        ri = torch.where(live, j % n_r, -1)
+        joined = TorchColumnarBatch(
+            gather_pairs(left, li, total, cap).columns
+            + gather_pairs(right, ri, total, cap).columns, total)
+        keep = live
+        if condition is not None:
+            cond = to_column(condition.eval_device(joined, ctx.eval_ctx),
+                             joined)
+            keep = keep & cond.data.to(torch.bool)
+            if cond.validity is not None:
+                keep = keep & cond.validity
+            joined = compact(joined, keep)
+        yield joined, li[keep], ri[keep]
+
+
+class TorchBroadcastNestedLoopJoinExec(TorchExec):
+    """A join without equi-keys: every (left, right) pair, filtered by the
+    condition when there is one (reference
+    ``TpuBroadcastNestedLoopJoinExec``), for every join type. Both sides
+    collect whole into one partition. The pair grid expands in blocks of
+    left rows sized to ``batchSizeRows`` pairs, so a large side never
+    expands at once; the condition applies block by block and the blocks
+    come out in the reference's left-major pair order, then the unmatched
+    rows of an outer join (left first, then right), null-extended."""
+
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan,
+                 join_type: str, condition: Optional[Expression],
+                 output: List[AttributeReference]):
+        super().__init__([left, right])
+        self.join_type = join_type
+        self.condition = (bind_references(condition,
+                                          left.output + right.output)
+                          if condition is not None else None)
+        self._output = output
+
+    @property
+    def output(self):
+        return self._output
+
+    def num_partitions(self) -> int:
+        return 1
+
+    def node_desc(self) -> str:
+        return f"TorchBroadcastNestedLoopJoin[{self.join_type}]"
+
+    def _side(self, child: PhysicalPlan, ctx: TaskContext
+              ) -> Optional[TorchColumnarBatch]:
+        batches = [b for p in range(child.num_partitions())
+                   for b in child.execute_partition(p, ctx.for_partition(p))]
+        return concat_batches(batches) if batches else None
+
+    def internal_do_execute_columnar(self, idx: int,
+                                     ctx: TaskContext) -> Iterator:
+        left = self._side(self.children[0], ctx)
+        right = self._side(self.children[1], ctx)
+        jt = self.join_type
+        names = [a.name for a in self._output]
+        l_empty = left is None or not left.num_rows
+        r_empty = right is None or not right.num_rows
+        if l_empty or r_empty:
+            # the reference's empty-side results
+            if not l_empty:
+                if jt in _ANTI:
+                    yield left.rename(names)
+                elif jt in _LEFT_OUTER:
+                    nulls = _all_null_cols(self.children[1].output,
+                                           left.num_rows, left.capacity,
+                                           left.device)
+                    yield TorchColumnarBatch(left.columns + nulls,
+                                             left.num_rows, names)
+            elif not r_empty and jt in _RIGHT_OUTER:
+                nulls = _all_null_cols(self.children[0].output,
+                                       right.num_rows, right.capacity,
+                                       right.device)
+                yield TorchColumnarBatch(nulls + right.columns,
+                                         right.num_rows, names)
+            return
+        dev = left.device
+        l_matched = torch.zeros(left.capacity, dtype=torch.bool, device=dev)
+        r_matched = torch.zeros(right.capacity, dtype=torch.bool, device=dev)
+        for joined, li, ri in _pair_blocks(left, right, self.condition, ctx):
+            l_matched[li] = True
+            r_matched[ri] = True
+            if joined.num_rows and jt not in _SEMI + _ANTI:
+                yield joined.rename(names)
+        if jt in ("inner", "cross"):
+            return
+        lmask = row_mask(left.num_rows, left.capacity, dev)
+        if jt in _SEMI:
+            out = compact(left, l_matched & lmask)
+            if out.num_rows:
+                yield out.rename(names)
+            return
+        if jt in _ANTI:
+            out = compact(left, ~l_matched & lmask)
+            if out.num_rows:
+                yield out.rename(names)
+            return
+        if jt in _LEFT_OUTER:
+            lo = compact(left, ~l_matched & lmask)
+            if lo.num_rows:
+                nulls = _all_null_cols(self.children[1].output, lo.num_rows,
+                                       lo.capacity, dev)
+                yield TorchColumnarBatch(lo.columns + nulls, lo.num_rows,
+                                         names)
+        if jt in _RIGHT_OUTER:
+            ro = compact(right, ~r_matched
+                         & row_mask(right.num_rows, right.capacity, dev))
+            if ro.num_rows:
+                nulls = _all_null_cols(self.children[0].output, ro.num_rows,
+                                       ro.capacity, dev)
+                yield TorchColumnarBatch(nulls + ro.columns, ro.num_rows,
+                                         names)
+
+
+class TorchCartesianProductExec(TorchExec):
+    """The cartesian product of two sides that cannot broadcast (reference
+    ``TpuCartesianProductExec``): output partition k joins left partition
+    k // nr with right partition k % nr, so a partition expands no more
+    than one pair of input partitions, in ``batchSizeRows`` blocks."""
+
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan,
+                 condition: Optional[Expression],
+                 output: List[AttributeReference]):
+        super().__init__([left, right])
+        self.condition = (bind_references(condition,
+                                          left.output + right.output)
+                          if condition is not None else None)
+        self._output = output
+
+    @property
+    def output(self):
+        return self._output
+
+    def num_partitions(self) -> int:
+        return self.children[0].num_partitions() * \
+            self.children[1].num_partitions()
+
+    def node_desc(self) -> str:
+        return "TorchCartesianProduct"
+
+    def internal_do_execute_columnar(self, idx: int,
+                                     ctx: TaskContext) -> Iterator:
+        nr = self.children[1].num_partitions()
+        sides = []
+        for child, p in ((self.children[0], idx // nr),
+                         (self.children[1], idx % nr)):
+            batches = list(child.execute_partition(p, ctx.for_partition(p)))
+            side = concat_batches(batches) if batches else None
+            if side is None or not side.num_rows:
+                return
+            sides.append(side)
+        names = [a.name for a in self._output]
+        for joined, _, _ in _pair_blocks(sides[0], sides[1], self.condition,
+                                         ctx):
+            if joined.num_rows:
+                yield joined.rename(names)
+
+
+class CpuBroadcastNestedLoopJoinExec(_HostEngineNotPorted):
+    """The planner's nested-loop join node; the override engine converts
+    it."""
+
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan,
+                 join_type: str, condition: Optional[Expression],
+                 output: List[AttributeReference]):
+        super().__init__([left, right])
+        self.join_type = join_type
+        self.condition = (bind_references(condition,
+                                          left.output + right.output)
+                          if condition is not None else None)
+        self._output = output
+
+    @property
+    def output(self):
+        return self._output
+
+    def num_partitions(self) -> int:
+        return 1
+
+    def node_desc(self) -> str:
+        return f"CpuBroadcastNestedLoopJoin[{self.join_type}]"
+
+
+class CpuCartesianProductExec(_HostEngineNotPorted):
+    """The planner's cartesian-product node; the override engine converts
+    it."""
+
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan,
+                 condition: Optional[Expression],
+                 output: List[AttributeReference]):
+        super().__init__([left, right])
+        self.condition = (bind_references(condition,
+                                          left.output + right.output)
+                          if condition is not None else None)
+        self._output = output
+
+    @property
+    def output(self):
+        return self._output
+
+    def num_partitions(self) -> int:
+        return self.children[0].num_partitions() * \
+            self.children[1].num_partitions()
+
+    def node_desc(self) -> str:
+        return "CpuCartesianProduct"

@@ -1,9 +1,11 @@
 """Cast between numeric (and boolean/date) types with Spark's non-ANSI
 semantics: integer narrowing wraps like Java, float → integer truncates
-toward zero with NaN → 0 and out-of-range values clamped.
+toward zero with NaN → 0 and out-of-range values clamped, date → integer
+gives the day number, integer/float → double widens.
 
-Port of the numeric part of ``spark_rapids_tpu/expressions/cast.py``;
-string and timestamp casts are not yet ported.
+Port of the numeric part of ``spark_rapids_tpu/expressions/cast.py``
+(the reference's device path); string and timestamp casts are not yet
+ported. A literal casts by the same rules as a column.
 """
 
 from __future__ import annotations
@@ -93,6 +95,8 @@ def _cast_scalar(v, dst: DataType):
         return bool(v)
     if isinstance(dst, (IntegralType, DateType)):
         lo, hi = _INT_BOUNDS[np.dtype(dst.np_dtype)]
+        if isinstance(v, float):  # Java (int)/(long): NaN 0, clamped
+            return 0 if v != v else int(max(min(v, hi), lo))
         iv = int(v)
         return ((iv - lo) % (hi - lo + 1)) + lo  # java wrap
     if isinstance(dst, FractionalType):

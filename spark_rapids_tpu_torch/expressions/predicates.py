@@ -2,18 +2,21 @@
 
 Port of ``spark_rapids_tpu/expressions/predicates.py`` (fixed-width
 operands): NaN equals NaN and sorts above every other double; AND/OR use
-Kleene three-valued logic. String operands compare on the device in
+Kleene three-valued logic; ``IN`` lists (``In``, ``InSet``) give Spark's
+three-valued result. String operands compare on the device in
 UTF-8 byte order (``strings.py``).
 """
 
 from __future__ import annotations
 
+from typing import List
+
 import torch
 
 from ..columnar.vector import TorchScalar, row_mask
 from ..types import BooleanT, DataType, StringType
-from .base import (BinaryExpression, UnaryExpression, _DEFAULT_CTX,
-                   device_parts, make_column)
+from .base import (BinaryExpression, Expression, UnaryExpression,
+                   _DEFAULT_CTX, device_parts, make_column, to_column)
 
 
 def nan_aware_eq(l, r):
@@ -177,3 +180,120 @@ class Not(UnaryExpression):
 
     def pretty(self) -> str:
         return f"NOT {self.child.pretty()}"
+
+
+def _in_result(found: torch.Tensor, value_valid: torch.Tensor,
+               null_item: torch.Tensor, num_rows: int):
+    """Spark's three-valued IN: null for a null value; true on a match;
+    else null when the list holds a null, else false."""
+    valid = value_valid & (found | ~null_item)
+    return make_column(BooleanT, found & valid, valid, num_rows)
+
+
+class _Evaluated(Expression):
+    """An already evaluated column or scalar, as an expression."""
+
+    def __init__(self, result, dtype: DataType):
+        self.children = ()
+        self._result = result
+        self._dtype = dtype
+
+    @property
+    def dtype(self) -> DataType:
+        return self._dtype
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        return self._result
+
+
+class In(Expression):
+    """``value IN (item, ...)`` with Spark's nulls (reference ``In``): a
+    null value gives null; no match with a null in the list gives null.
+    A string value compares UTF-8 bytes on the device, item by item, as
+    the string comparisons do. The reference never rewrites ``In`` to
+    ``InSet`` (Spark's optimizer does past 10 items), so neither does the
+    port: ``explain()`` shows the ``IN`` list."""
+
+    def __init__(self, value: Expression, items: List[Expression]):
+        self.children = (value, *items)
+
+    @property
+    def value(self) -> Expression:
+        return self.children[0]
+
+    @property
+    def items(self):
+        return self.children[1:]
+
+    @property
+    def dtype(self) -> DataType:
+        return BooleanT
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        cap, dev = batch.capacity, batch.device
+        mask = row_mask(batch.num_rows, cap, dev)
+        v = self.value.eval_device(batch, ctx)
+        if isinstance(v, TorchScalar):
+            vv = mask if v.value is not None else torch.zeros_like(mask)
+        else:
+            vv = v.validity_or_true() & mask
+        value = _Evaluated(v, self.value.dtype)  # evaluated once
+        found = torch.zeros(cap, dtype=torch.bool, device=dev)
+        null_item = torch.zeros(cap, dtype=torch.bool, device=dev)
+        for item in self.items:
+            eq = to_column(EqualTo(value, item).eval_device(batch, ctx),
+                           batch, BooleanT)
+            iv = eq.validity_or_true()
+            found = found | (eq.data.to(torch.bool) & iv)
+            # an invalid comparison over a valid value: a null item
+            null_item = null_item | (~iv & vv)
+        return _in_result(found, vv, null_item, batch.num_rows)
+
+    def pretty(self) -> str:
+        return (f"{self.value.pretty()} IN "
+                f"({', '.join(i.pretty() for i in self.items)})")
+
+
+class InSet(Expression):
+    """``value IN <set>`` over a list of Python values (reference
+    ``InSet``): one ``torch.isin`` against the set for fixed-width values,
+    NaN matching NaN; string values take ``In``'s comparisons."""
+
+    def __init__(self, value: Expression, items):
+        self.children = (value,)
+        self.items = list(items)
+        self._has_null = any(i is None for i in self.items)
+        self._non_null = [i for i in self.items if i is not None]
+
+    @property
+    def value(self) -> Expression:
+        return self.children[0]
+
+    @property
+    def dtype(self) -> DataType:
+        return BooleanT
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        from .base import Literal
+        if isinstance(self.value.dtype, StringType):
+            return In(self.value, [Literal(i, self.value.dtype)
+                                   for i in self.items]).eval_device(batch,
+                                                                    ctx)
+        cap, dev = batch.capacity, batch.device
+        mask = row_mask(batch.num_rows, cap, dev)
+        vd, vv = device_parts(self.value.eval_device(batch, ctx), cap, dev)
+        vd = torch.broadcast_to(vd, (cap,))
+        vv = mask if vv is None else vv & mask
+        found = torch.zeros(cap, dtype=torch.bool, device=dev)
+        if self._non_null:
+            items = torch.tensor(self._non_null, device=dev).to(vd.dtype)
+            found = torch.isin(vd, items)
+            if vd.dtype.is_floating_point and any(
+                    isinstance(i, float) and i != i for i in self._non_null):
+                found = found | torch.isnan(vd)
+        null_item = torch.full((cap,), self._has_null, dtype=torch.bool,
+                               device=dev)
+        return _in_result(found, vv, null_item, batch.num_rows)
+
+    def pretty(self) -> str:
+        return f"{self.value.pretty()} INSET {self.items}"

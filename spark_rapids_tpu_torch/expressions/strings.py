@@ -1,7 +1,8 @@
 """Strings on the device: comparisons (port of ``string_compare``,
 ``spark_rapids_tpu/expressions/strings.py``), the order-preserving key
-codes that groups, sorts and joins use, and SQL ``LIKE`` (port of
-``Like``, ``spark_rapids_tpu/expressions/regex.py``).
+codes that groups, sorts and joins use, SQL ``LIKE`` (port of ``Like``,
+``spark_rapids_tpu/expressions/regex.py``) and ``substring`` over ASCII
+strings (``Substring``).
 
 The reference compares strings on the host through pyarrow. Here both
 sides stay as offsets + bytes on the device: a column, or a literal whose
@@ -28,7 +29,7 @@ from typing import List
 import torch
 
 from ..columnar.vector import TorchColumnVector, TorchScalar, row_mask
-from ..types import BooleanT, DataType
+from ..types import BooleanT, DataType, StringT
 from .base import (_DEFAULT_CTX, Expression, combine_validity,
                    make_column, to_column)
 
@@ -299,3 +300,86 @@ class Like(Expression):
             tail = lens - len(segs[-1])
             ok = ok & (tail >= cur) & matches_at(segs[-1], tail)
         return make_column(BooleanT, ok, valid, batch.num_rows)
+
+
+# ---------------------------------------------------------------------------
+# substring
+# ---------------------------------------------------------------------------
+
+
+class Substring(Expression):
+    """``substring(str, pos, len)`` with Spark's positions (reference
+    ``Substring``): ``pos`` counts from 1, 0 acts as 1, a negative ``pos``
+    counts from the end; the range clamps to the string and a negative
+    ``len`` gives the empty string. Over ASCII strings a character is a
+    byte: each row's byte range comes from its length, then one ragged
+    gather copies the ranges into a new offsets + bytes column (never a
+    view of the input). Over a string with a non-ASCII byte the reference
+    slices by character on the host, which is not yet ported, so that
+    case raises."""
+
+    def __init__(self, child: Expression, pos: Expression,
+                 length: Expression):
+        self.children = (child, pos, length)
+
+    @property
+    def dtype(self) -> DataType:
+        return StringT
+
+    @property
+    def nullable(self) -> bool:
+        return self.children[0].nullable
+
+    def _literals(self):
+        from .base import Literal
+        out = []
+        for c in self.children[1:]:
+            if not isinstance(c, Literal) or c.value is None:
+                raise NotImplementedError(
+                    "substring with a non-literal position or length not "
+                    "yet ported")
+            out.append(int(c.value))
+        return out
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        pos, ln = self._literals()
+        c = to_column(self.children[0].eval_device(batch, ctx), batch,
+                      StringT)
+        dev = batch.device
+        n_bytes = int(c.offsets[c.num_rows])
+        if n_bytes and bool((c.data[:n_bytes] >= 0x80).any()):
+            raise NotImplementedError(
+                "substring over non-ASCII strings not yet ported")
+        starts, lens = _starts_lengths(c)
+        valid = combine_validity(c.validity, row_mask(c.num_rows, c.capacity,
+                                                      dev))
+        if valid is not None:
+            lens = torch.where(valid, lens, 0)
+        if pos > 0:
+            s0 = torch.full_like(lens, pos - 1)
+        elif pos == 0:
+            s0 = torch.zeros_like(lens)
+        else:
+            s0 = lens + pos
+        lo = torch.minimum(s0.clamp(min=0), lens)
+        hi = torch.minimum((s0 + max(ln, 0)).clamp(min=0), lens)
+        out_lens = (hi - lo).clamp(min=0)
+        offs = torch.zeros(c.capacity + 1, dtype=torch.int64, device=dev)
+        offs[1:] = torch.cumsum(out_lens, 0)
+        # the output is never longer than the input: its byte buffer fits
+        src_bytes = c.data if c.data.numel() else \
+            torch.zeros(1, dtype=torch.uint8, device=dev)
+        at = torch.arange(src_bytes.shape[0], dtype=torch.int64, device=dev)
+        row = torch.searchsorted(offs[1:], at, right=True).clamp(
+            max=c.capacity - 1)
+        src = (starts[row] + lo[row] + at - offs[row]).clamp(
+            0, src_bytes.shape[0] - 1)
+        data = torch.where(at < offs[-1], src_bytes[src],
+                           torch.zeros((), dtype=torch.uint8, device=dev))
+        return TorchColumnVector(StringT, data, c.validity, c.num_rows,
+                                 offsets=offs.to(torch.int32))
+
+    def pretty(self) -> str:
+        c = self.children
+        return (f"substring({c[0].pretty()}, {c[1].pretty()}, "
+                f"{c[2].pretty()})")

@@ -1,12 +1,13 @@
 """pyspark.sql.functions-compatible surface (the subset of
-``spark_rapids_tpu/functions.py`` that TPC-H q1, q3, q4, q6, q13 and q18
-use)."""
+``spark_rapids_tpu/functions.py`` that the 22 TPC-H queries of
+``benchmarks/tpch.py`` use)."""
 
 from __future__ import annotations
 
 from typing import Any
 
 from .expressions import aggregates as _G
+from .expressions import conditional as _C
 from .expressions.base import Literal, UnresolvedAttribute
 from .session import Column, _expr
 
@@ -57,3 +58,35 @@ def min(c) -> Column:  # noqa: A001
 
 def max(c) -> Column:  # noqa: A001
     return Column(_G.Max(_expr_or_col(c)))
+
+
+class WhenBuilder(Column):
+    """``when(cond, value)[.when(...)].otherwise(value)``: a CASE WHEN that
+    is null where no branch holds until ``otherwise`` gives its ELSE."""
+
+    def __init__(self, branches):
+        self._branches = branches
+        super().__init__(_C.CaseWhen(branches))
+
+    def when(self, condition, value) -> "WhenBuilder":
+        return WhenBuilder(self._branches + [(_expr(condition),
+                                              _expr(value))])
+
+    def otherwise(self, value) -> Column:
+        return Column(_C.CaseWhen(self._branches, _expr(value)))
+
+
+def when(condition, value) -> WhenBuilder:
+    return WhenBuilder([(_expr(condition), _expr(value))])
+
+
+def round(c, scale: int = 0) -> Column:  # noqa: A001
+    """HALF_UP rounding to ``scale`` decimal places."""
+    from .expressions.mathexprs import Round
+    return Column(Round(_expr_or_col(c), Literal(scale)))
+
+
+def substring(c, pos: int, length: int) -> Column:
+    """Spark's 1-based ``substring(str, pos, len)``."""
+    from .expressions.strings import Substring
+    return Column(Substring(_expr_or_col(c), Literal(pos), Literal(length)))

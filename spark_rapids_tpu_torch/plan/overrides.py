@@ -1,6 +1,7 @@
 """TorchOverrides: the plan-override engine retargeting CPU operators to
 the device (port of the engine and the Project/Filter/device-scan/
-file-scan/sort/aggregate/join/exchange/TopN/limit rules of
+file-scan/sort/aggregate/join (hash, nested loop, cartesian)/exchange/
+TopN/limit rules of
 ``spark_rapids_tpu/plan/overrides.py``).
 
 Flow: CPU physical plan → wrap in a PlanMeta tree → tag (reasons) →
@@ -25,7 +26,8 @@ from ..execs import cpu as CE
 from ..execs.aggregates import CpuHashAggregateExec
 from ..execs.base import CpuExec, PhysicalPlan
 from ..execs.broadcast import CpuBroadcastHashJoinExec
-from ..execs.joins import CpuShuffledHashJoinExec
+from ..execs.joins import (CpuBroadcastNestedLoopJoinExec,
+                           CpuCartesianProductExec, CpuShuffledHashJoinExec)
 from ..execs.transitions import (CpuDeviceScanExec, DeviceToHostExec,
                                  HostToDeviceExec)
 from ..io.parquet import CpuFileScanExec
@@ -169,6 +171,26 @@ def _convert_broadcast_join(meta: PlanMeta, children):
                                       p.output)
 
 
+def _tag_nested_loop_join(meta: PlanMeta) -> None:
+    if meta.plan.condition is not None:
+        meta.add_exprs([meta.plan.condition])
+
+
+def _convert_nested_loop_join(meta: PlanMeta, children):
+    from ..execs.joins import TorchBroadcastNestedLoopJoinExec
+    p = meta.plan
+    return TorchBroadcastNestedLoopJoinExec(children[0], children[1],
+                                            p.join_type, p.condition,
+                                            p.output)
+
+
+def _convert_cartesian(meta: PlanMeta, children):
+    from ..execs.joins import TorchCartesianProductExec
+    p = meta.plan
+    return TorchCartesianProductExec(children[0], children[1], p.condition,
+                                     p.output)
+
+
 def _tag_exchange(meta: PlanMeta) -> None:
     meta.add_exprs(meta.plan.keys)
 
@@ -231,6 +253,12 @@ register_exec(CpuShuffledHashJoinExec, "shuffled hash join",
 register_exec(CpuBroadcastHashJoinExec, "broadcast hash join",
               "spark.rapids.sql.exec.BroadcastHashJoinExec", _tag_hash_join,
               _convert_broadcast_join)
+register_exec(CpuBroadcastNestedLoopJoinExec, "broadcast nested loop join",
+              "spark.rapids.sql.exec.BroadcastNestedLoopJoinExec",
+              _tag_nested_loop_join, _convert_nested_loop_join)
+register_exec(CpuCartesianProductExec, "cartesian product",
+              "spark.rapids.sql.exec.CartesianProductExec",
+              _tag_nested_loop_join, _convert_cartesian)
 register_exec(CpuShuffleExchangeExec, "shuffle exchange",
               "spark.rapids.sql.exec.ShuffleExchangeExec", _tag_exchange,
               _convert_exchange)

@@ -8,9 +8,11 @@ right above it), Project, Filter, Limit, Sort, Aggregate and equi-Join.
 
 A grouped aggregate over more than one partition, and a join that cannot
 broadcast its build side, distribute their input through hash exchanges on
-their keys (``per_partition``), as in the reference. Cartesian and nested
-loop joins (no equi-keys) and dynamic partition pruning (scans of
-partitioned files) are not yet ported.
+their keys (``per_partition``), as in the reference. A join without
+equi-keys is a broadcast nested loop join, or a cartesian product when it
+is an inner or cross join whose right side is sized past the broadcast
+threshold. Dynamic partition pruning (scans of partitioned files) is not
+yet ported.
 """
 
 from __future__ import annotations
@@ -100,14 +102,12 @@ def _plan_join(plan: L.Join, conf: RapidsConf) -> PhysicalPlan:
                                    estimated_size_bytes)
     from ..execs.joins import CpuShuffledHashJoinExec
     from ..shuffle.exchange import CpuShuffleExchangeExec
-    if not plan.left_keys:
-        raise NotImplementedError(
-            "joins without equi-keys (cartesian, nested loop) not yet "
-            "ported")
     left = plan_physical(plan.left, conf)
     right = plan_physical(plan.right, conf)
     threshold = conf.get(AUTO_BROADCAST_JOIN_THRESHOLD)
     r_size = estimated_size_bytes(right)
+    if not plan.left_keys:
+        return _plan_nested_loop_join(plan, left, right, threshold, r_size)
     if r_size is None and conf.get(LOGICAL_JOIN_STRATEGY):
         # no table to size the build side from: the logical estimate
         from .cbo import estimate_logical_bytes
@@ -126,3 +126,19 @@ def _plan_join(plan: L.Join, conf: RapidsConf) -> PhysicalPlan:
         return CpuShuffledHashJoinExec(left, right, *args,
                                        per_partition=True)
     return CpuShuffledHashJoinExec(left, right, *args)
+
+
+def _plan_nested_loop_join(plan: L.Join, left, right, threshold: int,
+                           r_size) -> PhysicalPlan:
+    """A join without equi-keys: an inner or cross join whose right side is
+    sized past the broadcast threshold pairs partitions in a cartesian
+    product (Spark's CartesianProductExec); any other one broadcasts
+    (reference ``plan_physical``)."""
+    from ..execs.joins import (CpuBroadcastNestedLoopJoinExec,
+                               CpuCartesianProductExec)
+    if plan.join_type in ("inner", "cross") and threshold > 0 \
+            and r_size is not None and r_size > threshold:
+        return CpuCartesianProductExec(left, right, plan.condition,
+                                       plan.output)
+    return CpuBroadcastNestedLoopJoinExec(left, right, plan.join_type,
+                                          plan.condition, plan.output)

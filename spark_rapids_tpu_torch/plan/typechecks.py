@@ -44,6 +44,9 @@ def _register_builtin_exprs() -> None:
     from ..expressions import arithmetic as A
     from ..expressions import base as B
     from ..expressions import cast as C
+    from ..expressions import conditional as CO
+    from ..expressions import mathexprs as M
+    from ..expressions import nullexprs as N
     from ..expressions import predicates as P
     from ..expressions import strings as S
     sig_all = TypeSigs.all_basic
@@ -62,7 +65,19 @@ def _register_builtin_exprs() -> None:
     register_expr(P.And, TypeSigs.BOOLEAN, "logical AND (Kleene)")
     register_expr(P.Or, TypeSigs.BOOLEAN, "logical OR (Kleene)")
     register_expr(P.Not, TypeSigs.BOOLEAN, "logical NOT")
+    register_expr(P.In, TypeSigs.BOOLEAN, "IN (literal list)")
+    register_expr(P.InSet, TypeSigs.BOOLEAN, "IN over a literal set (isin)")
+    register_expr(N.IsNull, TypeSigs.BOOLEAN, "IS NULL")
+    register_expr(N.IsNotNull, TypeSigs.BOOLEAN, "IS NOT NULL")
+    # the branches are fixed-width: a string CASE WHEN is not yet ported
+    branch = TypeSigs.numeric + TypeSigs.BOOLEAN + TypeSigs.DATE \
+        + TypeSigs.NULL
+    register_expr(CO.If, branch, "if/else")
+    register_expr(CO.CaseWhen, branch, "CASE WHEN")
+    register_expr(M.Round, TypeSigs.numeric, "round (HALF_UP)")
     register_expr(S.Like, TypeSigs.BOOLEAN, "SQL LIKE with % and _")
+    register_expr(S.Substring, TypeSigs.STRING,
+                  "substring (device ragged gather, ASCII)")
     register_expr(AGG.Sum, TypeSigs.numeric, "sum aggregate")
     register_expr(AGG.Average, TypeSigs.numeric, "average aggregate")
     # min/max of strings reduce on the host in the reference (pyarrow);

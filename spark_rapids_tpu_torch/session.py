@@ -103,6 +103,40 @@ class Column:
         from .expressions.strings import Like
         return Column(Like(self._expr, pattern))
 
+    def cast(self, to) -> "Column":
+        """Cast to a type or a Spark type name (``"int"``, ``"double"``,
+        ``"long"``, ``"date"``, ...)."""
+        from .expressions.cast import Cast
+        from .types import type_from_string
+        return Column(Cast(self._expr, type_from_string(to)
+                           if isinstance(to, str) else to))
+
+    def isNull(self) -> "Column":
+        from .expressions.nullexprs import IsNull
+        return Column(IsNull(self._expr))
+
+    def isNotNull(self) -> "Column":
+        from .expressions.nullexprs import IsNotNull
+        return Column(IsNotNull(self._expr))
+
+    def isin(self, *values) -> "Column":
+        """``IN`` a list: ``isin(1, 2)`` or ``isin([1, 2])``."""
+        from .expressions.predicates import In
+        items = values[0] if len(values) == 1 \
+            and isinstance(values[0], (list, tuple)) else values
+        return Column(In(self._expr, [_expr(v) for v in items]))
+
+    def between(self, lower, upper) -> "Column":
+        """``lower <= self AND self <= upper``."""
+        from .expressions.predicates import (And, GreaterThanOrEqual,
+                                             LessThanOrEqual)
+        return Column(And(GreaterThanOrEqual(self._expr, _expr(lower)),
+                          LessThanOrEqual(self._expr, _expr(upper))))
+
+    def substr(self, start: int, length: int) -> "Column":
+        from .expressions.strings import Substring
+        return Column(Substring(self._expr, Literal(start), Literal(length)))
+
     def alias(self, name: str) -> "Column":
         return Column(Alias(self._expr, name))
 
@@ -149,12 +183,35 @@ class DataFrame:
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(L.Limit(n, self._plan), self.session)
 
+    def select(self, *cols) -> "DataFrame":
+        """Columns by name, or Column expressions (``alias`` names
+        them)."""
+        exprs = [UnresolvedAttribute(c) if isinstance(c, str) else _expr(c)
+                 for c in cols]
+        return DataFrame(L.Project(exprs, self._plan), self.session)
+
+    def distinct(self) -> "DataFrame":
+        """SELECT DISTINCT: a keys-only aggregate over every column (Spark's
+        ReplaceDeduplicateWithAggregate, as the reference lowers it)."""
+        return DataFrame(L.Aggregate(list(self._plan.output), [],
+                                     self._plan), self.session)
+
+    def crossJoin(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(L.Join(self._plan, other._plan, "cross"),
+                         self.session)
+
     def join(self, other: "DataFrame", on=None, how: str = "inner"
              ) -> "DataFrame":
-        """Equi-join on a Column condition (an AND of column equalities,
-        e.g. ``a["k"] == b["k"]``); other conjuncts become the residual
-        condition. Mismatched key types widen to a common type."""
-        if on is None or isinstance(on, (str, list, tuple)):
+        """Join on a Column condition: its AND of column equalities across
+        the sides (e.g. ``a["k"] == b["k"]``) are the equi-keys and the
+        other conjuncts the residual condition; mismatched key types widen
+        to a common type. With no equality the join is a nested-loop
+        join on the condition, and with ``on=None`` a cross join."""
+        if on is None:
+            return DataFrame(L.Join(self._plan, other._plan,
+                                    "cross" if how == "inner" else how),
+                             self.session)
+        if isinstance(on, (str, list, tuple)):
             raise NotImplementedError(
                 "join on column names not yet ported: pass a Column "
                 "condition")

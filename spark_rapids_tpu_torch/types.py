@@ -179,6 +179,30 @@ BinaryT = BinaryType()
 DateT = DateType()
 TimestampT = TimestampType()
 
+#: Spark SQL type names (``Column.cast("int")``) → type, as the
+#: reference's ``session._type_from_string`` resolves them
+_TYPE_NAMES = {"boolean": BooleanT, "byte": ByteT, "tinyint": ByteT,
+               "short": ShortT, "smallint": ShortT, "int": IntegerT,
+               "integer": IntegerT, "long": LongT, "bigint": LongT,
+               "float": FloatT, "double": DoubleT, "string": StringT,
+               "binary": BinaryT, "date": DateT, "timestamp": TimestampT}
+
+
+def type_from_string(name: str) -> DataType:
+    """The type a Spark SQL type name denotes (case and surrounding space
+    ignored): ``"int"``, ``"double"``, ``"long"``, ``"date"``, ... and
+    ``"decimal(p, s)"`` (``decimal`` alone is decimal(10, 0))."""
+    key = name.strip().lower()
+    if key in _TYPE_NAMES:
+        return _TYPE_NAMES[key]
+    if key.startswith("decimal"):
+        import re
+        m = re.match(r"decimal\((\d+),\s*(\d+)\)", key)
+        return DecimalType(int(m.group(1)), int(m.group(2))) if m \
+            else DecimalType(10, 0)
+    raise ValueError(f"unknown type string {name!r}")
+
+
 _NP_TO_TORCH = {
     np.dtype(np.bool_): torch.bool,
     np.dtype(np.int8): torch.int8,

@@ -1,8 +1,9 @@
 """Shared parts of the port's TPC-H query tests (``test_torch_q4.py``,
-``test_torch_q13.py``, ``test_torch_q18.py``): each query through both
-packages at 4,096 lineitem rows in the two layouts the reference plans
-differently (q18 also with its join stage off), the reference's rows
-computed once per process.
+``test_torch_q13.py``, ``test_torch_q18.py``, ``test_torch_tpch_more_*.py``):
+each query through both packages at 4,096 lineitem rows (or the rows a
+file asks for) in the two layouts the reference plans differently (q18
+also with its join stage off), the reference's rows computed once per
+process.
 
 * ``cached``: lineitem ``device_cache()``d in one batch, every table in
   one partition (the compiled stages' shape);
@@ -10,17 +11,20 @@ computed once per process.
   four partitions, eight shuffle partitions, the ``ICI`` shuffle.
 
 The reference runs ``benchmarks/tpch.py``'s query; the port runs the same
-query as ``chip_smoke.py`` writes it against the port, so these tests also
-hold the card's smoke run to the benchmark's queries."""
+query as ``spark_rapids_tpu_torch/tpch.py`` writes it against the port (the
+text ``chip_smoke.py`` runs on the card), so these tests also hold the
+card's smoke run to the benchmark's queries. An intermediate result the
+benchmark has no text for (``q8_parts``, ``q17_thresholds``, ...) runs the
+port's text through both packages' functions."""
 
 import functools
 
 import numpy as np
 
 import benchmarks.tpch as tpch
-import chip_smoke
-import spark_rapids_tpu_torch.functions as TF
+import spark_rapids_tpu.functions as RF
 from spark_rapids_tpu.session import TpuSession
+from spark_rapids_tpu_torch import tpch as port_tpch
 from spark_rapids_tpu_torch.datagen import tpch_tables
 from spark_rapids_tpu_torch.session import TorchSession
 
@@ -30,9 +34,10 @@ REF_ONLY_OFF = {"spark.rapids.tpu.opjit.fuseStages": "false",
 BASE = {"spark.rapids.shuffle.mode": "ICI",
         "spark.sql.shuffle.partitions": "8"}
 ROWS = 1 << 12
-#: layout -> (conf, lineitem/orders partitions, device-cached lineitem)
+#: layout -> (conf, lineitem/orders partitions, device-cached lineitem);
+#: the cached layout's batch holds every lineitem row
 LAYOUTS = {
-    "cached": ({"spark.rapids.sql.batchSizeRows": str(ROWS)}, 1, True),
+    "cached": ({}, 1, True),
     "benchmark": ({}, 4, False),
     "benchmark-join-stage-off": ({
         "spark.rapids.tpu.join.compiledStage.enabled": "false"}, 4, False),
@@ -46,43 +51,53 @@ LAYOUTS = {
 ROWS_FROM = {"benchmark-join-stage-off": "benchmark"}
 
 
-def _reference_query(query: str, layout: str):
-    conf, parts, cached = LAYOUTS[layout]
-    s = TpuSession(dict(BASE, **conf, **REF_ONLY_OFF))
-    t = tpch.load_tables(s, ROWS, parts=parts)
+def _conf(layout: str, rows: int) -> dict:
+    conf, _, cached = LAYOUTS[layout]
+    if cached:
+        conf = dict(conf, **{"spark.rapids.sql.batchSizeRows": str(rows)})
+    return dict(BASE, **conf)
+
+
+def _reference_query(query: str, layout: str, rows: int):
+    _, parts, cached = LAYOUTS[layout]
+    s = TpuSession(dict(_conf(layout, rows), **REF_ONLY_OFF))
+    t = tpch.load_tables(s, rows, parts=parts)
     if cached:
         t["lineitem"] = t["lineitem"].device_cache()
-    return s, getattr(tpch, query)(s, t)
+    if query in tpch.QUERIES:
+        return s, tpch.QUERIES[query](s, t)
+    return s, getattr(port_tpch, query)(t, RF)
 
 
 @functools.lru_cache(maxsize=None)
-def reference_plan(query: str, layout: str) -> str:
+def reference_plan(query: str, layout: str, rows: int = ROWS) -> str:
     """The reference's ``explain()`` (planning only)."""
-    return _reference_query(query, layout)[1].explain()
+    return _reference_query(query, layout, rows)[1].explain()
 
 
 @functools.lru_cache(maxsize=None)
-def reference_rows(query: str, layout: str):
+def reference_rows(query: str, layout: str, rows: int = ROWS):
     """(rows, fallbackReruns) of the reference's run (in the ``ROWS_FROM``
     layout where there is one)."""
     if layout in ROWS_FROM:
-        rows, _ = reference_rows(query, ROWS_FROM[layout])
-        assert "CompiledJoinAggStage" not in reference_plan(query, layout)
-        return rows, 0
-    s, q = _reference_query(query, layout)
-    rows = q.collect()
-    return rows, sum(m.get("fallbackReruns", 0)
-                     for m in s.last_query_metrics("DEBUG").values())
+        out, _ = reference_rows(query, ROWS_FROM[layout], rows)
+        assert "CompiledJoinAggStage" not in reference_plan(query, layout,
+                                                            rows)
+        return out, 0
+    s, q = _reference_query(query, layout, rows)
+    out = q.collect()
+    return out, sum(m.get("fallbackReruns", 0)
+                    for m in s.last_query_metrics("DEBUG").values())
 
 
-def port(query: str, layout: str):
+def port(query: str, layout: str, rows: int = ROWS):
     """(explain, rows, the session's counters) of the port on the CPU."""
-    conf, parts, cached = LAYOUTS[layout]
-    s = TorchSession(dict(BASE, **conf), device="cpu")
-    t = tpch_tables(s, ROWS, parts)
+    _, parts, cached = LAYOUTS[layout]
+    s = TorchSession(_conf(layout, rows), device="cpu")
+    t = tpch_tables(s, rows, parts)
     if cached:
         t["lineitem"] = t["lineitem"].device_cache()
-    q = getattr(chip_smoke, f"{query}_query")(TF, t)
+    q = getattr(port_tpch, query)(t)
     return q.explain(), q.collect(), s.counters
 
 
@@ -112,3 +127,16 @@ def assert_rows_equal(want, got) -> None:
                 np.testing.assert_allclose(g[k], w[k], rtol=1e-9)
             else:
                 assert g[k] == w[k], (k, g, w)
+
+
+def assert_query_matches(query: str, layout: str, rows: int = ROWS) -> None:
+    """The port's plan, rows and re-runs are the reference's, which has
+    rows."""
+    ref_plan = reference_plan(query, layout, rows)
+    want, ref_reruns = reference_rows(query, layout, rows)
+    plan, got, counters = port(query, layout, rows)
+    assert_same_plan(ref_plan, plan)
+    assert_rows_equal(want, got)
+    # the compiled aggregation and join stages' re-runs on the general path
+    assert counters["fallback_runs"] + counters["fallbackReruns"] \
+        == ref_reruns

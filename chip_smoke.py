@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: all 22 TPC-H queries of
 benchmarks/tpch.py end to end (as spark_rapids_tpu_torch/tpch.py writes
-them), and the parquet scan.
+them), the parquet scan, and the query lifecycle (bench.py's hot_repeat
+and serving stages, spill and out-of-memory retry, deadline and cancel).
 
     python3 chip_smoke.py
 
@@ -122,6 +123,45 @@ prints no result):
    lineitem device_cache()d in one batch. A line names any null or zero
    in a result's first row.
 
+11. the query lifecycle (every collect() of every phase goes through the
+   scheduler: admission, the plan cache, the task semaphore, spillable
+   batches and out-of-memory retry):
+   (a) bench.py's hot_repeat: six literal-varying q6 submissions over
+       phase 4's cached lineitem and six q3 submissions over the five
+       market segments on the star-join stage (lineitem cached in one
+       batch at 2^22 rows; bench.py runs 2^18), each against the numpy
+       oracle of its own literals; one plan-cache miss and five hits per
+       query; first, steady and warm-p50 times;
+   (b) bench.py's serving stage: N in {1, 4, 16} tenant threads (own
+       session and 2^20-row tables each; bench.py runs 2^12), classes
+       round-robin, q1, q6 and q3 (reps 2, 1 at N=16) with
+       maxConcurrentQueries=4 and shedAfterMs=500; every non-shed result
+       against its oracle, no tenant error; rows/s, per-class p50/p95,
+       admission-wait p95 and sheds;
+   (c) the memory runtime: Q1 on the general path at 2^24 with two forced
+       retry OOMs, then one forced split (the oracle's rows, the counts
+       forced); q3 on the general path at 2^22 under a budget of a
+       quarter of its unconstrained peak, first with host spill only, then
+       with a host limit that sends some to disk (the unconstrained rows,
+       spill bytes by tier and pressure events > 0, and a lower peak of
+       torch.cuda.max_memory_allocated() than unconstrained); a spilled
+       2^24-row batch that only the catalog holds leaves the card and
+       comes back as one copy, one held elsewhere is not spilled; a real
+       torch.cuda.OutOfMemoryError in with_retry over 2^24 rows healed by
+       one retry and a split. After each case the budget is at 0, every
+       permit free, the spill and shuffle catalogs empty, no resource
+       leaked and torch.cuda.memory_allocated() back at its value before;
+   (d) q21 in the benchmark layout: a 0.2 s deadline raises
+       QueryDeadlineExceeded, a session.cancel() from a second thread
+       stops it; the milliseconds from the deadline (the cancel) to the
+       raise, and no leak;
+   (e) the lifecycle's own costs: one batch through with_retry, a bare
+       register/read/close, a no-op admission, q21's fingerprint and
+       clone.
+
+After each phase a phase_wall line gives its wall, its collects, their
+planning ms and the batches the spill catalog registered.
+
 The kernels line (phase 5) prints again before the card's name and power
 limit, and the last line is {"ok": true, "device": {...}}.
 """
@@ -129,6 +169,7 @@ limit, and the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import re
@@ -492,12 +533,12 @@ def strings_equal(col, word: str) -> np.ndarray:
     return hit
 
 
-def q3_oracle(host):
-    """numpy float64 q3: every group (order key → (order date, revenue))
-    and the top 10 rows."""
+def q3_oracle(host, segment: str = Q3_SEGMENT):
+    """numpy float64 q3 (c_mktsegment = ``segment``): every group (order
+    key → (order date, revenue)) and the top 10 rows."""
     cust, orders = host["customer"][0], host["orders"][0]
     li = host["lineitem"][0]
-    building = strings_equal(cust["c_mktsegment"], Q3_SEGMENT)
+    building = strings_equal(cust["c_mktsegment"], segment)
     ck = cust["c_custkey"]
     ci = np.minimum(np.searchsorted(ck, orders["o_custkey"]), len(ck) - 1)
     keep = (ck[ci] == orders["o_custkey"]) & building[ci]
@@ -2001,6 +2042,587 @@ def tpch_rest_paths(F, TorchSession, smi, tables: dict,
     print(f"phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the query lifecycle — hot_repeat, serving, the memory runtime,
+# deadline and cancel
+# ---------------------------------------------------------------------------
+
+#: bench.py's sizes for the two lifecycle stages (what it ran): the card runs
+#: larger, as at these sizes the device does almost no work
+BENCH_HOT_REPEAT_Q3_ROWS = 1 << 18
+BENCH_SERVING_ROWS = 1 << 12
+
+
+def release_plans() -> None:
+    """Drop the plan cache's entries (each pins its query's relations, a
+    cached one's device batches too) and the allocator's free blocks."""
+    from spark_rapids_tpu_torch.serving.scheduler import QueryScheduler
+    QueryScheduler.get().plan_cache.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def lifecycle_counts() -> dict:
+    """How many collects the scheduler planned (and their planning time,
+    the plan cache's fingerprint and clone included) and how many batches
+    the spill catalog registered, so far in this process."""
+    from spark_rapids_tpu_torch.memory.spill import TorchBufferCatalog
+    from spark_rapids_tpu_torch.obs import metrics as obs_metrics
+    plan = obs_metrics.full_snapshot()["histograms"].get(
+        "plan.build_ms", {}).get("", {})
+    cat = TorchBufferCatalog._instance  # none before the first query
+    return {"collects": plan.get("count", 0),
+            "plan_ms": plan.get("sum", 0.0),
+            "registrations": 0 if cat is None else cat._next_handle}
+
+
+class PhaseClock:
+    """Prints one ``phase_wall`` line a phase: its wall and the lifecycle
+    work in it (collects, their planning time, batch registrations)."""
+
+    def __init__(self, smi: str):
+        self.smi = smi
+        self.t = time.perf_counter()
+        self.counts = lifecycle_counts()
+
+    def mark(self, phase: int) -> None:
+        now, counts = time.perf_counter(), lifecycle_counts()
+        # null where the phase reset the catalog's count (phase 11)
+        delta = {k: counts[k] - self.counts[k] for k in counts}
+        print(json.dumps({"phase_wall": {
+            "phase": phase, "s": now - self.t,
+            **{k: v if v >= 0 else None for k, v in delta.items()}},
+            "card": self.smi}), flush=True)
+        self.t, self.counts = now, counts
+
+
+def lifecycle_overhead(TorchSession, smi, cols6, tables) -> None:
+    """(11e) The lifecycle's own cost, the parts a collect and a batch pay
+    whatever the query: one batch through ``with_retry`` (registration in
+    the spill catalog, the budget, the cleaner, the chaos scope) and a
+    register/read/close alone, on a 2^18-row batch; a no-op query through
+    the scheduler's admission; the plan cache's fingerprint and clone of
+    q21's plan. With ``phase_wall``'s counts they bound the lifecycle's
+    share of each phase."""
+    from spark_rapids_tpu_torch import tpch
+    from spark_rapids_tpu_torch.columnar.batch import TorchColumnarBatch
+    from spark_rapids_tpu_torch.datagen import TPCH_TABLES, tpch_frames
+    from spark_rapids_tpu_torch.memory.retry import with_retry
+    from spark_rapids_tpu_torch.memory.spill import SpillableColumnarBatch
+    from spark_rapids_tpu_torch.serving.plan_cache import fingerprint
+    from spark_rapids_tpu_torch.serving.query_context import QueryContext
+    from spark_rapids_tpu_torch.serving.scheduler import QueryScheduler
+    before = runtime_state(True)
+    n = 1 << 18
+    batch = TorchColumnarBatch.from_numpy_columns(
+        {k: cols6[k][:n] for k in ("l_quantity", "l_extendedprice",
+                                   "l_discount", "l_tax")}).to_device(
+        torch.device("cuda"))
+
+    def per_call_us(fn, reps):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    def retry_once():
+        for _ in with_retry(batch, lambda b: b):
+            pass
+
+    def register_once():
+        sb = SpillableColumnarBatch(batch)
+        sb.get_batch()
+        sb.close()
+
+    sched = QueryScheduler.get()
+    admit_us = per_call_us(lambda: sched.submit_and_run(
+        QueryContext("noop", session_id="sess-overhead"), lambda: None), 200)
+    # the retry path registers a batch a caller still holds: the spill
+    # would skip it, which this timing does not reach
+    retry_us = per_call_us(retry_once, 500)
+    register_us = per_call_us(register_once, 500)
+    del batch
+    host = tpch_host(tables, 1 << 16, 4, TPCH_TABLES)
+    s = TorchSession({"spark.rapids.shuffle.mode": "ICI",
+                      "spark.sql.shuffle.partitions": "8"}, device="cuda")
+    q = tpch.q21(tpch_frames(s, host))
+    conf = s._rapids_conf()
+    fp_ms = per_call_us(lambda: fingerprint(q._plan, conf), 50) / 1e3
+    q.collect()  # caches the plan: the next collects clone it
+    entry = next(iter(sched.plan_cache._entries.values()))
+    clone_ms = per_call_us(entry.template.clone_for_execution, 50) / 1e3
+    del q, s, entry
+    QueryScheduler.get().plan_cache.clear()
+    print(json.dumps({"lifecycle_overhead": {
+        "with_retry_per_batch_us": retry_us,
+        "register_get_close_us": register_us,
+        "admission_noop_query_us": admit_us,
+        "fingerprint_q21_ms": fp_ms, "clone_q21_ms": clone_ms},
+        "card": smi}), flush=True)
+    check_no_leak(before, True, "lifecycle overhead")
+
+
+def runtime_state(on_card: bool) -> dict:
+    """The memory runtime's counters that every unwind path must return to
+    baseline, and the allocator's live bytes."""
+    from spark_rapids_tpu_torch.memory.cleaner import MemoryCleaner
+    from spark_rapids_tpu_torch.memory.hbm import HbmBudget
+    from spark_rapids_tpu_torch.memory.semaphore import TorchSemaphore
+    from spark_rapids_tpu_torch.memory.spill import TorchBufferCatalog
+    from spark_rapids_tpu_torch.shuffle.exchange import ShuffleCatalog
+    gc.collect()  # garbage in reference cycles is not live, only late
+    if on_card:
+        torch.cuda.synchronize()
+    sem = TorchSemaphore._instance
+    shuffle = ShuffleCatalog._instance
+    return {"budget_used": HbmBudget.get().used,
+            "permits_free": None if sem is None else sem.available(),
+            "permits": None if sem is None else sem.permits,
+            "catalog_entries": TorchBufferCatalog.get().num_entries(),
+            "shuffle_blocks": 0 if shuffle is None else shuffle.num_blocks(),
+            "leaks": len(MemoryCleaner.get().check_leaks()),
+            "allocated": torch.cuda.memory_allocated() if on_card else 0}
+
+
+def check_no_leak(before: dict, on_card: bool, what: str) -> dict:
+    """After a case: budget 0, every permit free, the spill and shuffle
+    catalogs empty, no live resource, and the allocator back at its live
+    bytes before the case (the dimension cache cleared: the phase keeps
+    only the cached relations, which were live before)."""
+    from spark_rapids_tpu_torch.execs.compiled_join import clear_dim_cache
+    clear_dim_cache()
+    after = runtime_state(on_card)
+    check(after["budget_used"] == 0, f"{what}: budget used {after}")
+    check(after["permits_free"] == after["permits"],
+          f"{what}: permits held {after}")
+    check(after["catalog_entries"] == 0, f"{what}: catalog entries {after}")
+    check(after["shuffle_blocks"] == 0, f"{what}: shuffle blocks {after}")
+    check(after["leaks"] == before["leaks"], f"{what}: leaked {after}")
+    delta = after["allocated"] - before["allocated"]
+    check(delta <= 0, f"{what}: {delta} more device bytes live after")
+    print(f"(11) {what}: no leak (allocated {before['allocated']} -> "
+          f"{after['allocated']} bytes)", flush=True)
+    return after
+
+
+def q6_variant_oracle(cols, i: int) -> float:
+    from spark_rapids_tpu_torch.serving.bench import q6_literals
+    lo, qty = q6_literals(i)
+    ship, disc = cols["l_shipdate"], cols["l_discount"]
+    keep = ((ship >= lo) & (ship < 9131) & (disc >= 0.05) & (disc <= 0.07)
+            & (cols["l_quantity"] < qty))
+    return float(np.sum(cols["l_extendedprice"][keep] * disc[keep]))
+
+
+def datagen_q1_cols(li) -> dict:
+    """The datagen lineitem in the shape framework_oracle and q6_oracle
+    read (bytes flags, integer days)."""
+    return {"l_returnflag": np.array(host_strings(li["l_returnflag"]),
+                                     dtype="S1"),
+            "l_linestatus": np.array(host_strings(li["l_linestatus"]),
+                                     dtype="S1"),
+            "l_shipdate": _days(li["l_shipdate"]),
+            **{k: li[k] for k in ("l_quantity", "l_extendedprice",
+                                  "l_discount", "l_tax")}}
+
+
+def hot_repeat_paths(F, TorchSession, smi, tables, df6, cols6, device,
+                     mid: int) -> None:
+    """(11a) bench.py's hot_repeat: six literal-varying submissions each of
+    q6 (over phase 4's cached lineitem) and q3 (star-join stage, lineitem
+    cached in one batch), each submission against its own oracle."""
+    from spark_rapids_tpu_torch.datagen import tpch_frames
+    from spark_rapids_tpu_torch.serving.bench import (SEGMENTS, q3_variant,
+                                                      q6_variant,
+                                                      run_repeated)
+    from spark_rapids_tpu_torch.serving.scheduler import QueryScheduler
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    QueryScheduler.get().plan_cache.clear()  # cold first submissions
+    before = runtime_state(on_card)
+    r6 = run_repeated(df6.session, lambda i: q6_variant(df6, i, F), 6, sync)
+    for i, rows in enumerate(r6["rows"]):
+        check_close(rows[0]["revenue"], q6_variant_oracle(cols6, i),
+                    f"hot_repeat q6 submission {i}")
+    check((r6["hits"], r6["misses"]) == (5, 1),
+          f"hot_repeat q6: {r6['hits']} hits {r6['misses']} misses")
+    host = tpch_host(tables, mid, 4, Q3_TABLES)
+    s3 = TorchSession({"spark.rapids.shuffle.mode": "ICI",
+                       "spark.sql.shuffle.partitions": "8",
+                       "spark.rapids.sql.batchSizeRows": str(mid)},
+                      device=device)
+    t = tpch_frames(s3, host, 1)
+    t["lineitem"] = t["lineitem"].device_cache()
+    plan = physical_plan(q3_variant(t, 0, F))
+    check("TorchCompiledJoinAggStage" in plan,
+          f"hot_repeat q3 is not on the star-join stage:\n{plan}")
+    r3 = run_repeated(s3, lambda i: q3_variant(t, i, F), 6, sync)
+    for i, rows in enumerate(r3["rows"]):
+        check_q3_rows(rows, q3_oracle(host, SEGMENTS[i % 5])[1],
+                      f"hot_repeat q3 submission {i} ({SEGMENTS[i % 5]})")
+    check((r3["hits"], r3["misses"]) == (5, 1),
+          f"hot_repeat q3: {r3['hits']} hits {r3['misses']} misses")
+    check(s3.counters["fallbackReruns"] == 0, "hot_repeat q3 re-ran")
+    rows6 = len(cols6["l_shipdate"])
+    for key, r, rows in (("q6", r6, rows6), ("q3_compiled", r3, mid)):
+        print(json.dumps({f"hot_repeat_{key}": {
+            "rows": rows, **{k: r[k] for k in (
+                "iters", "first_ms", "steady_ms", "warm_p50_ms", "hits",
+                "misses", "cache_by_iter")},
+            "bench_py_rows": (N_BIG if key == "q6"
+                              else BENCH_HOT_REPEAT_Q3_ROWS)},
+            "card": smi}), flush=True)
+    del t, s3
+    QueryScheduler.get().plan_cache.clear()
+    check_no_leak(before, on_card, "hot_repeat")
+
+
+def serving_paths(TorchSession, smi, tables, device, rows: int,
+                  tenants=(1, 4, 16)) -> None:
+    """(11b) bench.py's serving stage: N tenant threads (own session and
+    tables each, classes round-robin), q1, q6 and q3 through the
+    scheduler's admission; every non-shed result against its oracle."""
+    from spark_rapids_tpu_torch.serving.bench import serving_run
+    from spark_rapids_tpu_torch.serving.scheduler import QueryScheduler
+    on_card = device == "cuda"
+    host = tpch_host(tables, rows, 2, Q3_TABLES)
+    q1c = datagen_q1_cols(host["lineitem"][0])
+    oracle = {"q1": framework_oracle(q1c), "q6": q6_oracle(q1c),
+              "q3": q3_oracle(host)[1]}
+    before = runtime_state(on_card)
+    for n in tenants:
+        r = serving_run(n, host, reps=1 if n >= 16 else 2, device=device,
+                        sync=torch.cuda.synchronize if on_card
+                        else (lambda: None))
+        check(not r["errors"], f"serving n={n}: {r['errors']}")
+        for i, qname, got in r["results"]:
+            what = f"serving n={n} tenant {i} {qname}"
+            if qname == "q1":
+                check_framework_rows(got, oracle["q1"])
+            elif qname == "q6":
+                check_close(got[0]["revenue"], oracle["q6"], what)
+            else:
+                check_q3_rows(got, oracle["q3"], what)
+        check(r["queries_done"] + r["shed_total"]
+              == n * 3 * r["reps"], f"serving n={n}: queries missing")
+        summary = {k: v for k, v in r.items() if k != "results"}
+        print(json.dumps({f"serving_n{n}": dict(
+            summary, bench_py_rows=BENCH_SERVING_ROWS)}, default=str),
+            flush=True)
+        print(f"(11) serving n={n} ok: {r['queries_done']} results equal "
+              f"their oracles, {r['shed_total']} shed | card: {smi}",
+              flush=True)
+    QueryScheduler.reset_for_tests()  # the tenants retuned its knobs
+    check_no_leak(before, on_card, "serving")
+
+
+def forced_oom_paths(F, TorchSession, smi, df6, oracle, device) -> None:
+    """(11c-i) Q1 on the general path over phase 4's cached lineitem with
+    two forced retry OOMs, then one forced split: the oracle's rows, and
+    the counts forced."""
+    from spark_rapids_tpu_torch.memory.hbm import HbmBudget
+    from spark_rapids_tpu_torch.session import DataFrame
+    on_card = device == "cuda"
+    rows6 = df6._plan.num_rows
+    s = TorchSession({"spark.rapids.tpu.agg.compiledStage.enabled": "false",
+                      "spark.rapids.sql.batchSizeRows": str(rows6)},
+                     device=device)
+    q = framework_query(F, DataFrame(df6._plan, s))
+    check("TorchHashAggregate" in physical_plan(q), "Q1 not general")
+    before = runtime_state(on_card)
+    for force, n, key in (("force_retry_oom", 2, "retryCount"),
+                          ("force_split_and_retry_oom", 1,
+                           "splitAndRetryCount")):
+        getattr(HbmBudget.get(), force)(n)
+        t0 = time.perf_counter()
+        rows = q.collect()
+        wall = time.perf_counter() - t0
+        check_framework_rows(rows, oracle)
+        m = s.last_task_metrics()
+        other = "splitAndRetryCount" if key == "retryCount" \
+            else "retryCount"
+        check(m[key] == n and m[other] == 0,
+              f"{force}({n}): task metrics {m}")
+        print(json.dumps({f"forced_oom_{key}": {
+            "rows": rows6, "forced": n, "retryCount": m["retryCount"],
+            "splitAndRetryCount": m["splitAndRetryCount"],
+            "collect_s": wall}, "card": smi}), flush=True)
+    check_no_leak(before, on_card, "forced OOMs")
+
+
+def real_budget_paths(F, TorchSession, smi, tables, device, rows: int,
+                      batch_rows: int) -> None:
+    """(11c-ii) q3 on the general path (shuffled joins) under a budget of
+    about a quarter of its unconstrained peak, with a host spill limit
+    small enough that some spill reaches disk: the unconstrained rows."""
+    from spark_rapids_tpu_torch import tpch
+    from spark_rapids_tpu_torch.config import RapidsConf
+    from spark_rapids_tpu_torch.datagen import tpch_frames
+    from spark_rapids_tpu_torch.memory.device import TorchDeviceManager
+    from spark_rapids_tpu_torch.memory.hbm import HbmBudget
+    from spark_rapids_tpu_torch.memory.spill import TorchBufferCatalog
+    from spark_rapids_tpu_torch.obs import metrics as obs_metrics
+    from spark_rapids_tpu_torch.shuffle.serializer import _xxh_native
+    on_card = device == "cuda"
+    conf = {"spark.rapids.shuffle.mode": "ICI",
+            "spark.sql.shuffle.partitions": "8",
+            "spark.rapids.tpu.join.compiledStage.enabled": "false",
+            "spark.sql.autoBroadcastJoinThreshold": "-1",
+            "spark.rapids.sql.batchSizeRows": str(batch_rows)}
+    total = TorchDeviceManager._total_bytes
+    # the CPU has no device memory to read: each re-initialization states
+    # the one the process started with
+    fixed = {} if on_card else {"spark.rapids.memory.device.totalBytes":
+                                str(total)}
+    conf.update(fixed)
+    host = tpch_host(tables, rows, 4, Q3_TABLES)
+    groups, top = q3_oracle(host)
+
+    def run(extra, host_limit=None):
+        """A fresh budget (allocFraction from `extra`) and catalog, then
+        q3's every group and top 10."""
+        TorchDeviceManager.reset_for_tests()
+        s = TorchSession(dict(conf, **extra), device=device)
+        b = HbmBudget.reset_for_tests()
+        cat = TorchBufferCatalog.reset_for_tests(RapidsConf(dict(
+            conf, **({"spark.rapids.memory.host.spillStorageSize":
+                      str(host_limit)} if host_limit else {}))))
+        t = tpch_frames(s, host)
+        before = runtime_state(on_card)
+        p0 = obs_metrics.full_snapshot()["counters"].get(
+            "hbm.pressure_events", {}).get("", 0)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        all_rows = tpch.q3_groups(t).collect()
+        got_top = tpch.q3(t).collect()
+        wall = time.perf_counter() - t0
+        # the query's own peak on the card, above what was live before it
+        peak_card = (torch.cuda.max_memory_allocated()
+                     - before["allocated"]) if on_card else 0
+        check_q3_groups(all_rows, groups, "q3 general under budget")
+        check_q3_rows(got_top, top, "q3 general under budget")
+        pressure = obs_metrics.full_snapshot()["counters"].get(
+            "hbm.pressure_events", {}).get("", 0) - p0
+        out = {"budget": b.budget, "peak_used": b.peak_used,
+               "spilled_to_host": cat.spilled_to_host,
+               "spilled_to_disk": cat.spilled_to_disk,
+               "host_peak_used": cat.host_peak_used,
+               "pressure_events": pressure, "collect_s": wall,
+               "card_peak_bytes": peak_card,
+               "task_metrics": s.last_task_metrics()}
+        del t, s
+        check_no_leak(before, on_card, f"q3 under budget {b.budget}")
+        return out
+
+    free = run({})
+    peak = free["peak_used"]
+    frac = {"spark.rapids.memory.tpu.allocFraction": repr(peak / 4 / total)}
+    host_only = run(frac, host_limit=1 << 40)
+    check(host_only["spilled_to_host"] > 0 and
+          host_only["pressure_events"] > 0, f"no pressure: {host_only}")
+    # the host tier's peak less an eighth: some of it must go to disk
+    limit = host_only["host_peak_used"] * 7 // 8
+    disk = run(frac, host_limit=limit)
+    check(disk["spilled_to_disk"] > 0 and disk["spilled_to_host"] > 0 and
+          disk["pressure_events"] > 0, f"no disk spill: {disk}")
+    # what spilled left the card: the constrained runs peak lower there
+    for what, r in (("host only", host_only), ("with disk", disk)):
+        check(not on_card or r["card_peak_bytes"] < free["card_peak_bytes"],
+              f"q3 under budget ({what}) peaked at {r['card_peak_bytes']} "
+              f"card bytes, unconstrained {free['card_peak_bytes']}")
+    print(json.dumps({"q3_real_budget": {
+        "rows": rows, "batch_rows": batch_rows, "unconstrained": free,
+        "quarter_budget_host_only": host_only,
+        "quarter_budget_with_disk": dict(disk, host_limit=limit),
+        "xxhash_native": _xxh_native is not None}, "card": smi}),
+        flush=True)
+    # back to the default budget for what follows
+    TorchDeviceManager.reset_for_tests()
+    TorchSession(fixed, device=device)
+    HbmBudget.reset_for_tests()
+    TorchBufferCatalog.reset_for_tests()
+
+
+def spill_frees_paths(smi, cols6) -> None:
+    """(11c-ii') A spill frees what it spills: a 2^24-row batch that only
+    the catalog holds leaves the card when it spills (memory_allocated
+    falls by its bytes) and comes back as one copy; one that an outside
+    holder keeps alive is not spilled (nothing would be freed) and reads
+    back as the same memory."""
+    from spark_rapids_tpu_torch.columnar.batch import TorchColumnarBatch
+    from spark_rapids_tpu_torch.memory.spill import (SpillableColumnarBatch,
+                                                     TorchBufferCatalog)
+    before = runtime_state(True)
+    cat = TorchBufferCatalog.get()
+
+    def make():
+        return TorchColumnarBatch.from_numpy_columns(
+            {k: cols6[k] for k in ("l_extendedprice", "l_discount")}
+        ).to_device(torch.device("cuda"))
+
+    sb = SpillableColumnarBatch(make())  # the catalog is its one holder
+    nbytes = sb.size_bytes
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_allocated()
+    freed = cat.synchronous_spill(nbytes)
+    a1 = torch.cuda.memory_allocated()
+    sb.get_batch()
+    torch.cuda.synchronize()
+    a2 = torch.cuda.memory_allocated()
+    sb.close()
+    check(freed == nbytes and a0 - a1 >= nbytes,
+          f"spill freed {freed} of {nbytes} bytes, the card {a0 - a1}")
+    check(nbytes <= a2 - a1 < 2 * nbytes,
+          f"unspill of {nbytes} bytes took {a2 - a1} on the card")
+    held = make()
+    sb = SpillableColumnarBatch(held)
+    h0 = torch.cuda.memory_allocated()
+    freed_held = cat.synchronous_spill(nbytes)
+    same = sb.get_batch().columns[0].data.data_ptr() \
+        == held.columns[0].data.data_ptr()
+    h1 = torch.cuda.memory_allocated()
+    sb.close()
+    del held
+    check(freed_held == 0 and same and h1 == h0,
+          f"a held batch: spill freed {freed_held}, same memory {same}, "
+          f"allocated {h0} -> {h1}")
+    print(json.dumps({"spill_frees": {
+        "rows": len(cols6["l_discount"]), "batch_bytes": nbytes,
+        "spill_freed_on_card": a0 - a1, "unspill_took_on_card": a2 - a1,
+        "held_batch_spilled": freed_held}, "card": smi}), flush=True)
+    check_no_leak(before, True, "spill frees")
+
+
+def real_oom_paths(smi, cols6) -> None:
+    """(11c-iii) a real torch.cuda.OutOfMemoryError: with_retry over a
+    2^24-row batch whose function allocates scratch in proportion to its
+    rows, sized from mem_get_info so the whole batch cannot fit and a
+    half can. The error turns into one retry, then a split; the halves'
+    results equal the unconstrained result."""
+    from spark_rapids_tpu_torch.columnar.batch import TorchColumnarBatch
+    from spark_rapids_tpu_torch.memory.retry import RetryStats, with_retry
+    before = runtime_state(True)
+    host = TorchColumnarBatch.from_numpy_columns(
+        {k: cols6[k] for k in ("l_extendedprice", "l_discount")})
+    batch = host.to_device(torch.device("cuda"))
+    n = batch.num_rows
+    want = float((batch.columns[0].data[:n]
+                  * batch.columns[1].data[:n]).sum())
+    free = torch.cuda.mem_get_info()[0]
+    per_row = int(0.7 * free / (n // 2))  # half: 0.7 of free; whole: 1.4
+
+    def work(b):
+        m = b.num_rows
+        scratch = torch.empty(m * per_row, dtype=torch.uint8,
+                              device="cuda")
+        scratch[::1 << 20] = 1
+        out = float((b.columns[0].data[:m] * b.columns[1].data[:m]).sum())
+        del scratch
+        return out
+
+    stats = RetryStats()
+    t0 = time.perf_counter()
+    parts = list(with_retry(batch, work, stats=stats))
+    wall = time.perf_counter() - t0
+    del batch
+    check_close(sum(parts), want, "real OOM: the halves' sum")
+    check(len(parts) == 2 and stats.device_ooms == 2 and stats.retries == 1
+          and stats.split_retries == 1,
+          f"real OOM: {len(parts)} parts, {vars(stats)}")
+    print(json.dumps({"real_device_oom": {
+        "rows": n, "free_bytes": free, "scratch_bytes_per_row": per_row,
+        "parts": len(parts), **vars(stats), "wall_s": wall},
+        "card": smi}), flush=True)
+    check_no_leak(before, True, "real OOM")
+
+
+def deadline_cancel_paths(TorchSession, smi, tables, device, rows: int,
+                          timeout: float = 0.2) -> None:
+    """(11d) q21 in the benchmark layout: a deadline of `timeout` s raises
+    QueryDeadlineExceeded, and session.cancel() from a second thread stops
+    a running q21; neither leaves anything behind."""
+    import threading
+
+    from spark_rapids_tpu_torch import tpch
+    from spark_rapids_tpu_torch.datagen import TPCH_TABLES, tpch_frames
+    from spark_rapids_tpu_torch.serving.query_context import (
+        QueryCancelledError, QueryDeadlineExceeded)
+    from spark_rapids_tpu_torch.serving.scheduler import QueryScheduler
+    on_card = device == "cuda"
+    host = tpch_host(tables, rows, 4, TPCH_TABLES)
+    s = TorchSession({"spark.rapids.shuffle.mode": "ICI",
+                      "spark.sql.shuffle.partitions": "8"}, device=device)
+    q = tpch.q21(tpch_frames(s, host))
+    before = runtime_state(on_card)
+    t0 = time.perf_counter()
+    raised = False
+    try:
+        q.collect(timeout=timeout)
+    except QueryDeadlineExceeded:
+        raised = True  # the exception itself (and the frames its
+        # traceback holds, with their tensors) goes with the except block
+    late = time.perf_counter() - t0 - timeout
+    check(raised, "q21 ran past its deadline without raising")
+    check_no_leak(before, on_card, "q21 deadline")
+    out = {}
+
+    def run():
+        try:
+            q.collect()
+        except BaseException as e:  # noqa: BLE001 — checked below
+            out["t"] = time.perf_counter()
+            out["err"] = type(e)  # not e: its traceback holds tensors
+
+    th = threading.Thread(target=run)
+    th.start()
+    sched = QueryScheduler.get()
+    end = time.monotonic() + 30
+    while not sched._running and time.monotonic() < end:
+        time.sleep(0.001)
+    time.sleep(timeout)
+    t_cancel = time.perf_counter()
+    flagged = s.cancel()
+    th.join(timeout=60)
+    err = out.get("err")
+    check(flagged == 1 and err is not None
+          and issubclass(err, QueryCancelledError)
+          and not issubclass(err, QueryDeadlineExceeded),
+          f"q21 cancel: flagged {flagged}, raised {err!r}")
+    check_no_leak(before, on_card, "q21 cancel")
+    print(json.dumps({"q21_deadline_cancel": {
+        "rows": rows, "timeout_s": timeout,
+        "deadline_to_raise_ms": late * 1e3,
+        "cancel_to_raise_ms": (out["t"] - t_cancel) * 1e3},
+        "card": smi}), flush=True)
+    s.stop()
+
+
+def lifecycle_paths(F, TorchSession, smi, tables, df6, cols6, oracle6,
+                    device: str = "cuda", mid: int = 1 << 22,
+                    tenant_rows: int = 1 << 20, tenants=(1, 4, 16),
+                    budget_batch_rows: int = 1 << 18,
+                    deadline_s: float = 0.2) -> None:
+    """Phase 11. With ``device="cpu"`` and small sizes it checks the
+    script's logic off the card (the real-OOM case needs the card)."""
+    t0 = time.perf_counter()
+    hot_repeat_paths(F, TorchSession, smi, tables, df6, cols6, device, mid)
+    serving_paths(TorchSession, smi, tables, device, tenant_rows, tenants)
+    forced_oom_paths(F, TorchSession, smi, df6, oracle6, device)
+    real_budget_paths(F, TorchSession, smi, tables, device, mid,
+                      budget_batch_rows)
+    if device == "cuda":
+        spill_frees_paths(smi, cols6)
+        real_oom_paths(smi, cols6)
+    deadline_cancel_paths(TorchSession, smi, tables, device, mid,
+                          deadline_s)
+    if device == "cuda":
+        lifecycle_overhead(TorchSession, smi, cols6, tables)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s | card: {smi}",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2027,6 +2649,7 @@ def main() -> int:
     check(has_pyarrow, "pyarrow does not import: the parquet scan needs it")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
 
+    clock = PhaseClock(smi)
     # 2. build
     t0 = time.perf_counter()
     build.build_all([q1_cuda.SOURCE])
@@ -2191,26 +2814,42 @@ def main() -> int:
         "top_device_ops_ms": [(k[:60], ms) for k, ms in top[:5]]},
         "card": smi}), flush=True)
 
+    clock.mark(5)  # phases 1-5: the card, build, kernels, main path, timing
+
     # 6. both device paths of the planning route
     general_paths(F, TorchSession, df, cols, oracle, smi)
-    del df, q, big, cols
-    torch.cuda.empty_cache()
+    del q, big  # phase 4's cached lineitem stays for phase 11
+    release_plans()
+    clock.mark(6)
 
     # 7. TPC-H q3: joins, the hash exchange, TopN, the star-join stage
     tables: dict = {}
     q3_paths(F, TorchSession, smi, tables=tables)
-    torch.cuda.empty_cache()
+    release_plans()
+    clock.mark(7)
 
     # 8. TPC-H q4, q13 and q18; every hash-join type; LIKE
     tpch_more_paths(F, TorchSession, smi, tables)
-    torch.cuda.empty_cache()
+    release_plans()
+    clock.mark(8)
 
     # 9. the parquet scan: bench.py's scan_agg queries and Q1 from parquet
     scan_paths(F, TorchSession, smi)
+    release_plans()
+    clock.mark(9)
 
     # 10. the other 16 TPC-H queries over phase 8's 2^22-row tables
     tpch_rest_paths(F, TorchSession, smi, tables)
+    release_plans()
+    clock.mark(10)
+
+    # 11. the query lifecycle: hot_repeat, serving, the memory runtime,
+    # deadline and cancel
+    lifecycle_paths(F, TorchSession, smi, tables, df, cols, oracle)
+    clock.mark(11)
+    del df, cols
     tables.clear()
+    release_plans()
 
     print(kernels_line, flush=True)  # again, near the end of the output
     print(nvidia_smi())

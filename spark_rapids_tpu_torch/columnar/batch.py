@@ -72,6 +72,15 @@ class TorchColumnarBatch:
                 total += n * c.data.element_size()
         return total
 
+    def device_memory_size(self) -> int:
+        """Bytes of every tensor of the batch at its full capacity (values,
+        validity, string offsets): what the device budget accounts for it
+        (reference ``TpuColumnarBatch.device_memory_size``)."""
+        return sum(t.numel() * t.element_size()
+                   for c in self.columns
+                   for t in (c.data, c.validity, c.offsets)
+                   if t is not None)
+
     def to_pylist(self) -> List[dict]:
         """Host rows as dicts (the reference ``collect()`` shape)."""
         names = self.names or [f"c{i}" for i in range(len(self.columns))]

@@ -2,7 +2,8 @@
 
 Port of a subset of ``spark_rapids_tpu/config.py``: the keys of the Q1,
 Q6 and q3 paths, of the planning route (optimizer, override engine,
-transitions, joins, the hash exchange) and of the parquet scan. Keys keep the reference's strings, so one settings dict
+transitions, joins, the hash exchange), of the parquet scan and of the
+query lifecycle (memory runtime, plan cache, scheduler, chaos). Keys keep the reference's strings, so one settings dict
 configures both packages. The per-operator switches
 ``spark.rapids.sql.exec.<Exec>`` and ``spark.rapids.sql.expression.<Expr>``
 are read by ``RapidsConf.is_op_enabled`` without a declared entry.
@@ -228,6 +229,228 @@ FILECACHE_ENABLED = ConfEntry(
     "Cache remote scan inputs on local disk (not yet ported: true raises).",
     False, _parse_bool)
 
+# ---------------------------------------------------------------------------
+# the memory runtime (reference config.py:531-566)
+# ---------------------------------------------------------------------------
+
+def _parse_list(v: Any):
+    return v if isinstance(v, list) else \
+        [s.strip() for s in str(v).split(",") if s.strip()]
+
+
+CONCURRENT_TPU_TASKS = ConfEntry(
+    "spark.rapids.tpu.concurrentTpuTasks",
+    "Number of concurrent tasks that may hold device memory at once; gated "
+    "by the device semaphore (reference GpuSemaphore, default 2).",
+    2, lambda v: int(str(v), 0))
+
+HBM_ALLOC_FRACTION = ConfEntry(
+    "spark.rapids.memory.tpu.allocFraction",
+    "Fraction of the device's memory budgeted for columnar data (reference "
+    "RMM_ALLOC_FRACTION). The torch caching allocator owns the physical "
+    "memory; this bounds the logical accounting. Read once, when the first "
+    "session starts.", 0.75, float)
+
+DEVICE_TOTAL_BYTES = ConfEntry(
+    "spark.rapids.memory.device.totalBytes",
+    "The device memory that allocFraction applies to. Unset: the card's, "
+    "from torch.cuda.mem_get_info. A session on the CPU has no device "
+    "memory to read and must set it. Read once, when the first session "
+    "starts.", None, _parse_bytes)
+
+HOST_SPILL_STORAGE_SIZE = ConfEntry(
+    "spark.rapids.memory.host.spillStorageSize",
+    "Host memory that holds spilled device batches before they go to disk "
+    "(reference HOST_SPILL_STORAGE_SIZE). Read once, when the spill "
+    "catalog starts.", 1 << 30, _parse_bytes)
+
+OOM_RETRY_MAX = ConfEntry(
+    "spark.rapids.memory.tpu.oomMaxRetries",
+    "Retries of an allocation after synchronizing + spilling before "
+    "declaring OOM.", 3, lambda v: int(str(v), 0))
+
+TASK_RETRY_LIMIT = ConfEntry(
+    "spark.rapids.memory.tpu.taskRetryLimit",
+    "How many times the task-level retry framework re-runs a batch on "
+    "TorchRetryOOM (splitting on TorchSplitAndRetryOOM) before giving up "
+    "(reference RmmRapidsRetryIterator bound).", 8, lambda v: int(str(v), 0))
+
+# ---------------------------------------------------------------------------
+# failure handling (reference config.py:955-964, 1245-1270)
+# ---------------------------------------------------------------------------
+
+CORE_DUMP_DIR = ConfEntry(
+    "spark.rapids.tpu.coreDump.dir",
+    "When set, fatal device errors write a diagnostic bundle (device name, "
+    "torch.cuda.memory_stats(), the budget, task metrics, traceback) here "
+    "before the executor exits (reference GpuCoreDumpHandler).",
+    None, str)
+
+FATAL_ERROR_EXIT = ConfEntry(
+    "spark.rapids.tpu.fatalError.exit",
+    "Exit the process on a fatal device error so a cluster manager can "
+    "reschedule (reference RapidsExecutorPlugin.logGpuDebugInfoAndExit). "
+    "Off by default: the engine runs in the application's own process.",
+    False, _parse_bool)
+
+DEVICE_RETRY_MAX_ATTEMPTS = ConfEntry(
+    "spark.rapids.tpu.deviceRetry.maxAttempts",
+    "How many times a device dispatch is re-attempted after a TRANSIENT "
+    "device error before the error propagates. Fatal errors (a sticky CUDA "
+    "context: illegal address, launch failure, device-side assert, ECC) "
+    "are never retried.", 4, lambda v: int(str(v), 0))
+
+DEVICE_RETRY_BACKOFF_BASE_MS = ConfEntry(
+    "spark.rapids.tpu.deviceRetry.backoffBaseMs",
+    "Base delay of the transient-device-error retry backoff; attempt n "
+    "sleeps min(base * 2^(n-1), backoffMaxMs) scaled by a random jitter in "
+    "[0.5, 1.0].", 10.0, float)
+
+DEVICE_RETRY_BACKOFF_MAX_MS = ConfEntry(
+    "spark.rapids.tpu.deviceRetry.backoffMaxMs",
+    "Upper bound on a single transient-retry backoff sleep.", 2000.0, float)
+
+# ---------------------------------------------------------------------------
+# the plan cache, the query lifecycle and the scheduler (reference
+# config.py:1013-1024, 1272-1355)
+# ---------------------------------------------------------------------------
+
+PLAN_CACHE_ENABLED = ConfEntry(
+    "spark.rapids.tpu.plan.cache.enabled",
+    "Process-wide plan cache owned by the serving scheduler: a "
+    "normalized-logical-plan + schema + conf fingerprint maps to the "
+    "finished physical plan with literal parameter slots; hits skip "
+    "planning and only re-bind the literals.", True, _parse_bool)
+
+PLAN_CACHE_MAX_ENTRIES = ConfEntry(
+    "spark.rapids.tpu.plan.cache.maxEntries",
+    "Plan-cache capacity; least-recently-used entries are evicted past "
+    "this bound.", 256, lambda v: int(str(v), 0))
+
+QUERY_TIMEOUT_MS = ConfEntry(
+    "spark.rapids.tpu.query.timeoutMs",
+    "Default per-query deadline in milliseconds (0 disables). A query "
+    "past its deadline is cancelled at its next checkpoint (partition-task "
+    "start, batch pull, exchange map task) and raises "
+    "QueryDeadlineExceeded with every resource released. "
+    "df.collect(timeout=seconds) overrides it per call.",
+    0, lambda v: int(str(v), 0))
+
+QUERY_RETRY_BUDGET = ConfEntry(
+    "spark.rapids.tpu.query.retryBudget",
+    "Total TRANSIENT device-error retries one query may consume across all "
+    "of its tasks; past it the next transient error fails that query "
+    "alone.", 64, lambda v: int(str(v), 0))
+
+QUERY_PRIORITY = ConfEntry(
+    "spark.rapids.tpu.query.priority",
+    "SLO priority class for this session's queries: 'interactive', "
+    "'batch' or 'background'. Admission is strict class precedence with "
+    "earliest-deadline-first within a class; under sustained overload the "
+    "scheduler sheds the LOWEST class first, returning a typed QueryShed "
+    "result with a retry-after hint.", "interactive", str)
+
+SCHED_MAX_CONCURRENT = ConfEntry(
+    "spark.rapids.tpu.sched.maxConcurrentQueries",
+    "How many admitted queries may execute concurrently against the "
+    "device (their tasks still contend on the device semaphore).",
+    8, lambda v: int(str(v), 0))
+
+SCHED_MAX_QUEUE = ConfEntry(
+    "spark.rapids.tpu.sched.maxQueuedQueries",
+    "Bound on the scheduler's admission queue across all sessions; a "
+    "submission past it is rejected with the typed QueryQueueFull "
+    "backpressure error.", 64, lambda v: int(str(v), 0))
+
+SCHED_HBM_WATERMARK = ConfEntry(
+    "spark.rapids.tpu.sched.hbmAdmissionWatermark",
+    "Admit a queued query only while the device budget's usage is at or "
+    "below this fraction of the budget (waived when no query runs).",
+    0.9, float)
+
+SCHED_CLASS_AGING_MS = ConfEntry(
+    "spark.rapids.tpu.sched.classAgingMs",
+    "Anti-starvation bound: a ticket queued longer than this is promoted "
+    "over class precedence (oldest first). 0 disables aging.",
+    10000.0, float)
+
+SCHED_TENANT_HBM_QUOTA = ConfEntry(
+    "spark.rapids.tpu.sched.tenantHbmQuota",
+    "Per-tenant device-memory quota as a fraction of the budget: a session "
+    "whose live queries hold more than quota x budget has its next query "
+    "queue. <= 0 disables quotas.", 0.0, float)
+
+SCHED_SHED_AFTER_MS = ConfEntry(
+    "spark.rapids.tpu.sched.shedAfterMs",
+    "Sustained-overload bound: when a queued query has waited past this "
+    "with every slot held and a strictly lower class running, the lowest "
+    "running class is shed through its cancel token. 0 disables overload "
+    "shedding.", 5000.0, float)
+
+TRACE_ENABLED = ConfEntry(
+    "spark.rapids.tpu.trace.enabled",
+    "Query timeline tracing (not yet ported: true raises).",
+    False, _parse_bool)
+
+# ---------------------------------------------------------------------------
+# the always-on metrics registry and the flight recorder (reference
+# config.py:1180-1233)
+# ---------------------------------------------------------------------------
+
+OBS_METRICS_ENABLED = ConfEntry(
+    "spark.rapids.tpu.obs.metrics.enabled",
+    "The always-on process-wide metrics registry: counters, gauges and "
+    "log2-bucket histograms (query latency, plan-cache hits, HBM pressure, "
+    "spill bytes, scheduler waits).", True, _parse_bool)
+
+OBS_FLIGHT_EVENTS = ConfEntry(
+    "spark.rapids.tpu.obs.flightRecorderEvents",
+    "Ring capacity of the always-on crash flight recorder (notable events "
+    "only).", 512, lambda v: int(str(v), 0))
+
+OBS_POSTMORTEM_DIR = ConfEntry(
+    "spark.rapids.tpu.obs.postmortemDir",
+    "When set, a fatal device error, an exhausted transient-retry loop or "
+    "a genuine budget OOM writes a postmortem bundle here.", None, str)
+
+# ---------------------------------------------------------------------------
+# the seeded chaos fault injector (reference config.py:1368-1407)
+# ---------------------------------------------------------------------------
+
+CHAOS_ENABLED = ConfEntry(
+    "spark.rapids.tpu.test.chaos.enabled",
+    "Testing only: arm the seeded chaos fault injector.", False, _parse_bool)
+
+CHAOS_SEED = ConfEntry(
+    "spark.rapids.tpu.test.chaos.seed",
+    "Chaos injector seed; each site derives an independent PRNG stream "
+    "from (seed, site).", 0, lambda v: int(str(v), 0))
+
+CHAOS_SITES = ConfEntry(
+    "spark.rapids.tpu.test.chaos.sites",
+    "Comma-separated injection sites to arm; empty means every site.",
+    [], _parse_list)
+
+CHAOS_KINDS = ConfEntry(
+    "spark.rapids.tpu.test.chaos.kinds",
+    "Comma-separated fault kinds to draw from; empty means every kind "
+    "applicable at the site.", [], _parse_list)
+
+CHAOS_PROBABILITY = ConfEntry(
+    "spark.rapids.tpu.test.chaos.probability",
+    "Per-site-visit probability of injecting a fault.", 0.05, float)
+
+CHAOS_MAX_INJECTIONS = ConfEntry(
+    "spark.rapids.tpu.test.chaos.maxInjections",
+    "Cap on total randomized injections per configure (0 = unbounded).",
+    0, lambda v: int(str(v), 0))
+
+CHAOS_LATENCY_MS = ConfEntry(
+    "spark.rapids.tpu.test.chaos.latencyMs",
+    "Upper bound of the injected delay for the `latency` fault kind.",
+    2.0, float)
+
+
 class RapidsConf:
     """Immutable snapshot of settings, one per query."""
 
@@ -236,6 +459,10 @@ class RapidsConf:
 
     def get(self, entry: ConfEntry) -> Any:
         return entry.get(self._settings)
+
+    def get_raw(self, key: str, default: Optional[str] = None
+                ) -> Optional[str]:
+        return self._settings.get(key, default)
 
     def is_op_enabled(self, key: str, default: bool = True) -> bool:
         """A per-operator switch (``spark.rapids.sql.exec.<Exec>``,

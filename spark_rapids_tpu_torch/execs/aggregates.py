@@ -19,9 +19,11 @@ table, and one a string key, its longest string (it picks the key
 encoding). Rows stay on the device throughout. Over ``batchSizeRows`` rows
 a grouped aggregate sorts out of core and aggregates key-aligned slices
 (``_sort_fallback``); a global one merges per-chunk states
-(``_global_chunked``). The reference's opjit-traced and fused one-launch
-variants of ``_aggregate_batch`` are a JAX compile cache that gives the
-eager body's results; they are not ported.
+(``_global_chunked``). The in-core aggregate and each global chunk run
+under ``memory/retry.with_retry_no_split`` (reference :1369, :1430): an
+out-of-memory error retries after a spill. The reference's opjit-traced
+and fused one-launch variants of ``_aggregate_batch`` are a JAX compile
+cache that gives the eager body's results; they are not ported.
 """
 
 from __future__ import annotations
@@ -455,8 +457,12 @@ class TorchHashAggregateExec(TorchExec):
             yield self._global_chunked(batches, agg_fns, result_exprs, ctx,
                                        max_rows)
             return
-        batch = concat_batches(batches)
-        yield self._aggregate_batch(batch, agg_fns, result_exprs, ctx)
+        from ..memory.retry import with_retry_no_split
+        whole = [concat_batches(batches)]
+        batches.clear()  # the retry framework owns the input from here on
+        yield with_retry_no_split(
+            whole.pop(),
+            lambda b: self._aggregate_batch(b, agg_fns, result_exprs, ctx))
 
     def _sort_fallback(self, batches, agg_fns, result_exprs, ctx,
                        max_rows: int) -> Iterator:
@@ -494,14 +500,24 @@ class TorchHashAggregateExec(TorchExec):
             cur_rows += b.num_rows
         if cur:
             chunks.append(cur)
+        del cur
+        batches.clear()  # each chunk's retry owns it from here on
         g_cap = bucket_capacity(1)
         per_fn: List[List[Dict]] = [[] for _ in agg_fns]
-        for group in chunks:
-            chunk = concat_batches(group)
+        from ..memory.retry import with_retry_no_split
+
+        def chunk_states(chunk: TorchColumnarBatch) -> List[Dict]:
             segs = self._global_segments(chunk, g_cap)
-            for i, fn in enumerate(agg_fns):
-                per_fn[i].append(_segment_update(
-                    fn, self._eval_agg_input(fn, chunk, ctx), segs))
+            return [_segment_update(fn, self._eval_agg_input(fn, chunk, ctx),
+                                    segs) for fn in agg_fns]
+
+        while chunks:
+            # the same OOM-retry discipline as the in-core path: the chunk
+            # is spillable while its partial state is computed
+            states = with_retry_no_split(concat_batches(chunks.pop(0)),
+                                         chunk_states)
+            for i in range(len(agg_fns)):
+                per_fn[i].append(states[i])
         agg_cols = [_evaluate_agg(fn, _merge_global_states(fn, sts), 1, g_cap)
                     for fn, sts in zip(agg_fns, per_fn)]
         return self._project_result(TorchColumnarBatch(agg_cols, 1), [],

@@ -1,10 +1,12 @@
 """Physical plan base classes and reference binding.
 
 Port of ``PhysicalPlan``, ``CpuExec``, ``TaskContext`` and
-``bind_references`` from ``spark_rapids_tpu/execs/base.py``. Operator
-metrics, the plan-cache clone protocol and the tracing hooks of the
-reference are not yet ported; the session's ``counters`` stand in for the
-few the port reads.
+``bind_references`` from ``spark_rapids_tpu/execs/base.py``, with the
+task-completion listeners (the device semaphore releases through them),
+the per-batch cancel checkpoint of ``TorchExec.execute_partition`` and the
+plan cache's clone protocol (``clone_for_execution``). Operator metrics and
+the tracing hooks of the reference are not yet ported; the session's
+``counters`` stand in for the few the port reads.
 """
 
 from __future__ import annotations
@@ -16,12 +18,16 @@ import torch
 
 from ..config import RapidsConf
 from ..expressions.base import AttributeReference, EvalContext, Expression
+from ..serving.query_context import checkpoint as _cancel_checkpoint
 
 
 class TaskContext:
     """Per-task execution context: partition id, conf, the session's device
     (where ``HostToDeviceExec`` uploads) and the session's event counters
-    (``fallback_runs``, ``fallbackReruns``, ``sort_fallback_runs``)."""
+    (``fallback_runs``, ``fallbackReruns``, ``sort_fallback_runs``).
+    Completion listeners run at ``complete()`` (reference
+    ScalableTaskCompletion): the device semaphore releases a task's permit
+    through one."""
 
     def __init__(self, partition_id: int, conf: RapidsConf,
                  device: torch.device, counters: Optional[Counter] = None):
@@ -30,11 +36,113 @@ class TaskContext:
         self.device = device
         self.counters = counters if counters is not None else Counter()
         self.eval_ctx = EvalContext(self.conf, partition_id=partition_id)
+        self._completion_listeners: List = []
+        self._children: List["TaskContext"] = []
 
     def for_partition(self, partition_id: int) -> "TaskContext":
-        """The context of another partition of the same query."""
-        return TaskContext(partition_id, self.conf, self.device,
-                           self.counters)
+        """The context of another partition of the same query. It completes
+        with this one at the latest; a caller done with it earlier
+        completes it itself."""
+        child = TaskContext(partition_id, self.conf, self.device,
+                            self.counters)
+        self._children.append(child)
+        return child
+
+    def add_completion_listener(self, cb) -> None:
+        """Register a callback run at task end."""
+        self._completion_listeners.append(cb)
+
+    def complete(self) -> None:
+        """Run the listeners (the minted partition contexts' first), once;
+        a listener's failure never masks the task's result."""
+        children, self._children = self._children, []
+        for c in children:
+            c.complete()
+        for cb in reversed(self._completion_listeners):
+            try:
+                cb()
+            except Exception:  # noqa: BLE001
+                pass
+        self._completion_listeners.clear()
+
+
+import threading as _threading
+
+#: lock flavors replaced wholesale on clone (a clone must never serialize
+#: on — or deadlock with — the template's locks)
+_LOCK_TYPES = (type(_threading.Lock()), type(_threading.RLock()))
+
+
+def _rebind_value(v, rebind: dict):
+    """Parameter-slot re-binding for ONE attribute value: replace template
+    Literal objects (matched by identity) with this submission's literals,
+    recursing through lists/tuples/SortOrder. Expression.transform
+    preserves unchanged subtrees, so attributes and non-parameter
+    expressions stay shared with the template."""
+
+    def rule(e: Expression):
+        return rebind.get(id(e))
+
+    def walk(v):
+        if isinstance(v, Expression):
+            return v.transform(rule)
+        if isinstance(v, list):
+            return [walk(x) for x in v]
+        if isinstance(v, tuple):
+            return tuple(walk(x) for x in v)
+        if type(v).__name__ == "SortOrder":
+            nc = walk(v.child)
+            if nc is v.child:
+                return v
+            import copy
+            nv = copy.copy(v)
+            nv.child = nc
+            return nv
+        return v
+
+    return walk(v)
+
+
+def _rebind_plan_exprs(node: "PhysicalPlan", rebind: dict) -> None:
+    """Re-bind every expression attribute of one cloned node — projections,
+    filter conditions, pushed parquet filters, join keys, sort orders."""
+    for k, v in list(node.__dict__.items()):
+        if k == "children" or isinstance(v, dict):
+            continue
+        node.__dict__[k] = _rebind_value(v, rebind)
+
+
+def _clone_spec(spec, rebind, memo):
+    """Clone a compiled-stage spec object (classes marked ``_PLAN_SPEC``:
+    the compiled aggregation and join stages' patterns). Specs capture
+    BOTH expressions (filter/project layers, grouping, aggregate functions
+    — which must see re-bound literals, or a cache hit would execute the
+    template submission's values) and nested PhysicalPlans (a dimension's
+    build subtree — which EXECUTES, so it must be this clone's copy).
+    Nested plans go through the shared memo so spec links and plan-tree
+    links land on the same clones."""
+    import copy
+
+    def walk(v):
+        if isinstance(v, PhysicalPlan):
+            return v.clone_for_execution(rebind, memo)
+        if getattr(v, "_PLAN_SPEC", False):
+            key = ("spec", id(v))
+            got = memo.get(key)
+            if got is not None:
+                return got
+            nv = copy.copy(v)
+            memo[key] = nv
+            for k, x in list(nv.__dict__.items()):
+                nv.__dict__[k] = walk(x)
+            return nv
+        if isinstance(v, (list, tuple)):
+            return type(v)(walk(x) for x in v)
+        if rebind:
+            return _rebind_value(v, rebind)
+        return v
+
+    return walk(spec)
 
 
 class PhysicalPlan:
@@ -63,6 +171,72 @@ class PhysicalPlan:
     def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
         raise NotImplementedError
 
+    # --- plan-cache clone protocol ----------------------------------------
+    def clone_for_execution(self, rebind: Optional[dict] = None,
+                            memo: Optional[dict] = None) -> "PhysicalPlan":
+        """Structural clone of the plan for ONE execution.
+
+        The plan cache (serving/plan_cache.py) stores a physical TEMPLATE
+        that never executes; every submission — hit or miss — runs a clone,
+        so per-query mutable state (shuffle ids, broadcast builds, the
+        compiled join stage's dimension builds) never crosses queries.
+        ``rebind`` maps ``id(template_literal)`` → replacement Literal;
+        ``memo`` keeps shared subtrees shared in the clone. Immutable
+        planning products — expressions, output attributes, conf
+        snapshots — are shared with the template."""
+        if memo is None:
+            memo = {}
+        got = memo.get(id(self))
+        if got is not None:
+            return got
+        import copy
+        new = copy.copy(self)
+        memo[id(self)] = new
+        new.children = [c.clone_for_execution(rebind, memo)
+                        for c in self.children]
+        # plan-valued attrs OUTSIDE children carry expressions and
+        # execution state too: a compiled stage's `fallback` subtree, a
+        # join's twin; specs hold the stages' patterns
+        for k, v in list(new.__dict__.items()):
+            if k == "children":
+                continue
+            if isinstance(v, PhysicalPlan):
+                new.__dict__[k] = v.clone_for_execution(rebind, memo)
+            elif isinstance(v, (list, tuple)) and v \
+                    and all(isinstance(x, PhysicalPlan) for x in v):
+                new.__dict__[k] = type(v)(
+                    x.clone_for_execution(rebind, memo) for x in v)
+            elif getattr(v, "_PLAN_SPEC", False):
+                new.__dict__[k] = _clone_spec(v, rebind, memo)
+        if rebind:
+            _rebind_plan_exprs(new, rebind)
+        new._reset_execution_state(rebind)
+        return new
+
+    def _reset_execution_state(self, rebind: Optional[dict] = None) -> None:
+        """Drop every piece of per-execution state copy.copy carried over,
+        by attribute convention: the exchange's materialization, the
+        broadcast build, the compiled join stage's dimension builds."""
+        d = self.__dict__
+        for k, v in list(d.items()):
+            if isinstance(v, _LOCK_TYPES):
+                d[k] = _threading.Lock()
+        if "_shuffle_id" in d:           # exchange materialization
+            d["_shuffle_id"] = None
+            d["_n_maps"] = 0
+        if "_broadcast_done" in d:       # broadcast build-side memo
+            d["_broadcast_done"] = False
+            d["_broadcast"] = None
+        if "_dims_built" in d:           # compiled join stage's dim memo
+            d["_dims_built"] = None
+        if rebind and "pushed_filters" in d and "_arrow_filter" in d:
+            # the derived pyarrow filter bakes the literal VALUES of the
+            # pushed filters re-bound above: recompute it, or a hit would
+            # prune row groups with the PREVIOUS submission's values
+            from ..io.base_scan import arrow_filter_from_condition
+            d["_arrow_filter"] = arrow_filter_from_condition(
+                d["pushed_filters"])
+
     def tree_string(self, indent: int = 0) -> str:
         """One line a node; '*' marks operators that run on the device."""
         mark = "*" if self.is_tpu else " "
@@ -87,7 +261,23 @@ class TorchExec(PhysicalPlan):
     """Device operator over TorchColumnarBatch (reference TpuExec)."""
 
     def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
-        return self.internal_do_execute_columnar(idx, ctx)
+        it = self.internal_do_execute_columnar(idx, ctx)
+        name = type(self).__name__
+        try:
+            while True:
+                # cooperative cancellation at every batch pull: one
+                # thread-local read when no query is bound
+                _cancel_checkpoint(name)
+                batch = next(it, None)
+                if batch is None:
+                    return
+                yield batch
+        finally:
+            # an abandoned pull (a limit, an unwind) closes the operator's
+            # generator now, so its finally blocks release what it holds
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
 
     def internal_do_execute_columnar(self, idx: int,
                                      ctx: TaskContext) -> Iterator:

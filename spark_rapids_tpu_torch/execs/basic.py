@@ -1,8 +1,11 @@
 """Project, filter and limit operators on torch batches (port of
 TpuProjectExec, TpuFilterExec, TpuLocalLimitExec and TpuGlobalLimitExec
 from ``spark_rapids_tpu/execs/basic.py``). Expressions
-evaluate eagerly; the reference's per-operator jit cache and spill/retry
-wrappers are not yet ported."""
+evaluate eagerly (the reference's per-operator jit cache is a JAX compile
+cache with nothing to port). Project and filter run each batch under the
+retry framework (``memory/retry.with_retry``): the input is spillable, and
+an out-of-memory error retries after a spill or splits the batch in half,
+as both are row-wise."""
 
 from __future__ import annotations
 
@@ -32,12 +35,25 @@ class TorchProjectExec(TorchExec):
 
     def internal_do_execute_columnar(self, idx: int,
                                      ctx: TaskContext) -> Iterator:
+        from ..config import TASK_RETRY_LIMIT
+        from ..memory.retry import with_retry
         names = [a.name for a in self._output]
-        for batch in self.children[0].execute_partition(idx, ctx):
+
+        def project(batch: TorchColumnarBatch) -> TorchColumnarBatch:
             cols = [to_column(e.eval_device(batch, ctx.eval_ctx), batch,
                               a.dtype)
                     for e, a in zip(self.exprs, self._output)]
-            yield TorchColumnarBatch(cols, batch.num_rows, names)
+            return TorchColumnarBatch(cols, batch.num_rows, names)
+
+        for batch in self.children[0].execute_partition(idx, ctx):
+            # projection is row-wise, so split halves are independently
+            # valid outputs (reference GpuProjectExec withRetry); the
+            # framework registers the batch inside its first attempt and
+            # owns it: no reference here may outlive a spill of it
+            gen = with_retry(batch, project,
+                             max_retries=ctx.conf.get(TASK_RETRY_LIMIT))
+            del batch
+            yield from gen
 
 
 class TorchFilterExec(TorchExec):
@@ -54,13 +70,24 @@ class TorchFilterExec(TorchExec):
 
     def internal_do_execute_columnar(self, idx: int,
                                      ctx: TaskContext) -> Iterator:
-        for batch in self.children[0].execute_partition(idx, ctx):
+        from ..config import TASK_RETRY_LIMIT
+        from ..memory.retry import with_retry
+
+        def do_filter(batch: TorchColumnarBatch) -> TorchColumnarBatch:
             c = to_column(self.condition.eval_device(batch, ctx.eval_ctx),
                           batch)
             mask = c.data.to(torch.bool)
             if c.validity is not None:
                 mask = mask & c.validity  # null predicate drops the row
-            yield compact(batch, mask)
+            return compact(batch, mask)
+
+        for batch in self.children[0].execute_partition(idx, ctx):
+            # the framework registers the batch inside its first attempt
+            # and owns it
+            gen = with_retry(batch, do_filter,
+                             max_retries=ctx.conf.get(TASK_RETRY_LIMIT))
+            del batch
+            yield from gen
 
 
 class TorchLocalLimitExec(TorchExec):

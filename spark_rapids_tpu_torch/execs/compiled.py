@@ -18,11 +18,15 @@ run. The algorithm is the reference's:
   finalized and projected, then goes back to the device.
 
 Where a run turns out ineligible (a domain past ``maxGroups``, a value
-outside the measured domain), the stage re-runs its original aggregate
-subtree (``fallback``) on the general device path, as the reference does,
-and counts the re-run in ``TaskContext.counters["fallback_runs"]``. The
-reference also re-runs on a device out-of-memory; that waits with the
-retry framework, as do its spill, chaos and tracing hooks.
+outside the measured domain) or runs out of device memory (the budget's
+``TorchRetryOOM`` / ``TorchSplitAndRetryOOM``, or the allocator's own
+``torch.cuda.OutOfMemoryError``), the stage re-runs its original aggregate
+subtree (``fallback``) on the general device path, which has the full
+spill/retry/split machinery, as the reference does, and counts the re-run
+in ``TaskContext.counters["fallback_runs"]``. The batches the stage holds
+between its two passes are spillable, and each batch's stage run is the
+``device.dispatch`` chaos site under ``failure.with_device_retry``. The
+reference's tracing hooks are not yet ported.
 """
 
 from __future__ import annotations
@@ -102,6 +106,8 @@ def _agg_eligible(fn: AggregateFunction) -> bool:
 
 class _StageSpec:
     """Extracted pattern: source → layers (bottom-up) → grouping/aggs."""
+
+    _PLAN_SPEC = True  # cloned with the plan (execs/base._clone_spec)
 
     def __init__(self, source, layers, grouping, key_source_ordinals,
                  agg_fns, result_exprs, output, needed_source_ordinals):
@@ -623,10 +629,17 @@ class TorchCompiledAggStageExec(TorchExec):
 
     def internal_do_execute_columnar(self, idx: int,
                                      ctx: TaskContext) -> Iterator:
+        from ..memory.hbm import TorchRetryOOM, TorchSplitAndRetryOOM
+        from ..memory.retry import _release_device_cache
         try:
             result = self._run_compiled(ctx)
-        except _StageFallback:
+        except (_StageFallback, TorchRetryOOM, TorchSplitAndRetryOOM):
+            # ineligible at runtime OR memory pressure: the general path
+            # has the full spill/retry/split machinery
             result = None
+        except torch.cuda.OutOfMemoryError:
+            result = None
+            _release_device_cache()
         if result is None:
             # re-run on the general (sort-based) device path
             ctx.counters["fallback_runs"] += 1
@@ -637,27 +650,39 @@ class TorchCompiledAggStageExec(TorchExec):
         yield result
 
     def _run_compiled(self, ctx: TaskContext) -> TorchColumnarBatch:
+        from ..memory.spill import SpillableColumnarBatch
         spec = self.spec
         src = self.children[0]
-        held: List[TorchColumnarBatch] = []
+        held: List[SpillableColumnarBatch] = []
         domains = [_KeyDomain(g.dtype) for g in spec.grouping]
-        # pass 1: collect batches + key statistics (memoized on the
-        # column objects, so cached relations pay once)
-        for p in range(src.num_partitions()):
-            for b in src.execute_partition(p, ctx.for_partition(p)):
-                if b.num_rows:
-                    self._update_domains(b, domains)
-                    held.append(b)
-        G = 1
-        for d in domains:
-            G *= d.size
-        if G > self.max_groups:
-            raise _StageFallback(f"{G} groups exceed maxGroups "
-                                 f"{self.max_groups}")
-        # pass 2: one stage run per batch; the host reads the carries once
-        # every batch is queued
-        outs = [self._run_batch(b, domains, ctx) for b in held]
-        host = [[t.cpu().numpy() for t in out] for out in outs]
+        try:
+            # pass 1: collect batches (spillable) + key statistics
+            # (memoized on the column objects, so cached relations pay
+            # once)
+            for p in range(src.num_partitions()):
+                pctx = ctx.for_partition(p)
+                try:
+                    for b in src.execute_partition(p, pctx):
+                        if b.num_rows:
+                            self._update_domains(b, domains)
+                            held.append(SpillableColumnarBatch(b))
+                        del b  # the catalog's entry is the stage's holder
+                finally:
+                    pctx.complete()
+            G = 1
+            for d in domains:
+                G *= d.size
+            if G > self.max_groups:
+                raise _StageFallback(f"{G} groups exceed maxGroups "
+                                     f"{self.max_groups}")
+            # pass 2: one stage run per batch; the host reads the carries
+            # once every batch is queued
+            outs = [self._run_batch(sb.get_batch(), domains, ctx)
+                    for sb in held]
+            host = [[t.cpu().numpy() for t in out] for out in outs]
+        finally:
+            for sb in held:
+                sb.close()
         if any(bool(h[0]) for h in host):
             raise _StageFallback("a key value fell outside its measured "
                                  "domain")
@@ -696,7 +721,16 @@ class TorchCompiledAggStageExec(TorchExec):
                 flat.extend([col.data, col.validity if col.validity is not None
                              else rowmask])
         fn = _build_stage_fn(spec, cap, domains, ctx.eval_ctx)
-        return fn(rowmask, *flat)
+        from ..chaos import inject
+        from ..failure import with_device_retry
+
+        def dispatch():
+            # the stage is pure over its device inputs: a transient device
+            # error re-runs it (reference compiled.py:837-843)
+            inject("device.dispatch", detail="compiled_stage")
+            return fn(rowmask, *flat)
+
+        return with_device_retry(dispatch, ctx.conf)
 
     def _assemble(self, domains: List[_KeyDomain], carries: List[Tuple],
                   ctx: TaskContext) -> TorchColumnarBatch:

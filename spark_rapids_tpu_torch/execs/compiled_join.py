@@ -25,10 +25,13 @@ at the segment bounds. Repeated collects are identical. Min/max
 scatter-reduce, which is exact in any order.
 
 Where a run turns out ineligible (a dimension past ``maxDimRows``, a
-duplicated dimension key, a string payload) the stage re-runs its original
-subtree on the general join path, as the reference does, counted in
-``TaskContext.counters["fallbackReruns"]``. Not ported: the re-run on a
-device out-of-memory (with the retry framework), spill, and the
+duplicated dimension key, a string payload) or runs out of device memory
+(a retry OOM of the budget or ``torch.cuda.OutOfMemoryError``) the stage
+re-runs its original subtree on the general join path, as the reference
+does, counted in ``TaskContext.counters["fallbackReruns"]``. The fact
+batches it holds before probing are spillable; each probe is the
+``device.dispatch`` chaos site under ``failure.with_device_retry``. Not
+ported: the
 reference's device-resident finalize (``device_output``): the occupied
 groups' carries come to the host, are finalized there and go back up.
 """
@@ -75,6 +78,8 @@ class _DimSpec:
     right side of a left semi join) only filters: its build keeps the first
     row of each key, and the stage reads none of its columns."""
 
+    _PLAN_SPEC = True  # cloned with the plan (execs/base._clone_spec)
+
     def __init__(self, plan: PhysicalPlan, key_ordinals: List[int],
                  probe_locs: List, semi: bool):
         self.plan = plan
@@ -85,6 +90,8 @@ class _DimSpec:
 
 
 class _JoinStageSpec:
+    _PLAN_SPEC = True  # cloned with the plan (execs/base._clone_spec)
+
     def __init__(self, fact_source, fact_layers, fact_needed_source,
                  dims, top_output, col_loc, top_layers, grouping, group_dim,
                  group_key_ordinals, agg_fns, result_exprs, output,
@@ -610,9 +617,16 @@ class TorchCompiledJoinAggStageExec(TorchExec):
 
     def internal_do_execute_columnar(self, idx: int,
                                      ctx: TaskContext) -> Iterator:
+        from ..memory.hbm import TorchRetryOOM, TorchSplitAndRetryOOM
+        from ..memory.retry import _release_device_cache
         try:
             result = self._run_compiled(ctx)
-        except _JoinStageFallback:
+        except (_JoinStageFallback, TorchRetryOOM, TorchSplitAndRetryOOM):
+            result = None
+        except torch.cuda.OutOfMemoryError:
+            result = None
+            _release_device_cache()
+        if result is None:
             # re-run on the general join path
             ctx.counters["fallbackReruns"] += 1
             for p in range(self.fallback.num_partitions()):
@@ -747,19 +761,42 @@ class TorchCompiledJoinAggStageExec(TorchExec):
     # -- the run -----------------------------------------------------------
 
     def _run_compiled(self, ctx: TaskContext) -> TorchColumnarBatch:
+        from ..chaos import inject
+        from ..failure import with_device_retry
+        from ..memory.spill import SpillableColumnarBatch
         spec = self.spec
         tables, flats, caps, dense = self._dims(ctx)
         src = self.children[0]
+        held: List[SpillableColumnarBatch] = []
         carries = []
-        for p in range(src.num_partitions()):
-            for b in src.execute_partition(p, ctx.for_partition(p)):
-                if not b.num_rows:
-                    continue
-                if any(b.columns[o].offsets is not None
-                       for o in spec.fact_needed_source):
-                    raise _JoinStageFallback("string fact column")
-                carries.append(_run_stage(spec, b, flats, caps, dense,
-                                          ctx.eval_ctx))
+        try:
+            # the fact batches are held spillable, then probed (reference
+            # compiled_join.py:1112)
+            for p in range(src.num_partitions()):
+                pctx = ctx.for_partition(p)
+                try:
+                    for b in src.execute_partition(p, pctx):
+                        if not b.num_rows:
+                            continue
+                        if any(b.columns[o].offsets is not None
+                               for o in spec.fact_needed_source):
+                            raise _JoinStageFallback("string fact column")
+                        held.append(SpillableColumnarBatch(b))
+                        del b  # the catalog's entry is the stage's holder
+                finally:
+                    pctx.complete()
+            for sb in held:
+                def dispatch(sb=sb):
+                    # pure over its device inputs: a transient device error
+                    # re-runs it (reference compiled_join.py:1238-1244)
+                    inject("device.dispatch", detail="compiled_join_stage")
+                    return _run_stage(spec, sb.get_batch(), flats, caps,
+                                      dense, ctx.eval_ctx)
+
+                carries.append(with_device_retry(dispatch, ctx.conf))
+        finally:
+            for sb in held:
+                sb.close()
         if not carries:
             return self._assemble(tables, None, [], 0, ctx)
         occ, carry_np, nocc = self._merge_and_compact(carries)

@@ -9,9 +9,10 @@ one ``np.lexsort`` over every run's keys; each output slice gathers its
 rows run by run and finish-sorts in-core. For aggregation, slice ends snap
 to group-key boundaries so no group straddles two output batches.
 
-Sorted runs stay on the device: the reference parks them in its spill
-catalog (device → host → disk), which is not yet ported. The host holds
-only int64 key words, never a string.
+Sorted runs are parked in the spill catalog (device → host → disk) as
+``SpillableColumnarBatch``es, as in the reference, and come back to the
+device when a slice gathers from them. The host holds only int64 key
+words, never a string.
 """
 
 from __future__ import annotations
@@ -40,23 +41,26 @@ class OutOfCoreSorter:
     def __init__(self, order: List[SortOrder], ctx):
         self.order = order
         self.ctx = ctx
-        self.runs: List[TorchColumnarBatch] = []
+        self.runs: List = []  # SpillableColumnarBatch per sorted run
         # per run, per key: (int64 words, validity or None) on the host
         self.run_keys: List[List[Tuple[List[np.ndarray],
                                        Optional[np.ndarray]]]] = []
         self.total_rows = 0
 
     def add_batch(self, batch: TorchColumnarBatch) -> None:
-        """Sort the run in-core and snapshot its host keys."""
+        """Sort the run in-core, snapshot its host keys, park it
+        spillable."""
+        from ..memory.spill import SpillableColumnarBatch
         from .sort import sort_permutation
         perm, key_cols = sort_permutation(batch, self.order, self.ctx)
         n = batch.num_rows
-        self.runs.append(gather(batch, perm, n, out_capacity=batch.capacity))
+        run = gather(batch, perm, n, out_capacity=batch.capacity)
         rows = perm[:n]
         self.run_keys.append([
             ([w[rows].cpu().numpy() for w in _run_key_words(c)],
              None if c.validity is None else c.validity[rows].cpu().numpy())
             for c in key_cols])
+        self.runs.append(SpillableColumnarBatch(run))
         self.total_rows += n
 
     # -- host-side global order --------------------------------------------
@@ -139,7 +143,7 @@ class OutOfCoreSorter:
         sl_row = row[start:end]
         for run_idx in np.unique(sl_rid):
             sel = sl_row[sl_rid == run_idx]
-            b = self.runs[run_idx]
+            b = self.runs[run_idx].get_batch()
             cap = bucket_capacity(len(sel))
             padded = np.full(cap, -1, dtype=np.int64)
             padded[:len(sel)] = sel
@@ -149,5 +153,7 @@ class OutOfCoreSorter:
         return sort_batch(concat_batches(pieces), self.order, self.ctx)
 
     def close(self) -> None:
+        for r in self.runs:
+            r.close()
         self.runs = []
         self.run_keys = []

@@ -15,6 +15,8 @@ usual upload. ``TorchFileScanExec`` is its device counterpart:
 * otherwise the host reads (PERFILE with the chunked reader, COALESCING or
   MULTITHREADED, reference GpuMultiFileReader) feed one upload a table.
 
+Before a partition's first upload or device decode, its task takes a
+permit of the device semaphore (reference parquet.py:625-671).
 Hive-partitioned directories (``key=value``) add their partition columns
 as constants. Bucket pruning, deletion vectors, dynamic partition pruning
 and the other formats wait for later slices; pyarrow is imported only when
@@ -361,8 +363,12 @@ class TorchFileScanExec(FileScanBase, TorchExec):
             times.flush(ctx.counters)
 
     def _upload(self, t, schema, ctx: TaskContext, times: ScanTimes):
+        from ..memory.semaphore import TorchSemaphore
         with times.host("hostDecode"):
             host = self._host_batch(t, schema)
+        # admission control before taking device memory (reference
+        # parquet.py:625, the semaphore pattern)
+        TorchSemaphore.get(ctx.conf).acquire_if_necessary(ctx)
         with times.device("upload"):
             return host.to_device(ctx.device)
 
@@ -382,6 +388,7 @@ class TorchFileScanExec(FileScanBase, TorchExec):
                         times: ScanTimes) -> Iterator:
         """The device decode, a row group at a time; a file or row group it
         cannot take is read on the host, and counted."""
+        from ..memory.semaphore import TorchSemaphore
         files, cols, row_filter = self._partition_files(idx)
         part_names = {n for n, _ in self._partition_columns()}
         attrs = [a for a in self._output_attrs if a.name not in part_names]
@@ -403,6 +410,9 @@ class TorchFileScanExec(FileScanBase, TorchExec):
             try:
                 for rgi in dec.row_groups(row_filter):
                     ctx.counters["scan.rowGroups"] += 1
+                    # the device decode runs under the semaphore
+                    # (reference device_decode.py:1376)
+                    TorchSemaphore.get(ctx.conf).acquire_if_necessary(ctx)
                     try:
                         batch = self._attach_partition_vectors(
                             dec.decode_row_group(rgi, times), f, ctx)

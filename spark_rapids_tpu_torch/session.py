@@ -1,15 +1,21 @@
 """User-facing session + DataFrame API (a subset of
 ``spark_rapids_tpu/session.py``).
 
-Execution, as in the reference: logical plan → optimizer (join swap,
-column pruning) → planner (CPU physical plan) → ``TorchOverrides``
-(retarget to the device, transitions, compiled join and aggregation
-stages) → partition loop, run directly by ``DataFrame.collect``. The reference's scheduler (admission,
-deadlines, plan cache) comes in a later slice.
+Execution, as in the reference: every ``collect()`` goes to the
+process-wide scheduler (``serving/scheduler.execute_plan``): one conf
+snapshot, a ``QueryContext`` with a deadline and a cancel token,
+admission (SLO class queues, the budget watermark, tenant quotas,
+shedding), planning through the plan cache — logical plan → optimizer
+(join swap, column pruning) → planner (CPU physical plan) →
+``TorchOverrides`` (retarget to the device, transitions, compiled join and
+aggregation stages), or a cached template with its literals re-bound — and
+the per-partition loop under the task semaphore, with spillable batches
+and out-of-memory retry in the execs.
 """
 
 from __future__ import annotations
 
+import itertools
 from collections import Counter
 from typing import Any, Dict, List, Optional, Union
 
@@ -268,25 +274,55 @@ class DataFrame:
         rows each) and replace the plan with a device scan: repeated
         queries skip the upload and keep per-column key statistics."""
         from .io.cache import DeviceCachedRelation
-        return DataFrame(DeviceCachedRelation(self.session._execute_batches(
-            self._plan, on_device=True), self._plan.output), self.session)
+        from .serving.query_context import QueryShed
+        batches = self.session._execute_batches(self._plan, on_device=True)
+        if isinstance(batches, QueryShed):
+            raise RuntimeError(f"device_cache was shed: {batches!r}")
+        return DataFrame(DeviceCachedRelation(batches, self._plan.output),
+                         self.session)
 
-    def collect(self) -> List[Dict[str, Any]]:
-        """Execute and fetch all rows as dicts (the reference's shape)."""
+    def collect(self, timeout: Optional[float] = None,
+                priority: Optional[str] = None):
+        """Execute and fetch all rows as dicts (the reference's shape).
+        `timeout` (seconds) sets a deadline for THIS query (overriding
+        spark.rapids.tpu.query.timeoutMs): past it the query is cancelled
+        at its next checkpoint and raises QueryDeadlineExceeded with every
+        resource released. `priority` overrides the session's SLO class.
+        Under sustained overload the scheduler may SHED the query: the
+        return value is then a typed ``QueryShed`` result with a
+        retry-after hint instead of the rows."""
+        from .serving.query_context import QueryShed
+        out = self.session._execute_batches(self._plan, timeout=timeout,
+                                            priority=priority)
+        if isinstance(out, QueryShed):
+            return out
         rows: List[Dict[str, Any]] = []
         names = self.columns
-        for b in self.session._execute_batches(self._plan):
+        for b in out:
             rows.extend(b.rename(names).to_pylist())
         return rows
 
     def explain(self) -> str:
-        """The applied optimizer rules, the optimized logical plan and the
-        physical plan ('*' marks device operators), as the reference prints
-        them (its ``planCache=`` line waits with the scheduler)."""
+        """The plan cache's verdict for this query (``planCache=hit``,
+        ``miss``, ``off`` or ``uncacheable``), the applied optimizer rules,
+        the optimized logical plan and the physical plan ('*' marks device
+        operators), as the reference prints them."""
+        from .config import PLAN_CACHE_ENABLED
         from .plan.optimizer import explain_logical, optimize_logical
+        from .serving.plan_cache import fingerprint
+        from .serving.scheduler import QueryScheduler
         conf = self.session._rapids_conf()
+        status = "off"
+        if conf.get(PLAN_CACHE_ENABLED):
+            fp = fingerprint(self._plan, conf)
+            if fp is None:
+                status = "uncacheable"
+            else:
+                inst = QueryScheduler.peek()
+                status = ("hit" if inst is not None
+                          and inst.plan_cache.peek(fp.key) else "miss")
         optimized, rules = optimize_logical(self._plan, conf)
-        lines = []
+        lines = [f"planCache={status}"]
         if rules:
             lines.append(f"appliedRules={', '.join(rules)}")
             lines.append("== Optimized Logical Plan ==")
@@ -409,13 +445,20 @@ class GroupedData:
 
 class TorchSession:
     """The SparkSession analogue on one torch device: ``cuda`` unless the
-    caller passes ``device="cpu"``. ``counters`` counts the session's
-    runtime events: ``fallback_runs`` (a compiled aggregation stage re-ran
-    on the general path), ``fallbackReruns`` (a compiled join stage did),
-    ``sort_fallback_runs`` (a grouped aggregate sorted out of core), and
-    the parquet scan's ``fallback_columns``, ``fallback_row_groups`` and
-    ``fallback_files`` (demotions to the host decode) and ``scan.*`` time
-    split (``io/parquet.TorchFileScanExec``)."""
+    caller passes ``device="cpu"``. Each session is one frontend of the
+    process-wide scheduler: its queries submit under its id, so
+    ``cancel()`` and ``stop()`` target exactly its queries. ``counters``
+    counts the session's runtime events: ``fallback_runs`` (a compiled
+    aggregation stage re-ran on the general path), ``fallbackReruns`` (a
+    compiled join stage did), ``sort_fallback_runs`` (a grouped aggregate
+    sorted out of core), and the parquet scan's ``fallback_columns``,
+    ``fallback_row_groups`` and ``fallback_files`` (demotions to the host
+    decode) and ``scan.*`` time split (``io/parquet.TorchFileScanExec``).
+    ``last_task_metrics()`` holds the last query's retry, split, spill and
+    semaphore-wait counts."""
+
+    #: session-id mint (itertools.count.__next__ is atomic in CPython)
+    _session_ids = itertools.count(1)
 
     def __init__(self, conf: Optional[Dict[str, str]] = None,
                  device: DeviceLike = None):
@@ -423,6 +466,49 @@ class TorchSession:
                                           for k, v in (conf or {}).items()}
         self.device = resolve_device(device)
         self.counters: Counter = Counter()
+        from .chaos import FaultInjector
+        from .config import OBS_METRICS_ENABLED
+        from .memory.device import TorchDeviceManager
+        from .obs import flight as _flight
+        from .obs import metrics as _metrics
+        from .serving import scheduler as _sched
+        rc = self._rapids_conf()
+        # the device budget's size: allocFraction × the card's memory
+        # (once a process, as the reference's startup-only conf)
+        TorchDeviceManager.initialize(rc, self.device)
+        # arm/disarm the process-wide fault injector when the conf
+        # mentions chaos; apply the metrics switch and the flight
+        # recorder's ring size and postmortem dir
+        FaultInjector.maybe_configure(rc)
+        _metrics.set_enabled(rc.get(OBS_METRICS_ENABLED))
+        _flight.maybe_configure(rc)
+        self._session_id = f"sess-{next(TorchSession._session_ids)}"
+        self._stopped = False
+        _sched.register_session(self)
+        _sched.QueryScheduler.get(rc)
+
+    class _Conf:
+        """``session.conf``: a plan-relevant key's change drops the plans
+        cached under its other values."""
+
+        def __init__(self, session: "TorchSession"):
+            self._s = session
+
+        def set(self, key: str, value: Any) -> None:
+            self._s._settings[key] = str(value)
+            _invalidate_cached_plans(key, str(value))
+
+        def get(self, key: str, default: Optional[str] = None
+                ) -> Optional[str]:
+            return self._s._settings.get(key, default)
+
+        def unset(self, key: str) -> None:
+            self._s._settings.pop(key, None)
+            _invalidate_cached_plans(key, None)
+
+    @property
+    def conf(self) -> "_Conf":
+        return TorchSession._Conf(self)
 
     def _rapids_conf(self) -> RapidsConf:
         return RapidsConf(self._settings)
@@ -454,28 +540,79 @@ class TorchSession:
         from .plan.planner import plan_physical
         return TorchOverrides.apply(plan_physical(optimized, conf), conf)
 
-    def _execute_batches(self, plan: L.LogicalPlan,
-                         on_device: bool = False) -> List:
-        """Run a query: host batches, or with ``on_device`` the device
-        batches under the final download."""
-        from .execs.base import TaskContext
-        from .execs.transitions import DeviceToHostExec, HostToDeviceExec
-        from .plan.optimizer import optimize_logical
-        conf = self._rapids_conf()
-        final = self._final_plan(optimize_logical(plan, conf)[0], conf)
-        if on_device:
-            while isinstance(final, DeviceToHostExec):
-                final = final.children[0]
-            if not final.is_tpu:  # a host plan (e.g. a bare table): upload
-                final = HostToDeviceExec(final)
-        out = []
-        try:
-            for p in range(final.num_partitions()):
-                out.extend(final.execute_partition(
-                    p, TaskContext(p, conf, self.device, self.counters)))
-        finally:
-            # the query's shuffle blocks leave the device with it
-            for node in final.collect_nodes():
-                if hasattr(node, "cleanup_shuffle"):
-                    node.cleanup_shuffle()
-        return out
+    def _execute_batches(self, plan: L.LogicalPlan, on_device: bool = False,
+                         timeout: Optional[float] = None,
+                         priority: Optional[str] = None):
+        """Submit one query through the scheduler (admission, deadline,
+        plan cache, the partition loop): host batches, or with
+        ``on_device`` the device batches under the final download — or a
+        typed ``QueryShed`` when the scheduler shed it."""
+        if self._stopped:
+            raise RuntimeError(f"TorchSession {self._session_id} is stopped")
+        from .serving.scheduler import execute_plan
+        return execute_plan(self, plan, timeout=timeout, priority=priority,
+                            on_device=on_device)
+
+    def last_admit_wait_ms(self) -> Optional[float]:
+        """Admission-queue wait of this session's last query in
+        milliseconds (None before any query, or when it was rejected or
+        shed while queued)."""
+        return getattr(self, "_last_admit_wait_ms", None)
+
+    def last_task_metrics(self) -> Dict[str, int]:
+        """Task-accumulator deltas of the last query alone: semaphore
+        wait, retry and split counts, retry block time, spill bytes by
+        tier, read-spill time, device retries."""
+        return dict(getattr(self, "_last_task_metrics", {}) or {})
+
+    def metrics_snapshot(self) -> Dict[str, Any]:
+        """The always-on process-wide metrics registry readout."""
+        from .obs import metrics as _metrics
+        return _metrics.full_snapshot()
+
+    def cancel(self) -> int:
+        """Cancel this session's queued and running queries: each observes
+        its cancel token at its next checkpoint and unwinds, returning its
+        permits, budget bytes, spill entries and shuffle blocks. Returns
+        how many queries were flagged."""
+        from .serving.scheduler import QueryScheduler
+        return QueryScheduler.get().cancel_session(self._session_id)
+
+    def stop(self) -> None:
+        """Shut this session down (idempotent): cancel and drain its
+        queries, drop its per-query state, and — when it was the last live
+        session with nothing running — release the shared shuffle
+        catalog."""
+        if self._stopped:
+            return
+        self._stopped = True
+        from .obs import flight as _flight
+        from .serving import scheduler as _sched
+        sched = _sched.QueryScheduler.get()
+        n = sched.cancel_session(self._session_id, reason="session.stop")
+        drained = sched.drain_session(self._session_id, timeout_s=30.0)
+        for attr in ("_last_task_metrics", "_last_plan_cache",
+                     "_last_opt_rules"):
+            if hasattr(self, attr):
+                setattr(self, attr, None)
+        _flight.note("session.stop", session=self._session_id,
+                     cancelled=n, drained=drained)
+        _sched.release_session(self)
+        if not _sched.other_live_sessions(self):
+            _sched.request_shared_release()
+
+    def __enter__(self) -> "TorchSession":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.stop()
+
+
+def _invalidate_cached_plans(key: str, value: Optional[str]) -> None:
+    """Conf-change invalidation hook for the scheduler-owned plan cache: a
+    plan-relevant key changing drops entries planned under another value
+    (no-op before the scheduler exists)."""
+    from .serving.scheduler import QueryScheduler
+    inst = QueryScheduler.peek()
+    if inst is not None:
+        inst.plan_cache.invalidate_conf(key, value)

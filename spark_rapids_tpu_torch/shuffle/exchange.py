@@ -4,18 +4,29 @@ hash partitioning, the device-resident ``ICI`` shuffle mode).
 
 Materialization runs once per exchange instance: every map partition of
 the child is hash-split on the device (``partitioner.py``) and each
-(map, reduce) block stays on the device in the ``ShuffleCatalog``. A
-reduce partition reads its blocks in map order, so it holds the
-reference's rows in the reference's order. The session removes an
-exchange's blocks when its query ends (``cleanup_shuffle``).
+(map, reduce) block is registered in the ``ShuffleCatalog`` as a
+``SpillableColumnarBatch`` at the shuffle-output spill priority, so under
+budget pressure blocks spill to the host and to disk and come back when a
+reduce partition reads them (reference ``IciShuffleCatalog``). A reduce
+partition reads its blocks in map order, so it holds the reference's rows
+in the reference's order. Each map task runs under its own task context
+and a permit of the device semaphore (reference exchange.py:243), with a
+cancel checkpoint before it; a nested exchange's map tasks run on the same
+thread and ride that permit (``memory/semaphore.py``). Each map task and
+each reduce partition's read is a chaos site (``pipeline.task``,
+``ici.fetch``) under ``failure.with_device_retry``, as in the reference:
+both are idempotent, so a transient device error re-runs them. The
+executor removes an exchange's blocks when its query ends
+(``cleanup_shuffle``).
 
 Not yet ported: the ``MULTITHREADED`` mode (host-serialized shuffle files;
 it returns the same rows), the AQE readers, the collective mesh plane,
-heartbeats, lost peers and chaos.
+heartbeats and lost peers.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 from ..columnar.batch import TorchColumnarBatch, concat_batches
@@ -26,53 +37,82 @@ from .partitioner import hash_split_parts
 
 
 class ShuffleCatalog:
-    """Single-process, device-resident shuffle blocks keyed by (shuffle id,
-    map id, reduce id) (reference ``IciShuffleCatalog``, without heartbeats,
-    lost peers, spill or chaos)."""
+    """Single-process shuffle blocks keyed by (shuffle id, map id, reduce
+    id), each a ``SpillableColumnarBatch`` (reference
+    ``IciShuffleCatalog``, without heartbeats, lost peers or chaos)."""
 
     _instance: Optional["ShuffleCatalog"] = None
+    _cls_lock = threading.Lock()
 
     def __init__(self):
         self._next_id = 0
-        self._blocks: Dict[Tuple[int, int, int], TorchColumnarBatch] = {}
+        self._blocks: Dict[Tuple[int, int, int], object] = {}
         self._maps: Dict[int, set] = {}
+        self._mu = threading.Lock()
 
     @classmethod
     def get(cls) -> "ShuffleCatalog":
-        if cls._instance is None:
-            cls._instance = cls()
-        return cls._instance
+        with cls._cls_lock:
+            if cls._instance is None:
+                cls._instance = cls()
+            return cls._instance
+
+    @classmethod
+    def shutdown_instance(cls) -> None:
+        """Release every block and drop the singleton (the last session's
+        stop(), process exit); a later query makes a new one."""
+        with cls._cls_lock:
+            inst, cls._instance = cls._instance, None
+        if inst is not None:
+            for sid in list(inst._maps):
+                inst.remove_shuffle(sid)
 
     def new_shuffle_id(self) -> int:
-        self._next_id += 1
-        self._maps[self._next_id] = set()
-        return self._next_id
+        with self._mu:
+            self._next_id += 1
+            self._maps[self._next_id] = set()
+            return self._next_id
 
     def put_block(self, sid: int, map_id: int, reduce_id: int,
                   batch: TorchColumnarBatch) -> None:
-        self._blocks[(sid, map_id, reduce_id)] = batch
+        from ..memory.spill import (OUTPUT_FOR_SHUFFLE_PRIORITY,
+                                    SpillableColumnarBatch)
+        sb = SpillableColumnarBatch(batch, OUTPUT_FOR_SHUFFLE_PRIORITY)
+        with self._mu:
+            old = self._blocks.pop((sid, map_id, reduce_id), None)
+            self._blocks[(sid, map_id, reduce_id)] = sb
+        if old is not None:
+            old.close()
 
     def mark_map_complete(self, sid: int, map_id: int) -> None:
-        self._maps[sid].add(map_id)
+        with self._mu:
+            self._maps[sid].add(map_id)
 
-    def blocks(self, sid: int, reduce_id: int,
-               n_maps: int) -> List[TorchColumnarBatch]:
-        """A reduce partition's blocks in map order."""
-        missing = set(range(n_maps)) - self._maps.get(sid, set())
-        if missing:
-            raise RuntimeError(f"shuffle {sid}: maps {sorted(missing)} "
-                               "have no output")
-        return [self._blocks[k] for k in
-                ((sid, m, reduce_id) for m in range(n_maps))
-                if k in self._blocks]
+    def blocks(self, sid: int, reduce_id: int, n_maps: int) -> Iterator:
+        """A reduce partition's blocks in map order, each brought back to
+        the device as it is read."""
+        with self._mu:
+            missing = set(range(n_maps)) - self._maps.get(sid, set())
+            if missing:
+                raise RuntimeError(f"shuffle {sid}: maps {sorted(missing)} "
+                                   "have no output")
+            held = [self._blocks[k] for k in
+                    ((sid, m, reduce_id) for m in range(n_maps))
+                    if k in self._blocks]
+        for sb in held:
+            yield sb.get_batch()
 
     def remove_shuffle(self, sid: int) -> None:
-        for k in [k for k in self._blocks if k[0] == sid]:
-            del self._blocks[k]
-        self._maps.pop(sid, None)
+        with self._mu:
+            doomed = [self._blocks.pop(k) for k in
+                      [k for k in self._blocks if k[0] == sid]]
+            self._maps.pop(sid, None)
+        for sb in doomed:
+            sb.close()
 
     def num_blocks(self) -> int:
-        return len(self._blocks)
+        with self._mu:
+            return len(self._blocks)
 
 
 def _check_mode(conf) -> None:
@@ -118,40 +158,77 @@ class TorchShuffleExchangeExec(_ExchangeBase, TorchExec):
     def _ensure_materialized(self, ctx: TaskContext) -> None:
         if self._shuffle_id is not None:
             return
+        from ..chaos import inject
+        from ..failure import with_device_retry
+        from ..serving.query_context import checkpoint
         _check_mode(ctx.conf)
         catalog = ShuffleCatalog.get()
         sid = catalog.new_shuffle_id()
-        child, n = self.children[0], self._n_out
+        child = self.children[0]
         try:
             for map_id in range(child.num_partitions()):
-                acc: List[List[TorchColumnarBatch]] = [[] for _ in range(n)]
-                for batch in child.execute_partition(
-                        map_id, ctx.for_partition(map_id)):
-                    if batch.num_rows == 0:
-                        continue
-                    parts = hash_split_parts(batch, self.keys, n, ctx)
-                    for p, sub in enumerate(parts):
-                        if sub is not None:
-                            acc[p].append(sub)
-                for p, batches in enumerate(acc):
-                    if batches:
-                        catalog.put_block(sid, map_id, p,
-                                          concat_batches(batches))
-                catalog.mark_map_complete(sid, map_id)
+                # one map task under the chaos site and the transient
+                # device-error retry (reference exchange.py:130-137): a map
+                # task is idempotent, as put_block replaces its blocks
+                def attempt(map_id=map_id) -> None:
+                    checkpoint(f"shuffle.map s{sid}m{map_id}")
+                    inject("pipeline.task", detail=f"s{sid}m{map_id}")
+                    self._materialize_map(sid, map_id, ctx, catalog)
+
+                with_device_retry(attempt, ctx.conf)
         except BaseException:
             catalog.remove_shuffle(sid)  # no half-written shuffle remains
             raise
         self._n_maps = child.num_partitions()
         self._shuffle_id = sid
 
+    def _materialize_map(self, sid: int, map_id: int, ctx: TaskContext,
+                         catalog: "ShuffleCatalog") -> None:
+        from ..memory.semaphore import TorchSemaphore
+        n = self._n_out
+        map_ctx = ctx.for_partition(map_id)
+        try:
+            TorchSemaphore.get(ctx.conf).acquire_if_necessary(map_ctx)
+            acc: List[List[TorchColumnarBatch]] = [[] for _ in range(n)]
+            for batch in self.children[0].execute_partition(map_id,
+                                                            map_ctx):
+                if batch.num_rows == 0:
+                    continue
+                parts = hash_split_parts(batch, self.keys, n, ctx)
+                del batch
+                for p in range(n):
+                    if parts[p] is not None:
+                        acc[p].append(parts[p])
+                del parts
+            for p in range(n):
+                # the catalog becomes each block's one holder
+                if acc[p]:
+                    catalog.put_block(sid, map_id, p, concat_batches(acc[p]))
+                acc[p] = []
+            catalog.mark_map_complete(sid, map_id)
+        finally:
+            map_ctx.complete()  # releases the permit
+
     def internal_do_execute_columnar(self, idx: int,
                                      ctx: TaskContext) -> Iterator:
+        from ..chaos import inject
+        from ..failure import with_device_retry
         self._ensure_materialized(ctx)
         names = [a.name for a in self.output]
-        for b in ShuffleCatalog.get().blocks(self._shuffle_id, idx,
-                                             self._n_maps):
+        catalog, sid = ShuffleCatalog.get(), self._shuffle_id
+
+        def fetch() -> List[TorchColumnarBatch]:
+            # the reduce side's read under the chaos site and the transient
+            # device-error retry (reference exchange.py:1113, ici.py:179)
+            inject("ici.fetch", detail=f"s{sid}r{idx}")
+            return list(catalog.blocks(sid, idx, self._n_maps))
+
+        blocks = with_device_retry(fetch, ctx.conf)
+        while blocks:
+            b = blocks.pop(0)
             if b.num_rows:
                 yield b.rename(names)
+            del b
 
     def cleanup_shuffle(self) -> None:
         """Drop this exchange's blocks (the session calls it when the query

@@ -15,6 +15,11 @@ import spark_rapids_tpu.functions as RF
 import spark_rapids_tpu_torch.functions as TF
 from spark_rapids_tpu.session import TpuSession
 from spark_rapids_tpu_torch.session import TorchSession
+from spark_rapids_tpu_torch.memory.device import TorchDeviceManager
+
+# the CPU has no device memory to read: the tests state one for the
+# budget (spark.rapids.memory.device.totalBytes)
+TorchDeviceManager.initialize(device="cpu", total_bytes=8 << 30)
 
 
 def _lineitem_table(n: int, nulls: bool = False):

@@ -23,6 +23,11 @@ import spark_rapids_tpu.functions as RF
 import spark_rapids_tpu_torch.functions as TF
 from spark_rapids_tpu.session import TpuSession
 from spark_rapids_tpu_torch.session import TorchSession
+from spark_rapids_tpu_torch.memory.device import TorchDeviceManager
+
+# the CPU has no device memory to read: the tests state one for the
+# budget (spark.rapids.memory.device.totalBytes)
+TorchDeviceManager.initialize(device="cpu", total_bytes=8 << 30)
 
 GENERAL = {"spark.rapids.tpu.agg.compiledStage.enabled": "false"}
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -406,7 +411,9 @@ def test_device_path_runs_without_pyarrow():
         out = []
         for comp in ("true", "false"):
             s = TorchSession({"spark.rapids.tpu.agg.compiledStage.enabled":
-                              comp, "spark.rapids.sql.batchSizeRows": "1000"},
+                              comp, "spark.rapids.sql.batchSizeRows": "1000",
+                              "spark.rapids.memory.device.totalBytes":
+                              str(8 << 30)},
                              device="cpu")
             df = s.createDataFrame(cols, num_partitions=2)
             for d in (df, df.device_cache()):

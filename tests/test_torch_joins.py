@@ -26,6 +26,11 @@ from spark_rapids_tpu_torch.columnar.vector import HostStrings
 from spark_rapids_tpu_torch.config import RapidsConf
 from spark_rapids_tpu_torch.execs.base import TaskContext
 from spark_rapids_tpu_torch.session import TorchSession
+from spark_rapids_tpu_torch.memory.device import TorchDeviceManager
+
+# the CPU has no device memory to read: the tests state one for the
+# budget (spark.rapids.memory.device.totalBytes)
+TorchDeviceManager.initialize(device="cpu", total_bytes=8 << 30)
 
 #: reference passes the port has not ported, off for a like-for-like plan
 REF_ONLY_OFF = {"spark.rapids.tpu.opjit.fuseStages": "false",

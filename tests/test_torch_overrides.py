@@ -3,9 +3,9 @@ CPU plan → override engine → transitions → compiled stages.
 
 ``explain()`` of the same query must print the same operator trees in both
 packages (node names mapped Tpu → Torch; the reference runs without the
-segment fusion and batch coalescing the port has not ported, and its
-``planCache=`` line is dropped), and the fallback reasons must read the
-same."""
+segment fusion and batch coalescing the port has not ported; both
+print the plan cache's ``planCache=`` verdict first), and the fallback
+reasons must read the same."""
 
 import functools
 
@@ -17,6 +17,11 @@ import spark_rapids_tpu.functions as RF
 import spark_rapids_tpu_torch.functions as TF
 from spark_rapids_tpu.session import TpuSession
 from spark_rapids_tpu_torch.session import TorchSession
+from spark_rapids_tpu_torch.memory.device import TorchDeviceManager
+
+# the CPU has no device memory to read: the tests state one for the
+# budget (spark.rapids.memory.device.totalBytes)
+TorchDeviceManager.initialize(device="cpu", total_bytes=8 << 30)
 
 #: reference passes the port has not ported, off for a like-for-like plan
 REF_ONLY_OFF = {"spark.rapids.tpu.opjit.fuseStages": "false",
@@ -85,8 +90,7 @@ def _plans(name, conf, cached):
     want = q(RF, ref).explain()
     got = q(TF, port).explain()
     want = "\n".join(line.replace("Tpu", "Torch")
-                     for line in want.splitlines()
-                     if not line.startswith("planCache="))
+                     for line in want.splitlines())
     return want, got
 
 
@@ -97,7 +101,7 @@ def test_explain_matches_reference(name, cached, compiled):
     conf = {"spark.rapids.tpu.agg.compiledStage.enabled": compiled}
     want, got = _plans(name, conf, cached)
     assert got == want
-    assert got.startswith("appliedRules=ColumnPruning\n")
+    assert got.startswith("planCache=miss\nappliedRules=ColumnPruning\n")
     assert ("TorchCompiledAggStage" in got) == (compiled == "true")
     assert got.splitlines()[got.splitlines().index(
         "== Physical Plan ==") + 1] == "  DeviceToHostExec"
@@ -126,8 +130,7 @@ def test_disabled_exec_falls_back_with_the_reference_reason():
     assert ("!Exec CpuHashAggregateExec cannot run on TPU: disabled via "
             "spark.rapids.sql.exec.HashAggregateExec") in reasons
     want = "\n".join(line.replace("Tpu", "Torch")
-                     for line in ref.explain().splitlines()
-                     if not line.startswith("planCache="))
+                     for line in ref.explain().splitlines())
     assert port.explain() == want
     with pytest.raises(NotImplementedError,
                        match="CPU execution of CpuHashAggregateExec"):

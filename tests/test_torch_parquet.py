@@ -31,6 +31,11 @@ from spark_rapids_tpu.session import TpuSession
 from spark_rapids_tpu_torch.columnar.batch import concat_batches
 from spark_rapids_tpu_torch.io import device_decode as dd
 from spark_rapids_tpu_torch.session import TorchSession
+from spark_rapids_tpu_torch.memory.device import TorchDeviceManager
+
+# the CPU has no device memory to read: the tests state one for the
+# budget (spark.rapids.memory.device.totalBytes)
+TorchDeviceManager.initialize(device="cpu", total_bytes=8 << 30)
 
 OFF = {"spark.rapids.tpu.parquet.deviceDecode.enabled": "false"}
 VERIFY = {"spark.rapids.tpu.parquet.deviceDecode.verify": "true"}

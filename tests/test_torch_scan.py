@@ -27,6 +27,11 @@ from spark_rapids_tpu import datagen as RD
 from spark_rapids_tpu.session import TpuSession
 from spark_rapids_tpu_torch.io.device_decode import FALLBACK_KEYS
 from spark_rapids_tpu_torch.session import TorchSession
+from spark_rapids_tpu_torch.memory.device import TorchDeviceManager
+
+# the CPU has no device memory to read: the tests state one for the
+# budget (spark.rapids.memory.device.totalBytes)
+TorchDeviceManager.initialize(device="cpu", total_bytes=8 << 30)
 
 ROWS, PART, ROW_GROUP = 8192, 2048, 1024
 

@@ -27,6 +27,11 @@ from spark_rapids_tpu.session import TpuSession
 from spark_rapids_tpu_torch import tpch as port_tpch
 from spark_rapids_tpu_torch.datagen import tpch_tables
 from spark_rapids_tpu_torch.session import TorchSession
+from spark_rapids_tpu_torch.memory.device import TorchDeviceManager
+
+# the CPU has no device memory to read: the tests state one for the
+# budget (spark.rapids.memory.device.totalBytes)
+TorchDeviceManager.initialize(device="cpu", total_bytes=8 << 30)
 
 #: reference passes the port has not ported, off for a like-for-like plan
 REF_ONLY_OFF = {"spark.rapids.tpu.opjit.fuseStages": "false",
@@ -109,11 +114,11 @@ def physical(plan: str):
 
 
 def assert_same_plan(ref_plan: str, plan: str) -> None:
-    """The same physical tree (Tpu → Torch) and the same optimized logical
-    plan."""
+    """The same physical tree (Tpu → Torch) and the same plan-cache
+    verdict and optimized logical plan."""
     assert physical(plan) == physical(ref_plan)
     assert plan.split("== Physical Plan ==")[0] == \
-        ref_plan.split("== Physical Plan ==")[0].split("\n", 1)[1]
+        ref_plan.split("== Physical Plan ==")[0]
 
 
 def assert_rows_equal(want, got) -> None:

@@ -24,6 +24,11 @@ from spark_rapids_tpu import datagen as RDG
 from spark_rapids_tpu.session import TpuSession
 from spark_rapids_tpu_torch import datagen as TDG
 from spark_rapids_tpu_torch.session import TorchSession
+from spark_rapids_tpu_torch.memory.device import TorchDeviceManager
+
+# the CPU has no device memory to read: the tests state one for the
+# budget (spark.rapids.memory.device.totalBytes)
+TorchDeviceManager.initialize(device="cpu", total_bytes=8 << 30)
 
 # ---------------------------------------------------------------------------
 # the five new tables

@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: all 22 TPC-H queries of
 benchmarks/tpch.py end to end (as spark_rapids_tpu_torch/tpch.py writes
-them), the parquet scan, and the query lifecycle (bench.py's hot_repeat
-and serving stages, spill and out-of-memory retry, deadline and cancel).
+them), the parquet scan, the query lifecycle (bench.py's hot_repeat
+and serving stages, spill and out-of-memory retry, deadline and cancel)
+and all 99 TPC-DS queries of benchmarks/tpcds.py (as
+spark_rapids_tpu_torch/tpcds.py writes them).
 
     python3 chip_smoke.py
 
@@ -31,7 +33,7 @@ prints no result):
    counters must show every kernel launched;
 5. timing: each kernel's median time by CUDA events against its bound, its
    device time split into the main kernel and the partials pass
-   (torch.profiler), its plain version's time, and the framework's
+   (the profiler's device trace), its plain version's time, and the framework's
    best-of-5 warm collect();
 6. both device paths of the planning route (optimizer -> CPU plan ->
    override engine -> transitions), each against a numpy float64 oracle
@@ -158,6 +160,27 @@ prints no result):
    (e) the lifecycle's own costs: one batch through with_retry, a bare
        register/read/close, a no-op admission, q21's fingerprint and
        clone.
+12. the 99 TPC-DS queries (the 22 tables, union and the set operations,
+   grouping sets through Expand, the window exec, stddev) in
+   benchmarks/tpcds.py's layout (load_tables(s, rows, parts=4), four
+   shuffle partitions, ICI):
+   (a) every query at 12,000 store_sales rows on the card against the
+       same query through the port on the CPU over the same tables (a
+       second process, ``chip_smoke.py --tpcds-cpu``), with the tests'
+       compare (rows sorted, floats to 4 places, rel/abs 1e-4);
+   (b) every query at 2^22 store_sales rows (the other tables at
+       load_tables' ratios) in test mode (an operator left off the card
+       fails): rows (q75's answer, the brands whose yearly sales count
+       fell 10 %, is empty at this size: then every brand's ratio from
+       q75_brand_years must be at least 0.9), two collects identical;
+       q98, q47, q51, q44, q22,
+       q38, q87 and q39 against numpy float64 oracles (integers, strings
+       and nulls exact, floats rtol 1e-9, rows in the query's order);
+   (c) a timing line a query at 2^22: best of 2 warm collect(); the
+       first collect, profiled (its rows are (b)'s), for the busy, HtoD,
+       idle share (busy over the best warm collect) and device ops; the
+       opTime of the window, Expand and union execs and the compiled
+       stages' re-runs of a warm collect. It launches neither Q1 kernel.
 
 After each phase a phase_wall line gives its wall, its collects, their
 planning ms and the batches the spill catalog registered.
@@ -256,29 +279,48 @@ def time_ms(fn, iters: int, reps: int = 5, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def profile_device(fn, iters: int):
-    """torch.profiler over `iters` calls: (device-busy ms per call, every
-    device op as (name, ms per call), most time first, device ops a call).
-    Busy time sums the device time of every kernel and copy."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
+def profile_device(fn, iters: int, warm: bool = True):
+    """The card's activity over `iters` calls: (device-busy ms per call,
+    every device op as (name, ms per call), most time first, device ops a
+    call). Busy time sums the device time of every kernel and copy. With
+    `warm`, one untraced call first (a caller whose `fn` just ran passes
+    False).
+
+    The device activity alone is traced, and the profiler's raw events
+    are summed by name as the tracer returns them: torch.profiler's own
+    summary builds a Python event tree over the host ops too, about a
+    millisecond a device op, so a query of 70,000 ops spent a minute in it
+    (NVIDIA H100 80GB HBM3, 700 W)."""
+    from torch._C._profiler import ProfilerActivity, _ExperimentalConfig
+    from torch.autograd import (DeviceType, ProfilerConfig, ProfilerState,
+                                _disable_profiler, _enable_profiler,
+                                _prepare_profiler)
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    config = ProfilerConfig(ProfilerState.KINETO, False, False, False, False,
+                            False, _ExperimentalConfig())
+    activities = {ProfilerActivity.CUDA}
+    _prepare_profiler(config, activities)
+    _enable_profiler(config, activities)
+    try:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    from torch.autograd import DeviceType
-    # device-side events only: a CPU op's own device total repeats its
-    # kernels' time
-    per_op = [(ev.key, ev.self_device_time_total / 1e3 / iters)
-              for ev in prof.key_averages()
-              if ev.device_type == DeviceType.CUDA
-              and ev.self_device_time_total > 0]
-    per_op.sort(key=lambda kv: -kv[1])
-    launches = sum(ev.count for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA) / iters
-    return sum(ms for _, ms in per_op), per_op, launches
+    finally:
+        result = _disable_profiler()
+    by_name: dict = {}
+    n = 0
+    for ev in result.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        n += 1
+        by_name[ev.name()] = by_name.get(ev.name(), 0.0) \
+            + ev.duration_ns() / 1e6 / iters
+    check(n > 0, "the profiler traced no device activity")
+    per_op = sorted(((k, ms) for k, ms in by_name.items() if ms > 0),
+                    key=lambda kv: -kv[1])
+    return sum(ms for _, ms in per_op), per_op, n / iters
 
 
 def op_ms(per_op, name: str) -> float:
@@ -1659,8 +1701,24 @@ def _lookup(keys: np.ndarray, probe: np.ndarray):
 
 
 def _groups(*keys):
-    """numpy group-by: (the distinct key rows in order, each row's group)."""
-    k = np.stack([np.asarray(x, np.int64) for x in keys], 1)
+    """numpy group-by: (the distinct key rows in order, each row's group).
+    Keys whose ranges multiply below 2^62 group as one mixed-radix int64
+    (the first key most significant, so the order is the rows' order)."""
+    cols = [np.asarray(x, np.int64) for x in keys]
+    if cols and len(cols[0]):
+        lo = [int(c.min()) for c in cols]
+        span = [int(c.max()) - m + 1 for c, m in zip(cols, lo)]
+        if float(np.prod([float(x) for x in span])) < 2.0 ** 62:
+            code = np.zeros(len(cols[0]), np.int64)
+            for c, m, w in zip(cols, lo, span):
+                code = code * w + (c - m)
+            uniq, inv = np.unique(code, return_inverse=True)
+            rows = np.empty((len(uniq), len(cols)), np.int64)
+            for j in range(len(cols) - 1, -1, -1):
+                rows[:, j] = uniq % span[j] + lo[j]
+                uniq = uniq // span[j]
+            return rows, inv.ravel()
+    k = np.stack(cols, 1)
     uniq, inv = np.unique(k, axis=0, return_inverse=True)
     return uniq, inv.ravel()
 
@@ -2623,18 +2681,519 @@ def lifecycle_paths(F, TorchSession, smi, tables, df6, cols6, oracle6,
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the 99 TPC-DS queries
+# ---------------------------------------------------------------------------
+
+#: the queries phase 12 holds to numpy float64 oracles at 2^22 rows, one or
+#: more a new operator
+TPCDS_ORACLE_QUERIES = ("q98", "q47", "q51", "q44", "q22", "q38", "q87",
+                        "q39")
+TPCDS_SMALL = 12_000
+TPCDS_BIG = 1 << 22
+
+
+def tpcds_cpu_answers(rows: int, path: str) -> None:
+    """Every TPC-DS query through the port on the CPU over the benchmark's
+    tables at ``rows``: (columns, rows) a query, pickled to ``path``."""
+    import pickle
+    from spark_rapids_tpu_torch import tpcds
+    from spark_rapids_tpu_torch.memory.device import TorchDeviceManager
+    TorchDeviceManager.initialize(device="cpu", total_bytes=8 << 30)
+    s = tpcds.make_session("cpu")
+    t = tpcds.load_tables(s, rows)
+    out = {}
+    for name, query in tpcds.QUERIES.items():
+        q = query(s, t)
+        out[name] = (q.columns, q.collect())
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def tpcds_canon(columns, rows):
+    """tests/test_tpcds.py's canonical form: columns by name, floats
+    rounded to 4 places, rows sorted with nulls low."""
+    cols = sorted(columns)
+    out = [tuple(round(r[c], 4) if isinstance(r[c], float) else r[c]
+                 for c in cols) for r in rows]
+    low = [str(tuple((x is None, x if x is not None else 0) for x in r))
+           for r in out]
+    return [out[i] for i in np.argsort(np.array(low))]
+
+
+def check_tpcds_match(got_cols, got, want_cols, want, what: str) -> None:
+    """The tests' compare: the same rows after canonical sorting, floats
+    within rel 1e-4 / abs 1e-4 after rounding to 4 places."""
+    check(bool(want), f"{what}: the CPU answer has no rows")
+    check(len(got) == len(want), f"{what}: {len(got)} rows vs "
+          f"{len(want)}")
+    check(sorted(got_cols) == sorted(want_cols), f"{what}: columns")
+    for g, w in zip(tpcds_canon(got_cols, got),
+                    tpcds_canon(want_cols, want)):
+        for gv, wv in zip(g, w):
+            if isinstance(gv, float) and isinstance(wv, float):
+                check(abs(gv - wv) <= 1e-4 + 1e-4 * abs(wv)
+                      or (gv != gv and wv != wv), f"{what}: {g} != {w}")
+            else:
+                check(gv == wv, f"{what}: {g} != {w}")
+
+
+def _ds_strings(col) -> np.ndarray:
+    return np.array(host_strings(col), dtype=object)
+
+
+def _ds_codes(col):
+    """(distinct strings in order, each row's code) of a host string
+    column: code order is string order."""
+    words, code = np.unique(_ds_strings(col), return_inverse=True)
+    return words, code.ravel()
+
+
+def _ds_valid(table, name) -> np.ndarray:
+    cols, valid = table[0], table[1]
+    return valid.get(name, np.ones(len(cols[name]), bool))
+
+
+def _ds_group_sum(inv, n_groups, vals, ok):
+    """Per group: the sum of the valid values and their count."""
+    s = np.bincount(inv[ok], weights=vals[ok], minlength=n_groups)
+    c = np.bincount(inv[ok], minlength=n_groups)
+    return s, c
+
+
+def tpcds_oracles(host) -> dict:
+    """numpy float64 answers of the phase's oracle queries over the host
+    tables (``datagen.tpcds_host_tables``): a query -> (every row in the
+    query's order before its LIMIT, its sort-key columns, its LIMIT)."""
+    D = host["date_dim"][0]
+    d_days = _days(D["d_date"])
+    d_year, d_moy, d_mseq = D["d_year"], D["d_moy"], D["d_month_seq"]
+    I = host["item"][0]
+    cat_w, cat = _ds_codes(I["i_category"])
+    cls_w, cls = _ds_codes(I["i_class"])
+    brand_w, brand = _ds_codes(I["i_brand"])
+    iid_w, iid = _ds_codes(I["i_item_id"])
+    SS, SSV = host["store_sales"][0], host["store_sales"]
+    ss_date = SS["ss_sold_date_sk"].astype(np.int64)
+    ss_dok = _ds_valid(SSV, "ss_sold_date_sk")
+    ss_date = np.where(ss_dok, ss_date, 0)
+    ss_item = SS["ss_item_sk"].astype(np.int64)
+    out = {}
+
+    # q98: revenue by item over the classes' totals (a window sum over
+    # the whole partition)
+    sel = np.isin(cat_w, ["Sports", "Books", "Home"])[cat]
+    keep = ss_dok & sel[ss_item] & (d_days[ss_date] >= 10371) \
+        & (d_days[ss_date] <= 10401)
+    it = ss_item[keep]
+    price_bits = I["i_current_price"].view(np.int64)
+    keys, inv = _groups(iid[it], cat[it], cls[it], price_bits[it])
+    rev = np.bincount(inv, weights=SS["ss_ext_sales_price"][keep])
+    total = np.bincount(keys[:, 2], weights=rev)
+    rows = [{"i_item_id": iid_w[k[0]], "i_category": cat_w[k[1]],
+             "i_class": cls_w[k[2]], "itemrevenue": float(r),
+             "revenueratio": float(r * 100.0 / total[k[2]])}
+            for k, r in zip(keys, rev)]
+    rows.sort(key=lambda r: (r["i_category"], r["i_class"], r["i_item_id"]))
+    out["q98"] = (rows, ("i_category", "i_class", "i_item_id"), 100)
+
+    # q47: monthly brand sales against the year's average, with the prior
+    # and next month's (avg, lag and lead windows)
+    ST = host["store"][0]
+    sname_w, sname = _ds_codes(ST["s_store_name"])
+    yrs = np.isin(d_year, [1999, 2000, 2001])
+    keep = ss_dok & yrs[ss_date]
+    it, st, dk = ss_item[keep], SS["ss_store_sk"][keep], ss_date[keep]
+    keys, inv = _groups(cat[it], brand[it], sname[st], d_year[dk],
+                        d_moy[dk])
+    price_ok = _ds_valid(SSV, "ss_sales_price")[keep]
+    s, c = _ds_group_sum(inv, len(keys), SS["ss_sales_price"][keep],
+                         price_ok)
+    sums = [float(v) if n else None for v, n in zip(s, c)]
+    part_y = {}
+    for k, v in zip(map(tuple, keys[:, :4]), sums):
+        if v is not None:
+            part_y.setdefault(k, []).append(v)
+    avg_y = {k: sum(v) / len(v) for k, v in part_y.items()}
+    rows = []
+    for g, k in enumerate(keys):
+        if k[3] != 2000 or sums[g] is None:
+            continue
+        avg = avg_y.get(tuple(k[:4]))
+        if avg is None or not avg > 0 \
+                or not abs(sums[g] - avg) / avg > 0.1:
+            continue
+        same = lambda h: 0 <= h < len(keys) and \
+            tuple(keys[h][:3]) == tuple(k[:3])  # noqa: E731
+        rows.append({"i_category": cat_w[k[0]], "i_brand": brand_w[k[1]],
+                     "s_store_name": sname_w[k[2]], "d_year": int(k[3]),
+                     "d_moy": int(k[4]), "sum_sales": sums[g],
+                     "avg_monthly_sales": avg,
+                     "psum": sums[g - 1] if same(g - 1) else None,
+                     "nsum": sums[g + 1] if same(g + 1) else None})
+    rows.sort(key=lambda r: (r["sum_sales"] - r["avg_monthly_sales"],
+                             r["s_store_name"], r["d_moy"]))
+    out["q47"] = (rows, ("sum_sales", "avg_monthly_sales", "s_store_name",
+                         "d_moy"), 100)
+
+    # q51: running sums of web and store sales a day, full outer joined
+    period = (d_mseq >= 350) & (d_mseq <= 355)
+
+    def cume(fact, date_col, item_col, price_col):
+        T = host[fact]
+        dk = T[0][date_col].astype(np.int64)
+        dok = _ds_valid(T, date_col)
+        dk = np.where(dok, dk, 0)
+        keep = dok & period[dk]
+        keys, inv = _groups(T[0][item_col][keep], d_days[dk[keep]])
+        pok = _ds_valid(T, price_col)[keep]
+        s, c = _ds_group_sum(inv, len(keys), T[0][price_col][keep], pok)
+        acc, seen, prev, res = 0.0, 0, None, {}
+        for k, v, n in zip(keys, s, c):
+            if k[0] != prev:
+                acc, seen, prev = 0.0, 0, k[0]
+            if n:
+                acc, seen = acc + v, seen + 1
+            res[(int(k[0]), int(k[1]))] = acc if seen else None
+        return res
+
+    web = cume("web_sales", "ws_sold_date_sk", "ws_item_sk",
+               "ws_sales_price")
+    sto = cume("store_sales", "ss_sold_date_sk", "ss_item_sk",
+               "ss_sales_price")
+    epoch = np.datetime64("1970-01-01")
+    rows = []
+    for key in set(web) | set(sto):
+        w, sv = web.get(key), sto.get(key)
+        if (w if w is not None else 0.0) > (sv if sv is not None else 0.0):
+            rows.append({"item_sk": key[0], "d_date": (
+                epoch + np.timedelta64(key[1], "D")).astype(object),
+                "w_cume": w, "s_cume": sv})
+    rows.sort(key=lambda r: (r["item_sk"], r["d_date"]))
+    out["q51"] = (rows, ("item_sk", "d_date"), 100)
+
+    # q44: best and worst items of a store by average profit (global
+    # rank windows), joined on rank
+    keep = SS["ss_store_sk"] == 4
+    keys, inv = _groups(ss_item[keep])
+    s, c = _ds_group_sum(inv, len(keys), SS["ss_net_profit"][keep],
+                         np.ones(int(keep.sum()), bool))
+    avg = s / c
+    srt = np.sort(avg)
+    rank_asc = np.searchsorted(srt, avg, side="left") + 1
+    rank_desc = len(avg) - np.searchsorted(srt, avg, side="right") + 1
+    ids = host_strings(I["i_item_id"])
+    rows = []
+    for a in np.nonzero(rank_asc <= 10)[0]:
+        for d in np.nonzero(rank_desc == rank_asc[a])[0]:
+            rows.append({"rnk": int(rank_asc[a]),
+                         "best_performing": ids[keys[a][0]],
+                         "worst_performing": ids[keys[d][0]]})
+    rows.sort(key=lambda r: r["rnk"])
+    out["q44"] = (rows, ("rnk",), None)
+
+    # q22: average quantity on hand over the item hierarchy's rollup
+    INV = host["inventory"]
+    idate = INV[0]["inv_date_sk"].astype(np.int64)
+    keep = ((d_mseq >= 350) & (d_mseq <= 361))[idate]
+    it = INV[0]["inv_item_sk"][keep]
+    qoh = INV[0]["inv_quantity_on_hand"][keep].astype(np.float64)
+    qok = _ds_valid(INV, "inv_quantity_on_hand")[keep]
+    levels = [cat[it], cls[it], brand[it], iid[it]]
+    words = [cat_w, cls_w, brand_w, iid_w]
+    names = ["i_category", "i_class", "i_brand", "i_item_id"]
+    rows = []
+    for depth in range(4, -1, -1):
+        if depth:
+            keys, inv = _groups(*levels[:depth])
+        else:
+            keys, inv = np.zeros((1, 0), np.int64), np.zeros(len(it), int)
+        s, c = _ds_group_sum(inv, len(keys), qoh, qok)
+        for k, v, n in zip(keys, s, c):
+            r = {nm: (words[j][k[j]] if j < depth else None)
+                 for j, nm in enumerate(names)}
+            r["qoh"] = float(v / n) if n else None
+            rows.append(r)
+    low = lambda v: (v is not None, v if v is not None else 0)  # noqa: E731
+    rows.sort(key=lambda r: tuple(low(r[k]) for k in ["qoh"] + names))
+    out["q22"] = (rows, ("qoh", *names), 100)
+
+    # q38 / q87: distinct (last name, first name, date) a channel, then
+    # INTERSECT and EXCEPT
+    C = host["customer"][0]
+    _, last = _ds_codes(C["c_last_name"])
+    _, first = _ds_codes(C["c_first_name"])
+    period = (d_mseq >= 350) & (d_mseq <= 361)
+
+    def chan(fact, date_col, cust_col):
+        T = host[fact]
+        dk = T[0][date_col].astype(np.int64)
+        dok = _ds_valid(T, date_col)
+        dk = np.where(dok, dk, 0)
+        keep = dok & period[dk]
+        cu = T[0][cust_col][keep].astype(np.int64)
+        return np.unique((last[cu] * 1000 + first[cu]) * 100_000
+                         + d_days[dk[keep]])
+
+    s_set = chan("store_sales", "ss_sold_date_sk", "ss_customer_sk")
+    c_set = chan("catalog_sales", "cs_sold_date_sk", "cs_bill_customer_sk")
+    w_set = chan("web_sales", "ws_sold_date_sk", "ws_bill_customer_sk")
+    out["q38"] = ([{"cnt": len(np.intersect1d(np.intersect1d(s_set, c_set),
+                                              w_set))}], (), None)
+    out["q87"] = ([{"cnt": len(np.setdiff1d(np.setdiff1d(s_set, c_set),
+                                            w_set))}], (), None)
+
+    # q39: the inventory's coefficient of variation a warehouse and month
+    # (stddev), January joined to February
+    keep = (d_year == 2000)[idate]
+    wh = INV[0]["inv_warehouse_sk"][keep]
+    moy = d_moy[idate[keep]]
+    q = INV[0]["inv_quantity_on_hand"][keep].astype(np.float64)
+    qok = _ds_valid(INV, "inv_quantity_on_hand")[keep]
+    keys, inv = _groups(wh, moy)
+    s, c = _ds_group_sum(inv, len(keys), q, qok)
+    s2 = np.bincount(inv[qok], weights=q[qok] ** 2, minlength=len(keys))
+    cov = {}
+    for k, sm, sq, n in zip(keys, s, s2, c):
+        if n < 2:
+            continue
+        sd = np.sqrt(max((sq - sm * sm / n) / (n - 1), 0.0))
+        mean = sm / n
+        if mean > 0 and sd / mean > 0.5:
+            cov[(int(k[0]), int(k[1]))] = float(sd / mean)
+    rows = [{"w1": w, "cov1": cov[(w, 1)], "cov2": cov[(w, 2)]}
+            for w in sorted({w for w, _ in cov})
+            if (w, 1) in cov and (w, 2) in cov]
+    out["q39"] = (rows, ("w1",), None)
+    return out
+
+
+def _ds_close(g, w) -> bool:
+    if isinstance(w, float) and isinstance(g, float):
+        return abs(g - w) <= RTOL_FRAMEWORK * abs(w)
+    return g == w
+
+
+def check_tpcds_oracle(rows, oracle, what: str) -> None:
+    """The oracle's rows in the query's order: integers, strings, dates
+    and nulls exact, floats within RTOL_FRAMEWORK. Rows tied on the sort
+    keys may come in any order among themselves; where the LIMIT cuts
+    through such a tie, the rows kept are some of the tied ones."""
+    want, sort_keys, limit = oracle
+    n = len(want) if limit is None else min(limit, len(want))
+    check(len(rows) == n, f"{what}: {len(rows)} rows, want {n}")
+    for r in rows:
+        check(list(r) == list(want[0]), f"{what}: columns {list(r)}")
+
+    def key(r):
+        return tuple(r[k] for k in sort_keys)
+
+    def canon(r):
+        return tuple((v is None, round(v, 6) if isinstance(v, float)
+                      else str(v)) for v in r.values())
+
+    i = 0
+    while i < n:
+        j = i + 1
+        while j < len(want) and key(want[j]) == key(want[i]):
+            j += 1
+        grp_w = sorted(want[i:j], key=canon)
+        grp_g = sorted(rows[i:min(j, n)], key=canon)
+        if j <= n:
+            pairs = list(zip(grp_g, grp_w))
+        else:  # the LIMIT cuts this tie: each row kept is a tied one
+            pairs = [(g, next((w for w in grp_w if all(
+                _ds_close(g[k], w[k]) for k in w)), grp_w[0]))
+                for g in grp_g]
+        for g, w in pairs:
+            for k in w:
+                check(_ds_close(g[k], w[k]),
+                      f"{what}: {k} {g[k]!r} != {w[k]!r} in {g}")
+        i = j
+
+
+class CpuAnswers:
+    """Phase 12 (a)'s CPU answers: with ``start``, computed by a process
+    of its own (``chip_smoke.py --tpcds-cpu``; a process's sessions share
+    one device), which main starts at the beginning of the run so the
+    answers are ready by phase 12; else computed in this process when
+    asked for."""
+
+    def __init__(self, rows: int, start: bool):
+        import os
+        import tempfile
+        self.rows = rows
+        self.dir = tempfile.mkdtemp(prefix="tpcds_cpu_")
+        self.path = os.path.join(self.dir, "answers.pkl")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tpcds-cpu",
+             str(rows), self.path]) if start else None
+
+    def result(self) -> dict:
+        import pickle
+        if self.proc is None:
+            tpcds_cpu_answers(self.rows, self.path)
+        else:
+            check(self.proc.wait(timeout=900) == 0,
+                  "the CPU answers failed")
+        with open(self.path, "rb") as f:
+            return pickle.load(f)
+
+    def close(self) -> None:
+        import shutil
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def tpcds_paths(F, TorchSession, smi, device: str = "cuda",
+                small: int = TPCDS_SMALL, big: int = TPCDS_BIG,
+                cpu_answers: "CpuAnswers" = None) -> None:
+    """Phase 12. With ``device="cpu"`` it checks the script's oracles and
+    compares off the card at the sizes given (no timing lines)."""
+    from spark_rapids_tpu_torch import tpcds
+    from spark_rapids_tpu_torch.datagen import tpcds_host_tables, tpch_frames
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    names = sorted(tpcds.QUERIES, key=lambda q: int(q[1:]))
+    base = {"spark.rapids.shuffle.mode": "ICI",
+            "spark.sql.shuffle.partitions": "4"}
+
+    # (a) every query at `small` rows on the device against the same query
+    # through the port on the CPU over the same tables
+    own = cpu_answers is None
+    if own:
+        cpu_answers = CpuAnswers(small, start=on_card)
+    try:
+        s = TorchSession(base, device=device)
+        t = tpch_frames(s, tpcds_host_tables(small, 4))
+        card = {}
+        for name in names:
+            q = tpcds.QUERIES[name](s, t)
+            card[name] = (q.columns, q.collect())
+        del t, s
+        cpu = cpu_answers.result()
+    finally:
+        if own:
+            cpu_answers.close()
+    for name in names:
+        check_tpcds_match(*card[name], *cpu[name], f"{name} at {small}")
+    print(f"(12a) all {len(names)} TPC-DS queries at {small} rows on "
+          f"{device} equal the port's CPU answers", flush=True)
+    if on_card:
+        release_plans()
+
+    # (b) + (c) at `big` rows, test mode on: nothing may stay on the host
+    t1 = time.perf_counter()
+    host = tpcds_host_tables(big, 4)
+    t2 = time.perf_counter()
+    oracles = tpcds_oracles(host)
+    print(f"phase 12 tables {t2 - t1:.1f} s, oracles "
+          f"{time.perf_counter() - t2:.1f} s", flush=True)
+    for name in TPCDS_ORACLE_QUERIES:
+        check(bool(oracles[name][0]), f"the oracle of {name} has no rows")
+    s = TorchSession(dict(base, **{"spark.rapids.sql.test.enabled": "true"}),
+                     device=device)
+    t = tpch_frames(s, host)
+    del host
+    failed = []  # every query runs; the phase fails after the last
+    for name in names:
+        try:
+            tpcds_query_at_scale(name, s, t, oracles, big, smi, on_card)
+        except Exception as e:  # noqa: BLE001
+            failed.append(f"{name}: {e!r}")
+            print(f"(12b) {name} at {big} FAILED: {e!r}", flush=True)
+    check(not failed, f"phase 12 at {big}: {failed}")
+    print(f"(12b) all {len(names)} TPC-DS queries at {big} rows on "
+          f"{device} in test mode: rows, two collects identical; "
+          f"{', '.join(TPCDS_ORACLE_QUERIES)} equal their numpy oracles",
+          flush=True)
+    del t, s
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _first_difference(a, b) -> str:
+    if len(a) != len(b):
+        return f"{len(a)} rows vs {len(b)}"
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return f"row {i}: {x} vs {y}"
+    return "none"
+
+
+def tpcds_query_at_scale(name, s, t, oracles, big, smi, on_card) -> None:
+    """(12b) and (c) for one query: three collects, the first profiled;
+    its rows (and oracle), the warm collects identical to it, its timing
+    line."""
+    from spark_rapids_tpu_torch import tpcds
+    q = tpcds.QUERIES[name](s, t)
+    # the first collect is the profiled one (c); its rows are the ones
+    # checked (b)
+    runs: list = []
+    c0 = time.perf_counter()
+    if on_card:
+        busy_ms, per_op, ops = profile_device(
+            lambda: runs.append(q.collect()), 1, warm=False)
+    else:
+        runs.append(q.collect())
+    first = time.perf_counter() - c0
+    got = runs[0]
+    if name == "q75" and not got:
+        # q75 keeps brands whose year-over-year count fell under 0.9;
+        # at this size a brand's yearly count sums ~10^4 sales, so
+        # none may fall that far: the answer is empty exactly when
+        # every joined brand's ratio is at least 0.9
+        years = tpcds.q75_brand_years(s, t).collect()
+        ratios = [r["c_cnt"] / r["p_cnt"] for r in years
+                  if r["p_cnt"] and r["p_cnt"] > 0]
+        check(bool(ratios) and min(ratios) >= 0.9,
+              f"q75 at {big}: no rows, yet a ratio under 0.9")
+        print(f"(12b) q75 at {big}: no rows, as its {len(years)} "
+              f"brands' count ratios are all >= 0.9 (lowest "
+              f"{min(ratios):.4f})", flush=True)
+    else:
+        check(bool(got), f"{name} at {big}: no rows")
+    if name in TPCDS_ORACLE_QUERIES:
+        check_tpcds_oracle(got, oracles[name], f"{name} at {big}")
+    best, delta = float("inf"), {}
+    for _ in range(2):
+        before = dict(s.counters)
+        c0 = time.perf_counter()
+        again = q.collect()
+        best = min(best, time.perf_counter() - c0)
+        check(again == got, f"{name} at {big}: two collects differ: "
+              f"{_first_difference(got, again)}")
+        delta = {k: v - before.get(k, 0) for k, v in s.counters.items()
+                 if v != before.get(k, 0)}
+    line = {"rows": big, "result_rows": len(got),
+            "first_collect_s": first, "best_collect_s": best,
+            "op_time_ms": {k[len("opTime."):]: v for k, v in delta.items()
+                           if k.startswith("opTime.")},
+            # a collect's compiled-stage re-runs and sorts out of core
+            "reruns": {k: v for k, v in delta.items()
+                       if not k.startswith("opTime.")}}
+    if on_card:
+        line.update({
+            "device_busy_ms": busy_ms,
+            "htod_ms": sum(ms for k, ms in per_op if "HtoD" in k),
+            "idle_share": 1.0 - busy_ms / (best * 1e3),
+            "device_ops": ops,
+            "top_device_ops_ms": [(k[:60], ms) for k, ms in per_op[:3]]})
+    print(json.dumps({f"tpcds_{name}": line, "card": smi}), flush=True)
+
+
 def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--tpcds-cpu":
+        # phase 12's CPU answers, beside the card's run: two threads, so
+        # the card's host side keeps its cores
+        torch.set_num_threads(2)
+        tpcds_cpu_answers(int(sys.argv[2]), sys.argv[3])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    from spark_rapids_tpu_torch.entry import entry
-    from spark_rapids_tpu_torch.kernels import build, q1_cuda
-    from spark_rapids_tpu_torch.kernels.q1 import (make_example_batch,
-                                                   q1_group_and_measures,
-                                                   q1_reference_numpy)
-    from spark_rapids_tpu_torch.kernels.q1_cuda import mma_blocks, simt_plan
-    from spark_rapids_tpu_torch.session import TorchSession
-    import spark_rapids_tpu_torch.functions as F
+    import spark_rapids_tpu_torch  # noqa: F401  (fails outside the repo)
 
     # 1. the card
     smi = nvidia_smi()
@@ -2650,6 +3209,27 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
 
     clock = PhaseClock(smi)
+    # phase 12's CPU answers, computed meanwhile by a process of their own
+    cpu_answers = CpuAnswers(TPCDS_SMALL, start=True)
+    try:
+        return run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
+                          cpu_answers)
+    finally:
+        cpu_answers.close()
+
+
+def run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
+               cpu_answers) -> int:
+    """Phases 2-12 (``main`` prints phase 1 and starts phase 12's CPU
+    answers)."""
+    from spark_rapids_tpu_torch.entry import entry
+    from spark_rapids_tpu_torch.kernels import build, q1_cuda
+    from spark_rapids_tpu_torch.kernels.q1 import (make_example_batch,
+                                                   q1_group_and_measures,
+                                                   q1_reference_numpy)
+    from spark_rapids_tpu_torch.kernels.q1_cuda import mma_blocks, simt_plan
+    from spark_rapids_tpu_torch.session import TorchSession
+    import spark_rapids_tpu_torch.functions as F
     # 2. build
     t0 = time.perf_counter()
     build.build_all([q1_cuda.SOURCE])
@@ -2850,6 +3430,15 @@ def main() -> int:
     del df, cols
     tables.clear()
     release_plans()
+
+    # 12. the 99 TPC-DS queries: the card against the port's CPU answers
+    # at 12,000 rows; at 2^22 rows in test mode, eight against numpy
+    # oracles, and a timing line each. It launches neither Q1 kernel.
+    before = dict(q1_cuda.launches)
+    tpcds_paths(F, TorchSession, smi, cpu_answers=cpu_answers)
+    check(dict(q1_cuda.launches) == before, "phase 12 launched a Q1 kernel")
+    release_plans()
+    clock.mark(12)
 
     print(kernels_line, flush=True)  # again, near the end of the output
     print(nvidia_smi())

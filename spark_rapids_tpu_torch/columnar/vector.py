@@ -15,8 +15,8 @@ from typing import Any, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..types import (BinaryType, DataType, DateType, NullType, StringType,
-                     TimestampType, is_fixed_width)
+from ..types import (BinaryType, DataType, DateType, NullType, StringT,
+                     StringType, TimestampType, is_fixed_width)
 
 
 def bucket_capacity(n: int, enabled: bool = True, minimum: int = 16) -> int:
@@ -193,8 +193,8 @@ class TorchColumnVector:
                     device="cpu") -> "TorchColumnVector":
         cap = capacity if capacity is not None else bucket_capacity(num_rows)
         if isinstance(dtype, StringType):
-            vals = np.array([value] * num_rows, dtype=object)
-            return TorchColumnVector.from_numpy(dtype, vals, None, cap, device)
+            return TorchColumnVector._repeated_string(value, num_rows, cap,
+                                                      device)
         if not is_fixed_width(dtype) and not isinstance(dtype, NullType):
             raise NotImplementedError(f"{dtype} scalar column not yet ported")
         carrier = dtype.torch_dtype or torch.bool
@@ -205,6 +205,27 @@ class TorchColumnVector:
         data = torch.zeros(cap, dtype=carrier, device=device)
         data[:num_rows] = value
         return TorchColumnVector(dtype, data, None, num_rows)
+
+
+    @staticmethod
+    def _repeated_string(value: Optional[str], num_rows: int, cap: int,
+                         device) -> "TorchColumnVector":
+        """A string literal on every row, built on ``device`` (offsets a
+        multiple of its length, its bytes tiled); null: empty strings, no
+        row valid."""
+        raw = b"" if value is None else value.encode()
+        k = len(raw)
+        offs = (torch.arange(cap + 1, dtype=torch.int64, device=device)
+                .clamp(max=num_rows) * k).to(torch.int32)
+        data = torch.zeros(bucket_capacity(max(num_rows * k, 1)),
+                           dtype=torch.uint8, device=device)
+        if k and num_rows:
+            word = torch.tensor(list(raw), dtype=torch.uint8, device=device)
+            data[:num_rows * k] = word.repeat(num_rows)
+        validity = None if value is not None else \
+            torch.zeros(cap, dtype=torch.bool, device=device)
+        return TorchColumnVector(StringT, data, validity, num_rows,
+                                 offsets=offs)
 
 
 @dataclass(frozen=True)

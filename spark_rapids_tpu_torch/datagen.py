@@ -418,3 +418,472 @@ def tpch_tables(session, rows: int, parts: int = 4):
 q3_host_tables = tpch_host_tables
 q3_frames = tpch_frames
 q3_tables = tpch_tables
+
+
+# --- the TPC-DS schema (``benchmarks/tpcds.py``'s 22 tables) ----------------
+
+TPCDS_BASE_DATE = "1998-01-01"
+TPCDS_DAYS = 2557  # 7 years, 1998-2004
+
+
+def tpcds_date_dim(n_days: int = TPCDS_DAYS) -> Tuple[Dict, Dict]:
+    """The calendar dimension: d_date_sk 0..n-1 are the days from
+    ``TPCDS_BASE_DATE``, with year, month and day columns from the numpy
+    calendar. (host columns, validity), as ``TableSpec.generate`` gives."""
+    sk = np.arange(n_days, dtype=np.int64)
+    d = (np.datetime64(TPCDS_BASE_DATE)
+         + sk.astype("timedelta64[D]")).astype("datetime64[D]")
+    years = d.astype("datetime64[Y]").astype(np.int64) + 1970
+    months = d.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    dom = (d - d.astype("datetime64[M]")).astype(np.int64) + 1
+    dow = (d.astype(np.int64) + 4) % 7  # 1970-01-01 was a Thursday
+    day_names = ["Sunday", "Monday", "Tuesday", "Wednesday", "Thursday",
+                 "Friday", "Saturday"]
+    return {
+        "d_date_sk": sk,
+        "d_date": d,
+        "d_year": years.astype(np.int32),
+        "d_moy": months.astype(np.int32),
+        "d_dom": dom.astype(np.int32),
+        "d_qoy": ((months - 1) // 3 + 1).astype(np.int32),
+        "d_dow": dow.astype(np.int32),
+        "d_day_name": _strings_from_words(day_names, dow),
+        "d_week_seq": (d.astype(np.int64) + 4) // 7,
+        "d_month_seq": (years - 1970) * 12 + months - 1,
+    }, {}
+
+
+_DS_CATEGORIES = ["Books", "Home", "Electronics", "Jewelry", "Men", "Music",
+                  "Shoes", "Sports", "Women", "Children"]
+_DS_STATES = ["TN", "CA", "TX", "NY", "GA", "OH", "IL", "WA", "MI", "VA"]
+_DS_EDUCATION = ["Primary", "Secondary", "College", "2 yr Degree",
+                 "4 yr Degree", "Advanced Degree", "Unknown"]
+_DS_MARITAL = ["M", "S", "D", "W", "U"]
+_DS_BUY_POTENTIAL = [">10000", "5001-10000", "1001-5000", "501-1000",
+                     "0-500", "Unknown"]
+_DS_CREDIT = ["Low Risk", "Good", "High Risk", "Unknown"]
+
+
+def tpcds_item(n: int) -> TableSpec:
+    return TableSpec("item", [
+        ColumnSpec("i_item_sk", "seq"),
+        ColumnSpec("i_item_id", "string", cardinality=max(n // 2, 1),
+                   alphabet="ABCDEFGHIJKLMNOP", max_len=16),
+        ColumnSpec("i_category", "choice", values=_DS_CATEGORIES),
+        ColumnSpec("i_class", "choice", values=[
+            f"class{i:02d}" for i in range(20)]),
+        ColumnSpec("i_brand", "choice", values=[
+            f"brand{i:02d}" for i in range(50)]),
+        ColumnSpec("i_brand_id", "int", min_val=1000, max_val=10000),
+        ColumnSpec("i_manufact_id", "int", min_val=1, max_val=1000),
+        ColumnSpec("i_manager_id", "int", min_val=1, max_val=100),
+        ColumnSpec("i_current_price", "double", min_val=0.5, max_val=300.0),
+        ColumnSpec("i_wholesale_cost", "double", min_val=0.2, max_val=90.0),
+        ColumnSpec("i_color", "choice", values=_COLORS),
+        ColumnSpec("i_size", "choice", values=[
+            "small", "medium", "large", "extra large", "petite", "N/A"]),
+    ])
+
+
+def tpcds_store(n: int = 12) -> TableSpec:
+    return TableSpec("store", [
+        ColumnSpec("s_store_sk", "seq"),
+        ColumnSpec("s_store_id", "string", cardinality=n, max_len=8,
+                   alphabet="STORE0123456789"),
+        ColumnSpec("s_store_name", "choice", values=[
+            f"store_{i}" for i in range(n)], sequential=True),
+        ColumnSpec("s_state", "choice", values=_DS_STATES),
+        ColumnSpec("s_county", "choice", values=[
+            f"county{i}" for i in range(8)]),
+        ColumnSpec("s_city", "choice", values=[
+            f"city{i}" for i in range(20)]),
+        ColumnSpec("s_gmt_offset", "double", min_val=-8.0, max_val=-5.0),
+        ColumnSpec("s_number_employees", "int", min_val=200, max_val=300),
+    ])
+
+
+def tpcds_customer(n: int, n_addr: int, n_cdemo: int,
+                   n_hdemo: int) -> TableSpec:
+    return TableSpec("customer", [
+        ColumnSpec("c_customer_sk", "seq"),
+        ColumnSpec("c_customer_id", "string", cardinality=max(n, 1),
+                   alphabet="CUSTID0123456789", max_len=16),
+        ColumnSpec("c_current_addr_sk", "key", cardinality=max(n_addr, 1)),
+        ColumnSpec("c_current_cdemo_sk", "key", cardinality=max(n_cdemo, 1)),
+        ColumnSpec("c_current_hdemo_sk", "key", cardinality=max(n_hdemo, 1)),
+        ColumnSpec("c_first_name", "string", cardinality=200, max_len=10,
+                   alphabet="abcdefghijklmnop"),
+        ColumnSpec("c_last_name", "string", cardinality=300, max_len=12,
+                   alphabet="abcdefghijklmnop"),
+        ColumnSpec("c_birth_year", "int", min_val=1930, max_val=2000),
+        ColumnSpec("c_birth_country", "choice", values=_NATIONS),
+    ])
+
+
+def tpcds_customer_address(n: int) -> TableSpec:
+    return TableSpec("customer_address", [
+        ColumnSpec("ca_address_sk", "seq"),
+        ColumnSpec("ca_state", "choice", values=_DS_STATES),
+        ColumnSpec("ca_county", "choice", values=[
+            f"county{i}" for i in range(8)]),
+        ColumnSpec("ca_city", "choice", values=[
+            f"city{i}" for i in range(20)]),
+        ColumnSpec("ca_zip", "choice", values=[
+            f"{z:05d}" for z in range(10000, 10080)]),
+        ColumnSpec("ca_country", "choice", values=["United States"]),
+        ColumnSpec("ca_gmt_offset", "double", min_val=-8.0, max_val=-5.0),
+    ])
+
+
+def tpcds_customer_demographics(n: int = 1000) -> TableSpec:
+    return TableSpec("customer_demographics", [
+        ColumnSpec("cd_demo_sk", "seq"),
+        ColumnSpec("cd_gender", "choice", values=["M", "F"]),
+        ColumnSpec("cd_marital_status", "choice", values=_DS_MARITAL),
+        ColumnSpec("cd_education_status", "choice", values=_DS_EDUCATION),
+        ColumnSpec("cd_purchase_estimate", "int", min_val=500, max_val=10000),
+        ColumnSpec("cd_credit_rating", "choice", values=_DS_CREDIT),
+        ColumnSpec("cd_dep_count", "int", min_val=0, max_val=6),
+    ])
+
+
+def tpcds_household_demographics(n: int = 720) -> TableSpec:
+    return TableSpec("household_demographics", [
+        ColumnSpec("hd_demo_sk", "seq"),
+        ColumnSpec("hd_buy_potential", "choice", values=_DS_BUY_POTENTIAL),
+        ColumnSpec("hd_dep_count", "int", min_val=0, max_val=9),
+        ColumnSpec("hd_vehicle_count", "int", min_val=-1, max_val=4),
+        ColumnSpec("hd_income_band_sk", "key", cardinality=20),
+    ])
+
+
+def tpcds_promotion(n: int = 30) -> TableSpec:
+    return TableSpec("promotion", [
+        ColumnSpec("p_promo_sk", "seq"),
+        ColumnSpec("p_channel_email", "choice", values=["Y", "N"]),
+        ColumnSpec("p_channel_event", "choice", values=["Y", "N"]),
+        ColumnSpec("p_channel_tv", "choice", values=["Y", "N"]),
+        ColumnSpec("p_channel_dmail", "choice", values=["Y", "N"]),
+    ])
+
+
+def tpcds_warehouse(n: int = 6) -> TableSpec:
+    return TableSpec("warehouse", [
+        ColumnSpec("w_warehouse_sk", "seq"),
+        ColumnSpec("w_warehouse_name", "choice", values=[
+            f"warehouse_{i}" for i in range(n)], sequential=True),
+        ColumnSpec("w_state", "choice", values=_DS_STATES),
+    ])
+
+
+def tpcds_time_dim(n: int = 86400) -> TableSpec:
+    return TableSpec("time_dim", [
+        ColumnSpec("t_time_sk", "seq"),
+        ColumnSpec("t_hour", "seq", repeat=3600, modulo=24),
+        ColumnSpec("t_minute", "seq", repeat=60, modulo=60),
+    ])
+
+
+def tpcds_web_site(n: int = 8) -> TableSpec:
+    return TableSpec("web_site", [
+        ColumnSpec("web_site_sk", "seq"),
+        ColumnSpec("web_name", "choice", values=[
+            f"site_{i}" for i in range(n)], sequential=True),
+    ])
+
+
+def tpcds_ship_mode(n: int = 10) -> TableSpec:
+    return TableSpec("ship_mode", [
+        ColumnSpec("sm_ship_mode_sk", "seq"),
+        ColumnSpec("sm_type", "choice", values=[
+            "EXPRESS", "OVERNIGHT", "REGULAR", "TWO DAY", "LIBRARY"]),
+        ColumnSpec("sm_carrier", "choice", values=[
+            "UPS", "FEDEX", "AIRBORNE", "USPS", "DHL"]),
+    ])
+
+
+def tpcds_reason(n: int = 35) -> TableSpec:
+    return TableSpec("reason", [
+        ColumnSpec("r_reason_sk", "seq"),
+        ColumnSpec("r_reason_desc", "choice",
+                   values=[f"reason {i:02d}" for i in range(n)],
+                   sequential=True),
+    ])
+
+
+def tpcds_call_center(n: int = 4) -> TableSpec:
+    return TableSpec("call_center", [
+        ColumnSpec("cc_call_center_sk", "seq"),
+        ColumnSpec("cc_name", "choice",
+                   values=[f"call_center_{i}" for i in range(n)],
+                   sequential=True),
+        ColumnSpec("cc_manager", "choice",
+                   values=[f"manager_{i}" for i in range(8)]),
+    ])
+
+
+def tpcds_income_band(n: int = 20) -> TableSpec:
+    def _lower(cols, rng, m, offset=0):
+        return np.arange(offset, offset + m, dtype=np.int64) * 10000
+
+    def _upper(cols, rng, m, offset=0):
+        return (np.arange(offset, offset + m, dtype=np.int64) + 1) \
+            * 10000 - 1
+
+    return TableSpec("income_band", [
+        ColumnSpec("ib_income_band_sk", "seq"),
+        ColumnSpec("ib_lower_bound", "derive", derive=_lower),
+        ColumnSpec("ib_upper_bound", "derive", derive=_upper),
+    ])
+
+
+def _sales_money_cols(p: str) -> List[ColumnSpec]:
+    return [
+        ColumnSpec(f"{p}_quantity", "int", min_val=1, max_val=100,
+                   null_prob=0.02),
+        ColumnSpec(f"{p}_wholesale_cost", "double", min_val=1.0,
+                   max_val=100.0),
+        ColumnSpec(f"{p}_list_price", "double", min_val=1.0, max_val=300.0),
+        ColumnSpec(f"{p}_sales_price", "double", min_val=0.0, max_val=300.0,
+                   null_prob=0.02),
+        ColumnSpec(f"{p}_ext_discount_amt", "double", min_val=0.0,
+                   max_val=1000.0),
+        ColumnSpec(f"{p}_ext_sales_price", "double", min_val=0.0,
+                   max_val=30000.0),
+        ColumnSpec(f"{p}_ext_wholesale_cost", "double", min_val=1.0,
+                   max_val=10000.0),
+        ColumnSpec(f"{p}_ext_list_price", "double", min_val=1.0,
+                   max_val=30000.0),
+        ColumnSpec(f"{p}_ext_tax", "double", min_val=0.0, max_val=3000.0),
+        ColumnSpec(f"{p}_coupon_amt", "double", min_val=0.0, max_val=500.0),
+        ColumnSpec(f"{p}_net_paid", "double", min_val=0.0, max_val=30000.0),
+        ColumnSpec(f"{p}_net_profit", "double", min_val=-5000.0,
+                   max_val=10000.0),
+    ]
+
+
+def tpcds_store_sales(rows: int, n_items: int, n_cust: int, n_stores: int,
+                      n_cdemo: int, n_hdemo: int, n_addr: int,
+                      n_promo: int) -> TableSpec:
+    """Item and customer are functions of the row and its ticket (item =
+    (17·row + 5) mod n_items, customer = 13·ticket mod n_cust), so
+    store_returns rows name real sales."""
+    ni, nc = max(n_items, 1), max(n_cust, 1)
+
+    def _ss_item(cols, rng, n, offset=0):
+        return (17 * np.arange(offset, offset + n, dtype=np.int64) + 5) % ni
+
+    def _ss_cust(cols, rng, n, offset=0):
+        idx = np.arange(offset, offset + n, dtype=np.int64)
+        return (13 * (idx // 4)) % nc
+
+    return TableSpec("store_sales", [
+        ColumnSpec("ss_sold_date_sk", "key", cardinality=TPCDS_DAYS,
+                   null_prob=0.01),
+        ColumnSpec("ss_sold_time_sk", "key", cardinality=86400),
+        ColumnSpec("ss_item_sk", "derive", derive=_ss_item),
+        ColumnSpec("ss_customer_sk", "derive", derive=_ss_cust),
+        ColumnSpec("ss_cdemo_sk", "key", cardinality=max(n_cdemo, 1)),
+        ColumnSpec("ss_hdemo_sk", "key", cardinality=max(n_hdemo, 1)),
+        ColumnSpec("ss_addr_sk", "key", cardinality=max(n_addr, 1)),
+        ColumnSpec("ss_store_sk", "key", cardinality=max(n_stores, 1)),
+        ColumnSpec("ss_promo_sk", "key", cardinality=max(n_promo, 1)),
+        ColumnSpec("ss_ticket_number", "seq", repeat=4),
+        *_sales_money_cols("ss"),
+    ])
+
+
+def tpcds_store_returns(rows: int, n_items: int, n_cust: int, n_stores: int,
+                        n_tickets: int) -> TableSpec:
+    """Each return names a real sale: a random ticket, and the item and
+    customer re-derived from it by store_sales' layout."""
+    ni, nc = max(n_items, 1), max(n_cust, 1)
+
+    def _sr_item(cols, rng, n, offset=0):
+        t = cols["sr_ticket_number"].astype(np.int64)
+        j = rng.integers(0, 4, n)
+        return (17 * (4 * t + j) + 5) % ni
+
+    def _sr_cust(cols, rng, n, offset=0):
+        return (13 * cols["sr_ticket_number"].astype(np.int64)) % nc
+
+    return TableSpec("store_returns", [
+        ColumnSpec("sr_returned_date_sk", "key", cardinality=TPCDS_DAYS),
+        ColumnSpec("sr_ticket_number", "key", cardinality=max(n_tickets, 1)),
+        ColumnSpec("sr_item_sk", "derive", derive=_sr_item),
+        ColumnSpec("sr_customer_sk", "derive", derive=_sr_cust),
+        ColumnSpec("sr_store_sk", "key", cardinality=max(n_stores, 1)),
+        ColumnSpec("sr_reason_sk", "key", cardinality=35),
+        ColumnSpec("sr_return_quantity", "int", min_val=1, max_val=40),
+        ColumnSpec("sr_return_amt", "double", min_val=0.0, max_val=5000.0),
+        ColumnSpec("sr_net_loss", "double", min_val=0.0, max_val=3000.0),
+    ])
+
+
+def tpcds_catalog_sales(rows: int, n_items: int, n_cust: int, n_cdemo: int,
+                        n_hdemo: int, n_addr: int, n_promo: int,
+                        n_wh: int) -> TableSpec:
+    return TableSpec("catalog_sales", [
+        ColumnSpec("cs_sold_date_sk", "key", cardinality=TPCDS_DAYS,
+                   null_prob=0.01),
+        ColumnSpec("cs_ship_date_sk", "key", cardinality=TPCDS_DAYS),
+        ColumnSpec("cs_item_sk", "key", cardinality=max(n_items, 1)),
+        ColumnSpec("cs_bill_customer_sk", "key", cardinality=max(n_cust, 1)),
+        ColumnSpec("cs_bill_cdemo_sk", "key", cardinality=max(n_cdemo, 1)),
+        ColumnSpec("cs_bill_hdemo_sk", "key", cardinality=max(n_hdemo, 1)),
+        ColumnSpec("cs_bill_addr_sk", "key", cardinality=max(n_addr, 1)),
+        ColumnSpec("cs_promo_sk", "key", cardinality=max(n_promo, 1)),
+        ColumnSpec("cs_warehouse_sk", "key", cardinality=max(n_wh, 1)),
+        ColumnSpec("cs_ship_mode_sk", "key", cardinality=10),
+        ColumnSpec("cs_call_center_sk", "key", cardinality=4),
+        ColumnSpec("cs_order_number", "seq", repeat=3),
+        ColumnSpec("cs_sold_time_sk", "key", cardinality=86400),
+        *_sales_money_cols("cs"),
+    ])
+
+
+def tpcds_catalog_returns(rows: int, n_items: int, n_orders: int,
+                          n_cust: int = 100) -> TableSpec:
+    return TableSpec("catalog_returns", [
+        ColumnSpec("cr_returned_date_sk", "key", cardinality=TPCDS_DAYS),
+        ColumnSpec("cr_item_sk", "key", cardinality=max(n_items, 1)),
+        ColumnSpec("cr_order_number", "key", cardinality=max(n_orders, 1)),
+        ColumnSpec("cr_return_quantity", "int", min_val=1, max_val=40),
+        ColumnSpec("cr_return_amount", "double", min_val=0.0,
+                   max_val=5000.0),
+        ColumnSpec("cr_net_loss", "double", min_val=0.0, max_val=3000.0),
+        ColumnSpec("cr_returning_customer_sk", "key",
+                   cardinality=max(n_cust, 1)),
+        ColumnSpec("cr_call_center_sk", "key", cardinality=4),
+    ])
+
+
+def tpcds_web_sales(rows: int, n_items: int, n_cust: int, n_addr: int,
+                    n_sites: int, n_promo: int, n_wh: int = 6) -> TableSpec:
+    return TableSpec("web_sales", [
+        ColumnSpec("ws_sold_date_sk", "key", cardinality=TPCDS_DAYS,
+                   null_prob=0.01),
+        ColumnSpec("ws_ship_date_sk", "key", cardinality=TPCDS_DAYS),
+        ColumnSpec("ws_sold_time_sk", "key", cardinality=86400),
+        ColumnSpec("ws_item_sk", "key", cardinality=max(n_items, 1)),
+        ColumnSpec("ws_bill_customer_sk", "key", cardinality=max(n_cust, 1)),
+        ColumnSpec("ws_bill_addr_sk", "key", cardinality=max(n_addr, 1)),
+        ColumnSpec("ws_web_site_sk", "key", cardinality=max(n_sites, 1)),
+        ColumnSpec("ws_ship_mode_sk", "key", cardinality=10),
+        ColumnSpec("ws_promo_sk", "key", cardinality=max(n_promo, 1)),
+        ColumnSpec("ws_order_number", "seq", repeat=3),
+        ColumnSpec("ws_warehouse_sk", "key", cardinality=max(n_wh, 1)),
+        *_sales_money_cols("ws"),
+    ])
+
+
+def tpcds_web_returns(rows: int, n_items: int, n_orders: int,
+                      n_cust: int = 100) -> TableSpec:
+    return TableSpec("web_returns", [
+        ColumnSpec("wr_returned_date_sk", "key", cardinality=TPCDS_DAYS),
+        ColumnSpec("wr_item_sk", "key", cardinality=max(n_items, 1)),
+        ColumnSpec("wr_order_number", "key", cardinality=max(n_orders, 1)),
+        ColumnSpec("wr_return_quantity", "int", min_val=1, max_val=40),
+        ColumnSpec("wr_return_amt", "double", min_val=0.0, max_val=5000.0),
+        ColumnSpec("wr_net_loss", "double", min_val=0.0, max_val=3000.0),
+        ColumnSpec("wr_returning_customer_sk", "key",
+                   cardinality=max(n_cust, 1)),
+        ColumnSpec("wr_reason_sk", "key", cardinality=35),
+    ])
+
+
+def tpcds_inventory(rows: int, n_items: int, n_wh: int) -> TableSpec:
+    return TableSpec("inventory", [
+        ColumnSpec("inv_date_sk", "key", cardinality=TPCDS_DAYS),
+        ColumnSpec("inv_item_sk", "key", cardinality=max(n_items, 1)),
+        ColumnSpec("inv_warehouse_sk", "key", cardinality=max(n_wh, 1)),
+        ColumnSpec("inv_quantity_on_hand", "int", min_val=0, max_val=1000,
+                   null_prob=0.02),
+    ])
+
+
+#: every TPC-DS table, in ``benchmarks/tpcds.py``'s order
+TPCDS_TABLES = (
+    "date_dim", "item", "store", "customer", "customer_address",
+    "customer_demographics", "household_demographics", "promotion",
+    "warehouse", "web_site", "ship_mode", "reason", "call_center",
+    "income_band", "time_dim", "store_sales", "store_returns",
+    "catalog_sales", "catalog_returns", "web_sales", "web_returns",
+    "inventory")
+
+
+def tpcds_specs(rows: int, parts: int = 4) -> Dict[str, Tuple]:
+    """Each table's (spec, rows, partitions) at store_sales-row scale
+    ``rows``, at ``benchmarks/tpcds.py``'s ratios (``load_tables``): items
+    rows/50, customers rows/40, addresses half the customers, catalog
+    sales rows/2, web sales and inventory rows/4, store returns rows/10,
+    catalog and web returns a tenth of their sales; the six fact tables in
+    ``parts`` partitions, the dimensions in one. date_dim's spec is None
+    (``tpcds_date_dim`` builds it)."""
+    n_items = max(rows // 50, 30)
+    n_cust = max(rows // 40, 50)
+    n_addr = max(n_cust // 2, 25)
+    n_cdemo, n_hdemo, n_stores, n_promo, n_wh, n_sites = 400, 144, 12, 30, \
+        6, 8
+    n_cs = max(rows // 2, 1)
+    n_ws = max(rows // 4, 1)
+    n_sr = max(rows // 10, 1)
+    n_cr = max(n_cs // 10, 1)
+    n_wr = max(n_ws // 10, 1)
+    n_inv = max(rows // 4, 1)
+    return {
+        "date_dim": (None, TPCDS_DAYS, 1),
+        "item": (tpcds_item(n_items), n_items, 1),
+        "store": (tpcds_store(), n_stores, 1),
+        "customer": (tpcds_customer(n_cust, n_addr, n_cdemo, n_hdemo),
+                     n_cust, 1),
+        "customer_address": (tpcds_customer_address(n_addr), n_addr, 1),
+        "customer_demographics": (tpcds_customer_demographics(), n_cdemo, 1),
+        "household_demographics": (tpcds_household_demographics(), n_hdemo,
+                                   1),
+        "promotion": (tpcds_promotion(), n_promo, 1),
+        "warehouse": (tpcds_warehouse(), n_wh, 1),
+        "web_site": (tpcds_web_site(), n_sites, 1),
+        "ship_mode": (tpcds_ship_mode(), 10, 1),
+        "reason": (tpcds_reason(), 35, 1),
+        "call_center": (tpcds_call_center(), 4, 1),
+        "income_band": (tpcds_income_band(), 20, 1),
+        "time_dim": (tpcds_time_dim(), 86400, 1),
+        "store_sales": (tpcds_store_sales(rows, n_items, n_cust, n_stores,
+                                          n_cdemo, n_hdemo, n_addr, n_promo),
+                        rows, parts),
+        "store_returns": (tpcds_store_returns(n_sr, n_items, n_cust,
+                                              n_stores, max(rows // 4, 1)),
+                          n_sr, parts),
+        "catalog_sales": (tpcds_catalog_sales(n_cs, n_items, n_cust, n_cdemo,
+                                              n_hdemo, n_addr, n_promo, n_wh),
+                          n_cs, parts),
+        "catalog_returns": (tpcds_catalog_returns(
+            n_cr, n_items, max(n_cs // 3, 1), n_cust), n_cr, parts),
+        "web_sales": (tpcds_web_sales(n_ws, n_items, n_cust, n_addr, n_sites,
+                                      n_promo, n_wh), n_ws, parts),
+        "web_returns": (tpcds_web_returns(n_wr, n_items, max(n_ws // 3, 1),
+                                          n_cust), n_wr, parts),
+        "inventory": (tpcds_inventory(n_inv, n_items, n_wh), n_inv, parts),
+    }
+
+
+def tpcds_host_tables(rows: int, parts: int = 4,
+                      names: Sequence[str] = TPCDS_TABLES
+                      ) -> Dict[str, Tuple]:
+    """The TPC-DS tables ``names`` (all 22 by default) at store_sales-row
+    scale ``rows`` as the reference's benchmark loads them
+    (``benchmarks/tpcds.py`` ``load_tables``, seed 42; ``tpcds_specs``),
+    each as (host columns, validity, partitions)."""
+    specs = tpcds_specs(rows, parts)
+    out = {}
+    for name in names:
+        spec, n, p = specs[name]
+        cols = tpcds_date_dim(n) if spec is None else spec.generate(42, n, p)
+        out[name] = cols + (p,)
+    return out
+
+
+def tpcds_tables(session, rows: int, parts: int = 4):
+    """``tpcds_host_tables`` as the session's DataFrames."""
+    return tpch_frames(session, tpcds_host_tables(rows, parts))

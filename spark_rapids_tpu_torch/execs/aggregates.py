@@ -12,7 +12,9 @@ port reduces the contiguous segments instead:
   (exact, and wrapping as Spark's non-ANSI long sum does);
 * float sums and float min/max: ``torch.segment_reduce`` over the segment
   lengths (a fixed reduction order a segment, no atomics);
-* integer min/max: ``scatter_reduce`` (min and max are exact in any order).
+* integer min/max: ``scatter_reduce`` (min and max are exact in any order);
+* the variance family: an (n, sum, sumsq) state of float64 segment sums,
+  finished with the reference's ``m2 = sumsq - sum² / n``.
 
 The host reads one number a batch, the group count that sizes the group
 table, and one a string key, its longest string (it picks the key
@@ -35,7 +37,8 @@ import torch
 
 from ..columnar.batch import TorchColumnarBatch, concat_batches, gather
 from ..columnar.vector import TorchColumnVector, bucket_capacity, row_mask
-from ..expressions.aggregates import AggregateFunction, Count
+from ..expressions.aggregates import (VARIANCE_OPS, AggregateFunction,
+                                      Count)
 from ..expressions.base import AttributeReference, Expression, to_column
 from ..expressions.strings import longest_string, string_key_codes
 from ..types import DoubleT, LongT, StringType, is_fixed_width
@@ -278,6 +281,13 @@ def _segment_update(fn: AggregateFunction, col: Optional[TorchColumnVector],
         raise NotImplementedError(f"{op} of strings not yet ported")
     data = col.data[segs.perm]
     nn = segs.count(valid)
+    if op in VARIANCE_OPS:
+        # the (n, sum, sumsq) state; the final step makes m2 of it
+        x = data.to(torch.float64)
+        if valid is not None:
+            x = torch.where(valid, x, 0.0)
+        return {"n": nn, "sum": segs.float_reduce(x, "sum", 0.0),
+                "sumsq": segs.float_reduce(x * x, "sum", 0.0)}
     if valid is not None and op in ("sum", "avg"):
         data = torch.where(valid, data, torch.zeros((), dtype=data.dtype,
                                                     device=data.device))
@@ -338,6 +348,20 @@ def _evaluate_agg(fn: AggregateFunction, state: Dict[str, torch.Tensor],
         data = torch.where(valid, state[op],
                            torch.zeros((), dtype=state[op].dtype, device=dev))
         return TorchColumnVector(fn.dtype, data, valid, n_groups)
+    if op in VARIANCE_OPS:
+        # the reference's formula, m2 = sumsq - sum^2 / n (not Welford):
+        # null for n = 0, and for n = 1 in the sample forms
+        n = state["n"].to(torch.float64)
+        s, s2 = state["sum"], state["sumsq"]
+        m2 = s2 - (s * s) / torch.where(n > 0, n, 1.0)
+        denom = n - (1.0 if op.endswith("samp") else 0.0)
+        ok = denom > 0
+        var = torch.where(ok, m2 / torch.where(ok, denom, 1.0), 0.0)
+        var = var.clamp(min=0.0)
+        out = torch.sqrt(var) if op.startswith("stddev") else var
+        valid = ok & (n > 0) & gmask
+        return TorchColumnVector(DoubleT, torch.where(valid, out, 0.0),
+                                 valid, n_groups)
     raise NotImplementedError(f"aggregate {op} not yet ported")
 
 
@@ -345,7 +369,7 @@ def _global_mergeable(fn: AggregateFunction) -> bool:
     """Whether the ungrouped chunked-merge path can combine this
     aggregate's partial states."""
     op = fn.update_op
-    if op in ("count", "sum", "avg"):
+    if op in ("count", "sum", "avg") or op in VARIANCE_OPS:
         return True
     if op in ("min", "max"):
         child = fn.children[0] if fn.children else None
@@ -367,6 +391,8 @@ def _merge_global_states(fn: AggregateFunction,
         return {"sum": stk["sum"].sum(0), "nonnull": stk["nonnull"].sum(0)}
     if op == "avg":
         return {"sum": stk["sum"].sum(0), "count": stk["count"].sum(0)}
+    if op in VARIANCE_OPS:
+        return {k: v.sum(0) for k, v in stk.items()}
     if op in ("min", "max"):
         red, nn = stk[op], stk["nonnull"]
         nonnull = nn.sum(0)

@@ -11,6 +11,7 @@ the tracing hooks of the reference are not yet ported; the session's
 
 from __future__ import annotations
 
+import time
 from collections import Counter
 from typing import Iterator, List, Optional, Sequence
 
@@ -307,3 +308,23 @@ def bind_references(expr: Expression,
 def bind_all(exprs: Sequence[Expression],
              inputs: List[AttributeReference]) -> List[Expression]:
     return [bind_references(e, inputs) for e in exprs]
+
+
+class op_time:
+    """Times one operator's own work into the session's counters as
+    ``opTime.<operator>`` milliseconds (the reference's per-operator
+    ``opTime`` metric). Like the reference's, it reads the host clock
+    only and never blocks: on the card it is the time the operator spends
+    on the host, launching its work and waiting where the operator itself
+    waits, not the device time of what it queued."""
+
+    def __init__(self, ctx: TaskContext, name: str):
+        self._ctx, self._name = ctx, name
+
+    def __enter__(self) -> "op_time":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._ctx.counters[f"opTime.{self._name}"] += \
+            (time.perf_counter() - self._t0) * 1e3

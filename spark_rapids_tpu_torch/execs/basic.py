@@ -1,6 +1,6 @@
-"""Project, filter and limit operators on torch batches (port of
-TpuProjectExec, TpuFilterExec, TpuLocalLimitExec and TpuGlobalLimitExec
-from ``spark_rapids_tpu/execs/basic.py``). Expressions
+"""Project, filter, union and limit operators on torch batches (port of
+TpuProjectExec, TpuFilterExec, TpuUnionExec, TpuLocalLimitExec and
+TpuGlobalLimitExec from ``spark_rapids_tpu/execs/basic.py``). Expressions
 evaluate eagerly (the reference's per-operator jit cache is a JAX compile
 cache with nothing to port). Project and filter run each batch under the
 retry framework (``memory/retry.with_retry``): the input is spillable, and
@@ -16,7 +16,8 @@ import torch
 from ..columnar.batch import (TorchColumnarBatch, compact, concat_batches,
                              slice_batch)
 from ..expressions.base import AttributeReference, Expression, to_column
-from .base import PhysicalPlan, TaskContext, TorchExec, bind_all, bind_references
+from .base import (PhysicalPlan, TaskContext, TorchExec, bind_all,
+                   bind_references, op_time)
 
 
 class TorchProjectExec(TorchExec):
@@ -88,6 +89,56 @@ class TorchFilterExec(TorchExec):
                              max_retries=ctx.conf.get(TASK_RETRY_LIMIT))
             del batch
             yield from gen
+
+
+class TorchUnionExec(TorchExec):
+    """UNION ALL: partition i is the i-th partition of the children read in
+    turn, each batch renamed to the union's columns. A child column of
+    another type than the union's (the first child's) is cast to it; the
+    reference passes such a column through in its own type."""
+
+    def __init__(self, children: Sequence[PhysicalPlan],
+                 output: List[AttributeReference]):
+        super().__init__(list(children))
+        self._output = output
+        self._casts = [self._child_casts(c) for c in children]
+
+    def _child_casts(self, child: PhysicalPlan):
+        """The projection that casts a child's batches to the union's
+        types, or None when they already agree."""
+        from ..expressions.cast import Cast
+        if all(a.dtype == o.dtype for a, o in zip(child.output,
+                                                   self._output)):
+            return None
+        return [bind_references(a if a.dtype == o.dtype
+                                else Cast(a, o.dtype), child.output)
+                for a, o in zip(child.output, self._output)]
+
+    @property
+    def output(self):
+        return self._output
+
+    def num_partitions(self) -> int:
+        return sum(c.num_partitions() for c in self.children)
+
+    def internal_do_execute_columnar(self, idx: int,
+                                     ctx: TaskContext) -> Iterator:
+        names = [a.name for a in self._output]
+        for c, casts in zip(self.children, self._casts):
+            n = c.num_partitions()
+            if idx < n:
+                for b in c.execute_partition(idx, ctx):
+                    with op_time(ctx, "TorchUnionExec"):
+                        if casts is not None:
+                            b = TorchColumnarBatch(
+                                [to_column(e.eval_device(b, ctx.eval_ctx),
+                                           b, a.dtype)
+                                 for e, a in zip(casts, self._output)],
+                                b.num_rows)
+                        out = b.rename(names)
+                    yield out
+                return
+            idx -= n
 
 
 class TorchLocalLimitExec(TorchExec):

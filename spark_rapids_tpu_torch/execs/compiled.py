@@ -39,6 +39,7 @@ import torch
 from ..columnar.batch import TorchColumnarBatch, gather
 from ..columnar.vector import TorchColumnVector, row_mask
 from ..expressions import arithmetic as A
+from ..expressions import bitwise as BW
 from ..expressions import conditional as CO
 from ..expressions import mathexprs as M
 from ..expressions import nullexprs as N
@@ -61,7 +62,8 @@ _DEVICE_EXPRS = (Literal, AttributeReference, Alias, A.Add, A.Subtract,
                  A.Multiply, A.Divide, P.EqualTo, P.LessThan,
                  P.LessThanOrEqual, P.GreaterThan, P.GreaterThanOrEqual,
                  P.And, P.Or, P.Not, P.In, P.InSet, N.IsNull, N.IsNotNull,
-                 CO.If, CO.CaseWhen, M.Round, Cast)
+                 N.Coalesce, CO.If, CO.CaseWhen, M.Round, M.Floor, A.Abs,
+                 BW.BitwiseAnd, BW.ShiftRight, Cast)
 
 
 class _StageFallback(Exception):

@@ -150,3 +150,56 @@ class CpuTopNExec(_HostEngineNotPorted):
 
     def node_desc(self) -> str:
         return f"CpuTopN[n={self.n}]"
+
+
+class CpuUnionExec(_HostEngineNotPorted):
+    """UNION ALL: the children's partitions in turn."""
+
+    def __init__(self, children: Sequence[PhysicalPlan],
+                 output: List[AttributeReference]):
+        super().__init__(list(children))
+        self._output = output
+
+    @property
+    def output(self):
+        return self._output
+
+    def num_partitions(self) -> int:
+        return sum(c.num_partitions() for c in self.children)
+
+
+class CpuExpandExec(_HostEngineNotPorted):
+    """Grouping sets' row multiplexer on the host."""
+
+    def __init__(self, projections: List[List[Expression]],
+                 child: PhysicalPlan, output: List[AttributeReference]):
+        super().__init__([child])
+        self.projections = [bind_all(p, child.output) for p in projections]
+        self._output = output
+
+    @property
+    def output(self):
+        return self._output
+
+    def node_desc(self) -> str:
+        return f"CpuExpand[{len(self.projections)} projections]"
+
+
+class CpuWindowExec(_HostEngineNotPorted):
+    """Window functions on the host (the reference's per-partition loop
+    oracle)."""
+
+    def __init__(self, window_exprs, child: PhysicalPlan,
+                 output: List[AttributeReference]):
+        from .window import bind_window_expr
+        super().__init__([child])
+        self.window_exprs = [bind_window_expr(w, child.output)
+                             for w in window_exprs]
+        self._output = output
+
+    @property
+    def output(self):
+        return self._output
+
+    def num_partitions(self) -> int:
+        return 1

@@ -1,0 +1,421 @@
+"""The window exec on the device (port of ``TpuWindowExec`` from
+``spark_rapids_tpu/execs/window.py``; its ``CpuWindowExec`` is
+``execs/cpu.CpuWindowExec``, a host operator whose engine is not yet
+ported).
+
+One sorted pass a window expression: every input partition concatenated
+into one batch (a global ``rank`` ranks across them), the rows sorted by
+(partition keys ascending, order keys) with the stable lexicographic sort
+of the aggregate (nulls first when ascending, NaN greatest, -0.0 equal to
+0.0), the partition and peer-group boundaries marked, and each row's
+segment start found by a ``cummax`` of the boundary positions and its
+segment end by a ``cummin`` over the reversed array. Then:
+
+* ranks and row numbers from the boundaries;
+* sum, count and avg over any frame as differences of prefix sums read at
+  the frame's ends (NaN and infinities kept out of the sums and put back
+  from their own prefix counts, as the reference does); a float prefix
+  sum adds in a fixed order (``_float_prefix_sum``), so two runs agree
+  bit for bit;
+* min and max over a frame from doubling sparse tables, two lookups a row
+  (the reference takes an associative scan for running ROWS frames and a
+  segment scatter for the whole partition: min and max are exact, so the
+  values agree);
+* lead and lag as a row gather inside the segment.
+
+The result scatters back to input order. ``collect_list`` and
+``collect_set`` over a window, and the reference's host-assisted path for
+them, are not yet ported: the override engine keeps such a window off the
+device with its reason (``plan/overrides._tag_window``).
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List, Sequence
+
+import numpy as np
+import torch
+
+from ..columnar.batch import TorchColumnarBatch, concat_batches, gather
+from ..columnar.vector import TorchColumnVector, row_mask
+from ..expressions.aggregates import AggregateFunction
+from ..expressions.base import (AttributeReference, Literal, device_parts,
+                                to_column)
+from ..plan.logical import SortOrder
+from ..window import (CURRENT_ROW, UNBOUNDED_FOLLOWING, UNBOUNDED_PRECEDING,
+                      CumeDist, DenseRank, Lag, Lead, NTile, PercentRank,
+                      Rank, RowNumber, WindowExpression, WindowSpec)
+from .aggregates import encode_group_keys, lex_sort_permutation
+from .base import (PhysicalPlan, TaskContext, TorchExec, bind_references,
+                   op_time)
+
+#: the window functions the device computes
+DEVICE_FUNCTIONS = (RowNumber, Rank, DenseRank, Lead, Lag, NTile,
+                    PercentRank, CumeDist)
+#: the aggregates the device computes over a frame
+DEVICE_AGGREGATES = ("sum", "count", "avg", "min", "max")
+
+
+def ntile_tiles(fn) -> int:
+    """NTile's tile count: a positive integer literal."""
+    nt = fn.children[0]
+    if not isinstance(nt, Literal) or int(nt.value or 0) <= 0:
+        raise ValueError("ntile requires a positive integer literal")
+    return int(nt.value)
+
+
+def bind_window_expr(we: WindowExpression, inputs) -> WindowExpression:
+    spec = we.spec
+    return WindowExpression(
+        bind_references(we.function, inputs),
+        WindowSpec([bind_references(p, inputs) for p in spec.partition_by],
+                   [SortOrder(bind_references(o.child, inputs), o.ascending,
+                              o.nulls_first) for o in spec.order_by],
+                   spec.frame, spec.frame_type))
+
+
+def _next_start_before(is_new: torch.Tensor, idxs: torch.Tensor,
+                       cap: int) -> torch.Tensor:
+    """For each sorted position, the position where the next segment (of
+    the ``is_new`` boundaries) starts: a reversed ``cummin``."""
+    nxt = torch.where(is_new, idxs, cap)
+    nxt = torch.flip(torch.cummin(torch.flip(nxt, (0,)), 0).values, (0,))
+    return torch.cat([nxt[1:], nxt.new_full((1,), cap)])
+
+
+class TorchWindowExec(TorchExec):
+    def __init__(self, window_exprs: Sequence[WindowExpression],
+                 child: PhysicalPlan, output: List[AttributeReference]):
+        super().__init__([child])
+        self.window_exprs = [bind_window_expr(w, child.output)
+                             for w in window_exprs]
+        self._output = output
+
+    @property
+    def output(self):
+        return self._output
+
+    def num_partitions(self) -> int:
+        return 1
+
+    def node_desc(self) -> str:
+        return f"TorchWindow[{len(self.window_exprs)} exprs]"
+
+    def internal_do_execute_columnar(self, idx: int,
+                                     ctx: TaskContext) -> Iterator:
+        child = self.children[0]
+        batches = []
+        for p in range(child.num_partitions()):
+            batches.extend(child.execute_partition(p, ctx.for_partition(p)))
+        if not batches:
+            return
+        batch = concat_batches(batches)
+        del batches
+        with op_time(ctx, "TorchWindowExec"):
+            cols = list(batch.columns)
+            for we in self.window_exprs:
+                cols.append(self._eval_window(we, batch, ctx))
+        yield TorchColumnarBatch(cols, batch.num_rows,
+                                 [a.name for a in self._output])
+
+    # ------------------------------------------------------------------
+    def _eval_window(self, we: WindowExpression, batch: TorchColumnarBatch,
+                     ctx: TaskContext) -> TorchColumnVector:
+        cap, n, dev = batch.capacity, batch.num_rows, batch.device
+        spec = we.spec
+        part_cols = [to_column(p.eval_device(batch, ctx.eval_ctx), batch,
+                               p.dtype) for p in spec.partition_by]
+        order_cols = [to_column(o.child.eval_device(batch, ctx.eval_ctx),
+                                batch, o.child.dtype) for o in spec.order_by]
+        enc = encode_group_keys(part_cols + order_cols, n, cap)
+        idxs = torch.arange(cap, dtype=torch.int64, device=dev)
+        if enc:
+            orders = ([(True, True)] * len(part_cols)
+                      + [(o.ascending, o.nulls_first) for o in spec.order_by])
+            perm = lex_sort_permutation(enc, n, cap, orders)
+        else:
+            perm = idxs
+
+        def boundaries(keys, start: torch.Tensor) -> torch.Tensor:
+            out = start.clone()
+            for vals, validity in keys:
+                sv = vals[perm]
+                out[1:] |= sv[1:] != sv[:-1]
+                if validity is not None:
+                    nv = validity[perm]
+                    out[1:] |= nv[1:] != nv[:-1]
+            return out
+
+        first = torch.zeros(cap, dtype=torch.bool, device=dev)
+        first[0] = True
+        is_new_part = boundaries(enc[:len(part_cols)], first)
+        # a peer group (tied order keys) ends where the partition or any
+        # order key changes
+        is_new_order = boundaries(enc[len(part_cols):], is_new_part)
+        seg_start = torch.cummax(torch.where(is_new_part, idxs, 0), 0).values
+        seg_end = _next_start_before(is_new_part, idxs, cap).clamp(max=n)
+        fn = we.function
+        if isinstance(fn, (Lead, Lag)):
+            return self._offset(fn, batch, ctx, perm, idxs, seg_start,
+                                seg_end)
+        result, validity = self._compute_fn(
+            fn, spec, batch, ctx, perm, idxs, is_new_order, seg_start,
+            seg_end)
+        # back to input order
+        inv = torch.empty_like(perm)
+        inv[perm] = idxs
+        mask = row_mask(n, cap, dev)
+        valid = mask if validity is None else validity[inv] & mask
+        data = result[inv]
+        data = torch.where(valid, data,
+                           torch.zeros((), dtype=data.dtype, device=dev))
+        return TorchColumnVector(fn.dtype, data, valid, n)
+
+    def _compute_fn(self, fn, spec, batch, ctx, perm, idxs, is_new_order,
+                    seg_start, seg_end):
+        cap = idxs.shape[0]
+        if isinstance(fn, RowNumber):
+            return (idxs - seg_start + 1).to(torch.int32), None
+        if isinstance(fn, (Rank, PercentRank)):
+            last_bnd = torch.cummax(torch.where(is_new_order, idxs, 0),
+                                    0).values
+            rank = last_bnd - seg_start + 1
+            if isinstance(fn, Rank):
+                return rank.to(torch.int32), None
+            size = seg_end - seg_start
+            pr = (rank - 1).to(torch.float64) \
+                / (size - 1).clamp(min=1).to(torch.float64)
+            return torch.where(size > 1, pr, 0.0), None
+        if isinstance(fn, DenseRank):
+            c = torch.cumsum(is_new_order.to(torch.int64), 0)
+            return (c - c[seg_start] + 1).to(torch.int32), None
+        if isinstance(fn, NTile):
+            tiles = ntile_tiles(fn)
+            size = seg_end - seg_start
+            k = idxs - seg_start
+            base = torch.div(size, tiles, rounding_mode="floor")
+            rem = size % tiles
+            cut = rem * (base + 1)
+            tile = torch.where(
+                k < cut,
+                torch.div(k, (base + 1).clamp(min=1), rounding_mode="floor"),
+                rem + torch.div(k - cut, base.clamp(min=1),
+                                rounding_mode="floor"))
+            return (tile + 1).to(torch.int32), None
+        if isinstance(fn, CumeDist):
+            peer_end = torch.minimum(
+                _next_start_before(is_new_order, idxs, cap), seg_end)
+            size = (seg_end - seg_start).clamp(min=1)
+            return ((peer_end - seg_start).to(torch.float64)
+                    / size.to(torch.float64)), None
+        if isinstance(fn, AggregateFunction):
+            return self._agg_over_frame(fn, spec, batch, ctx, perm, idxs,
+                                        seg_start, seg_end, is_new_order)
+        raise NotImplementedError(
+            f"window function {type(fn).__name__} not yet ported")
+
+    def _offset(self, fn, batch, ctx, perm, idxs, seg_start, seg_end):
+        """lead / lag: the row ``offset`` rows after (before) in the
+        segment, null (or the default) past its edge."""
+        cap, n, dev = batch.capacity, batch.num_rows, batch.device
+        col = to_column(fn.children[0].eval_device(batch, ctx.eval_ctx),
+                        batch, fn.children[0].dtype)
+        off = fn.offset if isinstance(fn, Lead) else -fn.offset
+        tgt = idxs + off
+        in_seg = (tgt >= seg_start) & (tgt < seg_end)
+        src_sorted = torch.where(in_seg, perm[tgt.clamp(0, cap - 1)], -1)
+        src = torch.empty_like(perm)
+        src[perm] = src_sorted
+        outside = torch.empty_like(in_seg)
+        outside[perm] = ~in_seg
+        out = gather(TorchColumnarBatch([col], n), src, n, cap).columns[0]
+        if fn.default is None:
+            return out
+        if out.offsets is not None:
+            raise NotImplementedError(
+                "lead/lag of strings with a default not yet ported")
+        dd, dv = device_parts(fn.default.eval_device(batch, ctx.eval_ctx),
+                              cap, dev)
+        take = outside & row_mask(n, cap, dev)
+        data = torch.where(take, torch.broadcast_to(dd, (cap,)).to(
+            out.data.dtype), out.data)
+        valid = out.validity_or_true() | (take if dv is None
+                                          else take & dv)
+        return TorchColumnVector(out.dtype, torch.where(
+            valid, data, torch.zeros((), dtype=data.dtype, device=dev)),
+            valid, n)
+
+    def _agg_over_frame(self, fn, spec, batch, ctx, perm, idxs, seg_start,
+                        seg_end, is_new_order):
+        cap, n, dev = batch.capacity, batch.num_rows, batch.device
+        op = fn.update_op
+        if fn.children:
+            col = to_column(fn.children[0].eval_device(batch, ctx.eval_ctx),
+                            batch, fn.children[0].dtype)
+            if col.offsets is None:
+                sdata = col.data[perm]
+            elif op == "count":  # only the validity counts
+                sdata = torch.ones(cap, dtype=torch.int64, device=dev)
+            else:  # tagged off the card by the override rule
+                raise NotImplementedError(
+                    f"window {op} of strings not yet ported")
+            svalid = col.validity_or_true()[perm]
+        else:
+            sdata = torch.ones(cap, dtype=torch.int64, device=dev)
+            svalid = torch.ones(cap, dtype=torch.bool, device=dev)
+        svalid = svalid & row_mask(n, cap, dev)[perm]
+
+        frame = spec.frame
+        range_mode = spec.frame_type == "range" or frame is None
+        if frame is None:
+            # Spark's default: with ORDER BY a RANGE frame from unbounded
+            # preceding to the current row; without, the whole partition
+            frame = ((UNBOUNDED_PRECEDING, CURRENT_ROW) if spec.order_by
+                     else (UNBOUNDED_PRECEDING, UNBOUNDED_FOLLOWING))
+        lo_off, hi_off = frame
+        # in a RANGE frame CURRENT ROW is the row's whole peer group
+        peer_start = peer_end = None
+        if range_mode and spec.order_by:
+            peer_start = torch.cummax(torch.where(is_new_order, idxs, 0),
+                                      0).values
+            peer_end = torch.minimum(
+                _next_start_before(is_new_order, idxs, cap), seg_end)
+        if lo_off == UNBOUNDED_PRECEDING:
+            lo = seg_start
+        elif peer_start is not None and lo_off == CURRENT_ROW:
+            lo = peer_start
+        else:
+            lo = torch.maximum(idxs + lo_off, seg_start)
+        if hi_off == UNBOUNDED_FOLLOWING:
+            hi = seg_end - 1
+        elif peer_end is not None and hi_off == CURRENT_ROW:
+            hi = peer_end - 1
+        else:
+            hi = torch.minimum(idxs + hi_off, seg_end - 1)
+
+        if op in ("min", "max"):
+            return _bounded_minmax(op, sdata, svalid, lo, hi)
+        if op not in ("sum", "count", "avg"):
+            raise NotImplementedError(f"window aggregate {op} not yet ported")
+        is_fp = sdata.is_floating_point()
+        acc = torch.float64 if op == "avg" or is_fp else torch.int64
+        zero = torch.zeros((), dtype=sdata.dtype, device=dev)
+        x = torch.where(svalid, sdata, zero).to(acc)
+
+        def range_sum(prefix, lo, hi):
+            """The sum over sorted positions [lo, hi]; 0 when lo > hi."""
+            hi_v = prefix[hi.clamp(0, cap - 1)]
+            lo_v = torch.where(lo > 0, prefix[(lo - 1).clamp(0, cap - 1)],
+                               torch.zeros((), dtype=prefix.dtype,
+                                           device=dev))
+            return torch.where(hi >= lo, hi_v - lo_v,
+                               torch.zeros((), dtype=prefix.dtype,
+                                           device=dev))
+
+        def prefix(t):
+            if t.is_floating_point():
+                return _float_prefix_sum(t)
+            return torch.cumsum(t.to(torch.int64), 0)
+
+        c = range_sum(prefix(svalid), lo, hi)
+        if op == "count":
+            return c, None
+        if is_fp:
+            # NaN and infinities would poison the prefix sums across
+            # partitions: count them apart and put them back
+            n_nan = range_sum(prefix(svalid & torch.isnan(sdata)), lo, hi)
+            n_pinf = range_sum(prefix(svalid & torch.isposinf(sdata)),
+                               lo, hi)
+            n_ninf = range_sum(prefix(svalid & torch.isneginf(sdata)),
+                               lo, hi)
+            x = torch.where(torch.isfinite(x), x, 0.0)
+        s = range_sum(prefix(x), lo, hi)
+        if is_fp:
+            s = torch.where((n_nan > 0) | ((n_pinf > 0) & (n_ninf > 0)),
+                            float("nan"),
+                            torch.where(n_pinf > 0, float("inf"),
+                                        torch.where(n_ninf > 0,
+                                                    float("-inf"), s)))
+        valid = c > 0
+        if op == "sum":
+            out = fn.dtype.torch_dtype
+            return torch.where(valid, s, 0).to(out), valid
+        avg = s.to(torch.float64) / torch.where(valid, c, 1).to(torch.float64)
+        return torch.where(valid, avg, 0.0), valid
+
+
+def _float_prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of a float column in a fixed order (a
+    Hillis-Steele scan: log2(n) shifted adds). ``torch.cumsum`` of floats
+    on CUDA may add in another order from run to run, and two collects of
+    a query must give identical answers."""
+    out = x.clone()
+    shift = 1
+    while shift < out.shape[0]:
+        nxt = out.clone()
+        nxt[shift:] += out[:-shift]
+        out = nxt
+        shift <<= 1
+    return out
+
+
+def _neutral(op: str, dtype: torch.dtype):
+    if dtype.is_floating_point:
+        return float("inf") if op == "min" else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if op == "min" else info.min
+
+
+def _bounded_minmax(op: str, sdata: torch.Tensor, svalid: torch.Tensor,
+                    lo: torch.Tensor, hi: torch.Tensor):
+    """min / max over each row's sorted positions [lo, hi] from doubling
+    sparse tables: level k reduces [i, i + 2^k), and a range of length L is
+    the overlap of two blocks of 2^floor(log2 L). NaN orders greatest, as
+    in Spark: max is NaN when the frame holds a NaN, min only when every
+    valid value in it is NaN."""
+    cap, dev = sdata.shape[0], sdata.device
+    is_fp = sdata.is_floating_point()
+    nanmask = svalid & torch.isnan(sdata) if is_fp \
+        else torch.zeros(cap, dtype=torch.bool, device=dev)
+    clean = svalid & ~nanmask
+    neutral = _neutral(op, sdata.dtype)
+    reduce2 = torch.minimum if op == "min" else torch.maximum
+    levels = max(int(np.ceil(np.log2(max(cap, 2)))), 1) + 1
+    vals = [torch.where(clean, sdata, torch.full((), neutral,
+                                                 dtype=sdata.dtype,
+                                                 device=dev))]
+    anyc, anyn = [clean], [nanmask]
+    for k in range(1, levels):
+        shift = 1 << (k - 1)
+        if shift >= cap:
+            vals.append(vals[-1])
+            anyc.append(anyc[-1])
+            anyn.append(anyn[-1])
+            continue
+        pv, pc, pn = vals[-1], anyc[-1], anyn[-1]
+        vals.append(reduce2(pv, torch.cat([pv[shift:], pv.new_full(
+            (shift,), neutral)])))
+        anyc.append(pc | torch.cat([pc[shift:], pc.new_zeros(shift)]))
+        anyn.append(pn | torch.cat([pn[shift:], pn.new_zeros(shift)]))
+    T, C, N = torch.stack(vals), torch.stack(anyc), torch.stack(anyn)
+    length = hi - lo + 1
+    empty = length <= 0
+    k = torch.floor(torch.log2(length.clamp(min=1).to(torch.float64))).to(
+        torch.int64).clamp(0, levels - 1)
+    # float log2 can land one off at powers of two: fix k so 2^k <= L
+    k = torch.where((1 << (k + 1)) <= length, k + 1, k).clamp(0, levels - 1)
+    k = torch.where((1 << k) > length.clamp(min=1), k - 1, k).clamp(min=0)
+    a = lo.clamp(0, cap - 1)
+    b = (hi - (1 << k) + 1).clamp(0, cap - 1)
+    red = reduce2(T[k, a], T[k, b])
+    any_clean = (C[k, a] | C[k, b]) & ~empty
+    any_nan = (N[k, a] | N[k, b]) & ~empty
+    valid = any_clean | any_nan
+    if is_fp:
+        nan = torch.full((), float("nan"), dtype=sdata.dtype, device=dev)
+        if op == "max":
+            red = torch.where(any_nan, nan, torch.where(any_clean, red, nan))
+        else:
+            red = torch.where(any_clean, red, nan)
+    return torch.where(valid, red, torch.zeros((), dtype=sdata.dtype,
+                                               device=dev)), valid

@@ -1,5 +1,5 @@
 """Aggregate function declarations (port of the Sum/Count/Min/Max/Average
-part of ``spark_rapids_tpu/expressions/aggregates.py``). They are driven by
+and variance-family part of ``spark_rapids_tpu/expressions/aggregates.py``). They are driven by
 the aggregate execs, not evaluated directly."""
 
 from __future__ import annotations
@@ -74,3 +74,36 @@ class Average(AggregateFunction):
         if isinstance(ct, DecimalType):
             return DecimalType(min(ct.precision + 4, 38), min(ct.scale + 4, 38))
         return DoubleT
+
+
+class StddevBase(AggregateFunction):
+    """The variance family over an (n, sum, sumsq) partial state; the
+    final step is the reference's ``m2 = sumsq - sum² / n``."""
+
+    @property
+    def dtype(self) -> DataType:
+        return DoubleT
+
+    @property
+    def nullable(self) -> bool:
+        return True
+
+
+class StddevSamp(StddevBase):
+    update_op = "stddev_samp"
+
+
+class StddevPop(StddevBase):
+    update_op = "stddev_pop"
+
+
+class VarianceSamp(StddevBase):
+    update_op = "var_samp"
+
+
+class VariancePop(StddevBase):
+    update_op = "var_pop"
+
+
+#: the variance family's update ops
+VARIANCE_OPS = ("stddev_samp", "stddev_pop", "var_samp", "var_pop")

@@ -1,7 +1,7 @@
 """Arithmetic with Spark's non-ANSI semantics: integers wrap (two's
 complement, as Java), division by zero is null.
 
-Port of Add/Subtract/Multiply/Divide from
+Port of Add/Subtract/Multiply/Divide/Abs from
 ``spark_rapids_tpu/expressions/arithmetic.py``. ANSI mode's overflow checks
 are not yet ported: evaluating under ANSI raises.
 """
@@ -12,8 +12,8 @@ import torch
 
 from ..columnar.vector import row_mask
 from ..types import DataType
-from .base import (BinaryExpression, EvalContext, combine_validity,
-                   device_parts)
+from .base import (BinaryExpression, EvalContext, UnaryExpression,
+                   combine_validity, device_parts)
 
 
 def _no_ansi(ctx: EvalContext, what: str) -> None:
@@ -80,3 +80,12 @@ class Divide(BinaryArithmetic):
             data = torch.div(ld, safe_r, rounding_mode="trunc")
         valid = combine_validity(lv, rv, mask, ~zero & mask)
         return data, valid
+
+
+class Abs(UnaryExpression):
+    """``abs(x)``: the smallest integer of its type stays itself (Java's
+    two's-complement wrap), as in the reference's non-ANSI path."""
+
+    def _compute(self, d, ctx, valid):
+        _no_ansi(ctx, "abs")
+        return torch.abs(d)

@@ -316,3 +316,16 @@ class UnaryExpression(Expression):
     @property
     def dtype(self) -> DataType:
         return self.child.dtype
+
+    def _compute(self, data, ctx: EvalContext, valid):
+        raise NotImplementedError(
+            f"{type(self).__name__} is not yet ported")
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        """Null in, null out: ``_compute`` over the child's data."""
+        cap, dev = batch.capacity, batch.device
+        d, v = device_parts(self.child.eval_device(batch, ctx), cap, dev)
+        d = torch.broadcast_to(d, (cap,))
+        valid = combine_validity(v, row_mask(batch.num_rows, cap, dev))
+        return make_column(self.dtype, self._compute(d, ctx, valid), valid,
+                           batch.num_rows)

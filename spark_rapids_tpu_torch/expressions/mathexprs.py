@@ -1,6 +1,6 @@
-"""``round(x, scale)`` with Spark's HALF_UP (port of ``Round`` in
-``spark_rapids_tpu/expressions/mathexprs.py``; ``BRound`` is not yet
-ported).
+"""``round(x, scale)`` with Spark's HALF_UP and ``floor(x)`` (port of
+``Round`` and ``Floor`` in ``spark_rapids_tpu/expressions/mathexprs.py``;
+``BRound`` and the other math functions are not yet ported).
 
 Floats round as the reference's device path computes them, in float64:
 ``trunc(x * 10^s + 0.5 * sign) / 10^s`` (ties away from zero; NaN and
@@ -18,9 +18,9 @@ from __future__ import annotations
 import torch
 
 from ..columnar.vector import row_mask
-from ..types import DataType
-from .base import (_DEFAULT_CTX, Expression, Literal, combine_validity,
-                   device_parts, make_column)
+from ..types import DataType, FractionalType, LongT
+from .base import (_DEFAULT_CTX, Expression, Literal, UnaryExpression,
+                   combine_validity, device_parts, make_column)
 
 
 class Round(Expression):
@@ -64,3 +64,27 @@ class Round(Expression):
     def pretty(self) -> str:
         return (f"round({self.children[0].pretty()}, "
                 f"{self.children[1].pretty()})")
+
+
+_TWO63 = 2.0 ** 63
+
+
+class Floor(UnaryExpression):
+    """``floor(double)`` → bigint with Java's (long) conversion: NaN is 0,
+    values past the long range clamp to its ends; integers pass
+    through."""
+
+    @property
+    def dtype(self) -> DataType:
+        return LongT if isinstance(self.child.dtype, FractionalType) \
+            else self.child.dtype
+
+    def _compute(self, d, ctx, valid):
+        if not d.is_floating_point():
+            return d
+        v = torch.floor(d.to(torch.float64))
+        v = torch.where(torch.isnan(v), 0.0, v)
+        in_range = (v > -_TWO63) & (v < _TWO63)
+        out = torch.where(in_range, v, 0.0).to(torch.int64)
+        out = torch.where(v >= _TWO63, torch.iinfo(torch.int64).max, out)
+        return torch.where(v <= -_TWO63, torch.iinfo(torch.int64).min, out)

@@ -1,14 +1,16 @@
-"""``IS NULL`` and ``IS NOT NULL`` (port of ``IsNull`` and ``IsNotNull`` in
-``spark_rapids_tpu/expressions/nullexprs.py``): never null themselves;
-padding rows read false."""
+"""``IS NULL``, ``IS NOT NULL`` and ``coalesce`` (port of ``IsNull``,
+``IsNotNull`` and ``Coalesce`` in
+``spark_rapids_tpu/expressions/nullexprs.py``). The tests are never null
+themselves; padding rows read false."""
 
 from __future__ import annotations
 
 import torch
 
-from ..columnar.vector import TorchScalar, row_mask
-from ..types import BooleanT, DataType
-from .base import _DEFAULT_CTX, UnaryExpression, make_column
+from ..columnar.vector import TorchColumnVector, TorchScalar, row_mask
+from ..types import BooleanT, DataType, StringT, StringType
+from .base import (_DEFAULT_CTX, Expression, UnaryExpression, device_parts,
+                   make_column)
 
 
 class _NullTest(UnaryExpression):
@@ -55,3 +57,54 @@ class IsNotNull(_NullTest):
 
     def _test(self, is_null):
         return ~is_null
+
+
+class Coalesce(Expression):
+    """The first non-null argument (reference ``Coalesce``): of the first
+    argument's type. Fixed-width arguments blend with ``torch.where``;
+    string arguments concatenate with only the chosen side emitting."""
+
+    def __init__(self, *children: Expression):
+        self.children = tuple(children)
+
+    @property
+    def dtype(self) -> DataType:
+        return self.children[0].dtype
+
+    @property
+    def nullable(self) -> bool:
+        return all(c.nullable for c in self.children)
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        cap, dev = batch.capacity, batch.device
+        mask = row_mask(batch.num_rows, cap, dev)
+        values = [c.eval_device(batch, ctx) for c in self.children]
+        if isinstance(self.dtype, StringType):
+            from .strings import (concat_columns, string_bytes_bound,
+                                  string_sides)
+            sides = string_sides(values, batch)
+            taken = torch.zeros(cap, dtype=torch.bool, device=dev)
+            emit = []
+            for s in sides:
+                v = mask if s[3] is None else s[3] & mask
+                emit.append(v & ~taken)
+                taken = taken | v
+            data, offs = concat_columns([s[:3] for s in sides],
+                                        string_bytes_bound(values, sides,
+                                                           batch), emit)
+            return TorchColumnVector(StringT, data, taken, batch.num_rows,
+                                     offsets=offs)
+        carrier = self.dtype.torch_dtype or torch.bool
+        data = torch.zeros(cap, dtype=carrier, device=dev)
+        valid = torch.zeros(cap, dtype=torch.bool, device=dev)
+        for v in values:
+            d, vv = device_parts(v, cap, dev)
+            vv = mask if vv is None else vv & mask
+            take = vv & ~valid
+            data = torch.where(take, torch.broadcast_to(d, (cap,)).to(carrier),
+                               data)
+            valid = valid | vv
+        return make_column(self.dtype, data, valid, batch.num_rows)
+
+    def pretty(self) -> str:
+        return f"coalesce({', '.join(c.pretty() for c in self.children)})"

@@ -383,3 +383,82 @@ class Substring(Expression):
         c = self.children
         return (f"substring({c[0].pretty()}, {c[1].pretty()}, "
                 f"{c[2].pretty()})")
+
+
+# ---------------------------------------------------------------------------
+# concat
+# ---------------------------------------------------------------------------
+
+
+def concat_columns(parts, out_cap: int, emit=None):
+    """Row-wise concatenation of K string sides (port of the reference's
+    ``kernels/strings.concat_columns``): ``parts`` per side (bytes,
+    start int64 [cap], length int64 [cap]); ``emit`` per side an optional
+    bool [cap], the rows where that side contributes. Each output byte finds
+    its row by a binary search over the new offsets and its side by the
+    row's running lengths; nothing is read back to the host. Returns
+    (bytes [out_cap], offsets int32 [cap + 1])."""
+    dev = parts[0][1].device
+    lens = []
+    for i, (_, _, ln) in enumerate(parts):
+        ln = ln.clamp(min=0)
+        if emit is not None and emit[i] is not None:
+            ln = torch.where(emit[i], ln, 0)
+        lens.append(ln)
+    cap = lens[0].shape[0]
+    offs = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+    offs[1:] = torch.cumsum(sum(lens), 0)
+    j = torch.arange(out_cap, dtype=torch.int64, device=dev)
+    row = torch.searchsorted(offs[1:], j, right=True).clamp(
+        max=max(cap - 1, 0))
+    pos = j - offs[row]
+    out = torch.zeros(out_cap, dtype=torch.uint8, device=dev)
+    cum = torch.zeros(cap, dtype=torch.int64, device=dev)
+    for (data, starts, _), ln in zip(parts, lens):
+        at = pos - cum[row]
+        sel = (at >= 0) & (at < ln[row]) & (j < offs[-1])
+        src = (starts[row] + at).clamp(0, max(data.numel() - 1, 0))
+        out = torch.where(sel, data[src], out)
+        cum = cum + ln
+    return out, offs.to(torch.int32)
+
+
+def string_bytes_bound(values, sides, batch) -> int:
+    """A bound on the bytes of a row-wise concatenation, known without a
+    host sync: a column's byte buffer, a literal's bytes times the rows."""
+    return max(1, sum(int(s[0].numel()) if isinstance(v, TorchColumnVector)
+                      else len((v.value or "").encode()) * batch.capacity
+                      for v, s in zip(values, sides)))
+
+
+def string_sides(values, batch):
+    """Each value (a string column or literal) as (bytes, start, length,
+    validity or None) over the batch's capacity."""
+    return [_side(v, batch.capacity, batch.device) for v in values]
+
+
+class ConcatStr(Expression):
+    """``concat(...)`` of strings: null when any input is (Spark's
+    concat). One ragged gather over every input's bytes, UTF-8 safe."""
+
+    def __init__(self, *children: Expression):
+        self.children = tuple(children)
+
+    @property
+    def dtype(self) -> DataType:
+        return StringT
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        values = [c.eval_device(batch, ctx) for c in self.children]
+        sides = string_sides(values, batch)
+        valid = combine_validity(*[s[3] for s in sides],
+                                 row_mask(batch.num_rows, batch.capacity,
+                                          batch.device))
+        data, offs = concat_columns([s[:3] for s in sides],
+                                    string_bytes_bound(values, sides, batch),
+                                    [valid] * len(sides))
+        return TorchColumnVector(StringT, data, valid, batch.num_rows,
+                                 offsets=offs)
+
+    def pretty(self) -> str:
+        return f"concat({', '.join(c.pretty() for c in self.children)})"

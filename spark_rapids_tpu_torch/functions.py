@@ -1,6 +1,8 @@
 """pyspark.sql.functions-compatible surface (the subset of
 ``spark_rapids_tpu/functions.py`` that the 22 TPC-H queries of
-``benchmarks/tpch.py`` use)."""
+``benchmarks/tpch.py`` and the 99 TPC-DS queries of
+``benchmarks/tpcds.py`` use, with the rest of the variance family and of
+the window functions)."""
 
 from __future__ import annotations
 
@@ -8,6 +10,7 @@ from typing import Any
 
 from .expressions import aggregates as _G
 from .expressions import conditional as _C
+from .expressions import nullexprs as _N
 from .expressions.base import Literal, UnresolvedAttribute
 from .session import Column, _expr
 
@@ -90,3 +93,106 @@ def substring(c, pos: int, length: int) -> Column:
     """Spark's 1-based ``substring(str, pos, len)``."""
     from .expressions.strings import Substring
     return Column(Substring(_expr_or_col(c), Literal(pos), Literal(length)))
+
+
+def coalesce(*cols) -> Column:
+    return Column(_N.Coalesce(*[_expr(c) for c in cols]))
+
+
+def isnull(c) -> Column:
+    return Column(_N.IsNull(_expr(c)))
+
+
+def floor(c) -> Column:
+    from .expressions.mathexprs import Floor
+    return Column(Floor(_expr_or_col(c)))
+
+
+def abs(c) -> Column:  # noqa: A001
+    from .expressions.arithmetic import Abs
+    return Column(Abs(_expr_or_col(c)))
+
+
+def concat(*cols) -> Column:
+    from .expressions.strings import ConcatStr
+    return Column(ConcatStr(*[_expr_or_col(c) for c in cols]))
+
+
+# --- the variance family ---------------------------------------------------
+
+def stddev(c) -> Column:
+    return Column(_G.StddevSamp(_expr_or_col(c)))
+
+
+stddev_samp = stddev
+
+
+def stddev_pop(c) -> Column:
+    return Column(_G.StddevPop(_expr_or_col(c)))
+
+
+def variance(c) -> Column:
+    return Column(_G.VarianceSamp(_expr_or_col(c)))
+
+
+var_samp = variance
+
+
+def var_pop(c) -> Column:
+    return Column(_G.VariancePop(_expr_or_col(c)))
+
+
+# --- window functions ------------------------------------------------------
+
+def row_number() -> Column:
+    from .window import RowNumber
+    return Column(RowNumber())
+
+
+def rank() -> Column:
+    from .window import Rank
+    return Column(Rank())
+
+
+def dense_rank() -> Column:
+    from .window import DenseRank
+    return Column(DenseRank())
+
+
+def ntile(n: int) -> Column:
+    from .window import NTile
+    return Column(NTile(Literal(int(n))))
+
+
+def percent_rank() -> Column:
+    from .window import PercentRank
+    return Column(PercentRank())
+
+
+def cume_dist() -> Column:
+    from .window import CumeDist
+    return Column(CumeDist())
+
+
+def lead(c, offset: int = 1, default=None) -> Column:
+    from .window import Lead
+    d = Literal(default) if default is not None else None
+    return Column(Lead(_expr_or_col(c), offset, d))
+
+
+def lag(c, offset: int = 1, default=None) -> Column:
+    from .window import Lag
+    d = Literal(default) if default is not None else None
+    return Column(Lag(_expr_or_col(c), offset, d))
+
+
+# --- grouping sets ---------------------------------------------------------
+
+def grouping_id() -> Column:
+    from .expressions.generators import GroupingID
+    return Column(GroupingID())
+
+
+def grouping(c) -> Column:
+    from .expressions.generators import GroupingExpr
+    return Column(GroupingExpr(_expr_or_col(c)))

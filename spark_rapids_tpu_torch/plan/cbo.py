@@ -40,6 +40,8 @@ def estimate_logical_rows(plan) -> Optional[float]:
     if name == "Join":
         sized = [c for c in children if c is not None]
         return max(sized) if sized else None
+    if name == "Union":
+        return float(sum(c for c in children if c is not None))
     if name == "Limit":
         return float(min(plan.n, child))
     return child

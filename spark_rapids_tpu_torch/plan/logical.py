@@ -1,8 +1,8 @@
 """Logical plan nodes + analysis (attribute resolution, type coercion).
 
 Port of the LocalRelation/FileScan/Project/Filter/Limit/Sort/Aggregate/
-Join part of ``spark_rapids_tpu/plan/logical.py`` with Spark's
-implicit-cast coercion.
+Join/Union/WindowOp/Expand part of ``spark_rapids_tpu/plan/logical.py``
+with Spark's implicit-cast coercion.
 ``node_desc`` strings are the reference's, so the optimized logical plan
 in ``explain()`` reads the same in both packages.
 """
@@ -274,6 +274,78 @@ class Join(LogicalPlan):
         keys = ", ".join(f"{l.pretty()}={r.pretty()}"
                          for l, r in zip(self.left_keys, self.right_keys))
         return f"Join[{self.join_type}]({keys})"
+
+
+class Union(LogicalPlan):
+    """UNION ALL by position: the first child's names and types, nullable
+    where any child is."""
+
+    def __init__(self, plans: Sequence[LogicalPlan]):
+        self.children = tuple(plans)
+        first = plans[0]
+        for p in plans[1:]:
+            if len(p.output) != len(first.output):
+                raise ValueError("UNION requires same number of columns")
+        self._output = [AttributeReference(
+            a.name, a.dtype, any(p.output[i].nullable for p in plans))
+            for i, a in enumerate(first.output)]
+
+    @property
+    def output(self) -> List[AttributeReference]:
+        return self._output
+
+
+class WindowOp(LogicalPlan):
+    """Window evaluation: the child's columns, then one column a window
+    expression (``_we<i>``), as Spark extracts them from a Project."""
+
+    def __init__(self, window_exprs, child: LogicalPlan):
+        from ..window import WindowExpression, WindowSpec
+        self.children = (child,)
+        resolved = []
+        for we in window_exprs:
+            spec = we.spec
+            new_spec = WindowSpec(
+                [resolve_expression(p, child) for p in spec.partition_by],
+                [SortOrder(resolve_expression(o.child, child), o.ascending,
+                           o.nulls_first) for o in spec.order_by],
+                spec.frame, spec.frame_type)
+            resolved.append(WindowExpression(
+                resolve_expression(we.function, child), new_spec))
+        self.window_exprs = resolved
+        self._win_attrs = [AttributeReference(f"_we{i}", w.dtype, w.nullable)
+                           for i, w in enumerate(resolved)]
+
+    @property
+    def window_attrs(self) -> List[AttributeReference]:
+        return self._win_attrs
+
+    @property
+    def output(self) -> List[AttributeReference]:
+        return self.children[0].output + self._win_attrs
+
+    def node_desc(self) -> str:
+        return f"Window[{', '.join(w.pretty() for w in self.window_exprs)}]"
+
+
+class Expand(LogicalPlan):
+    """Grouping sets' row multiplexer (Spark's ExpandExec): each
+    projection gives one output row an input row."""
+
+    def __init__(self, projections: Sequence[Sequence[Expression]],
+                 output_attrs: Sequence[AttributeReference],
+                 child: LogicalPlan, resolve: bool = True):
+        self.children = (child,)
+        self.projections = [[resolve_expression(e, child) for e in p]
+                            if resolve else list(p) for p in projections]
+        self._output = list(output_attrs)
+
+    @property
+    def output(self) -> List[AttributeReference]:
+        return self._output
+
+    def node_desc(self) -> str:
+        return f"Expand[{len(self.projections)} projections]"
 
 
 def _as_nullable(a: AttributeReference) -> AttributeReference:

@@ -1,7 +1,7 @@
 """TorchOverrides: the plan-override engine retargeting CPU operators to
 the device (port of the engine and the Project/Filter/device-scan/
 file-scan/sort/aggregate/join (hash, nested loop, cartesian)/exchange/
-TopN/limit rules of
+TopN/limit/union/window/expand rules of
 ``spark_rapids_tpu/plan/overrides.py``).
 
 Flow: CPU physical plan → wrap in a PlanMeta tree → tag (reasons) →
@@ -119,12 +119,14 @@ def _convert_sort(meta: PlanMeta, children):
 
 def _tag_aggregate(meta: PlanMeta) -> None:
     from ..execs.aggregates import split_result_exprs
+    from ..expressions.aggregates import VARIANCE_OPS
     from .typechecks import conf_gate_reason
     p = meta.plan
     meta.add_exprs(p.grouping)
     agg_fns, result_exprs = split_result_exprs(p.aggregates)
     for fn in agg_fns:
-        if fn.update_op not in ("sum", "count", "min", "max", "avg"):
+        if fn.update_op not in ("sum", "count", "min", "max", "avg") \
+                and fn.update_op not in VARIANCE_OPS:
             meta.will_not_work_on_tpu(
                 f"aggregate {type(fn).__name__} is not supported on TPU")
         gate = conf_gate_reason(fn, meta.conf)
@@ -234,6 +236,60 @@ def _convert_file_scan(meta: PlanMeta, children):
                              num_partitions=p.num_partitions())
 
 
+def _tag_window(meta: PlanMeta) -> None:
+    from ..execs.window import DEVICE_AGGREGATES, DEVICE_FUNCTIONS
+    from ..expressions.aggregates import AggregateFunction
+    from ..types import BinaryType, StringType
+    from ..window import Lag, Lead
+
+    def is_string(e) -> bool:
+        return isinstance(e.dtype, (StringType, BinaryType))
+
+    for we in meta.plan.window_exprs:
+        fn = we.function
+        name = type(fn).__name__
+        if isinstance(fn, AggregateFunction):
+            if fn.update_op not in DEVICE_AGGREGATES:
+                # collect_list / collect_set over a window, among others
+                meta.will_not_work_on_tpu(
+                    f"window aggregate {name} is not supported "
+                    "on TPU (not yet ported)")
+            elif fn.update_op != "count" and any(map(is_string,
+                                                     fn.children)):
+                meta.will_not_work_on_tpu(
+                    f"window aggregate {name} of a string is not "
+                    "supported on TPU (not yet ported)")
+            meta.add_exprs(fn.children)
+        elif not isinstance(fn, DEVICE_FUNCTIONS):
+            meta.will_not_work_on_tpu(
+                f"window function {name} not supported on TPU")
+        elif isinstance(fn, (Lead, Lag)):
+            if fn.default is not None and is_string(fn.children[0]):
+                meta.will_not_work_on_tpu(
+                    f"window function {name} of a string with a default "
+                    "is not supported on TPU (not yet ported)")
+            meta.add_exprs(fn.children)
+        meta.add_exprs(we.spec.partition_by)
+        meta.add_exprs([o.child for o in we.spec.order_by])
+
+
+def _convert_window(meta: PlanMeta, children):
+    from ..execs.window import TorchWindowExec
+    return TorchWindowExec(meta.plan.window_exprs, children[0],
+                           meta.plan.output)
+
+
+def _tag_expand(meta: PlanMeta) -> None:
+    for proj in meta.plan.projections:
+        meta.add_exprs(proj)
+
+
+def _convert_expand(meta: PlanMeta, children):
+    from ..execs.generate import TorchExpandExec
+    return TorchExpandExec(meta.plan.projections, children[0],
+                           meta.plan.output)
+
+
 register_exec(CE.CpuProjectExec, "projection",
               "spark.rapids.sql.exec.ProjectExec", _tag_project,
               _convert_project)
@@ -268,6 +324,12 @@ register_exec(CpuFileScanExec, "file scan",
 register_exec(CE.CpuTopNExec, "top-N (sort+limit fusion)",
               "spark.rapids.sql.exec.TakeOrderedAndProjectExec", _tag_top_n,
               _convert_top_n)
+register_exec(CE.CpuUnionExec, "union", "spark.rapids.sql.exec.UnionExec",
+              None, lambda m, ch: TB.TorchUnionExec(ch, m.plan.output))
+register_exec(CE.CpuWindowExec, "window", "spark.rapids.sql.exec.WindowExec",
+              _tag_window, _convert_window)
+register_exec(CE.CpuExpandExec, "expand", "spark.rapids.sql.exec.ExpandExec",
+              _tag_expand, _convert_expand)
 register_exec(CE.CpuLocalLimitExec, "local limit",
               "spark.rapids.sql.exec.LocalLimitExec", None,
               lambda m, ch: TB.TorchLocalLimitExec(m.plan.n, ch[0]))

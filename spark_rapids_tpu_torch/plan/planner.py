@@ -62,6 +62,9 @@ def plan_physical(plan: L.LogicalPlan, conf: RapidsConf) -> PhysicalPlan:
             plan.n, CE.CpuLocalLimitExec(plan.n + plan.offset,
                                          plan_physical(inner, conf)),
             plan.offset)
+    if isinstance(plan, L.Union):
+        return CE.CpuUnionExec([plan_physical(c, conf)
+                                for c in plan.children], plan.output)
     if isinstance(plan, L.Sort):
         return CE.CpuSortExec(plan.order, plan.global_sort,
                               plan_physical(plan.children[0], conf))
@@ -79,6 +82,14 @@ def plan_physical(plan: L.LogicalPlan, conf: RapidsConf) -> PhysicalPlan:
                                     plan.output)
     if isinstance(plan, L.Join):
         return _plan_join(plan, conf)
+    if isinstance(plan, L.Expand):
+        return CE.CpuExpandExec(plan.projections,
+                                plan_physical(plan.children[0], conf),
+                                plan.output)
+    if isinstance(plan, L.WindowOp):
+        return CE.CpuWindowExec(plan.window_exprs,
+                                plan_physical(plan.children[0], conf),
+                                plan.output)
     raise NotImplementedError(
         f"planning {type(plan).__name__} not yet ported")
 

@@ -40,11 +40,14 @@ def expr_sig_for(cls: type) -> Optional[TypeSig]:
 
 
 def _register_builtin_exprs() -> None:
+    from .. import window as WIN
     from ..expressions import aggregates as AGG
     from ..expressions import arithmetic as A
     from ..expressions import base as B
+    from ..expressions import bitwise as BW
     from ..expressions import cast as C
     from ..expressions import conditional as CO
+    from ..expressions import generators as GEN
     from ..expressions import mathexprs as M
     from ..expressions import nullexprs as N
     from ..expressions import predicates as P
@@ -86,6 +89,34 @@ def _register_builtin_exprs() -> None:
     register_expr(AGG.Min, minmax, "min aggregate")
     register_expr(AGG.Max, minmax, "max aggregate")
     register_expr(AGG.Count, TypeSigs.integral, "count aggregate")
+    for cls in (AGG.StddevSamp, AGG.StddevPop, AGG.VarianceSamp,
+                AGG.VariancePop):
+        register_expr(cls, TypeSigs.fp,
+                      f"{cls.update_op} ((n, sum, sumsq) state)")
+    register_expr(A.Abs, TypeSigs.numeric, "absolute value")
+    register_expr(M.Floor, TypeSigs.numeric, "floor")
+    register_expr(N.Coalesce, TypeSigs.numeric + TypeSigs.BOOLEAN
+                  + TypeSigs.DATE + TypeSigs.STRING + TypeSigs.NULL,
+                  "first non-null")
+    register_expr(S.ConcatStr, TypeSigs.STRING,
+                  "concat (device ragged gather, UTF-8 safe)")
+    register_expr(BW.BitwiseAnd, TypeSigs.integral, "bitwise &")
+    register_expr(BW.ShiftRight, TypeSigs.integral, "shift >>")
+    # window functions (evaluated by the window exec)
+    register_expr(WIN.WindowExpression, TypeSigs.all_basic + TypeSigs.NULL,
+                  "windowed aggregate/function application")
+    for cls in (WIN.RowNumber, WIN.Rank, WIN.DenseRank, WIN.NTile):
+        register_expr(cls, TypeSigs.integral, f"{cls.name}()")
+    register_expr(WIN.PercentRank, TypeSigs.fp, "percent_rank()")
+    register_expr(WIN.CumeDist, TypeSigs.fp, "cume_dist()")
+    register_expr(WIN.Lag, TypeSigs.all_basic + TypeSigs.NULL,
+                  "lag(col, offset, default)")
+    register_expr(WIN.Lead, TypeSigs.all_basic + TypeSigs.NULL,
+                  "lead(col, offset, default)")
+    register_expr(GEN.GroupingExpr, TypeSigs.all_basic + TypeSigs.NULL,
+                  "grouping set marker")
+    register_expr(GEN.GroupingID, TypeSigs.integral,
+                  "grouping_id (lowered to the Expand gid column)")
 
 
 _register_builtin_exprs()

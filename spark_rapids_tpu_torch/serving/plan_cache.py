@@ -206,6 +206,9 @@ def _node_sig(plan, id_map: Dict[int, int], params: List[Literal],
         tokens.append(f"sort:{int(plan.global_sort)}[{o}]")
     elif t is L.Limit:
         tokens.append(f"limit:{plan.n}:{plan.offset}")
+    elif t is L.Union:
+        tokens.append(f"union:{len(plan.children)}:"
+                      f"{_attrs_sig(plan.output, id_map)}")
     else:
         raise _Uncacheable(f"node {t.__name__}")
     for c in plan.children:

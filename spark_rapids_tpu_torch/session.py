@@ -146,6 +146,11 @@ class Column:
     def alias(self, name: str) -> "Column":
         return Column(Alias(self._expr, name))
 
+    def over(self, spec) -> "Column":
+        """This function over a window (``window.WindowSpec``)."""
+        from .window import WindowExpression
+        return Column(WindowExpression(self._expr, spec))
+
     def asc(self) -> "L.SortOrder":
         return L.SortOrder(self._expr, True)
 
@@ -172,6 +177,12 @@ def _expr(x) -> Expression:
     return Literal(x)
 
 
+def _col_exprs(cols) -> List[Expression]:
+    """Column names or Columns as expressions (a name resolves later)."""
+    return [UnresolvedAttribute(c) if isinstance(c, str) else _expr(c)
+            for c in cols]
+
+
 class DataFrame:
     def __init__(self, plan: L.LogicalPlan, session: "TorchSession"):
         self._plan = plan
@@ -192,8 +203,9 @@ class DataFrame:
     def select(self, *cols) -> "DataFrame":
         """Columns by name, or Column expressions (``alias`` names
         them)."""
-        exprs = [UnresolvedAttribute(c) if isinstance(c, str) else _expr(c)
-                 for c in cols]
+        exprs = _col_exprs(cols)
+        if _has_window(exprs):
+            return _project_with_windows(exprs, self)
         return DataFrame(L.Project(exprs, self._plan), self.session)
 
     def distinct(self) -> "DataFrame":
@@ -243,13 +255,82 @@ class DataFrame:
                 exprs.append(a)
         if not replaced:
             exprs.append(Alias(_expr(col), name))
+        if _has_window(exprs):
+            return _project_with_windows(exprs, self)
         return DataFrame(L.Project(exprs, self._plan), self.session)
 
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """UNION ALL, by position."""
+        return DataFrame(L.Union([self._plan, other._plan]), self.session)
+
+    unionAll = union
+
+    def _set_op(self, other: "DataFrame", keep_right: bool) -> "DataFrame":
+        """INTERSECT / EXCEPT with distinct-set semantics, lowered as the
+        reference does: a union of both sides, each tagged by the side it
+        came from, a group-by over every column with the max of each tag,
+        and a filter on which sides contributed. Grouping treats two nulls
+        as equal, which is the null-safe equality set operations need."""
+        from .expressions.aggregates import Max
+        from .functions import col, lit
+        if len(self._plan.output) != len(other._plan.output):
+            raise ValueError("set op requires equal column counts")
+        names = [a.name for a in self._plan.output]
+
+        def tag(df, left, right):
+            return df.select(*[Column(a).alias(n)
+                               for a, n in zip(df._plan.output, names)],
+                             lit(left).alias("__setop_l"),
+                             lit(right).alias("__setop_r"))
+
+        u = tag(self, 1, 0).union(tag(other, 0, 1))
+        out = u._plan.output
+        aggs = [Alias(Max(out[len(names)]), "__l"),
+                Alias(Max(out[len(names) + 1]), "__r")]
+        g = DataFrame(L.Aggregate(list(out[:len(names)]), aggs, u._plan),
+                      self.session)
+        cond = (col("__l") == 1) & ((col("__r") == 1) if keep_right
+                                    else (col("__r") == 0))
+        return g.filter(cond).select(*names)
+
+    def intersect(self, other: "DataFrame") -> "DataFrame":
+        return self._set_op(other, keep_right=True)
+
+    def exceptDistinct(self, other: "DataFrame") -> "DataFrame":
+        """EXCEPT DISTINCT (pyspark's ``subtract``)."""
+        return self._set_op(other, keep_right=False)
+
+    subtract = exceptDistinct
+
     def groupBy(self, *cols) -> "GroupedData":
-        return GroupedData(self, [UnresolvedAttribute(c) if isinstance(c, str)
-                                  else _expr(c) for c in cols])
+        return GroupedData(self, _col_exprs(cols))
 
     groupby = groupBy
+
+    def rollup(self, *cols) -> "GroupedData":
+        """GROUP BY ROLLUP: the grouping sets (all), (all but the last),
+        ..., () (lowered through Expand)."""
+        keys = _col_exprs(cols)
+        sets = [list(range(i)) for i in range(len(keys), -1, -1)]
+        return GroupedData(self, keys, grouping_sets=sets)
+
+    def cube(self, *cols) -> "GroupedData":
+        """GROUP BY CUBE: all 2^n grouping sets."""
+        keys = _col_exprs(cols)
+        n = len(keys)
+        sets = [[i for i in range(n) if (mask >> i) & 1 == 0]
+                for mask in range(1 << n)]
+        sets.sort(key=lambda st: (-len(st), st))
+        return GroupedData(self, keys, grouping_sets=sets)
+
+    def groupingSets(self, sets, *cols) -> "GroupedData":
+        """GROUPING SETS: ``sets`` lists subsets of ``cols``, by name or by
+        position."""
+        keys = _col_exprs(cols)
+        names = [c if isinstance(c, str) else None for c in cols]
+        idx_sets = [[item if isinstance(item, int) else names.index(item)
+                     for item in st] for st in sets]
+        return GroupedData(self, keys, grouping_sets=idx_sets)
 
     def agg(self, *aggs) -> "DataFrame":
         return GroupedData(self, []).agg(*aggs)
@@ -367,7 +448,14 @@ def _coerce_join_keys(lk: List[Expression], rk: List[Expression]):
              FloatType: 4, DoubleType: 5}
     out_l, out_r = [], []
     for a, b in zip(lk, rk):
-        ta, tb = a.dtype, b.dtype
+        try:
+            ta, tb = a.dtype, b.dtype
+        except ValueError:
+            # a key named by ``col()`` is resolved by the join itself: it
+            # passes through uncoerced, as in the reference
+            out_l.append(a)
+            out_r.append(b)
+            continue
         if isinstance(ta, DecimalType) or isinstance(tb, DecimalType):
             if repr(ta) != repr(tb):
                 raise ValueError(f"join key type mismatch {ta} vs {tb}: "
@@ -433,14 +521,117 @@ def _extract_equi_keys(cond: Expression, left, right):
 
 
 class GroupedData:
-    def __init__(self, df: DataFrame, keys: List[Expression]):
+    def __init__(self, df: DataFrame, keys: List[Expression],
+                 grouping_sets: Optional[List[List[int]]] = None):
         self._df = df
         self._keys = keys
+        self._grouping_sets = grouping_sets
 
     def agg(self, *aggs) -> DataFrame:
-        node = L.Aggregate(self._keys, [_expr(a) for a in aggs],
-                           self._df._plan)
+        exprs = [_expr(a) for a in aggs]
+        if self._grouping_sets is not None:
+            return self._agg_grouping_sets(exprs)
+        node = L.Aggregate(self._keys, exprs, self._df._plan)
         return DataFrame(node, self._df.session)
+
+    def _agg_grouping_sets(self, agg_exprs: List[Expression]) -> DataFrame:
+        """Grouping sets as Expand, then Aggregate, then Project (Spark's
+        ResolveGroupingAnalytics, the reference's lowering). The Expand
+        keeps every child column, so the aggregates see the real values;
+        it adds one copy of each grouping expression, nulled where the set
+        leaves it out (``_gset_i``), and the ``_gid`` bitmask (bit n-1-i
+        set when key i is left out). Those copies and ``_gid`` are the
+        aggregate's keys: a rolled-up null and a null in the data fall in
+        different groups."""
+        from .expressions.base import AttributeReference, output_name
+        from .expressions.bitwise import BitwiseAnd, ShiftRight
+        from .expressions.cast import Cast
+        from .expressions.generators import GroupingExpr, GroupingID
+        from .types import ByteT, LongT
+        child = self._df._plan
+        keys = [L.resolve_expression(k, child) for k in self._keys]
+        n = len(keys)
+        gset_attrs = [AttributeReference(f"_gset_{i}", k.dtype, True)
+                      for i, k in enumerate(keys)]
+        gid_attr = AttributeReference("_gid", LongT, False)
+        projections: List[List[Expression]] = []
+        for st in self._grouping_sets:
+            gid = 0
+            proj: List[Expression] = list(child.output)
+            for i, k in enumerate(keys):
+                if i in st:
+                    proj.append(k)
+                else:
+                    proj.append(Literal(None, k.dtype))
+                    gid |= 1 << (n - 1 - i)
+            proj.append(Literal(gid, LongT))
+            projections.append(proj)
+        expand = L.Expand(projections,
+                          list(child.output) + gset_attrs + [gid_attr],
+                          child, resolve=False)
+
+        def lower_markers(e: Expression) -> Expression:
+            def rule(x: Expression):
+                if isinstance(x, GroupingID):
+                    return gid_attr
+                if isinstance(x, GroupingExpr):
+                    inner = L.resolve_expression(x.child, child)
+                    for i, k in enumerate(keys):
+                        if isinstance(inner, AttributeReference) \
+                                and isinstance(k, AttributeReference) \
+                                and inner.expr_id == k.expr_id:
+                            return Cast(BitwiseAnd(
+                                ShiftRight(gid_attr, Literal(n - 1 - i)),
+                                Literal(1, LongT)), ByteT)
+                    raise ValueError(f"grouping() argument {inner.pretty()}"
+                                     " is not a grouping column")
+                return None
+            return e.transform(rule)
+
+        lowered = []
+        for e in agg_exprs:
+            low = lower_markers(e)
+            if low is not e and not isinstance(e, Alias):
+                # the user-visible name of an unaliased marker
+                low = Alias(low, L.resolve_expression(e, child).pretty())
+            lowered.append(low)
+        node = L.Aggregate(list(gset_attrs) + [gid_attr], lowered, expand)
+        # the keys under their own names, then the aggregates; _gid goes
+        out = [Alias(node.output[i], output_name(k))
+               for i, k in enumerate(keys)]
+        out += [node.output[n + 1 + j] for j in range(len(lowered))]
+        return DataFrame(L.Project(out, node), self._df.session)
+
+
+def _has_window(exprs) -> bool:
+    from .window import WindowExpression
+    return any(e.collect(lambda x: isinstance(x, WindowExpression))
+               for e in exprs)
+
+
+def _project_with_windows(exprs, df: DataFrame) -> DataFrame:
+    """Window expressions into a ``WindowOp`` below the projection, each
+    occurrence replaced by a reference to its output column (Spark's
+    ExtractWindowExpressions)."""
+    from .window import WindowExpression
+    windows: List = []
+    for e in exprs:
+        for w in e.collect(lambda x: isinstance(x, WindowExpression)):
+            if not any(w is x for x in windows):
+                windows.append(w)
+    node = L.WindowOp(windows, df._plan)
+    attrs = node.window_attrs
+
+    def replace(e: Expression) -> Expression:
+        def rule(x: Expression):
+            for i, w in enumerate(windows):
+                if x is w:
+                    return attrs[i]
+            return None
+        return e.transform(rule)
+
+    return DataFrame(L.Project([replace(e) for e in exprs], node),
+                     df.session)
 
 
 class TorchSession:

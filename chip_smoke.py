@@ -2,8 +2,8 @@
 benchmarks/tpch.py end to end (as spark_rapids_tpu_torch/tpch.py writes
 them), the parquet scan, the query lifecycle (bench.py's hot_repeat
 and serving stages, spill and out-of-memory retry, deadline and cancel)
-and all 99 TPC-DS queries of benchmarks/tpcds.py (as
-spark_rapids_tpu_torch/tpcds.py writes them).
+all 99 TPC-DS queries of benchmarks/tpcds.py (as
+spark_rapids_tpu_torch/tpcds.py writes them), and strings and regex.
 
     python3 chip_smoke.py
 
@@ -181,6 +181,27 @@ prints no result):
        idle share (busy over the best warm collect) and device ops; the
        opTime of the window, Expand and union execs and the compiled
        stages' re-runs of a warm collect. It launches neither Q1 kernel.
+
+13. strings and regex over lineitem at 2^22 rows, customer at its TPC-H
+   ratio and a text table of 2^22 rows built with numpy (0-120 bytes of
+   words, digits, dashes and runs of spaces; 1 row in 64 with a non-ASCII
+   word, 1 in 32 null, some empty; ~250 MB): ten queries (the string
+   functions summed by ship mode over the ASCII rows, a 4,096-row sample
+   with format_number, conv and casts, casts to and from strings over
+   lineitem, rlike / regexp_replace / regexp_extract inside the DFA
+   subset and one backreference outside it, string CASE WHEN, string
+   min/max by groups, lag with a string default and a running max of a
+   string over a window, and the non-ASCII rows through the host hop):
+   (a) at 12,000 rows on the card against the port on the CPU, exactly
+       (the CPU answers, the 2^22-row tables and their oracles made by a
+       process main starts at the beginning, ``chip_smoke.py
+       --strings-prep``);
+   (b) at 2^22 rows in test mode (the non-ASCII query outside it) against
+       pyarrow.compute and Python ``re`` oracles, exactly, two collects
+       identical, each query's host hops (strings.hostPath by class and
+       reason) the ones the reference's design takes and no other;
+   (c) a timing line a query (as phase 12's) and the DFA walk alone by
+       CUDA events with its step count. It launches neither Q1 kernel.
 
 After each phase a phase_wall line gives its wall, its collects, their
 planning ms and the batches the spill catalog registered.
@@ -3183,7 +3204,890 @@ def tpcds_query_at_scale(name, s, t, oracles, big, smi, on_card) -> None:
     print(json.dumps({f"tpcds_{name}": line, "card": smi}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: strings and regex
+# ---------------------------------------------------------------------------
+
+STR_BIG = 1 << 22
+STR_SMALL = 12_000
+#: the text rows (by id) the sample queries compare row by row
+STR_SAMPLE = 4096
+#: the text table's vocabulary: words, digit groups, runs of spaces
+TEXT_WORDS = ["deliver", "in", "person", "take", "back", "return", "none",
+              "collect", "cod", "SHIP", "mail", "truck", "air", "rail",
+              "Express", "PACKAGE", "carefully", "final", "deposits",
+              "sleep", "quickly", "ironic", "requests", "-", "--", "a-b",
+              "  ", "   ", "12-345", "007", "2024-10", "99", "5-6-7",
+              "4096", "x1y2", "eel", "INPUT", "aeiou", "instructions",
+              "accounts", "packages", "furiously", "pinto beans",
+              "regular", "blithely", "slyly even", "314-15-9265"]
+#: the non-ASCII words, one in each of 1 row in 64
+TEXT_WIDE = ["café", "straße", "中文", "naïve", "größe", "日本語"]
+TEXT_MODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
+
+
+def text_table(n: int, seed: int = 13):
+    """The text table: ``id`` (0..n-1), ``mode`` (a TPC-H ship mode) and
+    ``s``, 4-16 words of ``TEXT_WORDS`` joined by spaces, cut to the words
+    that fit in 120 bytes (one row in 16 empty), one row in 64 with a
+    non-ASCII word first, one row in 32 null (its bytes kept: they must
+    not reach a result). Built with numpy, no loop over rows. Returns
+    (columns, validity)."""
+    from spark_rapids_tpu_torch.columnar.vector import HostStrings
+    rng = np.random.default_rng(seed)
+    words = [w.encode() for w in TEXT_WORDS + TEXT_WIDE]
+    n_plain = len(TEXT_WORDS)
+    wlen = np.array([len(w) for w in words], np.int32)
+    mat = np.zeros((len(words), 12), np.uint8)
+    for i, w in enumerate(words):
+        mat[i, :len(w)] = np.frombuffer(w, np.uint8)
+    kmax = 16
+    k = rng.integers(4, kmax + 1, n).astype(np.int32)
+    k[rng.random(n) < 1 / 16] = 0
+    tok = rng.integers(0, n_plain, (n, kmax)).astype(np.int32)
+    wide = (rng.random(n) < 1 / 64) & (k > 0)
+    tok[wide, 0] = n_plain + rng.integers(0, len(TEXT_WIDE),
+                                          int(wide.sum()))
+    use = np.arange(kmax)[None, :] < k[:, None]
+    slot = np.where(use, wlen[tok] + 1, 0).astype(np.int64)
+    # the words that fit: a row is its slots less the last space
+    use &= np.cumsum(slot, axis=1) - 1 <= 120
+    k = use.sum(1).astype(np.int32)
+    slot = np.where(use, slot, 0)
+    has = k > 0
+    slot[np.nonzero(has)[0], k[has] - 1] -= 1  # no space after the last
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(slot.sum(1), out=offsets[1:])
+    # each byte: its slot, its place in the slot, its word; int32 (the
+    # table stays under 2^31 bytes)
+    flat = slot.ravel().astype(np.int32)
+    starts = (np.cumsum(flat, dtype=np.int64) - flat).astype(np.int32)
+    of_byte = np.repeat(np.arange(flat.size, dtype=np.int32), flat)
+    pos = np.arange(of_byte.size, dtype=np.int32)
+    pos -= starts[of_byte]
+    t = tok.ravel()[of_byte]
+    del of_byte
+    space = pos >= wlen[t]
+    src = t * 12 + np.minimum(pos, 11)
+    del t, pos
+    chars = mat.ravel()[src]
+    chars[space] = 32
+    del src, space
+    mode = rng.integers(0, len(TEXT_MODES), n)
+    from spark_rapids_tpu_torch.datagen import _strings_from_words
+    cols = {"id": np.arange(n, dtype=np.int64),
+            "mode": _strings_from_words(TEXT_MODES, mode),
+            "s": HostStrings(offsets.astype(np.int32), chars)}
+    return cols, {"s": rng.random(n) >= 1 / 32}
+
+
+def strings_host_tables(rows: int) -> dict:
+    """Phase 13's tables: lineitem at ``rows`` and customer at its TPC-H
+    ratio (``datagen.tpch_host_tables``, seed 42) and the text table at
+    ``rows``; each (columns, validity, partitions)."""
+    from spark_rapids_tpu_torch.datagen import tpch_host_tables
+    host = tpch_host_tables(rows, 4, names=("lineitem", "customer"))
+    cols, valid = text_table(rows)
+    host["text"] = (cols, valid, 4)
+    return host
+
+
+def arrow_table(cols: dict, valid: dict):
+    """A host table (numpy, ``HostStrings``) as an Arrow table, nulls from
+    ``valid`` (the reference's ``createDataFrame`` reads Arrow)."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar.vector import HostStrings
+    out = {}
+    for name, v in cols.items():
+        mask = None if name not in valid else ~valid[name]
+        if isinstance(v, HostStrings):
+            n = len(v)
+            bitmap = None if mask is None else pa.py_buffer(np.packbits(
+                ~mask, bitorder="little").tobytes())
+            out[name] = pa.Array.from_buffers(
+                pa.string(), n, [bitmap, pa.py_buffer(v.offsets.tobytes()),
+                                 pa.py_buffer(v.chars.tobytes())],
+                null_count=0 if mask is None else int(mask.sum()))
+        else:
+            out[name] = pa.array(v, mask=mask)
+    return pa.table(out)
+
+
+def _ascii_text(F, text):
+    return text.filter((F.length("s") == F.octet_length("s"))
+                       | F.col("s").isNull())
+
+
+#: the string-valued text functions, all on the device over ASCII
+TEXT_STRING_FNS = {
+    "upper": lambda F, c: F.upper(c), "lower": lambda F, c: F.lower(c),
+    "trim": lambda F, c: F.trim(c), "ltrim": lambda F, c: F.ltrim(c),
+    "rtrim": lambda F, c: F.rtrim(c), "reverse": lambda F, c: F.reverse(c),
+    "initcap": lambda F, c: F.initcap(c),
+    "repeat": lambda F, c: F.repeat(c, 2),
+    "replace": lambda F, c: F.replace(c, "e", "EE"),
+    "translate": lambda F, c: F.translate(c, "aeiou", "AEI"),
+    "lpad": lambda F, c: F.lpad(c, 20, "*"),
+    "rpad": lambda F, c: F.rpad(c, 20, "-="),
+    "concat_ws": lambda F, c: F.concat_ws("|", c, F.col("mode")),
+    "substring_index": lambda F, c: F.substring_index(c, " ", 2),
+    "substring": lambda F, c: F.substring(c, 3, 5)}
+#: the integer-valued ones
+TEXT_INT_FNS = {
+    "length": lambda F, c: F.length(c),
+    "octet_length": lambda F, c: F.octet_length(c),
+    "bit_length": lambda F, c: F.bit_length(c),
+    "ascii": lambda F, c: F.ascii(c),
+    "locate": lambda F, c: F.locate("in", c),
+    "instr": lambda F, c: F.instr(c, "e"),
+    "startswith": lambda F, c: c.startswith("de").cast("int"),
+    "endswith": lambda F, c: c.endswith("n").cast("int"),
+    "contains": lambda F, c: c.contains("ship").cast("int")}
+#: the ones whose oracle is Python a row at a time (no pyarrow.compute
+#: function has Spark's definition), in the prep process over the whole
+#: table too
+PY_ORACLE = {"initcap", "translate", "rpad", "substring_index", "ascii"}
+
+
+#: phase 13's regex patterns: inside the DFA subset, and one outside it
+RX_PHONE = r"^\d{2}-\d{3}"
+RX_INSTRUCT = "(DELIVER|TAKE) BACK"
+RX_WORDS = "[A-Z]+ [A-Z]{2} "
+RX_BACKREF = r"(\d)\1"
+RX_DIGITS = r"\d+"
+RX_PAIR = r"(\d+)-(\d+)"
+RX_TEXT = r"[0-9]{2}-[0-9]{3}"
+
+
+def strings_queries(F, Window, t) -> dict:
+    """Phase 13's queries over ``strings_host_tables``' frames ``t``, built
+    with either package's ``functions`` and ``Window``: name → (DataFrame,
+    the columns its rows sort by)."""
+    text, li, cu = t["text"], t["lineitem"], t["customer"]
+    s = F.col("s")
+    asc = _ascii_text(F, text)
+    # a string function's sum of lengths and of Spark's hash of its rows
+    # (a digest of every byte in its place)
+    aggs = [F.count("*").alias("n")]
+    for name, fn in TEXT_STRING_FNS.items():
+        aggs += [F.sum(F.length(fn(F, s))).alias(f"len_{name}"),
+                 F.sum(F.hash(fn(F, s))).alias(f"hash_{name}")]
+    for name, fn in TEXT_INT_FNS.items():
+        aggs.append(F.sum(fn(F, s)).alias(f"sum_{name}"))
+    aggs += [F.min(F.upper(s)).alias("min_upper"),
+             F.max(F.trim(s)).alias("max_trim"),
+             F.min(s).alias("min_s"), F.max(s).alias("max_s")]
+    sample = asc.filter(F.col("id") < STR_SAMPLE).select(
+        "id", s, *[fn(F, s).alias(name)
+                   for name, fn in TEXT_STRING_FNS.items()],
+        *[fn(F, s).alias(name) for name, fn in TEXT_INT_FNS.items()],
+        F.format_number(F.col("id") * 1.25, 2).alias("format_number"),
+        F.conv(F.col("id").cast("string"), 10, 16).alias("conv"),
+        F.regexp_replace(s, RX_DIGITS, "#").alias("regexp_replace"),
+        F.regexp_extract(s, RX_TEXT, 0).alias("regexp_extract"),
+        F.rlike(s, RX_TEXT).alias("rlike"))
+    q_ = F.col("l_quantity")
+    p_ = F.col("l_extendedprice")
+    d_ = F.col("l_shipdate")
+    casts = li.groupBy("l_shipmode").agg(
+        F.count("*").alias("n"),
+        F.sum(F.length(q_.cast("string"))).alias("len_q"),
+        F.sum(F.length(p_.cast("string"))).alias("len_p"),
+        F.min(d_.cast("string")).alias("min_d"),
+        F.max(d_.cast("string")).alias("max_d"),
+        F.sum(q_.cast("string").cast("int")).alias("sum_q"),
+        F.sum(F.when(p_.cast("string").cast("double") == p_, 1)
+              .otherwise(0)).alias("p_round_trips"),
+        F.sum(F.when(d_.cast("string").cast("date") == d_, 1)
+              .otherwise(0)).alias("d_round_trips"),
+        F.sum(F.length(F.upper(F.col("l_shipinstruct")))).alias("len_up"),
+        F.min("l_shipinstruct").alias("min_i"),
+        F.max("l_shipinstruct").alias("max_i"))
+    phone = F.col("c_phone")
+    regex_cu = cu.groupBy("c_mktsegment").agg(
+        F.count("*").alias("n"),
+        F.sum(F.rlike(phone, RX_PHONE).cast("int")).alias("phone"),
+        F.sum(F.rlike(phone, RX_BACKREF).cast("int")).alias("backref"),
+        F.sum(F.length(F.regexp_extract(phone, RX_PAIR, 1)))
+        .alias("len_g1"),
+        F.max(F.regexp_extract(phone, RX_PAIR, 1)).alias("max_g1"))
+    ins = F.col("l_shipinstruct")
+    regex_li = li.groupBy("l_shipmode").agg(
+        F.count("*").alias("n"),
+        F.sum(F.rlike(ins, RX_INSTRUCT).cast("int")).alias("take_back"),
+        F.sum(F.rlike(ins, RX_WORDS).cast("int")).alias("words"))
+    regex_text = asc.groupBy("mode").agg(
+        F.count("*").alias("n"),
+        F.sum(F.rlike(s, RX_TEXT).cast("int")).alias("rlike"),
+        F.sum(F.length(F.regexp_replace(s, RX_DIGITS, "#")))
+        .alias("len_replace"),
+        F.sum(F.length(F.regexp_extract(s, RX_TEXT, 0)))
+        .alias("len_extract"))
+    flag = F.col("l_returnflag")
+    case = li.select(F.when(flag == "R", F.col("l_shipmode"))
+                     .when(ins.like("DELIVER%"), F.lit("deliver"))
+                     .otherwise(F.concat(F.col("l_linestatus"), F.lit("-"),
+                                         flag)).alias("c"),
+                     ins).groupBy("c").agg(
+        F.count("*").alias("n"), F.min(ins).alias("min_i"),
+        F.max(ins).alias("max_i"))
+    minmax = li.groupBy("l_returnflag", "l_linestatus").agg(
+        F.count("*").alias("n"), F.min(ins).alias("min_i"),
+        F.max(ins).alias("max_i"), F.min("l_shipmode").alias("min_m"),
+        F.max("l_shipmode").alias("max_m"))
+    w = Window.partitionBy("l_returnflag").orderBy(
+        "l_orderkey", "l_extendedprice", "l_partkey")
+    window = li.select(
+        "l_returnflag",
+        F.lag("l_shipmode", 1, "none").over(w).alias("prev_mode"),
+        F.max(ins).over(w).alias("max_i")).groupBy(
+        "l_returnflag", "prev_mode", "max_i").agg(F.count("*").alias("n"))
+    wide = text.filter(F.length("s") != F.octet_length("s")).select(
+        "id", s, *[fn(F, s).alias(name)
+                   for name, fn in TEXT_STRING_FNS.items()
+                   if name != "concat_ws"],
+        *[fn(F, s).alias(name) for name, fn in TEXT_INT_FNS.items()],
+        s.like("%a_e%").alias("like"),
+        F.regexp_replace(s, RX_DIGITS, "#").alias("regexp_replace"))
+    return {"a_text": (asc.groupBy("mode").agg(*aggs), ["mode"]),
+            "a_sample": (sample, ["id"]),
+            "a_casts": (casts, ["l_shipmode"]),
+            "b_customer": (regex_cu, ["c_mktsegment"]),
+            "b_lineitem": (regex_li, ["l_shipmode"]),
+            "b_text": (regex_text, ["mode"]),
+            "c_case": (case, ["c"]),
+            "c_minmax": (minmax, ["l_returnflag", "l_linestatus"]),
+            "c_window": (window, ["l_returnflag", "prev_mode", "max_i"]),
+            "d_non_ascii": (wide, ["id"])}
+
+
+#: the host hops phase 13 expects a query to take, by (class, reason):
+#: the reference's design (string casts, host row ops, the string
+#: min/max segment, capture groups, an out-of-subset pattern, non-ASCII
+#: input); every other string expression stays on the card
+_MINMAX = {("Min", "string min/max segment"),
+           ("Max", "string min/max segment")}
+STR_EXPECTED_HOPS = {
+    "a_text": _MINMAX,
+    "a_sample": {("FormatNumber", "host row op"), ("Conv", "host row op"),
+                 ("Cast", "string cast")},
+    "a_casts": _MINMAX | {("Cast", "string cast")},
+    "b_customer": {("RLike", "out-of-subset pattern"),
+                   ("RegexpExtract", "capture group"),
+                   ("Max", "string min/max segment")},
+    "b_lineitem": set(),
+    "b_text": set(),
+    "c_case": _MINMAX,
+    "c_minmax": _MINMAX,
+    "c_window": set(),
+}
+
+
+def sorted_rows(rows, keys):
+    """Rows sorted by ``keys`` (nulls first), as tuples of every column."""
+    def k(r):
+        return tuple((r[c] is not None, r[c] if r[c] is not None else "")
+                     for c in keys)
+    return [tuple(r.values()) for r in sorted(rows, key=k)]
+
+
+def strings_cpu_answers(rows: int, path: str) -> None:
+    """Phase 13's queries through the port on the CPU at ``rows``: sorted
+    rows a query, pickled to ``path``."""
+    import pickle
+    from spark_rapids_tpu_torch.memory.device import TorchDeviceManager
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.window import Window
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.datagen import tpch_frames
+    TorchDeviceManager.initialize(device="cpu", total_bytes=8 << 30)
+    s = TorchSession({}, device="cpu")
+    t = tpch_frames(s, strings_host_tables(rows))
+    out = {name: sorted_rows(q.collect(), keys)
+           for name, (q, keys) in strings_queries(F, Window, t).items()}
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def _pc_text(pc, pa, s, mode) -> dict:
+    """pyarrow.compute answers of the text functions over ``s`` (the ones
+    of ``PY_ORACLE`` left out)."""
+    return {
+        "upper": pc.utf8_upper(s), "lower": pc.utf8_lower(s),
+        "trim": pc.utf8_trim_whitespace(s),
+        "ltrim": pc.utf8_ltrim_whitespace(s),
+        "rtrim": pc.utf8_rtrim_whitespace(s),
+        "reverse": pc.utf8_reverse(s), "repeat": pc.binary_repeat(s, 2),
+        "replace": pc.replace_substring(s, pattern="e", replacement="EE"),
+        # Spark's lpad cuts a longer string to the width
+        "lpad": pc.utf8_lpad(pc.utf8_slice_codeunits(s, 0, 20), width=20,
+                             padding="*"),
+        "concat_ws": pc.binary_join_element_wise(s, mode, "|",
+                                                 null_handling="skip"),
+        "substring": pc.utf8_slice_codeunits(s, 2, 7),
+        "length": pc.utf8_length(s), "octet_length": pc.binary_length(s),
+        "bit_length": pc.multiply(pc.binary_length(s), 8),
+        "locate": pc.add(pc.find_substring(s, "in"), 1),
+        "instr": pc.add(pc.find_substring(s, "e"), 1),
+        "startswith": pc.cast(pc.starts_with(s, "de"), pa.int32()),
+        "endswith": pc.cast(pc.ends_with(s, "n"), pa.int32()),
+        "contains": pc.cast(pc.match_substring(s, "ship"), pa.int32())}
+
+
+def _py_text() -> dict:
+    """Python answers (Spark's definitions) of the text functions a row at
+    a time, and of the regex ones by Python's ``re``."""
+    import re as _re
+
+    def initcap(v):
+        return " ".join(w[:1].upper() + w[1:].lower() if w else w
+                        for w in v.split(" "))
+
+    table = str.maketrans("aei", "AEI", "ou")
+
+    def translate(v):
+        return v.translate(table)
+
+    def rpad(v):
+        return v[:20] if len(v) >= 20 else v + ("-=" * 20)[:20 - len(v)]
+
+    def extract(v):
+        m = _re.search(RX_TEXT, v)
+        return m.group(0) if m else ""
+    return {"initcap": initcap, "translate": translate, "rpad": rpad,
+            "locate": lambda v: v.find("in") + 1,
+            "instr": lambda v: v.find("e") + 1,
+            "substring_index": lambda v: " ".join(v.split(" ")[:2]),
+            "ascii": lambda v: ord(v[0]) if v else 0,
+            "regexp_replace": lambda v: _re.sub(RX_DIGITS, "#", v),
+            "regexp_extract": extract,
+            "rlike": lambda v: _re.search(RX_TEXT, v) is not None,
+            "like": lambda v: _re.fullmatch("(?s).*a.e.*", v) is not None}
+
+
+def _text_rows(pc, pa, table, extra) -> list:
+    """Every text function of ``table``'s rows, with ``extra`` (name →
+    (function of a Python value, Arrow type)), sorted by id: the rows of
+    the sample and non-ASCII queries."""
+    s = table["s"].combine_chunks()
+    vals = s.to_pylist()
+    py = _py_text()
+    fns = _pc_text(pc, pa, s, table["mode"].combine_chunks())
+
+    def col(f, typ):
+        return pa.array([None if v is None else f(v) for v in vals], typ)
+    cols = {"id": table["id"], "s": s}
+    for name in list(TEXT_STRING_FNS) + list(TEXT_INT_FNS):
+        if name in extra:
+            continue
+        if name in PY_ORACLE or name in ("locate", "instr"):
+            # (find_substring counts bytes; locate counts characters)
+            cols[name] = col(py[name], pa.int32() if name in TEXT_INT_FNS
+                             else pa.string())
+        else:
+            cols[name] = fns[name]
+    for name, (f, typ) in extra.items():
+        if f is not None:
+            cols[name] = col(f, typ)
+    return sorted_rows(pa.table(cols).to_pylist(), ["id"])
+
+
+def strings_oracles(host) -> dict:
+    """Phase 13's answers from pyarrow.compute and Python's ``re`` over
+    the host tables, independent of the port: name → sorted rows."""
+    import re as _re
+
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    py = _py_text()
+    text = arrow_table(host["text"][0], host["text"][1])
+    s_all = text["s"].combine_chunks()
+    ascii_ = pc.equal(pc.utf8_length(s_all), pc.binary_length(s_all))
+    asc = text.filter(pc.or_kleene(ascii_, pc.is_null(s_all)))
+    sa = asc["s"].combine_chunks()
+    mode = asc["mode"].combine_chunks()
+    fns = _pc_text(pc, pa, sa, mode)
+    vals = sa.to_pylist()
+    for name in PY_ORACLE:
+        typ = pa.int32() if name in TEXT_INT_FNS else pa.string()
+        fns[name] = pa.array([None if v is None else py[name](v)
+                              for v in vals], typ)
+    del vals
+    # the regex answers over the whole table by RE2 (for these patterns
+    # RE2, Python's re and Java agree); the sample's by Python's re
+    fns["regexp_replace"] = pc.replace_substring_regex(sa, RX_DIGITS, "#")
+    fns["rlike"] = pc.cast(pc.match_substring_regex(sa, RX_TEXT),
+                           pa.int64())
+    fns["regexp_extract"] = pc.if_else(
+        pc.is_null(sa), pa.scalar(None, pa.string()),
+        pc.fill_null(pc.struct_field(pc.extract_regex(
+            sa, f"(?P<m>{RX_TEXT})"), [0]), ""))
+    cols, specs = {"mode": mode, "s": sa}, [("n", "s", "count_all")]
+    for name in TEXT_STRING_FNS:
+        cols[f"len_{name}"] = pc.utf8_length(fns[name])
+        cols[f"hash_{name}"] = pa.array(spark_hash(fns[name]))
+        specs += [(f"len_{name}", f"len_{name}", "sum"),
+                  (f"hash_{name}", f"hash_{name}", "sum")]
+    for name in TEXT_INT_FNS:
+        cols[f"sum_{name}"] = pc.cast(fns[name], pa.int64())
+        specs.append((f"sum_{name}", f"sum_{name}", "sum"))
+    cols["upper"], cols["trim"] = fns["upper"], fns["trim"]
+    specs += [("min_upper", "upper", "min"), ("max_trim", "trim", "max"),
+              ("min_s", "s", "min"), ("max_s", "s", "max")]
+    out = {"a_text": _group_rows(pa.table(cols), ["mode"], specs)}
+    tt = pa.table({"mode": mode, "s": sa, "r": fns["rlike"],
+                   "rr": pc.utf8_length(fns["regexp_replace"]),
+                   "re": pc.utf8_length(fns["regexp_extract"])})
+    out["b_text"] = _group_rows(tt, ["mode"], [
+        ("n", "s", "count_all"), ("rlike", "r", "sum"),
+        ("len_replace", "rr", "sum"), ("len_extract", "re", "sum")])
+
+    sample = asc.filter(pc.less(asc["id"], STR_SAMPLE))
+    out["a_sample"] = _text_rows(pc, pa, sample, {
+        "format_number": (None, None), "conv": (None, None),
+        "regexp_replace": (py["regexp_replace"], pa.string()),
+        "regexp_extract": (py["regexp_extract"], pa.string()),
+        "rlike": (py["rlike"], pa.bool_())})
+    out["a_sample"] = _with_id_columns(out["a_sample"],
+                                       sorted(sample["id"].to_pylist()))
+
+    li_cols, li_valid = host["lineitem"][0], host["lineitem"][1]
+    li = arrow_table(li_cols, li_valid)
+    q = li["l_quantity"].combine_chunks()
+    p = li["l_extendedprice"].combine_chunks()
+    ins = li["l_shipinstruct"].combine_chunks()
+    dtext = pc.cast(li["l_shipdate"].combine_chunks(), pa.string())
+    one = pa.array(np.ones(len(li), np.int64))
+    lt = pa.table({
+        "l_shipmode": li["l_shipmode"],
+        "q": pc.utf8_length(pc.cast(q, pa.string())),
+        "p": pc.utf8_length(pa.array(_java_double_text(p.to_numpy()))),
+        "d": dtext, "qq": pc.cast(q, pa.int64()), "one": one,
+        "up": pc.utf8_length(pc.utf8_upper(ins)), "i": ins})
+    out["a_casts"] = _group_rows(lt, ["l_shipmode"], [
+        ("n", "i", "count_all"), ("len_q", "q", "sum"), ("len_p", "p", "sum"),
+        ("min_d", "d", "min"), ("max_d", "d", "max"), ("sum_q", "qq", "sum"),
+        ("p_round_trips", "one", "sum"), ("d_round_trips", "one", "sum"),
+        ("len_up", "up", "sum"), ("min_i", "i", "min"), ("max_i", "i", "max")])
+
+    cu = arrow_table(host["customer"][0], host["customer"][1])
+    phone = cu["c_phone"].combine_chunks().to_pylist()
+
+    def g1(v):
+        m = _re.search(RX_PAIR, v)
+        return m.group(1) if m else ""
+    ct = pa.table({
+        "c_mktsegment": cu["c_mktsegment"],
+        "phone": pa.array([int(_re.search(RX_PHONE, v) is not None)
+                           for v in phone], pa.int64()),
+        "backref": pa.array([int(_re.search(RX_BACKREF, v) is not None)
+                             for v in phone], pa.int64()),
+        "g1": pa.array([g1(v) for v in phone]),
+        "len_g1": pa.array([len(g1(v)) for v in phone], pa.int64())})
+    out["b_customer"] = _group_rows(ct, ["c_mktsegment"], [
+        ("n", "phone", "count_all"), ("phone", "phone", "sum"),
+        ("backref", "backref", "sum"), ("len_g1", "len_g1", "sum"),
+        ("max_g1", "g1", "max")])
+
+    words = ins.dictionary_encode()
+    dic = words.dictionary.to_pylist()
+
+    def by_word(pat):
+        hit = np.array([int(_re.search(pat, w) is not None) for w in dic])
+        return pa.array(hit[words.indices.to_numpy()], pa.int64())
+    out["b_lineitem"] = _group_rows(pa.table({
+        "l_shipmode": li["l_shipmode"], "i": ins, "tb": by_word(RX_INSTRUCT),
+        "w": by_word(RX_WORDS)}), ["l_shipmode"], [
+        ("n", "i", "count_all"), ("take_back", "tb", "sum"),
+        ("words", "w", "sum")])
+
+    flag = li["l_returnflag"].combine_chunks()
+    status = li["l_linestatus"].combine_chunks()
+    smode = li["l_shipmode"].combine_chunks()
+    c = pc.if_else(pc.equal(flag, "R"), smode,
+                   pc.if_else(pc.starts_with(ins, "DELIVER"), "deliver",
+                              pc.binary_join_element_wise(status, flag,
+                                                          "-")))
+    out["c_case"] = _group_rows(pa.table({"c": c, "i": ins}), ["c"], [
+        ("n", "i", "count_all"), ("min_i", "i", "min"),
+        ("max_i", "i", "max")])
+    out["c_minmax"] = _group_rows(pa.table({
+        "l_returnflag": flag, "l_linestatus": status, "i": ins,
+        "m": smode}), ["l_returnflag", "l_linestatus"], [
+        ("n", "i", "count_all"), ("min_i", "i", "min"), ("max_i", "i", "max"),
+        ("min_m", "m", "min"), ("max_m", "m", "max")])
+
+    # the window, in the stable order of (flag, orderkey, price, partkey),
+    # over dictionary codes: a flag's code for its partition, the
+    # instruction's rank among the distinct instructions for the running max
+    def codes(arr):
+        enc = arr.dictionary_encode()
+        return enc.indices.to_numpy().astype(np.int64), \
+            np.array(enc.dictionary.to_pylist(), dtype=object)
+    f_code, f_words = codes(flag)
+    m_code, m_words = codes(smode)
+    i_code, i_words = codes(ins)
+    i_rank = np.argsort(np.argsort(i_words))  # code -> rank in byte order
+    order = np.lexsort((np.arange(len(f_code)), li_cols["l_partkey"],
+                        li_cols["l_extendedprice"], li_cols["l_orderkey"],
+                        f_code))
+    fo = f_code[order]
+    start = np.ones(len(fo), bool)
+    start[1:] = fo[1:] != fo[:-1]
+    prev = np.empty(len(fo), np.int64)  # -1: the default, "none"
+    prev[1:] = m_code[order][:-1]
+    prev[start] = -1
+    seg = np.cumsum(start) - 1
+    rank = i_rank[i_code[order]]
+    # a running max within each partition: a later partition's ranks
+    # lifted above every earlier one's
+    run = np.maximum.accumulate(rank + seg * len(i_words)) \
+        - seg * len(i_words)
+    key = (fo * (len(m_words) + 1) + prev + 1) * len(i_words) + run
+    uniq, counts = np.unique(key, return_counts=True)
+    by_rank = np.array(sorted(i_words), dtype=object)
+    m_names = np.concatenate([np.array(["none"], dtype=object), m_words])
+    out["c_window"] = sorted_rows([
+        {"l_returnflag": f_words[k // len(i_words) // (len(m_words) + 1)],
+         "prev_mode": m_names[k // len(i_words) % (len(m_words) + 1)],
+         "max_i": by_rank[k % len(i_words)], "n": int(c)}
+        for k, c in zip(uniq.tolist(), counts.tolist())],
+        ["l_returnflag", "prev_mode", "max_i"])
+
+    wide = text.filter(pc.invert(pc.fill_null(ascii_, True)))
+    out["d_non_ascii"] = _text_rows(pc, pa, wide, {
+        "concat_ws": (None, None),
+        "like": (py["like"], pa.bool_()),
+        "regexp_replace": (py["regexp_replace"], pa.string())})
+    return out
+
+
+def spark_hash(arr) -> np.ndarray:
+    """Spark's ``hash`` of each row of a pyarrow string array (Murmur3
+    x86_32, seed 42, over the UTF-8 bytes as ``hashUnsafeBytes``: 4-byte
+    little-endian blocks, then each tail byte alone, sign-extended), by
+    numpy: int64 values of the int32 hashes; a null row keeps the seed."""
+    import pyarrow as pa
+    arr = arr.cast(pa.large_string())
+    n = len(arr)
+    offs = np.frombuffer(arr.buffers()[1], np.int64)[
+        arr.offset:arr.offset + n + 1]
+    data = np.frombuffer(arr.buffers()[2], np.uint8) \
+        if arr.buffers()[2] is not None else np.zeros(0, np.uint8)
+    starts, lens = offs[:-1], offs[1:] - offs[:-1]
+    u = np.uint32
+
+    def rotl(x, r):
+        return (x << u(r)) | (x >> u(32 - r))
+
+    def mix(h, k):
+        k = rotl(k * u(0xCC9E2D51), 15) * u(0x1B873593)
+        return rotl(h ^ k, 13) * u(5) + u(0xE6546B64)
+    h = np.full(n, 42, np.uint32)
+    blocks = lens // 4
+    for b in range(int(blocks.max()) if n else 0):
+        rows = np.nonzero(blocks > b)[0]
+        at = starts[rows] + 4 * b
+        word = data[at].astype(np.uint32)
+        for k in range(1, 4):
+            word |= data[at + k].astype(np.uint32) << u(8 * k)
+        h[rows] = mix(h[rows], word)
+    for t in range(3):
+        pos = blocks * 4 + t
+        rows = np.nonzero(pos < lens)[0]
+        byte = data[starts[rows] + pos[rows]].view(np.int8)
+        h[rows] = mix(h[rows], byte.astype(np.int32).view(np.uint32))
+    h ^= lens.astype(np.uint32)
+    h ^= h >> u(16)
+    h *= u(0x85EBCA6B)
+    h ^= h >> u(13)
+    h *= u(0xC2B2AE35)
+    h ^= h >> u(16)
+    valid = np.asarray(arr.is_valid())
+    return np.where(valid, h.view(np.int32).astype(np.int64), 42)
+
+
+def _with_id_columns(rows, ids) -> list:
+    """The sample's rows with format_number(id * 1.25, 2) and conv(id, 10,
+    16), by Python's formatting, where the query has them (after the
+    integer functions)."""
+    at = 2 + len(TEXT_STRING_FNS) + len(TEXT_INT_FNS)
+    out = []
+    for r, i in zip(rows, ids):
+        r = list(r)
+        out.append(tuple(r[:at] + [f"{i * 1.25:,.2f}", format(i, "X")]
+                         + r[at:]))
+    return out
+
+
+def _java_double_text(v: np.ndarray) -> list:
+    """Java's ``Double.toString`` of values in [1e-3, 1e7): the shortest
+    round-trip digits, a ".0" where they have no point (what phase 13's
+    prices are)."""
+    check(bool(((np.abs(v) >= 1e-3) & (np.abs(v) < 1e7)).all()),
+          "a price outside [1e-3, 1e7)")
+    text = v.astype(str)
+    return np.where(np.char.find(text, ".") >= 0, text,
+                    np.char.add(text, ".0")).tolist()
+
+
+def _group_rows(table, keys, specs) -> list:
+    """Grouped rows of a pyarrow table as ``sorted_rows`` gives them;
+    ``specs``: (output name, column, sum | min | max | count_all)."""
+    import pyarrow.compute as pc
+    agg = table.group_by(keys).aggregate(
+        [(col, "count", pc.CountOptions(mode="all")) if how == "count_all"
+         else (col, how) for _, col, how in specs])
+    rows = []
+    for r in agg.to_pylist():
+        row = {k: r[k] for k in keys}
+        for out, col, how in specs:
+            row[out] = r[f"{col}_{'count' if how == 'count_all' else how}"]
+        rows.append(row)
+    return sorted_rows(rows, keys)
+
+
+def _hop_delta(before: dict, after: dict) -> dict:
+    from spark_rapids_tpu_torch.expressions.strings import host_path_counts
+    b = host_path_counts(before)
+    return {k: v - b.get(k, 0) for k, v in host_path_counts(after).items()
+            if v - b.get(k, 0)}
+
+
+def check_hops(name: str, hops: dict) -> None:
+    """A query's host hops are the ones the reference's design takes."""
+    if name == "d_non_ascii":
+        check(bool(hops) and all(r == "non-ASCII" for _, r in hops),
+              f"{name}: host hops {hops}")
+        return
+    want = STR_EXPECTED_HOPS[name]
+    check(set(hops) == want, f"{name}: host hops {hops}, expected "
+          f"{sorted(want)}")
+
+
+def strings_prep(small: int, big: int, out_dir: str) -> None:
+    """Phase 13's host work, in a process of its own: the port's CPU
+    answers at ``small`` rows, then the tables at ``big`` rows and their
+    oracles, each pickled into ``out_dir`` as it is done."""
+    import os
+    import pickle
+    strings_cpu_answers(small, os.path.join(out_dir, "answers.pkl"))
+    host = strings_host_tables(big)
+    with open(os.path.join(out_dir, "tables.pkl"), "wb") as f:
+        pickle.dump(host, f, protocol=5)
+    oracles = strings_oracles(host)
+    with open(os.path.join(out_dir, "oracles.pkl"), "wb") as f:
+        pickle.dump(oracles, f, protocol=5)
+
+
+class StringsPrep(CpuAnswers):
+    """Phase 13's CPU answers, tables and oracles: with ``start``, made by a
+    process of its own (``chip_smoke.py --strings-prep``), which main
+    starts at the beginning of the run so they are ready by phase 13 (it
+    runs on the host beside the card's phases); else made in this process
+    when asked for."""
+
+    def __init__(self, small: int, big: int, start: bool):
+        import os
+        import tempfile
+        self.small, self.big = small, big
+        self.dir = tempfile.mkdtemp(prefix="strings_prep_")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--strings-prep",
+             str(small), str(big), self.dir]) if start else None
+
+    def result(self):
+        """(CPU answers, host tables, oracles)."""
+        import os
+        import pickle
+        if self.proc is None:
+            strings_prep(self.small, self.big, self.dir)
+        else:
+            check(self.proc.wait(timeout=1200) == 0,
+                  "phase 13's host work failed")
+        out = []
+        for name in ("answers", "tables", "oracles"):
+            with open(os.path.join(self.dir, f"{name}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return tuple(out)
+
+
+def dfa_walks_of(q, smi) -> None:
+    """The DFA walks of one collect of ``q``, measured: every call of
+    ``rlike_device`` and ``match_lengths_device`` that the collect makes is
+    recorded, then the same calls are replayed alone, profiled for their
+    device ops (launches) and timed by CUDA events."""
+    from spark_rapids_tpu_torch.kernels import regex_dfa as RD
+    calls = {"rlike_device": [], "match_lengths_device": []}
+    real = {k: getattr(RD, k) for k in calls}
+
+    def recorder(kind):
+        def call(*args):
+            calls[kind].append(args)
+            return real[kind](*args)
+        return call
+    try:
+        for k in calls:
+            setattr(RD, k, recorder(k))
+        q.collect()
+    finally:
+        for k, f in real.items():
+            setattr(RD, k, f)
+    out = {}
+    for kind, args in calls.items():
+        if not args:
+            continue
+
+        def replay(kind=kind, args=args):
+            for a in args:
+                real[kind](*a)
+        busy, _, ops = profile_device(replay, 1)
+        out[kind] = {"walks": len(args), "steps": [a[3] for a in args],
+                     "launches": ops, "busy_ms": busy,
+                     "ms": time_ms(replay, 3, reps=3, warmup=1)}
+    del calls
+    print(json.dumps({"dfa_walks_b_text_collect": out, "card": smi}),
+          flush=True)
+
+
+def dfa_walk_ms(t, smi) -> None:
+    """The DFA walk alone (``kernels/regex_dfa.rlike_device``) by CUDA
+    events over the card's columns: l_shipinstruct and the text's ASCII
+    rows, with its step count (the longest row) and launches a walk (its
+    device ops, profiled)."""
+    from spark_rapids_tpu_torch.columnar.vector import TorchColumnVector
+    from spark_rapids_tpu_torch.kernels import regex_dfa as RD
+    from spark_rapids_tpu_torch.kernels.strings import string_stats
+    from spark_rapids_tpu_torch.types import StringT
+    out = {}
+    for key, (hs, pat) in t.items():
+        col = TorchColumnVector.from_strings(StringT, hs.offsets, hs.chars,
+                                             device="cuda")
+        dfa = RD.compile_dfa(pat)
+        ascii_, steps = string_stats(col)
+        check(ascii_ or dfa.ascii_atoms, f"{key}: the walk's input")
+        RD.rlike_device(col.data, col.offsets, dfa, steps)  # warm
+        ms = time_ms(lambda: RD.rlike_device(col.data, col.offsets, dfa,
+                                             steps), 5, reps=3, warmup=1)
+        _, _, ops = profile_device(lambda: RD.rlike_device(
+            col.data, col.offsets, dfa, steps), 1, warm=False)
+        out[key] = {"rows": len(hs), "bytes": int(hs.offsets[-1]),
+                    "pattern": pat, "dfa_states": int(dfa.table.shape[0]),
+                    "steps": steps, "ms": ms, "ms_per_step": ms / steps,
+                    "launches": ops, "launches_per_step": ops / steps}
+    print(json.dumps({"dfa_walk": out, "card": smi}), flush=True)
+
+
+def strings_paths(F, TorchSession, smi, device: str = "cuda",
+                  small: int = STR_SMALL, big: int = STR_BIG,
+                  prep: "StringsPrep" = None) -> None:
+    """Phase 13. With ``device="cpu"`` it checks the script's oracles and
+    compares off the card at the sizes given (no timing lines)."""
+    from spark_rapids_tpu_torch.datagen import tpch_frames
+    from spark_rapids_tpu_torch.window import Window
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+
+    # the card (or this process) at `small` rows against the port on the
+    # CPU over the same tables
+    own = prep is None
+    if own:
+        prep = StringsPrep(small, big, start=on_card)
+    try:
+        s = TorchSession({}, device=device)
+        t = tpch_frames(s, strings_host_tables(small))
+        mine = {name: sorted_rows(q.collect(), keys) for name, (q, keys)
+                in strings_queries(F, Window, t).items()}
+        del t, s
+        t1 = time.perf_counter()
+        cpu, host, oracles = prep.result()
+    finally:
+        if own:
+            prep.close()
+    for name, rows in mine.items():
+        check(bool(rows), f"{name} at {small}: no rows")
+        check(rows == cpu[name], f"{name} at {small}: the card and the CPU "
+              f"differ: {_first_difference(rows, cpu[name])}")
+    print(f"(13) all {len(mine)} queries at {small} rows on {device} equal "
+          "the port's CPU answers", flush=True)
+    if on_card:
+        release_plans()
+    print(f"phase 13 waited {time.perf_counter() - t1:.1f} s for its "
+          "CPU answers, 2^22-row tables and oracles; text bytes "
+          f"{int(host['text'][0]['s'].offsets[-1])}", flush=True)
+    s = TorchSession({"spark.rapids.sql.test.enabled": "true"},
+                     device=device)
+    wide = TorchSession({}, device=device)  # (d): the host hop, off test mode
+    t = tpch_frames(s, host)
+    tw = {"text": tpch_frames(wide, {"text": host["text"]})["text"],
+          "lineitem": t["lineitem"], "customer": t["customer"]}
+    queries = strings_queries(F, Window, t)
+    queries["d_non_ascii"] = strings_queries(F, Window, tw)["d_non_ascii"]
+    for name, (q, keys) in queries.items():
+        sess = wide if name == "d_non_ascii" else s
+        before = dict(sess.counters)
+        c0 = time.perf_counter()
+        runs: list = []
+        if on_card:
+            busy_ms, per_op, ops = profile_device(
+                lambda: runs.append(q.collect()), 1, warm=False)
+        else:
+            runs.append(q.collect())
+        first = time.perf_counter() - c0
+        hops = _hop_delta(before, dict(sess.counters))
+        got = sorted_rows(runs[0], keys)
+        check(got == oracles[name], f"{name} at {big}: differs from the "
+              f"oracle: {_first_difference(got, oracles[name])}")
+        check_hops(name, hops)
+        best = float("inf")
+        for _ in range(2):
+            c0 = time.perf_counter()
+            again = q.collect()
+            best = min(best, time.perf_counter() - c0)
+            check(again == runs[0], f"{name} at {big}: two collects differ")
+        # the rows its functions see: a grouped query's count column, a
+        # query of rows its result
+        seen = sum(r["n"] for r in runs[0]) \
+            if runs[0] and "n" in runs[0][0] else len(got)
+        line = {"table_rows": big, "rows": seen, "result_rows": len(got),
+                "first_collect_s": first, "best_collect_s": best,
+                "host_path": {f"{c}.{r}": n for (c, r), n in hops.items()}}
+        if on_card:
+            line.update({
+                "device_busy_ms": busy_ms,
+                "htod_ms": sum(ms for k, ms in per_op if "HtoD" in k),
+                "idle_share": 1.0 - busy_ms / (best * 1e3),
+                "device_ops": ops,
+                "top_device_ops_ms": [(k[:60], ms) for k, ms in per_op[:3]]})
+        print(json.dumps({f"strings_{name}": line, "card": smi}), flush=True)
+        if on_card and name == "b_text":
+            dfa_walks_of(q, smi)
+    print(f"(13) all {len(queries)} queries at {big} rows on {device}: "
+          "oracles equal, two collects identical, host hops as designed, "
+          "(a)-(c) in test mode", flush=True)
+    del t, tw, s, wide, queries
+    if on_card:
+        li = host["lineitem"][0]["l_shipinstruct"]
+        dfa_walk_ms({"l_shipinstruct": (li, RX_INSTRUCT),
+                     "text": (_ascii_strings(host["text"][0]["s"]),
+                              RX_TEXT)}, smi)
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _ascii_strings(hs):
+    """The rows of a host string column whose bytes are all ASCII."""
+    from spark_rapids_tpu_torch.datagen import _keep_rows
+    offs = hs.offsets.astype(np.int64)
+    wide = np.concatenate([[0], np.cumsum(hs.chars >= 0x80)])
+    return _keep_rows(hs, wide[offs[1:]] == wide[offs[:-1]])
+
+
 def main() -> int:
+    if len(sys.argv) == 5 and sys.argv[1] == "--strings-prep":
+        # phase 13's CPU answers, tables and oracles, beside the card's run
+        torch.set_num_threads(2)
+        strings_prep(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
     if len(sys.argv) == 4 and sys.argv[1] == "--tpcds-cpu":
         # phase 12's CPU answers, beside the card's run: two threads, so
         # the card's host side keeps its cores
@@ -3209,19 +4113,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
 
     clock = PhaseClock(smi)
-    # phase 12's CPU answers, computed meanwhile by a process of their own
+    # phase 12's CPU answers and phase 13's host work, done meanwhile by
+    # processes of their own
     cpu_answers = CpuAnswers(TPCDS_SMALL, start=True)
+    prep = StringsPrep(STR_SMALL, STR_BIG, start=True)
     try:
         return run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
-                          cpu_answers)
+                          cpu_answers, prep)
     finally:
         cpu_answers.close()
+        prep.close()
 
 
 def run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
-               cpu_answers) -> int:
-    """Phases 2-12 (``main`` prints phase 1 and starts phase 12's CPU
-    answers)."""
+               cpu_answers, prep) -> int:
+    """Phases 2-13 (``main`` prints phase 1 and starts phase 12's CPU
+    answers and phase 13's host work)."""
     from spark_rapids_tpu_torch.entry import entry
     from spark_rapids_tpu_torch.kernels import build, q1_cuda
     from spark_rapids_tpu_torch.kernels.q1 import (make_example_batch,
@@ -3439,6 +4346,15 @@ def run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
     check(dict(q1_cuda.launches) == before, "phase 12 launched a Q1 kernel")
     release_plans()
     clock.mark(12)
+
+    # 13. strings and regex: the card against the port's CPU answers at
+    # 12,000 rows; at 2^22 rows against pyarrow/Python oracles, the host
+    # hops counted. It launches neither Q1 kernel.
+    before = dict(q1_cuda.launches)
+    strings_paths(F, TorchSession, smi, prep=prep)
+    check(dict(q1_cuda.launches) == before, "phase 13 launched a Q1 kernel")
+    release_plans()
+    clock.mark(13)
 
     print(kernels_line, flush=True)  # again, near the end of the output
     print(nvidia_smi())

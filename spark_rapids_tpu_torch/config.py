@@ -74,6 +74,24 @@ VARIABLE_FLOAT_AGG_ENABLED = ConfEntry(
     "Allow float sum/avg aggregations whose result can vary with the "
     "order of accumulation; false keeps them on the CPU.", True, _parse_bool)
 
+# the device regex engine's sizing (reference config.py:1414-1445)
+
+REGEX_MAX_DEVICE_ROW_BYTES = ConfEntry(
+    "spark.rapids.sql.regexp.maxDeviceRowBytes",
+    "Longest string row the device regex DFA walks (rlike); a batch with a "
+    "longer row takes the host path.", 4096, int)
+
+REGEX_MAX_SPAN_ROW_BYTES = ConfEntry(
+    "spark.rapids.sql.regexp.maxSpanRowBytes",
+    "Longest string row for the device regexp_replace/extract span walk "
+    "(O(bytes x row length)); a batch with a longer row takes the host "
+    "path.", 512, int)
+
+REGEX_MAX_DFA_STATES = ConfEntry(
+    "spark.rapids.tpu.regex.maxDfaStates",
+    "Upper bound on device regex DFA states; a pattern compiling larger "
+    "takes the host path.", 128, int)
+
 ANSI_ENABLED = ConfEntry(
     "spark.sql.ansi.enabled",
     "ANSI mode: arithmetic overflow and invalid casts raise instead of "

@@ -267,8 +267,48 @@ class _Segments:
         return out
 
 
+def _host_string_minmax(op: str, col: TorchColumnVector, segs: _Segments,
+                        ctx) -> Dict:
+    """min/max of a string column by groups, the reference's host-assisted
+    segment (``spark_rapids_tpu/execs/aggregates.py:975``): the strings and
+    each row's group id go to the host, an Arrow hash aggregate takes each
+    group's min or max (Arrow orders strings by their bytes, as Spark),
+    and the groups' strings come back as one upload. Counted in
+    ``strings.hostPath`` under the aggregate's class."""
+    import pyarrow as pa
+    from ..expressions.strings import column_to_arrow, host_path
+    from ..types import to_arrow
+    host_path(ctx, "Min" if op == "min" else "Max", "string min/max segment")
+    n, g = segs.n, segs.n_groups
+    out = pa.nulls(g, pa.string())
+    if n and g:
+        arr = column_to_arrow(col)
+        group = np.empty(n, np.int64)  # each input row's group
+        group[segs.perm.cpu().numpy()] = segs.seg_ids.cpu().numpy()
+        agg = pa.table({"g": group, "v": arr}).group_by("g").aggregate(
+            [("v", op)])
+        at = np.full(g, -1, np.int64)
+        at[agg["g"].to_numpy()] = np.arange(agg.num_rows)
+        out = agg[f"v_{op}"].combine_chunks().take(
+            pa.array(at, mask=at < 0))
+    if out.type != to_arrow(col.dtype):
+        out = out.cast(to_arrow(col.dtype))
+    offsets = np.frombuffer(out.buffers()[1], np.int32, g + 1,
+                            out.offset * 4).astype(np.int64) if g \
+        else np.zeros(1, np.int64)
+    base = int(offsets[0])
+    chars = np.frombuffer(out.buffers()[2], np.uint8,
+                          int(offsets[-1]) - base, base) \
+        if g and offsets[-1] > base else np.zeros(0, np.uint8)
+    valid = np.asarray(out.is_valid().to_numpy(zero_copy_only=False),
+                       dtype=bool) if g else np.zeros(0, bool)
+    return {"column": TorchColumnVector.from_strings(
+        col.dtype, (offsets - base).astype(np.int32), chars, valid,
+        capacity=segs.g_cap, device=col.device)}
+
+
 def _segment_update(fn: AggregateFunction, col: Optional[TorchColumnVector],
-                    segs: _Segments) -> Dict[str, torch.Tensor]:
+                    segs: _Segments, ctx=None) -> Dict[str, torch.Tensor]:
     """Per-group partial state of one aggregate over the sorted rows."""
     op = fn.update_op
     valid = None  # None: every row is valid
@@ -277,7 +317,8 @@ def _segment_update(fn: AggregateFunction, col: Optional[TorchColumnVector],
     if op == "count":
         return {"count": segs.count(valid)}
     if col.offsets is not None:
-        # the tagging layer keeps string min/max off the device
+        if op in ("min", "max"):
+            return _host_string_minmax(op, col, segs, ctx)
         raise NotImplementedError(f"{op} of strings not yet ported")
     data = col.data[segs.perm]
     nn = segs.count(valid)
@@ -329,6 +370,8 @@ def _segment_update(fn: AggregateFunction, col: Optional[TorchColumnVector],
 
 def _evaluate_agg(fn: AggregateFunction, state: Dict[str, torch.Tensor],
                   n_groups: int, cap: int) -> TorchColumnVector:
+    if "column" in state:  # a string min/max: the chosen rows
+        return state["column"]
     dev = next(iter(state.values())).device
     gmask = row_mask(n_groups, cap, dev)
     op = fn.update_op
@@ -535,7 +578,7 @@ class TorchHashAggregateExec(TorchExec):
         def chunk_states(chunk: TorchColumnarBatch) -> List[Dict]:
             segs = self._global_segments(chunk, g_cap)
             return [_segment_update(fn, self._eval_agg_input(fn, chunk, ctx),
-                                    segs) for fn in agg_fns]
+                                    segs, ctx) for fn in agg_fns]
 
         while chunks:
             # the same OOM-retry discipline as the in-core path: the chunk
@@ -582,7 +625,7 @@ class TorchHashAggregateExec(TorchExec):
                                           device=dev))
             segs = _Segments(perm, seg_ids, bounds, n, n_groups, g_cap)
         states = [_segment_update(fn, self._eval_agg_input(fn, batch, ctx),
-                                  segs) for fn in agg_fns]
+                                  segs, ctx) for fn in agg_fns]
         agg_cols = [_evaluate_agg(fn, st, segs.n_groups, segs.g_cap)
                     for fn, st in zip(agg_fns, states)]
         out_keys: List[TorchColumnVector] = []

@@ -36,7 +36,8 @@ class TaskContext:
         self.conf = conf
         self.device = device
         self.counters = counters if counters is not None else Counter()
-        self.eval_ctx = EvalContext(self.conf, partition_id=partition_id)
+        self.eval_ctx = EvalContext(self.conf, partition_id=partition_id,
+                                    counters=self.counters)
         self._completion_listeners: List = []
         self._children: List["TaskContext"] = []
 

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from ..columnar.batch import TorchColumnarBatch, concat_batches, gather
-from ..columnar.vector import TorchColumnVector, row_mask
+from ..columnar.vector import TorchColumnVector, bucket_capacity, row_mask
 from ..expressions.aggregates import AggregateFunction
 from ..expressions.base import (AttributeReference, Literal, device_parts,
                                 to_column)
@@ -45,6 +45,9 @@ from ..plan.logical import SortOrder
 from ..window import (CURRENT_ROW, UNBOUNDED_FOLLOWING, UNBOUNDED_PRECEDING,
                       CumeDist, DenseRank, Lag, Lead, NTile, PercentRank,
                       Rank, RowNumber, WindowExpression, WindowSpec)
+from ..expressions.strings import string_key_codes, string_sides
+from ..kernels.strings import concat_columns
+from ..types import StringType
 from .aggregates import encode_group_keys, lex_sort_permutation
 from .base import (PhysicalPlan, TaskContext, TorchExec, bind_references,
                    op_time)
@@ -158,6 +161,10 @@ class TorchWindowExec(TorchExec):
         if isinstance(fn, (Lead, Lag)):
             return self._offset(fn, batch, ctx, perm, idxs, seg_start,
                                 seg_end)
+        if isinstance(fn, AggregateFunction) and fn.update_op in (
+                "min", "max") and isinstance(fn.dtype, StringType):
+            return self._string_minmax(fn, spec, batch, ctx, perm, idxs,
+                                       seg_start, seg_end, is_new_order)
         result, validity = self._compute_fn(
             fn, spec, batch, ctx, perm, idxs, is_new_order, seg_start,
             seg_end)
@@ -231,12 +238,12 @@ class TorchWindowExec(TorchExec):
         out = gather(TorchColumnarBatch([col], n), src, n, cap).columns[0]
         if fn.default is None:
             return out
+        take = outside & row_mask(n, cap, dev)
         if out.offsets is not None:
-            raise NotImplementedError(
-                "lead/lag of strings with a default not yet ported")
+            return _string_default(out, take, fn.default.eval_device(
+                batch, ctx.eval_ctx), batch)
         dd, dv = device_parts(fn.default.eval_device(batch, ctx.eval_ctx),
                               cap, dev)
-        take = outside & row_mask(n, cap, dev)
         data = torch.where(take, torch.broadcast_to(dd, (cap,)).to(
             out.data.dtype), out.data)
         valid = out.validity_or_true() | (take if dv is None
@@ -245,11 +252,43 @@ class TorchWindowExec(TorchExec):
             valid, data, torch.zeros((), dtype=data.dtype, device=dev)),
             valid, n)
 
+    def _string_minmax(self, fn, spec, batch, ctx, perm, idxs, seg_start,
+                       seg_end, is_new_order) -> TorchColumnVector:
+        """Window min / max of a string: the frame's min / max over the
+        strings' order-preserving key codes (equal exactly for equal
+        strings, ``expressions/strings.string_key_codes``), then a row with
+        that code gathered for each result."""
+        cap, n, dev = batch.capacity, batch.num_rows, batch.device
+        col = to_column(fn.children[0].eval_device(batch, ctx.eval_ctx),
+                        batch, fn.children[0].dtype)
+        codes = string_key_codes([col])[0]
+        red, valid = self._agg_over_frame(fn, spec, batch, ctx, perm, idxs,
+                                          seg_start, seg_end, is_new_order,
+                                          values=(codes, col))
+        ok = col.validity_or_true()
+        key = torch.where(ok, codes, torch.iinfo(torch.int64).max)
+        sorted_codes, order = torch.sort(key)
+        at = torch.searchsorted(sorted_codes, red).clamp(max=cap - 1)
+        rows_sorted = torch.where(valid, order[at], -1)
+        inv = torch.empty_like(perm)
+        inv[perm] = idxs
+        rows = torch.where(row_mask(n, cap, dev), rows_sorted[inv], -1)
+        lens = (col.offsets[1:] - col.offsets[:-1]).to(torch.int64)
+        # one host read: the result's bytes (a row may repeat)
+        total = int(torch.where(rows >= 0, lens[rows.clamp(min=0)], 0).sum())
+        return gather(TorchColumnarBatch([col], n), rows, n, cap,
+                      byte_capacity=bucket_capacity(max(total, 1))
+                      ).columns[0]
+
     def _agg_over_frame(self, fn, spec, batch, ctx, perm, idxs, seg_start,
-                        seg_end, is_new_order):
+                        seg_end, is_new_order, values=None):
         cap, n, dev = batch.capacity, batch.num_rows, batch.device
         op = fn.update_op
-        if fn.children:
+        if values is not None:  # a string's key codes, with its column
+            codes, col = values
+            sdata = codes[perm]
+            svalid = col.validity_or_true()[perm]
+        elif fn.children:
             col = to_column(fn.children[0].eval_device(batch, ctx.eval_ctx),
                             batch, fn.children[0].dtype)
             if col.offsets is None:
@@ -419,3 +458,19 @@ def _bounded_minmax(op: str, sdata: torch.Tensor, svalid: torch.Tensor,
             red = torch.where(any_clean, red, nan)
     return torch.where(valid, red, torch.zeros((), dtype=sdata.dtype,
                                                device=dev)), valid
+
+
+def _string_default(out: TorchColumnVector, take: torch.Tensor, default,
+                    batch) -> TorchColumnVector:
+    """lead / lag of a string with a default: the gathered rows, the
+    default's bytes where the offset leaves the partition (``take``); one
+    ragged gather of the two sides."""
+    sides = string_sides([out, default], batch)
+    keep = out.validity_or_true() & ~take
+    use = take if sides[1][3] is None else take & sides[1][3]
+    data, offs = concat_columns(
+        [sides[0][:3], sides[1][:3]],
+        out.data.numel() + sides[1][0].numel() * batch.capacity,
+        part_emit=[keep, use])
+    return TorchColumnVector(out.dtype, data, keep | use, out.num_rows,
+                             offsets=offs)

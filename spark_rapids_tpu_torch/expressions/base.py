@@ -7,6 +7,7 @@ batch's device (the reference's ``eval_tpu``). Evaluation is eager torch.
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
@@ -20,13 +21,16 @@ from ..types import (BooleanT, DataType, DoubleT, IntegerT, LongT, NullT,
 
 
 class EvalContext:
-    """Per-task evaluation context: conf snapshot + ANSI flag."""
+    """Per-task evaluation context: conf snapshot + ANSI flag, and the
+    session's event counters (an expression that takes the host path
+    counts it there as ``strings.hostPath``)."""
 
     def __init__(self, conf: Optional[RapidsConf] = None,
-                 partition_id: int = 0):
+                 partition_id: int = 0, counters: Optional[Counter] = None):
         self.conf = conf or RapidsConf()
         self.ansi = self.conf.ansi_enabled
         self.partition_id = partition_id
+        self.counters = counters if counters is not None else Counter()
 
 
 _DEFAULT_CTX = EvalContext()

@@ -1,23 +1,41 @@
-"""Cast between numeric (and boolean/date) types with Spark's non-ANSI
-semantics: integer narrowing wraps like Java, float → integer truncates
-toward zero with NaN → 0 and out-of-range values clamped, date → integer
-gives the day number, integer/float → double widens.
+"""Cast with Spark's non-ANSI semantics (port of
+``spark_rapids_tpu/expressions/cast.py``).
 
-Port of the numeric part of ``spark_rapids_tpu/expressions/cast.py``
-(the reference's device path); string and timestamp casts are not yet
-ported. A literal casts by the same rules as a column.
+Between numeric, boolean and date types on the device: integer narrowing
+wraps like Java, float → integer truncates toward zero with NaN → 0 and
+out-of-range values clamped, date → integer gives the day number,
+integer/float → double widens.
+
+To and from strings through the host, as the reference
+(``_cast_via_host``), each batch counted in ``strings.hostPath``:
+
+* numeric, boolean, date and timestamp → string in Spark's text: Java's
+  ``Double.toString``/``Float.toString`` for floats (``_spark_float_str``),
+  ``true``/``false``, ISO dates, timestamps with their fraction trimmed;
+* string → integral, fractional, boolean, date and timestamp (UTC session
+  zone), null where Spark's non-ANSI cast is null.
+
+The host work is vectorized through pyarrow and numpy where Spark's rules
+and Arrow's agree (plain digits, plain decimals, ISO dates, floats in
+[1e-3, 1e7)), and a row at a time elsewhere. Where the reference departs
+from Spark (an integral parse of "1.5", "1_000" or a value past the type's
+range as a literal) the port gives Spark's answer (ROADMAP C-ref-15).
+Decimal string casts wait with ``decimal128``; ANSI mode waits too. A
+literal casts by the same rules as a column.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..columnar.vector import TorchScalar, row_mask
-from ..types import (BooleanType, DataType, DateType, FractionalType,
-                     IntegralType, NullType, NumericType, StringType)
+from ..types import (BooleanType, DataType, DateType, DecimalType,
+                     DoubleType, FloatType, FractionalType, IntegralType,
+                     NullType, NumericType, StringType, TimestampType)
 from .base import (_DEFAULT_CTX, Expression, UnaryExpression,
                    combine_validity, device_parts, make_column)
 
@@ -31,6 +49,17 @@ def _castable(src: DataType, dst: DataType) -> bool:
     ok = (NumericType, BooleanType, DateType, NullType)
     return isinstance(src, ok) and isinstance(dst, ok) \
         and not isinstance(dst, NullType)
+
+
+def string_castable(src: DataType, dst: DataType) -> bool:
+    """A cast to or from a string the port carries (not decimals)."""
+    if isinstance(src, DecimalType) or isinstance(dst, DecimalType):
+        return False
+    if isinstance(dst, StringType):
+        return isinstance(src, (NumericType, BooleanType, DateType,
+                                TimestampType, StringType, NullType))
+    return isinstance(src, StringType) and isinstance(
+        dst, (NumericType, BooleanType, DateType, TimestampType))
 
 
 class Cast(UnaryExpression):
@@ -56,13 +85,25 @@ class Cast(UnaryExpression):
         ansi = self._ansi if self._ansi is not None else ctx.ansi
         if ansi:
             raise NotImplementedError("ANSI-mode cast not yet ported")
-        if src != dst and not _castable(src, dst):
+        strings = isinstance(src, StringType) or isinstance(dst, StringType)
+        if src != dst and not (string_castable(src, dst) if strings
+                               else _castable(src, dst)):
             raise NotImplementedError(f"cast {src} -> {dst} not yet ported")
         c = self.child.eval_device(batch, ctx)
         if isinstance(c, TorchScalar):
+            if strings and src != dst:
+                return TorchScalar(dst, _cast_scalar_string(c.value, src,
+                                                            dst))
             return TorchScalar(dst, _cast_scalar(c.value, dst))
         if src == dst:
             return c
+        if strings:
+            from .strings import column_from_arrow, column_to_arrow, host_path
+            host_path(ctx, self, "string cast")
+            arr = column_to_arrow(c)
+            out = format_to_string(arr, src) if isinstance(dst, StringType) \
+                else parse_string(arr, dst)
+            return column_from_arrow(out, dst, batch)
         cap, dev = batch.capacity, batch.device
         d, v = device_parts(c, cap, dev)
         valid = combine_validity(v, row_mask(batch.num_rows, cap, dev))
@@ -101,6 +142,298 @@ def _cast_scalar(v, dst: DataType):
         return ((iv - lo) % (hi - lo + 1)) + lo  # java wrap
     if isinstance(dst, FractionalType):
         return float(v)
-    if isinstance(dst, StringType):
-        raise NotImplementedError("cast to string not yet ported")
     raise NotImplementedError(f"scalar cast to {dst} not yet ported")
+
+
+# ---------------------------------------------------------------------------
+# casts to and from strings (reference cast.py:189-450), on the host
+# ---------------------------------------------------------------------------
+
+_ASCII = re.ASCII
+
+
+def _cast_scalar_string(v, src: DataType, dst: DataType):
+    """A literal's string cast, by the column rules (a date literal is its
+    day number, a timestamp its microseconds)."""
+    if v is None:
+        return None
+    import pyarrow as pa
+    from ..types import to_arrow
+    if isinstance(dst, StringType):
+        if isinstance(src, DateType):
+            arr = pa.array([v], pa.int32()).cast(pa.date32())
+        elif isinstance(src, TimestampType):
+            arr = pa.array([v], pa.int64()).cast(pa.timestamp("us"))
+        else:
+            arr = pa.array([v], type=to_arrow(src))
+        return format_to_string(arr, src)[0].as_py()
+    out = parse_string(pa.array([v], pa.string()), dst)
+    if isinstance(dst, DateType):
+        out = out.cast(pa.int32())
+    elif isinstance(dst, TimestampType):
+        out = out.cast(pa.int64())
+    return out[0].as_py()
+
+
+def format_to_string(arr, src: DataType):
+    """Spark's text of each value (reference ``_format_to_string_arrow``):
+    Java's shortest round-trip float text, ``true``/``false``, ISO dates,
+    timestamps with a trimmed fraction."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    if isinstance(src, NullType):
+        return pa.nulls(len(arr), pa.string())
+    if isinstance(src, StringType):
+        return arr
+    if isinstance(src, BooleanType):
+        return pc.if_else(arr, "true", "false")
+    if isinstance(src, (IntegralType, DateType)):
+        return pc.cast(arr, pa.string())
+    if isinstance(src, (FloatType, DoubleType)):
+        return _float_strings(arr, isinstance(src, FloatType))
+    if isinstance(src, TimestampType):
+        return pa.array(
+            [None if v is None else v.strftime("%Y-%m-%d %H:%M:%S")
+             + (f".{v.microsecond:06d}".rstrip("0") if v.microsecond else "")
+             for v in arr.to_pylist()], pa.string())
+    raise NotImplementedError(f"cast {src} -> string not yet ported")
+
+
+def _float_strings(arr, is_float32: bool):
+    """Java's ``Double.toString``/``Float.toString`` of each value, an Arrow
+    string array. Values in [1e-3, 1e7) print their shortest round-trip
+    digits positionally, which is Arrow's text of them with ".0" where it
+    has no point; the others go through ``_spark_float_str`` a value at a
+    time."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    mag = pc.abs(arr)
+    plain = pc.fill_null(pc.and_(pc.greater_equal(mag, 1e-3),
+                                 pc.less(mag, 1e7)), True)
+    text = pc.cast(arr, pa.string())
+    text = pc.if_else(pc.match_substring(text, "."), text,
+                      pc.binary_join_element_wise(text, ".0", ""))
+    other = np.nonzero(~np.asarray(plain.to_numpy(zero_copy_only=False),
+                                   dtype=bool))[0]
+    if not other.size:
+        return text
+    vals = pc.take(arr, pa.array(other)).to_pylist()
+    return pc.replace_with_mask(text, pc.invert(plain), pa.array(
+        [_spark_float_str(v, is_float32) for v in vals], pa.string()))
+
+
+def _spark_float_str(v: float, is_float32: bool) -> str:
+    """Java ``Double.toString`` / ``Float.toString``: shortest round-trip
+    digits; plain decimal form when 1e-3 <= |v| < 1e7, otherwise
+    ``d.dddEexp`` with one digit before the point (the reference's
+    ``_spark_float_str``)."""
+    if np.isnan(v):
+        return "NaN"
+    if np.isinf(v):
+        return "Infinity" if v > 0 else "-Infinity"
+    f = float(np.float32(v)) if is_float32 else float(v)
+    if f == 0.0:
+        return "-0.0" if np.signbit(f) else "0.0"
+    s = str(np.float32(v)) if is_float32 else repr(f)
+    neg = s.startswith("-")
+    if neg:
+        s = s[1:]
+    if "e" in s or "E" in s:
+        mant, _, exp = s.replace("E", "e").partition("e")
+        exp10 = int(exp)
+    else:
+        mant, exp10 = s, 0
+    if "." in mant:
+        int_part, frac = mant.split(".")
+    else:
+        int_part, frac = mant, ""
+    digits = (int_part + frac).lstrip("0")
+    lead_exp = exp10 + len(int_part.lstrip("0")) - 1 if int_part.strip("0") \
+        else exp10 - (len(frac) - len(frac.lstrip("0"))) - 1
+    digits = digits.rstrip("0") or "0"
+    sign = "-" if neg else ""
+    if -3 <= lead_exp < 7:
+        if lead_exp >= 0:
+            ip = digits[:lead_exp + 1].ljust(lead_exp + 1, "0")
+            fp = digits[lead_exp + 1:] or "0"
+        else:
+            ip = "0"
+            fp = "0" * (-lead_exp - 1) + digits
+        return f"{sign}{ip}.{fp}"
+    fp = digits[1:] or "0"
+    return f"{sign}{digits[0]}.{fp}E{lead_exp}"
+
+
+def _spark_to_long(s: str, lo: int, hi: int):
+    """Spark's ``UTF8String.toLong`` in a non-ANSI cast: an optional sign,
+    digits, and an optional '.' with digits after it (truncated); null on
+    anything else or past [lo, hi]."""
+    if not s:
+        return None
+    neg = s[0] == "-"
+    i = 1 if s[0] in "+-" else 0
+    if i == len(s):
+        return None
+    whole, _, frac = s[i:].partition(".")
+    if not (whole == "" or (whole.isascii() and whole.isdigit())):
+        return None
+    if frac and not (frac.isascii() and frac.isdigit()):
+        return None
+    v = int(whole) if whole else 0
+    v = -v if neg else v
+    return v if lo <= v <= hi else None
+
+
+def _parse_float(s: str):
+    """The reference's string → double rule (Java's ``parseDouble`` plus
+    Spark's special literals), null where Java's parse fails."""
+    sl = s.lower()
+    if sl == "nan":
+        return float("nan")
+    if sl in ("inf", "infinity", "+inf", "+infinity"):
+        return float("inf")
+    if sl in ("-inf", "-infinity"):
+        return float("-inf")
+    if "_" in s or not s.isascii():
+        return None  # Python-only syntax: Java rejects it
+    if sl and sl[-1] in "df" and len(sl) > 1 \
+            and (sl[-2].isdigit() or sl[-2] == "."):
+        s = s[:-1]
+    try:
+        return float(s)
+    except ValueError:
+        return None
+
+
+_DATE_RE = re.compile(
+    r"^([+-]?\d{1,7})(?:-(\d{1,2})(?:-(\d{1,2})(?:[ T].*)?)?)?$", _ASCII)
+_TIME_RE = re.compile(
+    r"^([+-]?\d{1,7})(?:-(\d{1,2})(?:-(\d{1,2})"
+    r"(?:[ T](\d{1,2})(?::(\d{1,2})(?::(\d{1,2})"
+    r"(?:\.(\d{1,9}))?)?)?\s*(.*))?)?)?$", _ASCII)
+
+
+def _parse_spark_date(s: str):
+    """Spark's ``stringToDate``: ``[+-]y{1,7}[-m[-d]]``, anything after the
+    day allowed after ' ' or 'T'. A ``datetime.date`` or None."""
+    import datetime
+    m = _DATE_RE.match(s.strip())
+    if not m:
+        return None
+    y = int(m.group(1))
+    mo = int(m.group(2)) if m.group(2) else 1
+    d = int(m.group(3)) if m.group(3) else 1
+    try:
+        return datetime.date(y, mo, d)
+    except ValueError:
+        return None
+
+
+def _parse_spark_timestamp(s: str):
+    """Spark's ``stringToTimestamp`` in the UTC session zone: the date as in
+    ``stringToDate``, ``[h]h[:[m]m[:[s]s[.f{1,9}]]]`` after ' ' or 'T', an
+    optional zone ``Z``/``UTC``/``GMT``/``[+-]h[h][:mm]``; ``epoch``. Epoch
+    microseconds or None."""
+    import datetime
+    s = s.strip()
+    if s.lower() == "epoch":
+        return 0
+    m = _TIME_RE.match(s)
+    if not m:
+        return None
+    y = int(m.group(1))
+    mo = int(m.group(2)) if m.group(2) else 1
+    d = int(m.group(3)) if m.group(3) else 1
+    hh = int(m.group(4)) if m.group(4) else 0
+    mi = int(m.group(5)) if m.group(5) else 0
+    ss = int(m.group(6)) if m.group(6) else 0
+    frac = m.group(7) or ""
+    us = int(frac[:6].ljust(6, "0")) if frac else 0
+    zone = (m.group(8) or "").strip()
+    off_us = 0
+    if zone and not re.match(r"^(?:Z|z|UTC|GMT)$", zone):
+        zm = re.match(r"^([+-])(\d{1,2})(?::(\d{1,2}))?$", zone, _ASCII)
+        if not zm:
+            return None
+        sign = 1 if zm.group(1) == "+" else -1
+        off_us = sign * ((int(zm.group(2)) * 60 + int(zm.group(3) or 0))
+                         * 60 * 1_000_000)
+    if hh > 23 or mi > 59 or ss > 59:
+        return None
+    try:
+        day = datetime.date(y, mo, d)
+    except ValueError:
+        return None
+    epoch_days = (day - datetime.date(1970, 1, 1)).days
+    return (epoch_days * 86_400_000_000
+            + (hh * 3600 + mi * 60 + ss) * 1_000_000 + us) - off_us
+
+
+def _fast_then_rows(trimmed, fast_re: str, fast, dummy: str, slow,
+                    out_type):
+    """Rows matching ``fast_re`` through the vectorized ``fast`` (over the
+    whole array, ``dummy`` standing in for the other rows), the rest
+    through ``slow`` a row at a time; one Arrow array of ``out_type`` in
+    row order."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    hit = pc.fill_null(pc.match_substring_regex(trimmed, fast_re), True)
+    miss = np.nonzero(~np.asarray(hit.to_numpy(zero_copy_only=False),
+                                  dtype=bool))[0]
+    if not miss.size:
+        return fast(trimmed)
+    vals = fast(pc.if_else(hit, trimmed, dummy))
+    texts = pc.take(trimmed, pa.array(miss)).to_pylist()
+    return pc.replace_with_mask(vals, pc.invert(hit), pa.array(
+        [slow(t) for t in texts], out_type))
+
+
+def parse_string(arr, dst: DataType):
+    """Spark's non-ANSI string → ``dst`` (reference
+    ``_parse_string_arrow``): surrounding whitespace trimmed, null where
+    the text is not a value of ``dst``."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    from ..types import to_arrow
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    trimmed = pc.utf8_trim_whitespace(arr)
+    if isinstance(dst, BooleanType):
+        lowered = pc.utf8_lower(trimmed)
+        is_t = pc.is_in(lowered, value_set=pa.array(
+            ["t", "true", "y", "yes", "1"]))
+        is_f = pc.is_in(lowered, value_set=pa.array(
+            ["f", "false", "n", "no", "0"]))
+        bad = pc.and_(pc.invert(is_t), pc.invert(is_f))
+        return pc.if_else(bad, pa.scalar(None, pa.bool_()), is_t)
+    if isinstance(dst, IntegralType):
+        lo, hi = _INT_BOUNDS[np.dtype(dst.np_dtype)]
+        wide = _fast_then_rows(
+            trimmed, r"^-?[0-9]{1,18}$",
+            lambda a: pc.cast(a, pa.int64()), "0",
+            lambda s: _spark_to_long(s, lo, hi), pa.int64())
+        out_of_range = pc.or_(pc.less(wide, lo), pc.greater(wide, hi))
+        return pc.if_else(out_of_range, pa.scalar(None, pa.int64()),
+                          wide).cast(to_arrow(dst))
+    if isinstance(dst, (FloatType, DoubleType)):
+        wide = _fast_then_rows(
+            trimmed, r"^-?([0-9]+\.?[0-9]*|\.[0-9]+)([eE][+-]?[0-9]+)?$",
+            lambda a: pc.cast(a, pa.float64()), "0", _parse_float,
+            pa.float64())
+        return wide.cast(to_arrow(dst), safe=False)
+    if isinstance(dst, DateType):
+        def iso(a):
+            try:
+                return pc.cast(a, pa.date32())
+            except pa.ArrowInvalid:  # an impossible day: row by row
+                return pa.array([None if s is None else _parse_spark_date(s)
+                                 for s in a.to_pylist()], pa.date32())
+        return _fast_then_rows(trimmed, r"^[0-9]{4}-[0-9]{2}-[0-9]{2}$", iso,
+                               "1970-01-01", _parse_spark_date, pa.date32())
+    if isinstance(dst, TimestampType):
+        vals = [None if s is None else _parse_spark_timestamp(s)
+                for s in trimmed.to_pylist()]
+        return pa.array(vals, type=pa.int64()).cast(pa.timestamp("us"))
+    raise NotImplementedError(f"cast string -> {dst} not yet ported")

@@ -10,8 +10,13 @@ there is no ``ELSE``.
 The result type is the branches' common type (Spark's CaseWhenCoercion),
 so ``when(c, 1).otherwise(2.5)`` is a double. The reference keeps the
 first branch's type and truncates the others into it; the two agree
-whenever the branches share a type, as in every TPC-H query. Branches are
-fixed-width; string results are not yet ported.
+whenever the branches share a type, as in every TPC-H query.
+
+String branches: each branch evaluates to offsets + bytes (a literal's
+bytes shared by every row), and one ragged gather
+(``kernels/strings.concat_columns``, each branch emitting only on the
+rows it takes) builds the result, as ``concat`` and a string ``coalesce``
+do; nothing is read back to the host.
 """
 
 from __future__ import annotations
@@ -20,8 +25,9 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..columnar.vector import row_mask
-from ..types import DataType, NullT, NullType, NumericType, numeric_promote
+from ..columnar.vector import TorchColumnVector, row_mask
+from ..types import (DataType, NullT, NullType, NumericType, StringT,
+                     StringType, numeric_promote)
 from .base import _DEFAULT_CTX, Expression, device_parts, make_column
 
 
@@ -46,6 +52,24 @@ def _condition(pred: Expression, batch, ctx) -> torch.Tensor:
     d, v = device_parts(pred.eval_device(batch, ctx), cap, dev)
     cond = torch.broadcast_to(d, (cap,)).to(torch.bool)
     return cond if v is None else cond & v
+
+
+def string_branches(pairs, batch, ctx) -> TorchColumnVector:
+    """The string result of branches ``pairs`` [(rows taken, value
+    expression)]: row i is the value of the branch that takes it, null
+    where none does or its value is null."""
+    from .strings import concat_columns, string_bytes_bound, string_sides
+    mask = row_mask(batch.num_rows, batch.capacity, batch.device)
+    values = [v.eval_device(batch, ctx) for _, v in pairs]
+    sides = string_sides(values, batch)
+    emit = [take & mask & (True if s[3] is None else s[3])
+            for (take, _), s in zip(pairs, sides)]
+    valid = torch.stack(emit).any(0) if emit else mask & False
+    data, offs = concat_columns([s[:3] for s in sides],
+                                string_bytes_bound(values, sides, batch),
+                                part_emit=emit)
+    return TorchColumnVector(StringT, data, valid, batch.num_rows,
+                             offsets=offs)
 
 
 def _value(expr: Expression, dtype: DataType, batch, ctx):
@@ -81,6 +105,9 @@ class If(Expression):
     def eval_device(self, batch, ctx=_DEFAULT_CTX):
         cond = _condition(self.children[0], batch, ctx)
         dt = self.dtype
+        if isinstance(dt, StringType):
+            return string_branches([(cond, self.children[1]),
+                                    (~cond, self.children[2])], batch, ctx)
         td, tv = _value(self.children[1], dt, batch, ctx)
         fd, fv = _value(self.children[2], dt, batch, ctx)
         mask = row_mask(batch.num_rows, batch.capacity, batch.device)
@@ -126,6 +153,16 @@ class CaseWhen(Expression):
     def eval_device(self, batch, ctx=_DEFAULT_CTX):
         cap, dev = batch.capacity, batch.device
         dt = self.dtype
+        if isinstance(dt, StringType):
+            decided = torch.zeros(cap, dtype=torch.bool, device=dev)
+            pairs = []
+            for pred, value in self.branches:
+                cond = _condition(pred, batch, ctx)
+                pairs.append((cond & ~decided, value))
+                decided = decided | cond
+            if self._has_else:
+                pairs.append((~decided, self.else_value))
+            return string_branches(pairs, batch, ctx)
         carrier = dt.torch_dtype or torch.bool
         data = torch.zeros(cap, dtype=carrier, device=dev)
         valid = torch.zeros(cap, dtype=torch.bool, device=dev)

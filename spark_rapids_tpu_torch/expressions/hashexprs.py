@@ -1,6 +1,7 @@
 """Spark's Murmur3 x86_32 hash, seed 42 (port of ``murmur3_int``,
 ``murmur3_long``, ``_normalize_double``, ``murmur3_col`` and
-``murmur3_batch`` from ``spark_rapids_tpu/expressions/hashexprs.py``).
+``murmur3_batch`` from ``spark_rapids_tpu/expressions/hashexprs.py``), and
+the ``hash(...)`` expression over them, ``Murmur3Hash``.
 
 It is the shuffle's partitioning hash: partition ids decide which rows meet
 in which partition, so the result must be bit-identical to the reference
@@ -17,8 +18,10 @@ from typing import Sequence
 import torch
 
 from ..columnar.vector import TorchColumnVector
-from ..types import (BooleanType, ByteType, DateType, DoubleType, FloatType,
-                     IntegerType, LongType, ShortType, StringType)
+from ..types import (BooleanType, ByteType, DataType, DateType, DoubleType,
+                     FloatType, IntegerT, IntegerType, LongType, ShortType,
+                     StringType, TimestampType)
+from .base import _DEFAULT_CTX, Expression, make_column, to_column
 
 _MASK = 0xFFFFFFFF
 _C1 = 0xCC9E2D51
@@ -112,7 +115,7 @@ def murmur3_col(col: TorchColumnVector, seed: torch.Tensor) -> torch.Tensor:
         h = murmur3_int(d.to(torch.int64), seed)
     elif isinstance(dt, (ByteType, ShortType, IntegerType, DateType)):
         h = murmur3_int(d.to(torch.int64) & _MASK, seed)
-    elif isinstance(dt, LongType):
+    elif isinstance(dt, (LongType, TimestampType)):
         h = murmur3_long(d.to(torch.int64), seed)
     elif isinstance(dt, FloatType):
         f = _normalize_double(d.to(torch.float32))
@@ -137,3 +140,26 @@ def murmur3_batch(cols: Sequence[TorchColumnVector], capacity: int,
     for c in cols:
         h = murmur3_col(c, h)
     return torch.where(h >= 1 << 31, h - (1 << 32), h)
+
+
+class Murmur3Hash(Expression):
+    """hash(...) (reference ``Murmur3Hash``): Spark's row hash of the
+    children, an int, never null (a null child leaves the running seed)."""
+
+    def __init__(self, *children: Expression, seed: int = 42):
+        self.children = tuple(children)
+        self.seed = seed
+
+    @property
+    def dtype(self) -> DataType:
+        return IntegerT
+
+    @property
+    def nullable(self) -> bool:
+        return False
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        cols = [to_column(c.eval_device(batch, ctx), batch, c.dtype)
+                for c in self.children]
+        h = murmur3_batch(cols, batch.capacity, self.seed)
+        return make_column(IntegerT, h.to(torch.int32), None, batch.num_rows)

@@ -1,8 +1,26 @@
-"""Strings on the device: comparisons (port of ``string_compare``,
-``spark_rapids_tpu/expressions/strings.py``), the order-preserving key
-codes that groups, sorts and joins use, SQL ``LIKE`` (port of ``Like``,
-``spark_rapids_tpu/expressions/regex.py``) and ``substring`` over ASCII
-strings (``Substring``).
+"""String expressions on the device (port of
+``spark_rapids_tpu/expressions/strings.py``): comparisons, the
+order-preserving key codes that groups, sorts and joins use, SQL ``LIKE``
+(the reference's ``Like`` is in ``expressions/regex.py``), ``substring``,
+``concat`` and the string function family (``length``, ``upper``/``lower``,
+``startswith``/``endswith``/``contains``, the trims, ``reverse``,
+``initcap``, ``repeat``, ``replace``, ``locate``/``instr``,
+``lpad``/``rpad``, ``translate``, ``concat_ws``, ``substring_index``,
+``octet_length``/``bit_length``, ``ascii``, ``format_number``, ``conv``).
+
+A string column is offsets + bytes on the device, and the functions are
+compositions of ``kernels/strings.py``'s ragged kernels. The reference's
+split between device and host is kept: byte-oriented ops (concat,
+replace, repeat, substring_index, the pattern predicates, length) run on
+the device for any UTF-8; character-oriented ops (substring, pad, locate,
+initcap, reverse, trim, case mapping, ascii, translate, LIKE's ``_``) run
+on the device when the column is ASCII (a character is a byte) and on the
+host through pyarrow otherwise; a non-literal argument and the host row
+ops (``format_number``, ``conv``) go to the host too. Whether a column is
+ASCII, and its longest string, is one host read a column a batch
+(``kernels/strings.string_stats``). Every batch that takes the host hop is
+counted in the session's counters as ``strings.hostPath`` and
+``strings.hostPath.<class>.<reason>`` (``host_path_counts``).
 
 The reference compares strings on the host through pyarrow. Here both
 sides stay as offsets + bytes on the device: a column, or a literal whose
@@ -24,14 +42,19 @@ longest string) picks the form; the bytes never leave the device.
 
 from __future__ import annotations
 
-from typing import List
+import re
+from typing import List, Optional
 
+import numpy as np
 import torch
 
-from ..columnar.vector import TorchColumnVector, TorchScalar, row_mask
-from ..types import BooleanT, DataType, StringT
-from .base import (_DEFAULT_CTX, Expression, combine_validity,
-                   make_column, to_column)
+from ..columnar.vector import (TorchColumnVector, TorchScalar,
+                               bucket_capacity, row_mask)
+from ..kernels import strings as SK
+from ..kernels.strings import concat_columns  # noqa: F401  (callers here)
+from ..types import BooleanT, DataType, IntegerT, StringT
+from .base import (_DEFAULT_CTX, Expression, UnaryExpression,
+                   combine_validity, make_column, to_column)
 
 _INT64_SIGN = -2**63
 #: strings up to this many bytes pack into one int64 with their length
@@ -88,16 +111,10 @@ PADDING_WORD = _INT64_SIGN
 
 
 def longest_string(cols: List[TorchColumnVector]) -> int:
-    """The longest string over the columns' rows: one host read, memoized
-    on each column object."""
-    todo = [c for c in cols if getattr(c, "_longest", None) is None]
-    if todo:
-        maxes = torch.stack([_starts_lengths(c)[1].max() if c.capacity
-                             else c.offsets.new_zeros((), dtype=torch.int64)
-                             for c in todo]).tolist()
-        for c, m in zip(todo, maxes):
-            c._longest = int(m)
-    return max((c._longest for c in cols), default=0)
+    """The longest string over the columns' rows, from their memoized
+    stats (``kernels/strings.fill_string_stats``: one host read)."""
+    SK.fill_string_stats(cols)
+    return max((c._stats[1] for c in cols), default=0)
 
 
 def string_key_codes(cols: List[TorchColumnVector]) -> List[torch.Tensor]:
@@ -182,6 +199,144 @@ def string_compare(cmp_expr, l, r, batch) -> TorchColumnVector:
 
 
 # ---------------------------------------------------------------------------
+# the host hop (reference ``_to_arrow_side`` / ``_string_result_from_arrow``)
+# ---------------------------------------------------------------------------
+
+#: the session counter of batches an expression took through the host
+HOST_PATH = "strings.hostPath"
+
+
+def host_path(ctx, expr, reason: str) -> None:
+    """Count one batch of ``expr`` (an expression, or a class name) through
+    the host hop: ``strings.hostPath`` and ``strings.hostPath.<class>.
+    <reason>`` in the session's counters."""
+    name = expr if isinstance(expr, str) else type(expr).__name__
+    ctx.counters[HOST_PATH] += 1
+    ctx.counters[f"{HOST_PATH}.{name}.{reason}"] += 1
+
+
+def host_path_counts(counters) -> dict:
+    """{(class, reason): batches} of the host-path counters."""
+    out = {}
+    for k, v in counters.items():
+        if k.startswith(HOST_PATH + ".") and v:
+            name, _, reason = k[len(HOST_PATH) + 1:].partition(".")
+            out[(name, reason)] = v
+    return out
+
+
+def column_to_arrow(col: TorchColumnVector):
+    """A column's logical rows as an Arrow array (the host hop's
+    download: offsets, bytes and validity, no per-row Python)."""
+    import pyarrow as pa
+    from ..types import BinaryType, DateType, NullType, TimestampType
+    n = col.num_rows
+    valid = col.validity[:n].cpu().numpy() if col.validity is not None \
+        else None
+    if valid is not None and valid.all():
+        valid = None
+    if isinstance(col.dtype, NullType):
+        return pa.nulls(n)
+    if col.offsets is not None:
+        offs = col.offsets[:n + 1].cpu().numpy().astype(np.int64)
+        base = int(offs[0])
+        offs = (offs - base).astype(np.int32)
+        nb = int(offs[-1])
+        data = col.data[base:base + nb].cpu().numpy() if nb else \
+            np.zeros(0, np.uint8)
+        bitmap = None if valid is None else pa.py_buffer(
+            np.packbits(valid, bitorder="little").tobytes())
+        at = pa.binary() if isinstance(col.dtype, BinaryType) else pa.string()
+        return pa.Array.from_buffers(
+            at, n, [bitmap, pa.py_buffer(offs.tobytes()),
+                    pa.py_buffer(data.tobytes())],
+            null_count=0 if valid is None else int((~valid).sum()))
+    vals = col.data[:n].cpu().numpy()
+    mask = None if valid is None else ~valid
+    if isinstance(col.dtype, DateType):
+        return pa.array(vals.astype(np.int32), type=pa.date32(), mask=mask)
+    if isinstance(col.dtype, TimestampType):
+        return pa.array(vals.astype(np.int64), type=pa.timestamp("us"),
+                        mask=mask)
+    return pa.array(vals, mask=mask)
+
+
+def column_from_arrow(arr, dtype: DataType, batch) -> TorchColumnVector:
+    """An Arrow result of the batch's rows as a column at the batch's
+    capacity on its device (the host hop's upload)."""
+    import pyarrow as pa
+    from ..types import DateType, StringType, TimestampType
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    n = len(arr)
+    validity = np.asarray(arr.is_valid()) if arr.null_count else None
+    if isinstance(dtype, StringType):
+        if pa.types.is_large_string(arr.type):
+            arr = arr.cast(pa.string())
+        bufs = arr.buffers()
+        offsets = (np.frombuffer(bufs[1], np.int32, n + 1, arr.offset * 4)
+                   .astype(np.int64) if n else np.zeros(1, np.int64))
+        base = int(offsets[0])
+        offsets = (offsets - base).astype(np.int32)
+        nb = int(offsets[-1])
+        chars = np.frombuffer(bufs[2], np.uint8, nb, base) if nb else \
+            np.zeros(0, np.uint8)
+        return TorchColumnVector.from_strings(
+            dtype, offsets, chars, validity, capacity=batch.capacity,
+            device=batch.device)
+    if isinstance(dtype, DateType):
+        arr = arr.cast(pa.int32())
+    elif isinstance(dtype, TimestampType):
+        arr = arr.cast(pa.int64())
+    fill = False if pa.types.is_boolean(arr.type) else 0
+    vals = np.asarray(arr.fill_null(fill).to_numpy(zero_copy_only=False))
+    return TorchColumnVector.from_numpy(dtype, vals, validity,
+                                        capacity=batch.capacity,
+                                        device=batch.device)
+
+
+def rows_of(x, n: int) -> list:
+    """A column's (or scalar's) logical rows as Python values."""
+    if isinstance(x, TorchScalar):
+        return [x.value] * n
+    return x.to_pylist()
+
+
+def _pat_bytes(s: str) -> np.ndarray:
+    return np.frombuffer(s.encode("utf-8"), dtype=np.uint8)
+
+
+def _literal_value(e: Expression):
+    """The value of a literal argument, or ``_NOT_LITERAL``."""
+    from .base import Literal
+    return e.value if isinstance(e, Literal) else _NOT_LITERAL
+
+
+_NOT_LITERAL = object()
+
+
+def _string_input(expr: Expression, batch, ctx) -> TorchColumnVector:
+    """A string operand as a column over the batch (a literal built on the
+    device), its byte buffer cut to the bytes in use."""
+    return SK.tight(to_column(expr.eval_device(batch, ctx), batch, StringT))
+
+
+def _valid(c: TorchColumnVector, batch) -> Optional[torch.Tensor]:
+    return combine_validity(c.validity, row_mask(batch.num_rows,
+                                                 batch.capacity,
+                                                 batch.device))
+
+
+def _str_col(batch, data, offsets, validity) -> TorchColumnVector:
+    return TorchColumnVector(StringT, data, validity, batch.num_rows,
+                             offsets=offsets)
+
+
+def _ascii(c: TorchColumnVector) -> bool:
+    return SK.string_stats(c)[0]
+
+
+# ---------------------------------------------------------------------------
 # LIKE
 # ---------------------------------------------------------------------------
 
@@ -198,8 +353,9 @@ class Like(Expression):
     after its cursor. Literals compare as UTF-8 bytes, which is exact for
     valid UTF-8 (a character's bytes never match inside another's). A
     ``_`` matches one byte, which is one character only over ASCII data:
-    over a string with a non-ASCII byte the reference matches on the host
-    by character, which is not yet ported here, so that case raises."""
+    over a string with a non-ASCII byte the batch matches on the host by
+    character, as the reference does (its regex translation, counted in
+    ``strings.hostPath``)."""
 
     def __init__(self, child: Expression, pattern: str, escape: str = "\\"):
         self.children = (child,)
@@ -236,6 +392,30 @@ class Like(Expression):
             i += 1
         return segs
 
+    def _to_regex(self) -> str:
+        """The pattern as an anchored regex (reference ``_to_regex``)."""
+        out, p, i = ["^"], self.pattern, 0
+        while i < len(p):
+            ch = p[i]
+            if ch == self.escape and i + 1 < len(p):
+                out.append(re.escape(p[i + 1]))
+                i += 2
+                continue
+            out.append(".*" if ch == "%" else "." if ch == "_"
+                       else re.escape(ch))
+            i += 1
+        out.append("$")
+        return "".join(out)
+
+    def _match_host(self, c: TorchColumnVector, batch):
+        """Character-wise LIKE on the host (reference ``_match_host``:
+        fullmatch, so a trailing newline is not matched by ``$``)."""
+        prog = re.compile(self._to_regex(), re.DOTALL)
+        vals = [None if v is None else bool(prog.fullmatch(v))
+                for v in c.to_pylist()]
+        import pyarrow as pa
+        return column_from_arrow(pa.array(vals, pa.bool_()), BooleanT, batch)
+
     def eval_device(self, batch, ctx=_DEFAULT_CTX):
         c = to_column(self.children[0].eval_device(batch, ctx), batch,
                       self.children[0].dtype)
@@ -243,10 +423,9 @@ class Like(Expression):
         starts, lens = _starts_lengths(c)
         segs = self._segments()
         data = c.data
-        if any(w for seg in segs for _, w in seg) and data.numel() and bool(
-                (data[:int(c.offsets[c.num_rows])] >= 0x80).any()):
-            raise NotImplementedError(
-                "LIKE with '_' over non-ASCII strings not yet ported")
+        if any(w for seg in segs for _, w in seg) and not _ascii(c):
+            host_path(ctx, self, "non-ASCII")
+            return self._match_host(c, batch)
         valid = combine_validity(c.validity, row_mask(batch.num_rows, cap,
                                                       dev))
 
@@ -314,9 +493,9 @@ class Substring(Expression):
     ``len`` gives the empty string. Over ASCII strings a character is a
     byte: each row's byte range comes from its length, then one ragged
     gather copies the ranges into a new offsets + bytes column (never a
-    view of the input). Over a string with a non-ASCII byte the reference
-    slices by character on the host, which is not yet ported, so that
-    case raises."""
+    view of the input). Over a string with a non-ASCII byte the batch is
+    sliced by character on the host, as the reference does
+    (``utf8_slice_codeunits``, counted in ``strings.hostPath``)."""
 
     def __init__(self, child: Expression, pos: Expression,
                  length: Expression):
@@ -346,10 +525,16 @@ class Substring(Expression):
         c = to_column(self.children[0].eval_device(batch, ctx), batch,
                       StringT)
         dev = batch.device
-        n_bytes = int(c.offsets[c.num_rows])
-        if n_bytes and bool((c.data[:n_bytes] >= 0x80).any()):
-            raise NotImplementedError(
-                "substring over non-ASCII strings not yet ported")
+        if not _ascii(c):
+            host_path(ctx, self, "non-ASCII")
+            import pyarrow.compute as pc
+            start = pos - 1 if pos > 0 else (0 if pos == 0 else pos)
+            if start >= 0:
+                stop = start + max(ln, 0)
+            else:
+                stop = start + ln if start + ln < 0 else np.iinfo(np.int32).max
+            return column_from_arrow(pc.utf8_slice_codeunits(
+                column_to_arrow(c), start=start, stop=stop), StringT, batch)
         starts, lens = _starts_lengths(c)
         valid = combine_validity(c.validity, row_mask(c.num_rows, c.capacity,
                                                       dev))
@@ -390,37 +575,8 @@ class Substring(Expression):
 # ---------------------------------------------------------------------------
 
 
-def concat_columns(parts, out_cap: int, emit=None):
-    """Row-wise concatenation of K string sides (port of the reference's
-    ``kernels/strings.concat_columns``): ``parts`` per side (bytes,
-    start int64 [cap], length int64 [cap]); ``emit`` per side an optional
-    bool [cap], the rows where that side contributes. Each output byte finds
-    its row by a binary search over the new offsets and its side by the
-    row's running lengths; nothing is read back to the host. Returns
-    (bytes [out_cap], offsets int32 [cap + 1])."""
-    dev = parts[0][1].device
-    lens = []
-    for i, (_, _, ln) in enumerate(parts):
-        ln = ln.clamp(min=0)
-        if emit is not None and emit[i] is not None:
-            ln = torch.where(emit[i], ln, 0)
-        lens.append(ln)
-    cap = lens[0].shape[0]
-    offs = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
-    offs[1:] = torch.cumsum(sum(lens), 0)
-    j = torch.arange(out_cap, dtype=torch.int64, device=dev)
-    row = torch.searchsorted(offs[1:], j, right=True).clamp(
-        max=max(cap - 1, 0))
-    pos = j - offs[row]
-    out = torch.zeros(out_cap, dtype=torch.uint8, device=dev)
-    cum = torch.zeros(cap, dtype=torch.int64, device=dev)
-    for (data, starts, _), ln in zip(parts, lens):
-        at = pos - cum[row]
-        sel = (at >= 0) & (at < ln[row]) & (j < offs[-1])
-        src = (starts[row] + at).clamp(0, max(data.numel() - 1, 0))
-        out = torch.where(sel, data[src], out)
-        cum = cum + ln
-    return out, offs.to(torch.int32)
+# ``concat_columns`` lives in ``kernels/strings.py`` beside its reference
+# counterpart; it is imported here for the callers that name it here.
 
 
 def string_bytes_bound(values, sides, batch) -> int:
@@ -456,9 +612,854 @@ class ConcatStr(Expression):
                                           batch.device))
         data, offs = concat_columns([s[:3] for s in sides],
                                     string_bytes_bound(values, sides, batch),
-                                    [valid] * len(sides))
+                                    part_emit=[valid] * len(sides))
         return TorchColumnVector(StringT, data, valid, batch.num_rows,
                                  offsets=offs)
 
     def pretty(self) -> str:
         return f"concat({', '.join(c.pretty() for c in self.children)})"
+
+
+# ---------------------------------------------------------------------------
+# the string function family (reference stringFunctions.scala through
+# ``spark_rapids_tpu/expressions/strings.py``)
+# ---------------------------------------------------------------------------
+
+
+class _StringUnary(UnaryExpression):
+    """A one-string-argument function; a literal argument is built as a
+    column on the device first."""
+
+    _name = ""
+
+    def _input(self, batch, ctx) -> TorchColumnVector:
+        return _string_input(self.child, batch, ctx)
+
+    def pretty(self) -> str:
+        return f"{self._name or type(self).__name__.lower()}(" \
+            f"{self.child.pretty()})"
+
+
+class Length(_StringUnary):
+    """char_length: UTF-8 characters (not bytes), as Spark: the bytes that
+    are not continuation bytes ((b & 0xC0) != 0x80), counted a row by a
+    prefix sum read at the offsets."""
+
+    _name = "length"
+
+    @property
+    def dtype(self) -> DataType:
+        return IntegerT
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        c = self._input(batch, ctx)
+        lead = torch.zeros(c.data.numel() + 1, dtype=torch.int64,
+                           device=c.device)
+        lead[1:] = torch.cumsum((c.data & 0xC0) != 0x80, 0)
+        offs = c.offsets.to(torch.int64)
+        counts = (lead[offs[1:]] - lead[offs[:-1]]).to(torch.int32)
+        return make_column(IntegerT, counts, _valid(c, batch), batch.num_rows)
+
+
+class _CaseMap(_StringUnary):
+    """ASCII case mapping on the device, in place of the bytes; non-ASCII
+    input through the host (pyarrow's Unicode case mapping)."""
+
+    _lo, _hi, _delta, _pc = 0, 0, 0, ""
+
+    @property
+    def dtype(self) -> DataType:
+        return StringT
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        c = self._input(batch, ctx)
+        if not _ascii(c):
+            import pyarrow.compute as pc
+            host_path(ctx, self, "non-ASCII")
+            return column_from_arrow(getattr(pc, self._pc)(
+                column_to_arrow(c)), StringT, batch)
+        hit = (c.data >= self._lo) & (c.data <= self._hi)
+        data = torch.where(hit, c.data + self._delta, c.data).to(torch.uint8)
+        return _str_col(batch, data, c.offsets, c.validity)
+
+
+class Upper(_CaseMap):
+    _name, _lo, _hi, _delta, _pc = "upper", ord("a"), ord("z"), -32, \
+        "utf8_upper"
+
+
+class Lower(_CaseMap):
+    _name, _lo, _hi, _delta, _pc = "lower", ord("A"), ord("Z"), 32, \
+        "utf8_lower"
+
+
+class _PatternPredicate(Expression):
+    """startswith / endswith / contains against a pattern: a literal
+    pattern on the device (byte matching of well-formed UTF-8 is
+    character-safe), a column pattern through the host."""
+
+    _pc = ""
+
+    def __init__(self, left: Expression, right: Expression):
+        self.children = (left, right)
+
+    @property
+    def dtype(self) -> DataType:
+        return BooleanT
+
+    def _device(self, c: TorchColumnVector, pb: np.ndarray):
+        raise NotImplementedError
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        c = _string_input(self.children[0], batch, ctx)
+        pat = _literal_value(self.children[1])
+        valid = _valid(c, batch)
+        if pat is _NOT_LITERAL:
+            import pyarrow.compute as pc
+            host_path(ctx, self, "non-literal argument")
+            pats = rows_of(self.children[1].eval_device(batch, ctx),
+                           batch.num_rows)
+            vals = [None if v is None or p is None else
+                    (v.startswith(p) if self._pc == "starts_with" else
+                     v.endswith(p) if self._pc == "ends_with" else p in v)
+                    for v, p in zip(c.to_pylist(), pats)]
+            import pyarrow as pa
+            return column_from_arrow(pa.array(vals, pa.bool_()), BooleanT,
+                                     batch)
+        if pat is None:
+            return TorchColumnVector.from_scalar(None, BooleanT,
+                                                 batch.num_rows, batch.capacity,
+                                                 batch.device)
+        pb = _pat_bytes(pat)
+        if len(pb) == 0:
+            data = torch.ones(batch.capacity, dtype=torch.bool,
+                              device=batch.device)
+        else:
+            data = self._device(c, pb)
+        return make_column(BooleanT, data, valid, batch.num_rows)
+
+    def pretty(self) -> str:
+        return f"{self._pc.replace('_', '')}({self.children[0].pretty()}, " \
+            f"{self.children[1].pretty()})"
+
+
+def _window_at(c: TorchColumnVector, at: torch.Tensor, pb: np.ndarray):
+    """Whether each row's bytes at [at, at + len(pb)) equal ``pb``."""
+    hit = torch.ones_like(at, dtype=torch.bool)
+    last = c.data.numel() - 1
+    for k, b in enumerate(pb.tolist()):
+        hit &= c.data[(at + k).clamp(0, max(last, 0))] == b
+    return hit
+
+
+class StartsWith(_PatternPredicate):
+    _pc = "starts_with"
+
+    def _device(self, c, pb):
+        starts, lens = SK.starts_lengths(c.offsets)
+        return (lens >= len(pb)) & _window_at(c, starts, pb)
+
+
+class EndsWith(_PatternPredicate):
+    _pc = "ends_with"
+
+    def _device(self, c, pb):
+        starts, lens = SK.starts_lengths(c.offsets)
+        return (lens >= len(pb)) & _window_at(c, starts + lens - len(pb), pb)
+
+
+class Contains(_PatternPredicate):
+    _pc = "contains"
+
+    def _device(self, c, pb):
+        return SK.first_match(c.data, c.offsets, pb) >= 0
+
+
+class _TrimBase(_StringUnary):
+    """trim / ltrim / rtrim of ASCII whitespace: each row's first and last
+    non-whitespace byte by a segment min/max, then one ragged gather;
+    non-ASCII input (Unicode whitespace) through the host."""
+
+    trim_left = trim_right = True
+    _pc = ""
+    _WS = (9, 10, 11, 12, 13, 32)
+
+    @property
+    def dtype(self) -> DataType:
+        return StringT
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        c = self._input(batch, ctx)
+        if not _ascii(c):
+            import pyarrow.compute as pc
+            host_path(ctx, self, "non-ASCII")
+            return column_from_arrow(getattr(pc, self._pc)(
+                column_to_arrow(c)), StringT, batch)
+        nbytes = c.data.numel()
+        if nbytes == 0:
+            return c
+        starts, lens = SK.starts_lengths(c.offsets)
+        ws = torch.zeros(nbytes, dtype=torch.bool, device=c.device)
+        for b in self._WS:
+            ws |= c.data == b
+        # each row's first and last non-whitespace byte, by a prefix count
+        # (no atomics: a scatter-min over every byte contends on its row)
+        ends = starts + lens
+        kept = ~ws
+        first = SK.nth_true(kept, starts, ends, torch.ones_like(starts))
+        cs = SK._prefix(kept)
+        count = cs[ends] - cs[starts]
+        last = SK.nth_true(kept, starts, ends, count)
+        has = count > 0
+        lead = torch.where(has, first - starts, lens) if self.trim_left \
+            else torch.zeros_like(lens)
+        end = torch.where(has, last - starts + 1, lead) if self.trim_right \
+            else lens
+        out, offs = SK.build_ranges(c.data, starts + lead, end - lead, nbytes)
+        return _str_col(batch, out, offs, c.validity)
+
+
+class Trim(_TrimBase):
+    _pc = "utf8_trim_whitespace"
+
+
+class LTrim(_TrimBase):
+    trim_right = False
+    _pc = "utf8_ltrim_whitespace"
+
+
+class RTrim(_TrimBase):
+    trim_left = False
+    _pc = "utf8_rtrim_whitespace"
+
+
+class Reverse(_StringUnary):
+    """reverse: ASCII by a stride -1 ragged gather; non-ASCII (character
+    reversal) through the host."""
+
+    _name = "reverse"
+
+    @property
+    def dtype(self) -> DataType:
+        return StringT
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        c = self._input(batch, ctx)
+        if not _ascii(c):
+            import pyarrow.compute as pc
+            host_path(ctx, self, "non-ASCII")
+            return column_from_arrow(pc.utf8_reverse(column_to_arrow(c)),
+                                     StringT, batch)
+        starts, lens = SK.starts_lengths(c.offsets)
+        out, offs = SK.build_ranges(c.data, starts + lens - 1, lens,
+                                    c.data.numel(),
+                                    stride=torch.full_like(starts, -1))
+        return _str_col(batch, out, offs, c.validity)
+
+
+class InitCap(_StringUnary):
+    """initcap: the first letter of each space-separated word upper case,
+    the rest lower (Spark's). ASCII: a word-start mask and a case map in
+    place; non-ASCII through the host."""
+
+    _name = "initcap"
+
+    @property
+    def dtype(self) -> DataType:
+        return StringT
+
+    @staticmethod
+    def _initcap_list(vals):
+        return [None if v is None else
+                " ".join(w[:1].upper() + w[1:].lower() if w else w
+                         for w in v.split(" ")) for v in vals]
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        c = self._input(batch, ctx)
+        if not _ascii(c):
+            import pyarrow as pa
+            host_path(ctx, self, "non-ASCII")
+            return column_from_arrow(pa.array(self._initcap_list(
+                c.to_pylist()), pa.string()), StringT, batch)
+        nbytes = c.data.numel()
+        if nbytes == 0:
+            return c
+        row_start = torch.zeros(nbytes + 1, dtype=torch.bool, device=c.device)
+        row_start[c.offsets[:-1].to(torch.int64).clamp(max=nbytes)] = True
+        prev = torch.zeros_like(c.data)
+        prev[1:] = c.data[:-1]
+        word = row_start[:nbytes] | (prev == 32)
+        b = c.data
+        lower = (b >= ord("a")) & (b <= ord("z"))
+        upper = (b >= ord("A")) & (b <= ord("Z"))
+        out = torch.where(word & lower, b - 32,
+                          torch.where(~word & upper, b + 32, b))
+        return _str_col(batch, out.to(torch.uint8), c.offsets, c.validity)
+
+
+class StringRepeat(Expression):
+    """repeat(str, n): byte tiling on the device (UTF-8 safe); a
+    non-literal count through the host."""
+
+    def __init__(self, child: Expression, times: Expression):
+        self.children = (child, times)
+
+    @property
+    def dtype(self) -> DataType:
+        return StringT
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        c = _string_input(self.children[0], batch, ctx)
+        n = _literal_value(self.children[1])
+        if n is _NOT_LITERAL or n is None:
+            import pyarrow as pa
+            host_path(ctx, self, "non-literal argument")
+            n = 1 if n is _NOT_LITERAL else n
+            return column_from_arrow(pa.array(
+                [None if v is None or n is None else v * max(int(n), 0)
+                 for v in c.to_pylist()], pa.string()), StringT, batch)
+        n = max(int(n), 0)
+        starts, lens = SK.starts_lengths(c.offsets)
+        out, offs = SK.build_repeat(c.data, starts, lens, n,
+                                    bucket_capacity(c.data.numel()
+                                                    * max(n, 1)))
+        return _str_col(batch, out, offs, c.validity)
+
+    def pretty(self) -> str:
+        return f"repeat({self.children[0].pretty()}, " \
+            f"{self.children[1].pretty()})"
+
+
+def _covered(taken: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """bool [nbytes]: bytes inside a taken match [j, ends[j]): +1 at each
+    taken start, -1 at its end, a prefix sum (the taken starts gathered
+    first, so no update lands on a shared slot)."""
+    nbytes = taken.shape[0]
+    at = torch.nonzero(taken).flatten()
+    delta = torch.zeros(nbytes + 1, dtype=torch.int64, device=taken.device)
+    delta.index_add_(0, at, torch.ones_like(at))
+    delta.index_add_(0, ends[at].clamp(max=nbytes), torch.full_like(at, -1))
+    return torch.cumsum(delta[:-1], 0) > 0
+
+
+class StringReplace(Expression):
+    """replace(str, search, replace), literal: left-to-right
+    non-overlapping window matches, then the contribution rebuild (UTF-8
+    safe). A non-literal search goes through the host."""
+
+    def __init__(self, child: Expression, search: Expression,
+                 replace: Expression):
+        self.children = (child, search, replace)
+
+    @property
+    def dtype(self) -> DataType:
+        return StringT
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        c = _string_input(self.children[0], batch, ctx)
+        s = _literal_value(self.children[1])
+        r = _literal_value(self.children[2])
+        if s is _NOT_LITERAL or r is _NOT_LITERAL:
+            import pyarrow.compute as pc
+            host_path(ctx, self, "non-literal argument")
+            r = "" if r is _NOT_LITERAL else r
+            return column_from_arrow(pc.replace_substring(
+                column_to_arrow(c), pattern=s, replacement=r), StringT, batch)
+        if s is None or s == "":
+            return c  # Spark: an empty search leaves the string as it is
+        r = r or ""
+        sb, rb = _pat_bytes(s), _pat_bytes(r)
+        nbytes = c.data.numel()
+        if nbytes == 0:
+            return c
+        taken = SK.greedy_matches(c.data, c.offsets, sb)
+        pos = torch.arange(nbytes, dtype=torch.int64, device=c.device)
+        covered = _covered(taken, pos + len(sb))
+        out_cap = nbytes if len(rb) <= len(sb) else bucket_capacity(
+            (nbytes // len(sb)) * len(rb) + nbytes)
+        out, offs = SK.build_from_contributions(
+            c.data, ~covered, c.offsets, out_cap, replace_at=taken,
+            replacement=rb)
+        return _str_col(batch, out, offs, c.validity)
+
+    def pretty(self) -> str:
+        c = self.children
+        return f"replace({c[0].pretty()}, {c[1].pretty()}, {c[2].pretty()})"
+
+
+class StringLocate(Expression):
+    """locate(substr, str[, pos]): the 1-based position of the first
+    occurrence at or after ``pos``, 0 when absent (instr: pos 1). ASCII by
+    a first match on the device; non-ASCII (character positions) or a
+    non-literal argument through the host."""
+
+    def __init__(self, substr: Expression, child: Expression,
+                 pos: Optional[Expression] = None):
+        from .base import Literal
+        self.children = (substr, child,
+                         pos if pos is not None else Literal(1))
+
+    @property
+    def dtype(self) -> DataType:
+        return IntegerT
+
+    @staticmethod
+    def _compute_list(subs, vals, start):
+        return [None if v is None or subs is None else
+                (0 if start < 1 else v.find(subs, start - 1) + 1)
+                for v in vals]
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        subs = _literal_value(self.children[0])
+        start = _literal_value(self.children[2])
+        c = _string_input(self.children[1], batch, ctx)
+        literal = subs is not _NOT_LITERAL and start is not _NOT_LITERAL
+        if not literal or subs is None or not _ascii(c) \
+                or not subs.isascii():
+            import pyarrow as pa
+            host_path(ctx, self, "non-literal argument" if not literal
+                      else "non-ASCII")
+            subs = None if subs is _NOT_LITERAL else subs
+            start = 1 if start is _NOT_LITERAL else start
+            return column_from_arrow(pa.array(self._compute_list(
+                subs, c.to_pylist(), start), pa.int32()), IntegerT, batch)
+        valid = _valid(c, batch)
+        cap = batch.capacity
+        if start < 1:
+            data = torch.zeros(cap, dtype=torch.int32, device=batch.device)
+        elif subs == "":
+            # Python's find("", k): k when k <= len, else -1
+            _, lens = SK.starts_lengths(c.offsets)
+            data = torch.where(start - 1 <= lens, start, 0).to(torch.int32)
+        else:
+            first = SK.first_match(
+                c.data, c.offsets, _pat_bytes(subs),
+                from_pos=torch.full((cap,), start - 1, dtype=torch.int64,
+                                    device=batch.device))
+            data = (first + 1).to(torch.int32)
+        return make_column(IntegerT, data, valid, batch.num_rows)
+
+    def pretty(self) -> str:
+        return f"locate({self.children[0].pretty()}, " \
+            f"{self.children[1].pretty()})"
+
+
+class StringInstr(StringLocate):
+    """instr(str, substr) = locate(substr, str, 1)."""
+
+    def __init__(self, child: Expression, substr: Expression):
+        super().__init__(substr, child)
+
+    def pretty(self) -> str:
+        return f"instr({self.children[1].pretty()}, " \
+            f"{self.children[0].pretty()})"
+
+
+class _PadBase(Expression):
+    """lpad / rpad to ``len`` characters with a literal pad (Spark: longer
+    strings cut to ``len``, an empty pad leaves shorter ones). ASCII on
+    the device; non-ASCII or a non-literal argument through the host."""
+
+    left_side = True
+
+    def __init__(self, child: Expression, length: Expression,
+                 pad: Expression):
+        self.children = (child, length, pad)
+
+    @property
+    def dtype(self) -> DataType:
+        return StringT
+
+    def _compute_list(self, vals, n, pad):
+        out = []
+        for v in vals:
+            if v is None:
+                out.append(None)
+            elif len(v) >= n:
+                out.append(v[:n])
+            elif not pad:
+                out.append(v)
+            else:
+                fill = (pad * n)[: n - len(v)]
+                out.append(fill + v if self.left_side else v + fill)
+        return out
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        c = _string_input(self.children[0], batch, ctx)
+        n = _literal_value(self.children[1])
+        pad = _literal_value(self.children[2])
+        literal = n is not _NOT_LITERAL and pad is not _NOT_LITERAL \
+            and n is not None and pad is not None
+        if not literal or not pad.isascii() or not _ascii(c):
+            import pyarrow as pa
+            host_path(ctx, self, "non-literal argument" if not literal
+                      else "non-ASCII")
+            n = 0 if n in (None, _NOT_LITERAL) else int(n)
+            pad = " " if pad in (None, _NOT_LITERAL) else pad
+            return column_from_arrow(pa.array(self._compute_list(
+                c.to_pylist(), n, pad), pa.string()), StringT, batch)
+        n = max(int(n), 0)
+        starts, lens = SK.starts_lengths(c.offsets)
+        out_cap = bucket_capacity(max(c.data.numel(), c.capacity * n))
+        out, offs = SK.build_pad(c.data, starts, lens, n, _pat_bytes(pad),
+                                 self.left_side, out_cap,
+                                 active=row_mask(batch.num_rows, c.capacity,
+                                                 batch.device))
+        return _str_col(batch, out, offs, c.validity)
+
+    def pretty(self) -> str:
+        c = self.children
+        name = "lpad" if self.left_side else "rpad"
+        return f"{name}({c[0].pretty()}, {c[1].pretty()}, {c[2].pretty()})"
+
+
+class LPad(_PadBase):
+    left_side = True
+
+
+class RPad(_PadBase):
+    left_side = False
+
+
+class StringTranslate(Expression):
+    """translate(str, from, to): a character map (a from character past the
+    end of ``to`` is deleted). ASCII: a 256-entry table and the
+    contribution rebuild; non-ASCII through the host."""
+
+    def __init__(self, child: Expression, from_str: Expression,
+                 to_str: Expression):
+        self.children = (child, from_str, to_str)
+
+    @property
+    def dtype(self) -> DataType:
+        return StringT
+
+    def _table(self):
+        f = _literal_value(self.children[1])
+        t = _literal_value(self.children[2])
+        f = "" if f in (None, _NOT_LITERAL) else f
+        t = "" if t in (None, _NOT_LITERAL) else t
+        m = {}
+        for i, ch in enumerate(f):
+            if ch not in m:
+                m[ch] = t[i] if i < len(t) else None  # None: delete
+        return m
+
+    def _compute_list(self, vals):
+        m = self._table()
+        return [None if v is None else
+                "".join(m.get(ch, ch) for ch in v
+                        if m.get(ch, ch) is not None) for v in vals]
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        c = _string_input(self.children[0], batch, ctx)
+        m = self._table()
+        table_ascii = all(ord(k) < 128 and (v is None or ord(v) < 128)
+                          for k, v in m.items())
+        literal = all(_literal_value(e) is not _NOT_LITERAL
+                      for e in self.children[1:])
+        if not literal or not table_ascii or not _ascii(c):
+            import pyarrow as pa
+            host_path(ctx, self, "non-literal argument" if not literal
+                      else "non-ASCII")
+            return column_from_arrow(pa.array(self._compute_list(
+                c.to_pylist()), pa.string()), StringT, batch)
+        nbytes = c.data.numel()
+        if nbytes == 0:
+            return c
+        lut = np.arange(256, dtype=np.uint8)
+        drop = np.zeros(256, dtype=bool)
+        for k, v in m.items():
+            if v is None:
+                drop[ord(k)] = True
+            else:
+                lut[ord(k)] = ord(v)
+        idx = c.data.to(torch.int64)
+        mapped = torch.as_tensor(lut, device=c.device)[idx]
+        keep = ~torch.as_tensor(drop, device=c.device)[idx]
+        out, offs = SK.build_from_contributions(c.data, keep, c.offsets,
+                                                nbytes, mapped=mapped)
+        return _str_col(batch, out, offs, c.validity)
+
+    def pretty(self) -> str:
+        c = self.children
+        return f"translate({c[0].pretty()}, {c[1].pretty()}, " \
+            f"{c[2].pretty()})"
+
+
+class _HostRowOp(Expression):
+    """An op computed a row at a time over Python values on the host (the
+    reference's ``_HostRowOp``: ``format_number``, ``conv``). Every batch
+    is a counted host hop."""
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        import pyarrow as pa
+        from ..types import to_arrow
+        host_path(ctx, self, "host row op")
+        n = batch.num_rows
+        ins = [rows_of(c.eval_device(batch, ctx), n) for c in self.children]
+        out = pa.array([self._row(*vals, ctx=ctx) for vals in zip(*ins)],
+                       type=to_arrow(self.dtype))
+        return column_from_arrow(out, self.dtype, batch)
+
+    def _row(self, *vals, ctx):
+        raise NotImplementedError
+
+
+class ConcatWs(Expression):
+    """concat_ws(sep, cols...): the non-null inputs joined by ``sep``, null
+    only when ``sep`` is. A literal separator and string columns on the
+    device (one multi-source gather with separators); anything else
+    through the host."""
+
+    def __init__(self, sep: Expression, *cols: Expression):
+        self.children = (sep,) + tuple(cols)
+
+    @property
+    def dtype(self) -> DataType:
+        return StringT
+
+    @property
+    def nullable(self) -> bool:
+        return self.children[0].nullable
+
+    @staticmethod
+    def _join(sep, parts):
+        if sep is None:
+            return None
+        return sep.join(p for p in parts if p is not None)
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        from ..types import StringType
+        sep = _literal_value(self.children[0])
+        args = self.children[1:]
+        if sep is _NOT_LITERAL or sep is None or not args or not all(
+                isinstance(a.dtype, StringType) for a in args):
+            import pyarrow as pa
+            host_path(ctx, self, "non-literal argument")
+            n = batch.num_rows
+            ins = [rows_of(c.eval_device(batch, ctx), n)
+                   for c in self.children]
+            return column_from_arrow(pa.array(
+                [self._join(r[0], r[1:]) for r in zip(*ins)], pa.string()),
+                StringT, batch)
+        cap, dev = batch.capacity, batch.device
+        logical = row_mask(batch.num_rows, cap, dev)
+        sep_b = sep.encode()
+        parts, emits, seps = [], [], []
+        any_before = torch.zeros(cap, dtype=torch.bool, device=dev)
+        out_cap = 0
+        for i, a in enumerate(args):
+            c = _string_input(a, batch, ctx)
+            starts, lens = SK.starts_lengths(c.offsets)
+            parts.append((c.data, starts, lens))
+            nonnull = logical if c.validity is None else c.validity & logical
+            emits.append(nonnull)
+            seps.append(None if i == 0 else (sep_b, nonnull & any_before))
+            any_before = any_before | nonnull
+            out_cap += c.data.numel() + len(sep_b) * cap
+        out, offs = SK.concat_columns(parts, bucket_capacity(out_cap),
+                                      part_emit=emits, seps=seps)
+        return _str_col(batch, out, offs, None)
+
+    def pretty(self) -> str:
+        return f"concat_ws({', '.join(c.pretty() for c in self.children)})"
+
+
+class SubstringIndex(Expression):
+    """substring_index(str, delim, count): before the count-th delimiter
+    (after the count-th from the end when negative); on the device by the
+    nth non-overlapping match (UTF-8 safe)."""
+
+    def __init__(self, child: Expression, delim: Expression,
+                 count: Expression):
+        self.children = (child, delim, count)
+
+    @property
+    def dtype(self) -> DataType:
+        return StringT
+
+    @staticmethod
+    def _row(s, delim, count):
+        if s is None or delim is None or count is None:
+            return None
+        if delim == "" or count == 0:
+            return ""
+        parts = s.split(delim)
+        if count > 0:
+            return delim.join(parts[:count])
+        return delim.join(parts[count:])
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        c = _string_input(self.children[0], batch, ctx)
+        d = _literal_value(self.children[1])
+        cnt = _literal_value(self.children[2])
+        if d in (None, _NOT_LITERAL) or cnt in (None, _NOT_LITERAL):
+            import pyarrow as pa
+            host_path(ctx, self, "non-literal argument")
+            d = None if d is _NOT_LITERAL else d
+            cnt = None if cnt is _NOT_LITERAL else cnt
+            return column_from_arrow(pa.array(
+                [self._row(v, d, cnt) for v in c.to_pylist()], pa.string()),
+                StringT, batch)
+        starts, lens = SK.starts_lengths(c.offsets)
+        nbytes = max(c.data.numel(), 1)
+        if d == "" or cnt == 0:
+            out, offs = SK.build_ranges(c.data, starts,
+                                        torch.zeros_like(lens), nbytes)
+            return _str_col(batch, out, offs, c.validity)
+        db = _pat_bytes(d)
+        cnt = int(cnt)
+        pos = SK.nth_match(c.data, c.offsets, db, cnt)
+        if cnt > 0:
+            new_start, new_len = starts, torch.where(pos >= 0, pos, lens)
+        else:
+            s0 = torch.where(pos >= 0, pos + len(db), 0)
+            new_start, new_len = starts + s0, lens - s0
+        out, offs = SK.build_ranges(c.data, new_start, new_len, nbytes)
+        return _str_col(batch, out, offs, c.validity)
+
+    def pretty(self) -> str:
+        c = self.children
+        return f"substring_index({c[0].pretty()}, {c[1].pretty()}, " \
+            f"{c[2].pretty()})"
+
+
+class OctetLength(_StringUnary):
+    """octet_length: UTF-8 bytes, from the offsets."""
+
+    _name = "octet_length"
+    _scale = 1
+
+    @property
+    def dtype(self) -> DataType:
+        return IntegerT
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        c = self._input(batch, ctx)
+        _, lens = SK.starts_lengths(c.offsets)
+        return make_column(IntegerT, (lens * self._scale).to(torch.int32),
+                           _valid(c, batch), batch.num_rows)
+
+
+class BitLength(OctetLength):
+    """bit_length = octet_length * 8."""
+
+    _name = "bit_length"
+    _scale = 8
+
+
+class FormatNumber(_HostRowOp):
+    """format_number(x, d): thousands separators and ``d`` decimals,
+    HALF_EVEN as Java's DecimalFormat (reference ``FormatNumber``)."""
+
+    def __init__(self, child: Expression, d: Expression):
+        self.children = (child, d)
+
+    @property
+    def dtype(self) -> DataType:
+        return StringT
+
+    def _row(self, x, d, ctx):
+        if x is None or d is None or d < 0:
+            return None
+        import decimal as _dec
+        if isinstance(x, float):
+            if x != x or x in (float("inf"), float("-inf")):
+                return None
+            q = _dec.Decimal(repr(x)).quantize(
+                _dec.Decimal(1).scaleb(-d), rounding=_dec.ROUND_HALF_EVEN)
+        else:
+            q = _dec.Decimal(x).quantize(
+                _dec.Decimal(1).scaleb(-d), rounding=_dec.ROUND_HALF_EVEN)
+        return f"{q:,.{d}f}"
+
+    def pretty(self) -> str:
+        return f"format_number({self.children[0].pretty()}, " \
+            f"{self.children[1].pretty()})"
+
+
+class Conv(_HostRowOp):
+    """conv(numStr, fromBase, toBase): Java's NumberConverter — unsigned
+    64-bit wraparound, a negative toBase gives signed output, digits read
+    up to the first invalid character (reference ``Conv``)."""
+
+    def __init__(self, child: Expression, from_base: Expression,
+                 to_base: Expression):
+        self.children = (child, from_base, to_base)
+
+    @property
+    def dtype(self) -> DataType:
+        return StringT
+
+    _DIGITS = "0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+
+    def _row(self, s, fb, tb, ctx):
+        if s is None or fb is None or tb is None:
+            return None
+        if not (2 <= abs(fb) <= 36 and 2 <= abs(tb) <= 36):
+            return None
+        s = s.strip()
+        if not s:
+            return None
+        neg = s.startswith("-")
+        if neg:
+            s = s[1:]
+        val, seen = 0, False
+        for ch in s.upper():
+            d = self._DIGITS.find(ch)
+            if d < 0 or d >= abs(fb):
+                break
+            val = (val * abs(fb) + d) & 0xFFFFFFFFFFFFFFFF
+            seen = True
+        if not seen:
+            return "0"
+        if neg:
+            val = (-val) & 0xFFFFFFFFFFFFFFFF
+        if tb < 0:  # signed output
+            sval = val - (1 << 64) if val >= (1 << 63) else val
+            sign = "-" if sval < 0 else ""
+            sval, base = abs(sval), abs(tb)
+        else:
+            sign, sval, base = "", val, tb
+        if sval == 0:
+            return "0"
+        out = []
+        while sval:
+            out.append(self._DIGITS[sval % base])
+            sval //= base
+        return sign + "".join(reversed(out))
+
+    def pretty(self) -> str:
+        c = self.children
+        return f"conv({c[0].pretty()}, {c[1].pretty()}, {c[2].pretty()})"
+
+
+class Ascii(_StringUnary):
+    """ascii(str): the code point of the first character, 0 for the empty
+    string. ASCII: the first byte of each row; non-ASCII through the
+    host (the whole code point)."""
+
+    _name = "ascii"
+
+    @property
+    def dtype(self) -> DataType:
+        return IntegerT
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        c = self._input(batch, ctx)
+        if not _ascii(c):
+            import pyarrow as pa
+            host_path(ctx, self, "non-ASCII")
+            return column_from_arrow(pa.array(
+                [None if v is None else (ord(v[0]) if v else 0)
+                 for v in c.to_pylist()], pa.int32()), IntegerT, batch)
+        starts, lens = SK.starts_lengths(c.offsets)
+        nbytes = c.data.numel()
+        if nbytes == 0:
+            data = torch.zeros(c.capacity, dtype=torch.int32,
+                               device=c.device)
+        else:
+            first = c.data[starts.clamp(0, nbytes - 1)].to(torch.int32)
+            data = torch.where(lens > 0, first, 0)
+        return make_column(IntegerT, data, _valid(c, batch), batch.num_rows)

@@ -2,7 +2,7 @@
 ``spark_rapids_tpu/functions.py`` that the 22 TPC-H queries of
 ``benchmarks/tpch.py`` and the 99 TPC-DS queries of
 ``benchmarks/tpcds.py`` use, with the rest of the variance family and of
-the window functions)."""
+the window functions, the string and regex functions and ``hash``)."""
 
 from __future__ import annotations
 
@@ -116,6 +116,111 @@ def abs(c) -> Column:  # noqa: A001
 def concat(*cols) -> Column:
     from .expressions.strings import ConcatStr
     return Column(ConcatStr(*[_expr_or_col(c) for c in cols]))
+
+
+def hash(*cols) -> Column:  # noqa: A001
+    from .expressions.hashexprs import Murmur3Hash
+    return Column(Murmur3Hash(*[_expr_or_col(c) for c in cols]))
+
+
+# --- strings ---------------------------------------------------------------
+
+def _string_fn(cls_name: str):
+    def fn(c) -> Column:
+        from .expressions import strings as S
+        return Column(getattr(S, cls_name)(_expr_or_col(c)))
+    fn.__name__ = cls_name.lower()
+    return fn
+
+
+length = _string_fn("Length")
+upper = _string_fn("Upper")
+lower = _string_fn("Lower")
+trim = _string_fn("Trim")
+ltrim = _string_fn("LTrim")
+rtrim = _string_fn("RTrim")
+reverse = _string_fn("Reverse")
+initcap = _string_fn("InitCap")
+octet_length = _string_fn("OctetLength")
+bit_length = _string_fn("BitLength")
+ascii = _string_fn("Ascii")  # noqa: A001
+
+
+def repeat(c, n: int) -> Column:
+    from .expressions.strings import StringRepeat
+    return Column(StringRepeat(_expr_or_col(c), Literal(n)))
+
+
+def replace(c, search: str, replacement: str = "") -> Column:
+    from .expressions.strings import StringReplace
+    return Column(StringReplace(_expr_or_col(c), Literal(search),
+                                Literal(replacement)))
+
+
+def translate(c, from_str: str, to_str: str) -> Column:
+    from .expressions.strings import StringTranslate
+    return Column(StringTranslate(_expr_or_col(c), Literal(from_str),
+                                  Literal(to_str)))
+
+
+def locate(substr: str, c, pos: int = 1) -> Column:
+    from .expressions.strings import StringLocate
+    return Column(StringLocate(Literal(substr), _expr_or_col(c),
+                               Literal(pos)))
+
+
+def instr(c, substr: str) -> Column:
+    from .expressions.strings import StringLocate
+    return Column(StringLocate(Literal(substr), _expr_or_col(c)))
+
+
+def lpad(c, length_: int, pad: str = " ") -> Column:
+    from .expressions.strings import LPad
+    return Column(LPad(_expr_or_col(c), Literal(length_), Literal(pad)))
+
+
+def rpad(c, length_: int, pad: str = " ") -> Column:
+    from .expressions.strings import RPad
+    return Column(RPad(_expr_or_col(c), Literal(length_), Literal(pad)))
+
+
+def concat_ws(sep: str, *cols) -> Column:
+    from .expressions.strings import ConcatWs
+    return Column(ConcatWs(Literal(sep) if isinstance(sep, str)
+                           else _expr(sep),
+                           *[_expr_or_col(c) for c in cols]))
+
+
+def substring_index(c, delim: str, count: int) -> Column:
+    from .expressions.strings import SubstringIndex
+    return Column(SubstringIndex(_expr_or_col(c), Literal(delim),
+                                 Literal(count)))
+
+
+def format_number(c, d: int) -> Column:
+    from .expressions.strings import FormatNumber
+    return Column(FormatNumber(_expr_or_col(c), Literal(d)))
+
+
+def conv(c, from_base: int, to_base: int) -> Column:
+    from .expressions.strings import Conv
+    return Column(Conv(_expr_or_col(c), Literal(from_base),
+                       Literal(to_base)))
+
+
+def rlike(c, pattern: str) -> Column:
+    from .expressions.regex import RLike
+    return Column(RLike(_expr_or_col(c), pattern))
+
+
+def regexp_replace(c, pattern: str, replacement: str) -> Column:
+    from .expressions.regex import RegexpReplace
+    return Column(RegexpReplace(_expr_or_col(c), pattern, replacement))
+
+
+def regexp_extract(c, pattern: str, idx: int = 1) -> Column:
+    from .expressions.regex import RegexpExtract
+    return Column(RegexpExtract(_expr_or_col(c), pattern, idx))
 
 
 # --- the variance family ---------------------------------------------------

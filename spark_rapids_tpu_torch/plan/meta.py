@@ -56,6 +56,9 @@ class ExprMeta(RapidsMeta):
                     self.will_not_work_on_tpu(
                         f"expression {type(e).__name__} produces an "
                         f"unsupported type: {r}")
+            if not getattr(e, "tpu_supported", True):
+                self.will_not_work_on_tpu(
+                    f"expression {type(e).__name__} is disabled on TPU")
             key = f"spark.rapids.sql.expression.{type(e).__name__}"
             if not self.conf.is_op_enabled(key, True):
                 self.will_not_work_on_tpu(

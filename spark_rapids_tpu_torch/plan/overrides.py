@@ -254,8 +254,10 @@ def _tag_window(meta: PlanMeta) -> None:
                 meta.will_not_work_on_tpu(
                     f"window aggregate {name} is not supported "
                     "on TPU (not yet ported)")
-            elif fn.update_op != "count" and any(map(is_string,
-                                                     fn.children)):
+            elif fn.update_op in ("sum", "avg") and any(map(is_string,
+                                                            fn.children)):
+                # Spark casts a string to double for sum/avg; the window
+                # exec has no string-to-double cast of its input
                 meta.will_not_work_on_tpu(
                     f"window aggregate {name} of a string is not "
                     "supported on TPU (not yet ported)")
@@ -264,10 +266,6 @@ def _tag_window(meta: PlanMeta) -> None:
             meta.will_not_work_on_tpu(
                 f"window function {name} not supported on TPU")
         elif isinstance(fn, (Lead, Lag)):
-            if fn.default is not None and is_string(fn.children[0]):
-                meta.will_not_work_on_tpu(
-                    f"window function {name} of a string with a default "
-                    "is not supported on TPU (not yet ported)")
             meta.add_exprs(fn.children)
         meta.add_exprs(we.spec.partition_by)
         meta.add_exprs([o.child for o in we.spec.order_by])

@@ -20,14 +20,20 @@ _EXPR_RULES: Dict[type, "ExprRule"] = {}
 
 
 class ExprRule:
-    def __init__(self, cls: type, type_sig: Optional[TypeSig], desc: str):
+    def __init__(self, cls: type, type_sig: Optional[TypeSig], desc: str,
+                 incompat: Optional[str] = None,
+                 host_assisted: bool = False):
         self.cls = cls
         self.type_sig = type_sig
         self.desc = desc
+        self.incompat = incompat
+        self.host_assisted = host_assisted  # correct, partly on the host
 
 
-def register_expr(cls: type, type_sig: Optional[TypeSig], desc: str) -> None:
-    _EXPR_RULES[cls] = ExprRule(cls, type_sig, desc)
+def register_expr(cls: type, type_sig: Optional[TypeSig], desc: str,
+                  incompat: Optional[str] = None,
+                  host_assisted: bool = False) -> None:
+    _EXPR_RULES[cls] = ExprRule(cls, type_sig, desc, incompat, host_assisted)
 
 
 def is_expr_registered(cls: type) -> bool:
@@ -48,16 +54,21 @@ def _register_builtin_exprs() -> None:
     from ..expressions import cast as C
     from ..expressions import conditional as CO
     from ..expressions import generators as GEN
+    from ..expressions import hashexprs as H
     from ..expressions import mathexprs as M
     from ..expressions import nullexprs as N
     from ..expressions import predicates as P
+    from ..expressions import regex as RX
     from ..expressions import strings as S
+    from ..types import TypeEnum, TypeSig
     sig_all = TypeSigs.all_basic
     register_expr(B.Literal, sig_all, "literal value")
     register_expr(B.AttributeReference, sig_all, "column reference")
     register_expr(B.Alias, sig_all, "named expression")
-    register_expr(C.Cast, sig_all, "cast between numeric, boolean and date "
-                  "types")
+    register_expr(C.Cast, sig_all + TypeSig([TypeEnum.TIMESTAMP]),
+                  "cast between numeric, boolean and date types; to and "
+                  "from strings through the host",
+                  incompat="string casts run on the host")
     for cls in (A.Add, A.Subtract, A.Multiply):
         register_expr(cls, TypeSigs.numeric,
                       f"{cls.__name__.lower()} of numerics")
@@ -72,20 +83,73 @@ def _register_builtin_exprs() -> None:
     register_expr(P.InSet, TypeSigs.BOOLEAN, "IN over a literal set (isin)")
     register_expr(N.IsNull, TypeSigs.BOOLEAN, "IS NULL")
     register_expr(N.IsNotNull, TypeSigs.BOOLEAN, "IS NOT NULL")
-    # the branches are fixed-width: a string CASE WHEN is not yet ported
     branch = TypeSigs.numeric + TypeSigs.BOOLEAN + TypeSigs.DATE \
-        + TypeSigs.NULL
+        + TypeSigs.STRING + TypeSigs.NULL
     register_expr(CO.If, branch, "if/else")
     register_expr(CO.CaseWhen, branch, "CASE WHEN")
     register_expr(M.Round, TypeSigs.numeric, "round (HALF_UP)")
-    register_expr(S.Like, TypeSigs.BOOLEAN, "SQL LIKE with % and _")
+    register_expr(H.Murmur3Hash, TypeSigs.integral, "spark murmur3 hash")
+    register_expr(S.Like, TypeSigs.BOOLEAN, "SQL LIKE with % and _",
+                  incompat="'_' over non-ASCII handled via host path")
     register_expr(S.Substring, TypeSigs.STRING,
-                  "substring (device ragged gather, ASCII)")
+                  "substring (device ragged gather)",
+                  incompat="non-ASCII handled via host path")
+    register_expr(S.Length, TypeSigs.integral, "string char length")
+    register_expr(S.Upper, TypeSigs.STRING, "uppercase",
+                  incompat="non-ASCII handled via host path")
+    register_expr(S.Lower, TypeSigs.STRING, "lowercase",
+                  incompat="non-ASCII handled via host path")
+    register_expr(S.StartsWith, TypeSigs.BOOLEAN, "prefix test",
+                  incompat="non-literal pattern via host path")
+    register_expr(S.EndsWith, TypeSigs.BOOLEAN, "suffix test",
+                  incompat="non-literal pattern via host path")
+    register_expr(S.Contains, TypeSigs.BOOLEAN,
+                  "substring test (device window match)",
+                  incompat="non-literal pattern via host path")
+    for cls in (S.StringRepeat, S.StringReplace, S.SubstringIndex):
+        register_expr(cls, TypeSigs.STRING,
+                      f"string fn {cls.__name__.lower()} (device, UTF-8 "
+                      "safe)", incompat="non-literal arguments via host path")
+    for cls in (S.Trim, S.LTrim, S.RTrim, S.Reverse, S.InitCap, S.LPad,
+                S.RPad, S.StringTranslate):
+        register_expr(cls, TypeSigs.STRING,
+                      f"string fn {cls.__name__.lower()} (device)",
+                      incompat="non-ASCII handled via host path")
+    for cls in (S.StringLocate, S.StringInstr):
+        register_expr(cls, TypeSigs.integral,
+                      "locate/instr (device first-match)",
+                      incompat="non-ASCII handled via host path")
+    register_expr(S.ConcatWs, TypeSigs.STRING, "concat_ws (device)",
+                  incompat="non-literal separator via host path")
+    register_expr(S.OctetLength, TypeSigs.integral,
+                  "byte length (device offsets math)")
+    register_expr(S.BitLength, TypeSigs.integral,
+                  "bit length (device offsets math)")
+    register_expr(S.Ascii, TypeSigs.integral, "first code point",
+                  incompat="non-ASCII handled via host path")
+    register_expr(S.FormatNumber, TypeSigs.STRING, "format_number",
+                  host_assisted=True)
+    register_expr(S.Conv, TypeSigs.STRING, "base conversion",
+                  host_assisted=True)
+    register_expr(RX.RLike, TypeSigs.BOOLEAN,
+                  "regex match: literal rewrite or compiled byte-DFA on "
+                  "the device (kernels/regex_dfa.py); out-of-subset "
+                  "patterns run on the host",
+                  incompat="out-of-subset patterns run on host")
+    register_expr(RX.RegexpReplace, TypeSigs.STRING,
+                  "regex replace: DFA span matching + device byte assembly; "
+                  "out-of-subset patterns / group refs run on the host",
+                  incompat="out-of-subset patterns run on host")
+    register_expr(RX.RegexpExtract, TypeSigs.STRING,
+                  "regex extract: group 0 via device DFA span matching; "
+                  "capture groups on the host",
+                  incompat="capture groups run on host")
     register_expr(AGG.Sum, TypeSigs.numeric, "sum aggregate")
     register_expr(AGG.Average, TypeSigs.numeric, "average aggregate")
-    # min/max of strings reduce on the host in the reference (pyarrow);
-    # that path is not yet ported, so string results stay off the device
-    minmax = TypeSigs.numeric + TypeSigs.DATE + TypeSigs.NULL
+    # min/max of strings reduce in a host-assisted segment, as the
+    # reference's (execs/aggregates._host_string_minmax)
+    minmax = TypeSigs.numeric + TypeSigs.DATE + TypeSigs.STRING \
+        + TypeSigs.NULL
     register_expr(AGG.Min, minmax, "min aggregate")
     register_expr(AGG.Max, minmax, "max aggregate")
     register_expr(AGG.Count, TypeSigs.integral, "count aggregate")
@@ -124,8 +188,10 @@ _register_builtin_exprs()
 
 def conf_gate_reason(e, conf) -> Optional[str]:
     """Config-driven expression gates beyond the per-class switch. The
-    reference's cast gates (float↔string, string→timestamp) wait with the
-    string casts; the float-aggregation gate is here."""
+    reference's cast switches (castFloatToString, castStringToFloat,
+    castStringToTimestamp) wait for the host engine: with none, a cast
+    switched off could only fail its query. The float-aggregation gate is
+    here."""
     from ..config import VARIABLE_FLOAT_AGG_ENABLED
     from ..expressions.aggregates import Average, Sum
     from ..types import DoubleType, FloatType

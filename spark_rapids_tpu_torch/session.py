@@ -109,6 +109,22 @@ class Column:
         from .expressions.strings import Like
         return Column(Like(self._expr, pattern))
 
+    def rlike(self, pattern: str) -> "Column":
+        from .expressions.regex import RLike
+        return Column(RLike(self._expr, pattern))
+
+    def startswith(self, other) -> "Column":
+        from .expressions.strings import StartsWith
+        return Column(StartsWith(self._expr, _expr(other)))
+
+    def endswith(self, other) -> "Column":
+        from .expressions.strings import EndsWith
+        return Column(EndsWith(self._expr, _expr(other)))
+
+    def contains(self, other) -> "Column":
+        from .expressions.strings import Contains
+        return Column(Contains(self._expr, _expr(other)))
+
     def cast(self, to) -> "Column":
         """Cast to a type or a Spark type name (``"int"``, ``"double"``,
         ``"long"``, ``"date"``, ...)."""

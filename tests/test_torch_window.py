@@ -223,27 +223,73 @@ def test_window_off_the_device_raises_with_its_reason():
         q.collect()
 
 
+def _peer(r):
+    """A row's order values as peers compare them (-0.0 ties 0.0, NaN
+    ties NaN)."""
+    return tuple(None if r[c] is None else ("nan" if r[c] != r[c]
+                                            else r[c] + 0)
+                 for c in ("o", "x", "i"))
+
+
+def _expected_string_window(kind, keys, peers):
+    """The plain answer of each string window case over one partition's
+    rows in order: ``keys`` the strings, ``peers`` the order values."""
+    n = len(keys)
+    if kind == "lead":
+        return [keys[at + 1] if at + 1 < n else "none" for at in range(n)]
+    if kind == "lag":
+        return [keys[at - 2] if at >= 2 else "none" for at in range(n)]
+    out = []
+    for at in range(n):
+        if kind == "min":  # RANGE frame: up to the current row's last peer
+            end = at
+            while end + 1 < n and peers[end + 1] == peers[at]:
+                end += 1
+            frame = keys[:end + 1]
+        else:  # max over ROWS -2 .. +1
+            frame = keys[max(at - 2, 0):at + 2]
+        vals = [v for v in frame if v is not None]
+        out.append((min(vals) if kind == "min" else max(vals))
+                   if vals else None)
+    return out
+
+
 @pytest.mark.parametrize("fn, reason", [
-    (lambda w: PF.lead("k", 1, "none").over(w),
-     "window function Lead of a string with a default is not supported"),
-    (lambda w: PF.lag("k", 2, "none").over(w),
-     "window function Lag of a string with a default is not supported"),
-    (lambda w: PF.min("k").over(w),
-     "window aggregate Min of a string is not supported"),
-    (lambda w: PF.max("k").over(w.rowsBetween(-2, 1)),
-     "window aggregate Max of a string is not supported"),
+    (lambda w: PF.lead("k", 1, "none").over(w), "lead"),
+    (lambda w: PF.lag("k", 2, "none").over(w), "lag"),
+    (lambda w: PF.min("k").over(w), "min"),
+    (lambda w: PF.max("k").over(w.rowsBetween(-2, 1)), "max"),
+    (lambda w: PF.sum("k").over(w),
+     "window aggregate Sum of a string is not supported"),
+    (lambda w: PF.avg("k").over(w.rowsBetween(-2, 1)),
+     "window aggregate Average of a string is not supported"),
 ])
 def test_window_of_a_string_off_the_device_raises_with_its_reason(fn, reason):
-    """A string argument the device's window exec does not take (lead /
-    lag with a default, min / max) is tagged off the device in
-    ``explain_fallback()`` and fails under test mode instead of failing
-    in the middle of a collect."""
+    """lead / lag of a string with a default and min / max of a string run
+    on the device's window exec (test mode: nothing off it) and give the
+    plain answer over the partition's rows in order (the reference's
+    device exec takes a string column's bytes for its rows, C-ref-12). A
+    string sum or avg (Spark casts it to double) is still tagged off the
+    device in ``explain_fallback()`` and fails under test mode instead of
+    failing in the middle of a collect."""
     s = TorchSession({"spark.rapids.sql.test.enabled": "true"}, device="cpu")
     w = PWindow.partitionBy("j").orderBy("o", "x", "i")
-    q = _frames(s, host_valid=True).select("j", fn(w).alias("v"))
-    assert reason in q.explain_fallback()
-    with pytest.raises(AssertionError, match="not columnar"):
-        q.collect()
+    q = _frames(s, host_valid=True).select("j", "o", "x", "i", "k",
+                                           fn(w).alias("v"))
+    if reason.startswith("window"):
+        assert reason in q.explain_fallback()
+        with pytest.raises(AssertionError, match="not columnar"):
+            q.collect()
+        return
+    parts = {}
+    for pos, r in enumerate(q.collect()):
+        parts.setdefault(r["j"], []).append((pos, r))
+    for rows in parts.values():
+        rows.sort(key=lambda t: (_order(t[1]["o"]), _order(t[1]["x"]),
+                                 _order(t[1]["i"]), t[0]))
+        want = _expected_string_window(reason, [r["k"] for _, r in rows],
+                                       [_peer(r) for _, r in rows])
+        assert [r["v"] for _, r in rows] == want
 
 
 def test_count_of_strings_over_a_window():

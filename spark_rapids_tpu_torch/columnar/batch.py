@@ -16,7 +16,8 @@ import torch
 
 from ..types import (BinaryType, BooleanType, StringT, StringType,
                      StructField, StructType, from_arrow, from_numpy_dtype)
-from .vector import HostStrings, TorchColumnVector, bucket_capacity
+from .vector import (HostStrings, TorchColumnVector, bucket_capacity,
+                     column_to_arrow)
 
 
 class TorchColumnarBatch:
@@ -157,6 +158,9 @@ class TorchColumnarBatch:
                 else arr
             dtype = from_arrow(arr.type)
             n = len(arr)
+            if pa.types.is_null(arr.type):
+                cols.append(TorchColumnVector.from_scalar(None, dtype, n, n))
+                continue
             validity = (np.asarray(arr.is_valid()) if arr.null_count
                         else None)
             if isinstance(dtype, (StringType, BinaryType)):
@@ -192,6 +196,18 @@ class TorchColumnarBatch:
                 dtype, vals, validity, capacity=n, bucket=False))
         return TorchColumnarBatch(cols, table.num_rows,
                                   list(table.column_names))
+
+    def to_arrow(self):
+        """The batch's logical rows as an Arrow table (a device batch
+        downloads each column once), through ``column_to_arrow``, the
+        string host hop's own download. A batch without columns keeps its
+        row count."""
+        import pyarrow as pa
+        names = self.names or [f"c{i}" for i in range(len(self.columns))]
+        if not self.columns:
+            return pa.table({"_": pa.nulls(self.num_rows)}).select([])
+        return pa.Table.from_arrays([column_to_arrow(c)
+                                     for c in self.columns], names=names)
 
     def slice(self, start: int, length: int) -> "TorchColumnarBatch":
         """Rows [start, start+length) of a host table (unpadded)."""

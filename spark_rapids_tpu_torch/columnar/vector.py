@@ -237,3 +237,38 @@ class TorchScalar:
     @property
     def is_null(self) -> bool:
         return self.value is None
+
+
+def column_to_arrow(col: TorchColumnVector):
+    """A column's logical rows as an Arrow array (the host hop's
+    download: offsets, bytes and validity, no per-row Python)."""
+    import pyarrow as pa
+    n = col.num_rows
+    valid = col.validity[:n].cpu().numpy() if col.validity is not None \
+        else None
+    if valid is not None and valid.all():
+        valid = None
+    if isinstance(col.dtype, NullType):
+        return pa.nulls(n)
+    if col.offsets is not None:
+        offs = col.offsets[:n + 1].cpu().numpy().astype(np.int64)
+        base = int(offs[0])
+        offs = (offs - base).astype(np.int32)
+        nb = int(offs[-1])
+        data = col.data[base:base + nb].cpu().numpy() if nb else \
+            np.zeros(0, np.uint8)
+        bitmap = None if valid is None else pa.py_buffer(
+            np.packbits(valid, bitorder="little").tobytes())
+        at = pa.binary() if isinstance(col.dtype, BinaryType) else pa.string()
+        return pa.Array.from_buffers(
+            at, n, [bitmap, pa.py_buffer(offs.tobytes()),
+                    pa.py_buffer(data.tobytes())],
+            null_count=0 if valid is None else int((~valid).sum()))
+    vals = col.data[:n].cpu().numpy()
+    mask = None if valid is None else ~valid
+    if isinstance(col.dtype, DateType):
+        return pa.array(vals.astype(np.int32), type=pa.date32(), mask=mask)
+    if isinstance(col.dtype, TimestampType):
+        return pa.array(vals.astype(np.int64), type=pa.timestamp("us"),
+                        mask=mask)
+    return pa.array(vals, mask=mask)

@@ -74,6 +74,25 @@ VARIABLE_FLOAT_AGG_ENABLED = ConfEntry(
     "Allow float sum/avg aggregations whose result can vary with the "
     "order of accumulation; false keeps them on the CPU.", True, _parse_bool)
 
+# the reference's cast incompatibility switches (config.py:1472-1488): off,
+# the cast's operator runs in the host engine
+
+CAST_FLOAT_TO_STRING_ENABLED = ConfEntry(
+    "spark.rapids.sql.castFloatToString.enabled",
+    "Enable float->string casts on TPU (Java-exact shortest-round-trip "
+    "formatting; reference castFloatToString incompatibility switch).",
+    True, _parse_bool)
+
+CAST_STRING_TO_FLOAT_ENABLED = ConfEntry(
+    "spark.rapids.sql.castStringToFloat.enabled",
+    "Enable string->float casts on TPU (reference castStringToFloat "
+    "incompatibility switch).", True, _parse_bool)
+
+CAST_STRING_TO_TIMESTAMP_ENABLED = ConfEntry(
+    "spark.rapids.sql.castStringToTimestamp.enabled",
+    "Enable string->timestamp casts on TPU (reference "
+    "castStringToTimestamp incompatibility switch).", True, _parse_bool)
+
 # the device regex engine's sizing (reference config.py:1414-1445)
 
 REGEX_MAX_DEVICE_ROW_BYTES = ConfEntry(

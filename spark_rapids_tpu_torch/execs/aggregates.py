@@ -39,12 +39,13 @@ from ..columnar.batch import TorchColumnarBatch, concat_batches, gather
 from ..columnar.vector import TorchColumnVector, bucket_capacity, row_mask
 from ..expressions.aggregates import (VARIANCE_OPS, AggregateFunction,
                                       Count)
-from ..expressions.base import AttributeReference, Expression, to_column
+from ..expressions.base import (AttributeReference, Expression, arrow_column,
+                                to_column)
 from ..expressions.strings import longest_string, string_key_codes
 from ..types import DoubleT, LongT, StringType, is_fixed_width
-from .base import (PhysicalPlan, TaskContext, TorchExec, bind_all,
-                   bind_references)
-from .cpu import _HostEngineNotPorted
+from .base import (CpuExec, PhysicalPlan, TaskContext, TorchExec, bind_all,
+                   bind_references, op_time)
+from .cpu import concat_child, host_batch
 
 
 def split_result_exprs(aggregates: Sequence[Expression]):
@@ -91,10 +92,12 @@ def _bind_agg_refs(expr: Expression, num_keys: int,
     return expr.transform(rule)
 
 
-class CpuHashAggregateExec(_HostEngineNotPorted):
-    """Grouped aggregate on the host (reference ``CpuHashAggregateExec``).
-    ``per_partition``: the child is hash-distributed by the grouping keys
-    (a hash exchange below), so each partition aggregates on its own."""
+class CpuHashAggregateExec(CpuExec):
+    """Grouped aggregate on the host (reference ``CpuHashAggregateExec``):
+    Arrow's ``group_by`` with Spark's semantics layered over it
+    (``_arrow_aggregate``). ``per_partition``: the child is
+    hash-distributed by the grouping keys (a hash exchange below), so each
+    partition aggregates on its own."""
 
     def __init__(self, grouping: Sequence[Expression],
                  aggregates: Sequence[Expression], child: PhysicalPlan,
@@ -116,6 +119,128 @@ class CpuHashAggregateExec(_HostEngineNotPorted):
 
     def node_desc(self) -> str:
         return f"CpuHashAggregate[keys={len(self.grouping)}]"
+
+    def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
+        import pyarrow as pa
+        base = concat_child(self.children[0], ctx,
+                            idx if self.per_partition else None)
+        if base.num_rows == 0 and self.grouping:
+            return
+        with op_time(ctx, type(self).__name__):
+            ectx, n = ctx.eval_ctx, base.num_rows
+            agg_fns, result_exprs = split_result_exprs(self.aggregates)
+            cols, keys, specs = {}, [], []
+            for i, g in enumerate(self.grouping):
+                cols[f"k{i}"] = _normalize_fp_key_arrow(
+                    arrow_column(g.eval_cpu(base, ectx), n, g.dtype))
+                keys.append(f"k{i}")
+            for i, fn in enumerate(agg_fns):
+                inp = fn.children[0] if fn.children else None
+                cols[f"a{i}"] = pa.array(np.ones(n, np.int64)) \
+                    if inp is None else \
+                    arrow_column(inp.eval_cpu(base, ectx), n, inp.dtype)
+                specs.append((f"a{i}", fn))
+            flat = pa.Table.from_arrays(list(cols.values()),
+                                        names=list(cols)) if cols \
+                else pa.table({"_": pa.nulls(n)}).select([])
+            agg = _arrow_aggregate(flat, keys, specs)
+            ng = len(self.grouping)
+            out = [agg.column(i) for i in range(ng)]
+            for expr in result_exprs:
+                bound = _bind_agg_refs(expr, ng, self.grouping)
+                out.append(bound.eval_cpu(agg, ectx))
+            batch = host_batch(out, self._output, agg.num_rows)
+        yield batch
+
+
+def _normalize_fp_key_arrow(arr):
+    """-0.0 groups with 0.0 (Arrow's hashing already groups NaNs)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    if pa.types.is_floating(arr.type):
+        zero = pa.scalar(0.0, arr.type)
+        return pc.if_else(pc.equal(arr, zero), zero, arr)
+    return arr
+
+
+_ARROW_AGG = {"sum": "sum", "count": "count", "min": "min", "max": "max",
+              "avg": "mean", "stddev_samp": "stddev", "stddev_pop": "stddev",
+              "var_samp": "variance", "var_pop": "variance"}
+
+
+def _arrow_aggregate(flat, keys: List[str], specs):
+    """Grouped (or global) aggregation of ``flat`` by ``keys`` with Spark's
+    semantics over Arrow's kernels (reference ``_arrow_aggregate``): a
+    table of the keys, then one column an aggregate. Spark orders NaN
+    above every double: a float min skips NaN unless the whole group is
+    NaN, a float max is NaN when any value is; Arrow propagates NaN, so
+    float min/max decompose into a NaN-free reduction and NaN flags."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    work = {k: flat.column(k) for k in keys}
+    calls, plans = [], []
+    for i, (name, fn) in enumerate(specs):
+        col = flat.column(name)
+        op = _ARROW_AGG[fn.update_op]
+        opts = None
+        if fn.update_op in ("stddev_samp", "var_samp"):
+            opts = pc.VarianceOptions(ddof=1)
+        elif fn.update_op in ("stddev_pop", "var_pop"):
+            opts = pc.VarianceOptions(ddof=0)
+        if pa.types.is_floating(col.type) and fn.update_op in ("min", "max"):
+            nan = pc.fill_null(pc.is_nan(col), False)
+            neutral = pa.scalar(np.inf if fn.update_op == "min" else -np.inf,
+                                col.type)
+            work[f"c{i}"] = pc.if_else(nan, neutral, col)
+            # null-preserving NaN flag: its min says all NaN, max any NaN
+            work[f"n{i}"] = pc.if_else(pc.is_null(col),
+                                       pa.scalar(None, pa.int8()),
+                                       pc.cast(nan, pa.int8()))
+            calls += [(f"c{i}", op, None), (f"n{i}", "min", None),
+                      (f"n{i}", "max", None)]
+            plans.append(("fp", i, op, fn))
+        else:
+            work[f"c{i}"] = col
+            calls.append((f"c{i}", op, opts))
+            plans.append(("plain", i, op, fn))
+    table = pa.Table.from_arrays(list(work.values()), names=list(work)) \
+        if work else flat
+    if keys:
+        if not calls:  # keys only: the distinct key rows
+            table = table.append_column(
+                "_d", pa.array(np.ones(table.num_rows, np.int8)))
+            calls.append(("_d", "count", None))
+        res = table.group_by(keys).aggregate(
+            [(c, op) if o is None else (c, op, o) for c, op, o in calls])
+
+        def get(c, op):
+            return res.column(f"{c}_{op}")
+        out = [res.column(k) for k in keys]
+    else:
+        fns = {"sum": pc.sum, "count": pc.count, "min": pc.min,
+               "max": pc.max, "mean": pc.mean, "stddev": pc.stddev,
+               "variance": pc.variance}
+        vals = {}
+        for c, op, o in calls:
+            v = fns[op](table.column(c), options=o) if o is not None \
+                else fns[op](table.column(c))
+            vals[(c, op)] = pa.array([v.as_py()], type=v.type
+                                     if v.type != pa.null() else pa.int64())
+
+        def get(c, op):
+            return vals[(c, op)]
+        out = []
+    for mode, i, op, fn in plans:
+        red = get(f"c{i}", op)
+        if mode == "fp":
+            flag = get(f"n{i}", "min" if fn.update_op == "min" else "max")
+            red = pc.if_else(pc.equal(pc.fill_null(flag, 0), 1),
+                             pa.scalar(float("nan"), red.type), red)
+        out.append(red)
+    names = list(keys) + [f"agg{i}" for i in range(len(plans))]
+    return pa.Table.from_arrays(
+        [o.combine_chunks() if isinstance(o, pa.ChunkedArray) else o
+         for o in out], names=names)
 
 
 # ---------------------------------------------------------------------------

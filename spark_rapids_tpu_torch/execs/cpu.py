@@ -1,24 +1,82 @@
-"""CPU physical operators: what the planner emits and the override engine
-retargets (port of a subset of ``spark_rapids_tpu/execs/cpu.py``).
+"""CPU physical operators: what the planner emits, what the override
+engine retargets, and the host engine that runs an operator the override
+engine keeps off the card (port of ``spark_rapids_tpu/execs/cpu.py``).
 
-Two scans execute: ``CpuLocalTableScanExec`` slices the host table (a
-TorchColumnarBatch on the CPU) into partitions and batchSizeRows batches,
-and ``CpuFileScanExec`` (``io/parquet.py``) reads parquet files on the host
-with pyarrow into host batches (``TorchColumnarBatch.from_arrow``), so a
-plan whose scan stays on the CPU (``spark.rapids.sql.format.parquet.
-enabled=false``) feeds the device through the usual upload. The reference
-evaluates the other CPU operators with ``pyarrow``; that host engine is not
-yet ported, so executing one of them raises instead of running silently. Such a node is left in a plan only when the override
-engine kept it on the CPU, and ``explain_fallback()`` says why.
+Host batches are ``TorchColumnarBatch`` on the CPU, as everywhere in the
+port: scans, transitions and the spill catalog see no other kind. A CPU
+operator evaluates over pyarrow, as the reference's do: it turns each
+input batch into a ``pa.Table`` once (``TorchColumnarBatch.to_arrow``),
+evaluates its expressions through their ``eval_cpu``, and turns its
+output back once (``host_batch``). ``CpuLocalTableScanExec`` slices the
+host table into partitions and ``batchSizeRows`` batches;
+``CpuFileScanExec`` (``io/parquet.py``) reads parquet files on the host.
+
+The host engine is chosen only at planning: a ``Cpu*`` node is left in a
+plan where the override engine tagged it off the card, with the reason
+``explain_fallback()`` prints, and transitions at its edges. No device
+operator gives way to one at run time. Each CPU operator's own work is
+timed into the session's counters as ``opTime.<operator>`` (host clock).
 """
 
 from __future__ import annotations
 
 from typing import Iterator, List, Sequence
 
-from ..expressions.base import AttributeReference, Expression
+import numpy as np
+
+from ..columnar.batch import TorchColumnarBatch
+from ..expressions.base import AttributeReference, Expression, arrow_column
 from ..plan.logical import SortOrder
-from .base import CpuExec, PhysicalPlan, TaskContext, bind_all, bind_references
+from .base import (CpuExec, PhysicalPlan, TaskContext, bind_all,
+                   bind_references, op_time)
+
+
+def host_batch(columns, attrs: Sequence[AttributeReference],
+               num_rows: int) -> TorchColumnarBatch:
+    """Host results (Arrow arrays or constants) as a host batch of
+    ``attrs``' names and types: the one conversion back a CPU operator
+    makes."""
+    import pyarrow as pa
+    names = [a.name for a in attrs]
+    if not attrs:
+        return TorchColumnarBatch([], num_rows, [])
+    arrays = [arrow_column(c, num_rows, a.dtype)
+              for c, a in zip(columns, attrs)]
+    return TorchColumnarBatch.from_arrow(
+        pa.Table.from_arrays(arrays, names=names))
+
+
+def table_batch(table, attrs: Sequence[AttributeReference]
+                ) -> TorchColumnarBatch:
+    """A whole Arrow table as a host batch of ``attrs``."""
+    return host_batch(table.columns, attrs, table.num_rows)
+
+
+def child_tables(child: PhysicalPlan, ctx: TaskContext,
+                 idx=None) -> Iterator:
+    """The child's batches as Arrow tables: partition ``idx``, or every
+    partition in turn when ``idx`` is None."""
+    parts = range(child.num_partitions()) if idx is None else (idx,)
+    for p in parts:
+        for b in child.execute_partition(p, ctx):
+            yield b.to_arrow()
+
+
+def concat_child(child: PhysicalPlan, ctx: TaskContext, idx=None,
+                 prefix: str = ""):
+    """One Arrow table of the child's rows (partition ``idx`` or all),
+    its columns named ``prefix`` + ordinal when ``prefix`` is given (both
+    sides of a join may share names; expressions bind by ordinal)."""
+    import pyarrow as pa
+    from ..types import to_arrow
+    names = [f"{prefix}{i}" if prefix else a.name
+             for i, a in enumerate(child.output)]
+    tables = [t.rename_columns(names)
+              for t in child_tables(child, ctx, idx)]
+    if tables:
+        return pa.concat_tables(tables)
+    return pa.schema([(n, to_arrow(a.dtype))
+                      for n, a in zip(names, child.output)]).empty_table()
 
 
 def _partition_bounds(rows: int, n: int, idx: int):
@@ -53,15 +111,7 @@ class CpuLocalTableScanExec(CpuExec):
                 yield chunk.rename(names)
 
 
-class _HostEngineNotPorted(CpuExec):
-    """A CPU operator whose host execution is not yet ported."""
-
-    def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
-        raise NotImplementedError(
-            f"CPU execution of {type(self).__name__} not yet ported")
-
-
-class CpuProjectExec(_HostEngineNotPorted):
+class CpuProjectExec(CpuExec):
     def __init__(self, exprs: Sequence[Expression], child: PhysicalPlan,
                  output: List[AttributeReference]):
         super().__init__([child])
@@ -75,8 +125,16 @@ class CpuProjectExec(_HostEngineNotPorted):
     def node_desc(self) -> str:
         return f"CpuProject[{', '.join(e.pretty() for e in self.exprs)}]"
 
+    def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
+        for t in child_tables(self.children[0], ctx, idx):
+            with op_time(ctx, type(self).__name__):
+                out = host_batch([e.eval_cpu(t, ctx.eval_ctx)
+                                  for e in self.exprs], self._output,
+                                 t.num_rows)
+            yield out
 
-class CpuFilterExec(_HostEngineNotPorted):
+
+class CpuFilterExec(CpuExec):
     def __init__(self, condition: Expression, child: PhysicalPlan):
         super().__init__([child])
         self.condition = bind_references(condition, child.output)
@@ -88,8 +146,61 @@ class CpuFilterExec(_HostEngineNotPorted):
     def node_desc(self) -> str:
         return f"CpuFilter[{self.condition.pretty()}]"
 
+    def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
+        import pyarrow.compute as pc
+        from ..types import BooleanT
+        for t in child_tables(self.children[0], ctx, idx):
+            with op_time(ctx, type(self).__name__):
+                mask = arrow_column(self.condition.eval_cpu(t, ctx.eval_ctx),
+                                    t.num_rows, BooleanT)
+                out = table_batch(t.filter(pc.fill_null(mask, False)),
+                                  self.output)
+            yield out
 
-class CpuSortExec(_HostEngineNotPorted):
+
+def sort_indices(table, order: List[SortOrder], ctx: TaskContext):
+    """Spark's sort order of an Arrow table's rows (reference
+    ``sort_table``): each key's nulls first or last as it asks, NaN above
+    every number in either direction, ties in input order (a trailing
+    row-index key). Strings order by their UTF-8 bytes, as on the card."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    cols, keys = {}, []
+    for i, o in enumerate(order):
+        arr = arrow_column(o.child.eval_cpu(table, ctx.eval_ctx),
+                           table.num_rows, o.child.dtype)
+        is_null = pc.is_null(arr)
+        # flag levels: nulls first (0) < NaN descending (1) < values (2)
+        # < NaN ascending (3) < nulls last (4)
+        flag = pc.if_else(is_null,
+                          pa.scalar(0 if o.nulls_first else 4, pa.int8()),
+                          pa.scalar(2, pa.int8()))
+        if pa.types.is_floating(arr.type):
+            is_nan = pc.and_(pc.is_nan(pc.fill_null(arr, 0.0)),
+                             pc.invert(is_null))
+            flag = pc.if_else(is_nan,
+                              pa.scalar(3 if o.ascending else 1, pa.int8()),
+                              flag)
+            arr = pc.if_else(is_nan, pa.scalar(0.0, arr.type), arr)
+        cols[f"f{i}"], cols[f"v{i}"] = flag, arr
+        keys += [(f"f{i}", "ascending"),
+                 (f"v{i}", "ascending" if o.ascending else "descending")]
+    cols["row"] = pa.array(np.arange(table.num_rows, dtype=np.int64))
+    keys.append(("row", "ascending"))
+    key_table = pa.table(cols)
+    try:  # pyarrow >= 25 takes a null placement a key
+        return pc.sort_indices(key_table,
+                               sort_keys=[(k, d, "at_end") for k, d in keys])
+    except (ValueError, TypeError):
+        return pc.sort_indices(key_table, sort_keys=keys,
+                               null_placement="at_end")
+
+
+def sort_table(table, order: List[SortOrder], ctx: TaskContext):
+    return table.take(sort_indices(table, order, ctx))
+
+
+class CpuSortExec(CpuExec):
     def __init__(self, order: List[SortOrder], global_sort: bool,
                  child: PhysicalPlan):
         super().__init__([child])
@@ -104,9 +215,17 @@ class CpuSortExec(_HostEngineNotPorted):
     def num_partitions(self) -> int:
         return 1 if self.global_sort else self.children[0].num_partitions()
 
+    def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
+        t = concat_child(self.children[0], ctx,
+                         None if self.global_sort else idx)
+        if t.num_rows == 0:
+            return
+        with op_time(ctx, type(self).__name__):
+            out = table_batch(sort_table(t, self.order, ctx), self.output)
+        yield out
 
 
-class CpuLocalLimitExec(_HostEngineNotPorted):
+class CpuLocalLimitExec(CpuExec):
     def __init__(self, n: int, child: PhysicalPlan):
         super().__init__([child])
         self.n = n
@@ -115,8 +234,20 @@ class CpuLocalLimitExec(_HostEngineNotPorted):
     def output(self):
         return self.children[0].output
 
+    def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
+        remaining = self.n
+        for b in self.children[0].execute_partition(idx, ctx):
+            if remaining <= 0:
+                break
+            out = b.slice(0, remaining)
+            remaining -= out.num_rows
+            yield out
 
-class CpuGlobalLimitExec(_HostEngineNotPorted):
+
+class CpuGlobalLimitExec(CpuExec):
+    """The first ``n`` rows after ``offset`` over every partition in turn
+    (one output partition)."""
+
     def __init__(self, n: int, child: PhysicalPlan, offset: int = 0):
         super().__init__([child])
         self.n = n
@@ -129,9 +260,16 @@ class CpuGlobalLimitExec(_HostEngineNotPorted):
     def num_partitions(self) -> int:
         return 1
 
+    def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
+        t = concat_child(self.children[0], ctx)
+        with op_time(ctx, type(self).__name__):
+            out = table_batch(t.slice(self.offset, self.n), self.output)
+        yield out
 
-class CpuTopNExec(_HostEngineNotPorted):
-    """ORDER BY ... LIMIT n as one operator (Spark TakeOrderedAndProject)."""
+
+class CpuTopNExec(CpuExec):
+    """ORDER BY ... LIMIT n as one operator (Spark TakeOrderedAndProject):
+    a top-n a partition, then one merge."""
 
     def __init__(self, n: int, order: List[SortOrder], child: PhysicalPlan,
                  offset: int = 0):
@@ -151,9 +289,32 @@ class CpuTopNExec(_HostEngineNotPorted):
     def node_desc(self) -> str:
         return f"CpuTopN[n={self.n}]"
 
+    def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
+        import pyarrow as pa
+        keep = self.offset + self.n
+        tops = []
+        child = self.children[0]
+        for p in range(child.num_partitions()):
+            running = None
+            for t in child_tables(child, ctx, p):
+                with op_time(ctx, type(self).__name__):
+                    cand = t if running is None else \
+                        pa.concat_tables([running, t])
+                    running = sort_table(cand, self.order, ctx).slice(0, keep)
+            if running is not None:
+                tops.append(running)
+        if not tops:
+            return
+        with op_time(ctx, type(self).__name__):
+            whole = sort_table(pa.concat_tables(tops), self.order, ctx)
+            out = table_batch(whole.slice(self.offset, self.n), self.output)
+        if out.num_rows:
+            yield out
 
-class CpuUnionExec(_HostEngineNotPorted):
-    """UNION ALL: the children's partitions in turn."""
+
+class CpuUnionExec(CpuExec):
+    """UNION ALL: the children's partitions in turn, each column cast to
+    the union's type where a child's differs."""
 
     def __init__(self, children: Sequence[PhysicalPlan],
                  output: List[AttributeReference]):
@@ -167,9 +328,28 @@ class CpuUnionExec(_HostEngineNotPorted):
     def num_partitions(self) -> int:
         return sum(c.num_partitions() for c in self.children)
 
+    def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
+        names = [a.name for a in self._output]
+        for c in self.children:
+            n = c.num_partitions()
+            if idx < n:
+                same = all(a.dtype == o.dtype
+                           for a, o in zip(c.output, self._output))
+                for b in c.execute_partition(idx, ctx):
+                    if same:
+                        yield b.rename(names)
+                        continue
+                    t = b.to_arrow()
+                    with op_time(ctx, type(self).__name__):
+                        out = table_batch(t, self._output)
+                    yield out
+                return
+            idx -= n
 
-class CpuExpandExec(_HostEngineNotPorted):
-    """Grouping sets' row multiplexer on the host."""
+
+class CpuExpandExec(CpuExec):
+    """Grouping sets' row multiplexer on the host (reference
+    ``CpuExpandExec``): each input batch once a projection."""
 
     def __init__(self, projections: List[List[Expression]],
                  child: PhysicalPlan, output: List[AttributeReference]):
@@ -184,10 +364,20 @@ class CpuExpandExec(_HostEngineNotPorted):
     def node_desc(self) -> str:
         return f"CpuExpand[{len(self.projections)} projections]"
 
+    def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
+        for t in child_tables(self.children[0], ctx, idx):
+            for proj in self.projections:
+                with op_time(ctx, type(self).__name__):
+                    out = host_batch([e.eval_cpu(t, ctx.eval_ctx)
+                                      for e in proj], self._output,
+                                     t.num_rows)
+                yield out
 
-class CpuWindowExec(_HostEngineNotPorted):
-    """Window functions on the host (the reference's per-partition loop
-    oracle)."""
+
+class CpuWindowExec(CpuExec):
+    """Window functions on the host (the reference's per-partition loop,
+    ``execs/window.cpu_window_column``): every input partition in one
+    table, one output batch."""
 
     def __init__(self, window_exprs, child: PhysicalPlan,
                  output: List[AttributeReference]):
@@ -203,3 +393,16 @@ class CpuWindowExec(_HostEngineNotPorted):
 
     def num_partitions(self) -> int:
         return 1
+
+    def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
+        from .window import cpu_window_column
+        t = concat_child(self.children[0], ctx)
+        if t.num_rows == 0:
+            return
+        with op_time(ctx, type(self).__name__):
+            n_in = t.num_columns
+            cols = list(t.columns) + [
+                cpu_window_column(we, t, ctx, attr)
+                for we, attr in zip(self.window_exprs, self._output[n_in:])]
+            out = host_batch(cols, self._output, t.num_rows)
+        yield out

@@ -36,20 +36,22 @@ from __future__ import annotations
 
 from typing import Iterator, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..columnar.batch import (TorchColumnarBatch, compact, concat_batches,
                              gather)
 from ..columnar.vector import TorchColumnVector, bucket_capacity, row_mask
 from ..config import BATCH_SIZE_ROWS
-from ..expressions.base import AttributeReference, Expression, to_column
+from ..expressions.base import (AttributeReference, Expression, arrow_column,
+                                to_column)
 from ..shuffle.partitioner import hash_split_parts
 from ..types import StringType
 from .aggregates import (_sortable_bits, lex_sort_permutation,
                          segment_boundaries)
-from .base import (PhysicalPlan, TaskContext, TorchExec, bind_all,
-                   bind_references)
-from .cpu import _HostEngineNotPorted
+from .base import (CpuExec, PhysicalPlan, TaskContext, TorchExec, bind_all,
+                   bind_references, op_time)
+from .cpu import concat_child, table_batch
 
 _INT64_MAX = torch.iinfo(torch.int64).max
 
@@ -377,8 +379,47 @@ class TorchShuffledSymmetricHashJoinExec(TorchShuffledHashJoinExec):
         return super()._join(left, right, ctx)
 
 
-class CpuShuffledHashJoinExec(_HostEngineNotPorted):
-    """The planner's hash-join node; the override engine converts it."""
+_ARROW_JOIN_TYPE = {"inner": "inner", "leftouter": "left outer",
+                    "left": "left outer", "rightouter": "right outer",
+                    "right": "right outer", "fullouter": "full outer",
+                    "outer": "full outer", "full": "full outer",
+                    "leftsemi": "left semi", "semi": "left semi",
+                    "leftanti": "left anti", "anti": "left anti"}
+_SEMI_ANTI = ("leftsemi", "semi", "leftanti", "anti")
+_LEFT_OUTER = ("leftouter", "left", "fullouter", "outer", "full")
+_RIGHT_OUTER = ("rightouter", "right", "fullouter", "outer", "full")
+
+
+def _host_join_key(arr):
+    """A join key for Arrow's hash join: -0.0 as 0.0 (Spark joins them);
+    a date as its day number."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    if pa.types.is_floating(arr.type):
+        zero = pa.scalar(0.0, arr.type)
+        return pc.if_else(pc.equal(arr, zero), zero, arr)
+    if pa.types.is_date32(arr.type):
+        return arr.cast(pa.int32())
+    return arr
+
+
+def _align_keys(la, ra):
+    """Integer keys of two widths compare at the wider one (the device
+    compares width-normalized words)."""
+    import pyarrow as pa
+    if la.type != ra.type and pa.types.is_integer(la.type) \
+            and pa.types.is_integer(ra.type):
+        wide = la.type if la.type.bit_width >= ra.type.bit_width \
+            else ra.type
+        return la.cast(wide), ra.cast(wide)
+    return la, ra
+
+
+class CpuShuffledHashJoinExec(CpuExec):
+    """Hash join on the host (reference ``CpuShuffledHashJoinExec``):
+    Arrow's hash join on the keys; with a residual condition, the inner
+    pairs filtered, then the unmatched rows of an outer, semi or anti join
+    rebuilt from row ids. Every join type the device joins have."""
 
     def __init__(self, left: PhysicalPlan, right: PhysicalPlan,
                  join_type: str, left_keys: Sequence[Expression],
@@ -405,6 +446,54 @@ class CpuShuffledHashJoinExec(_HostEngineNotPorted):
 
     def node_desc(self) -> str:
         return f"CpuShuffledHashJoin[{self.join_type}]"
+
+    def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
+        part = idx if self.per_partition else None
+        lt = concat_child(self.children[0], ctx, part, "l")
+        rt = concat_child(self.children[1], ctx, part, "r")
+        with op_time(ctx, type(self).__name__):
+            ectx = ctx.eval_ctx
+            lkeys, rkeys = [], []
+            for i, (lk, rk) in enumerate(zip(self.left_keys,
+                                             self.right_keys)):
+                la = _host_join_key(arrow_column(lk.eval_cpu(lt, ectx),
+                                                 lt.num_rows, lk.dtype))
+                ra = _host_join_key(arrow_column(rk.eval_cpu(rt, ectx),
+                                                 rt.num_rows, rk.dtype))
+                la, ra = _align_keys(la, ra)
+                lt = lt.append_column(f"_lk{i}", la)
+                rt = rt.append_column(f"_rk{i}", ra)
+                lkeys.append(f"_lk{i}")
+                rkeys.append(f"_rk{i}")
+            out = self._join(lt, rt, lkeys, rkeys, ctx)
+            batch = table_batch(out, self._output)
+        yield batch
+
+    def _join(self, lt, rt, lkeys, rkeys, ctx):
+        import pyarrow as pa
+        import pyarrow.compute as pc
+        jt = self.join_type
+        l_out = [f"l{i}" for i in range(len(self.children[0].output))]
+        r_out = [f"r{i}" for i in range(len(self.children[1].output))]
+        sel = l_out if jt in _SEMI_ANTI else l_out + r_out
+        if self.condition is None:
+            if lt.num_rows == 0 or rt.num_rows == 0:
+                return _empty_side_join(lt, rt, l_out, r_out, jt, sel,
+                                        self.children)
+            return lt.join(rt, keys=lkeys, right_keys=rkeys,
+                           join_type=_ARROW_JOIN_TYPE[jt],
+                           coalesce_keys=False).select(sel)
+        lt = lt.append_column("_lrow", pa.array(np.arange(lt.num_rows)))
+        rt = rt.append_column("_rrow", pa.array(np.arange(rt.num_rows)))
+        inner = lt.join(rt, keys=lkeys, right_keys=rkeys, join_type="inner",
+                        coalesce_keys=False)
+        from ..types import BooleanT
+        keep = pc.fill_null(arrow_column(self.condition.eval_cpu(
+            inner.select(l_out + r_out), ctx.eval_ctx), inner.num_rows,
+            BooleanT), False)
+        kept = inner.filter(keep)
+        return _rebuild_unmatched(lt, rt, kept, l_out, r_out, jt, sel,
+                                  self.children)
 
 
 # ---------------------------------------------------------------------------
@@ -589,9 +678,108 @@ class TorchCartesianProductExec(TorchExec):
                 yield joined.rename(names)
 
 
-class CpuBroadcastNestedLoopJoinExec(_HostEngineNotPorted):
-    """The planner's nested-loop join node; the override engine converts
-    it."""
+def _null_columns(n: int, attrs):
+    import pyarrow as pa
+    from ..types import to_arrow
+    return [pa.nulls(n, to_arrow(a.dtype)) for a in attrs]
+
+
+def _with_nulls(kept, names, attrs, left_side: bool, out_names):
+    """Rows of one side with the other side's columns all null."""
+    import pyarrow as pa
+    own = [kept.column(n).combine_chunks() for n in names]
+    nulls = _null_columns(kept.num_rows, attrs)
+    cols = own + nulls if left_side else nulls + own
+    return pa.Table.from_arrays(cols, names=out_names)
+
+
+def _empty_side_join(lt, rt, l_out, r_out, jt, sel, children):
+    """A join with an empty side, without Arrow's join (its empty-input
+    output schemas vary by version)."""
+    import pyarrow as pa
+    names = l_out + r_out
+    if jt in ("leftanti", "anti"):
+        return lt.select(l_out)
+    if jt in ("leftsemi", "semi") or jt in ("inner", "cross"):
+        return _with_nulls(lt.slice(0, 0), l_out, children[1].output, True,
+                           names).select(sel)
+    parts = []
+    if lt.num_rows and jt in _LEFT_OUTER:
+        parts.append(_with_nulls(lt, l_out, children[1].output, True, names))
+    if rt.num_rows and jt in _RIGHT_OUTER:
+        parts.append(_with_nulls(rt, r_out, children[0].output, False,
+                                 names))
+    if not parts:
+        parts.append(_with_nulls(lt.slice(0, 0), l_out, children[1].output,
+                                 True, names))
+    return pa.concat_tables(parts).select(sel)
+
+
+def _rebuild_unmatched(lt, rt, kept, l_out, r_out, jt, sel, children):
+    """A join's output from its matched pairs ``kept`` (carrying ``_lrow``
+    and ``_rrow`` ids): semi and anti keep or drop the matched left rows;
+    outer joins add each side's unmatched rows null-extended."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    names = l_out + r_out
+    if jt in ("inner", "cross"):
+        return kept.select(sel)
+
+    def matched(table, row_col):
+        ids = pa.array(np.arange(table.num_rows, dtype=np.int64))
+        return pc.is_in(ids, value_set=kept.column(row_col).combine_chunks())
+
+    if jt in ("leftsemi", "semi"):
+        return lt.filter(matched(lt, "_lrow")).select(sel)
+    if jt in ("leftanti", "anti"):
+        return lt.filter(pc.invert(matched(lt, "_lrow"))).select(sel)
+    parts = [kept.select(sel)]
+    if jt in _LEFT_OUTER:
+        lu = lt.filter(pc.invert(matched(lt, "_lrow")))
+        parts.append(_with_nulls(lu, l_out, children[1].output, True,
+                                 names))
+    if jt in _RIGHT_OUTER:
+        ru = rt.filter(pc.invert(matched(rt, "_rrow")))
+        parts.append(_with_nulls(ru, r_out, children[0].output, False,
+                                 names))
+    return pa.concat_tables([p.select(sel) for p in parts])
+
+
+def _host_pairs(lt, rt, condition, ctx, block_rows: int):
+    """The (left row, right row) grid, left-major, in blocks of whole left
+    rows of at most ``block_rows`` pairs: for each block the table of its
+    pairs that pass ``condition`` (columns ``l*``, ``r*``, ``_lrow``,
+    ``_rrow``)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    from ..types import BooleanT
+    n_l, n_r = lt.num_rows, rt.num_rows
+    step = max(1, block_rows // max(n_r, 1))
+    for lo in range(0, n_l, step):
+        cnt = min(step, n_l - lo)
+        li = np.repeat(np.arange(lo, lo + cnt), n_r)
+        ri = np.tile(np.arange(n_r), cnt)
+        cols = [lt.column(i).take(pa.array(li))
+                for i in range(lt.num_columns)] + \
+            [rt.column(i).take(pa.array(ri)) for i in range(rt.num_columns)]
+        pairs = pa.Table.from_arrays(
+            cols + [pa.array(li), pa.array(ri)],
+            names=list(lt.column_names) + list(rt.column_names)
+            + ["_lrow", "_rrow"])
+        if condition is not None:
+            keep = arrow_column(condition.eval_cpu(
+                pairs.select(list(lt.column_names)
+                             + list(rt.column_names)), ctx.eval_ctx),
+                pairs.num_rows, BooleanT)
+            pairs = pairs.filter(pc.fill_null(keep, False))
+        yield pairs
+
+
+class CpuBroadcastNestedLoopJoinExec(CpuExec):
+    """Nested loop join on the host (reference
+    ``CpuBroadcastNestedLoopJoinExec``): the pairs in left-major blocks of
+    ``batchSizeRows``, the condition over each block, then the unmatched
+    rows of an outer, semi or anti join."""
 
     def __init__(self, left: PhysicalPlan, right: PhysicalPlan,
                  join_type: str, condition: Optional[Expression],
@@ -613,10 +801,35 @@ class CpuBroadcastNestedLoopJoinExec(_HostEngineNotPorted):
     def node_desc(self) -> str:
         return f"CpuBroadcastNestedLoopJoin[{self.join_type}]"
 
+    def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
+        import pyarrow as pa
+        lt = concat_child(self.children[0], ctx, None, "l")
+        rt = concat_child(self.children[1], ctx, None, "r")
+        with op_time(ctx, type(self).__name__):
+            l_out, r_out = list(lt.column_names), list(rt.column_names)
+            jt = self.join_type
+            sel = l_out if jt in _SEMI_ANTI else l_out + r_out
+            kept = [p for p in _host_pairs(lt, rt, self.condition, ctx,
+                                           ctx.conf.batch_size_rows)]
+            kept = pa.concat_tables(kept) if kept else \
+                pa.Table.from_arrays(
+                    [c.slice(0, 0) for c in lt.columns]
+                    + [c.slice(0, 0) for c in rt.columns]
+                    + [pa.array([], pa.int64())] * 2,
+                    names=l_out + r_out + ["_lrow", "_rrow"])
+            out = _rebuild_unmatched(
+                lt.append_column("_lrow", pa.array(np.arange(lt.num_rows))),
+                rt.append_column("_rrow", pa.array(np.arange(rt.num_rows))),
+                kept, l_out, r_out, jt, sel, self.children)
+            batch = table_batch(out, self._output)
+        yield batch
 
-class CpuCartesianProductExec(_HostEngineNotPorted):
-    """The planner's cartesian-product node; the override engine converts
-    it."""
+
+class CpuCartesianProductExec(CpuExec):
+    """Cartesian product on the host: output partition k pairs left
+    partition k // nr with right partition k % nr (reference
+    ``CpuCartesianProductExec``), the condition over each block of
+    pairs."""
 
     def __init__(self, left: PhysicalPlan, right: PhysicalPlan,
                  condition: Optional[Expression],
@@ -637,3 +850,15 @@ class CpuCartesianProductExec(_HostEngineNotPorted):
 
     def node_desc(self) -> str:
         return "CpuCartesianProduct"
+
+    def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
+        nr = self.children[1].num_partitions()
+        lt = concat_child(self.children[0], ctx, idx // nr, "l")
+        rt = concat_child(self.children[1], ctx, idx % nr, "r")
+        names = list(lt.column_names) + list(rt.column_names)
+        for pairs in _host_pairs(lt, rt, self.condition, ctx,
+                                 ctx.conf.batch_size_rows):
+            with op_time(ctx, type(self).__name__):
+                out = table_batch(pairs.select(names), self._output)
+            if out.num_rows:
+                yield out

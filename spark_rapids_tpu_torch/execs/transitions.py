@@ -6,6 +6,11 @@ upload and a download; the reference's row ↔ columnar leg collapses away.
 ``HostToDeviceExec`` uploads to ``TaskContext.device``, the session's
 device: the plan itself names no device.
 
+Both transitions time their own work into the session's counters
+(``opTime.HostToDeviceExec``, ``opTime.DeviceToHostExec``, host clock):
+the price of moving an operator off the card. A download waits for the
+device work queued before it, so its time holds that wait too.
+
 ``TorchDeviceScanExec`` serves device-resident cached batches with no
 upload, and its column objects stay the same across runs, so statistics
 memoized on them survive between queries. ``CpuDeviceScanExec`` is its CPU
@@ -16,7 +21,7 @@ from __future__ import annotations
 
 from typing import Iterator
 
-from .base import CpuExec, PhysicalPlan, TaskContext, TorchExec
+from .base import CpuExec, PhysicalPlan, TaskContext, TorchExec, op_time
 
 
 class HostToDeviceExec(TorchExec):
@@ -34,7 +39,9 @@ class HostToDeviceExec(TorchExec):
                                      ctx: TaskContext) -> Iterator:
         names = [a.name for a in self.output]
         for t in self.children[0].execute_partition(idx, ctx):
-            yield t.to_device(ctx.device).rename(names)
+            with op_time(ctx, "HostToDeviceExec"):
+                out = t.to_device(ctx.device).rename(names)
+            yield out
 
 
 class CpuDeviceScanExec(CpuExec):
@@ -98,4 +105,6 @@ class DeviceToHostExec(CpuExec):
 
     def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
         for b in self.children[0].execute_partition(idx, ctx):
-            yield b.to_host()
+            with op_time(ctx, "DeviceToHostExec"):
+                out = b.to_host()
+            yield out

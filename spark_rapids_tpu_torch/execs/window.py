@@ -1,7 +1,7 @@
 """The window exec on the device (port of ``TpuWindowExec`` from
 ``spark_rapids_tpu/execs/window.py``; its ``CpuWindowExec`` is
-``execs/cpu.CpuWindowExec``, a host operator whose engine is not yet
-ported).
+``execs/cpu.CpuWindowExec``, whose host engine, the reference's
+per-partition loop, is ``cpu_window_column`` at the end of this file).
 
 One sorted pass a window expression: every input partition concatenated
 into one batch (a global ``rank`` ranks across them), the rows sorted by
@@ -39,8 +39,8 @@ import torch
 from ..columnar.batch import TorchColumnarBatch, concat_batches, gather
 from ..columnar.vector import TorchColumnVector, bucket_capacity, row_mask
 from ..expressions.aggregates import AggregateFunction
-from ..expressions.base import (AttributeReference, Literal, device_parts,
-                                to_column)
+from ..expressions.base import (AttributeReference, Literal, arrow_column,
+                                device_parts, to_column)
 from ..plan.logical import SortOrder
 from ..window import (CURRENT_ROW, UNBOUNDED_FOLLOWING, UNBOUNDED_PRECEDING,
                       CumeDist, DenseRank, Lag, Lead, NTile, PercentRank,
@@ -51,6 +51,7 @@ from ..types import StringType
 from .aggregates import encode_group_keys, lex_sort_permutation
 from .base import (PhysicalPlan, TaskContext, TorchExec, bind_references,
                    op_time)
+from .cpu import sort_indices
 
 #: the window functions the device computes
 DEVICE_FUNCTIONS = (RowNumber, Rank, DenseRank, Lead, Lag, NTile,
@@ -474,3 +475,209 @@ def _string_default(out: TorchColumnVector, take: torch.Tensor, default,
         part_emit=[keep, use])
     return TorchColumnVector(out.dtype, data, keep | use, out.num_rows,
                              offsets=offs)
+
+
+# ---------------------------------------------------------------------------
+# the host engine's window (reference ``CpuWindowExec``, the per-partition
+# loop)
+# ---------------------------------------------------------------------------
+
+
+def _canon(v):
+    """A value as a key of Python equality: NaN equals NaN."""
+    return ("NaN",) if isinstance(v, float) and v != v else v
+
+
+def _nan_greatest(v):
+    return (1, 0.0) if isinstance(v, float) and v != v else (0, v)
+
+
+def _host_agg(op: str, vals: list, integral: bool):
+    """One frame's aggregate over its non-null values (Spark's: NaN
+    greatest for min/max, a long sum wraps)."""
+    if op == "count":
+        return len(vals)
+    if not vals:
+        return None
+    if op == "sum":
+        s = sum(vals)
+        return (s + 2**63) % 2**64 - 2**63 if integral else s
+    if op == "avg":
+        return sum(vals) / len(vals)
+    return (min if op == "min" else max)(vals, key=_nan_greatest)
+
+
+def _frame_bounds(spec, n: int, peers_lo, peers_hi):
+    """Each row's [lo, hi] frame inside a partition of ``n`` rows (RANGE
+    frames by peer group)."""
+    frame = spec.frame
+    range_mode = frame is None or spec.frame_type == "range"
+    if frame is None:
+        frame = ((UNBOUNDED_PRECEDING, CURRENT_ROW) if spec.order_by
+                 else (UNBOUNDED_PRECEDING, UNBOUNDED_FOLLOWING))
+    lo_off, hi_off = frame
+    out = []
+    for k in range(n):
+        if lo_off == UNBOUNDED_PRECEDING:
+            lo = 0
+        elif range_mode and spec.order_by and lo_off == CURRENT_ROW:
+            lo = peers_lo[k]
+        else:
+            lo = max(0, k + lo_off)
+        if hi_off == UNBOUNDED_FOLLOWING:
+            hi = n - 1
+        elif range_mode and spec.order_by and hi_off == CURRENT_ROW:
+            hi = peers_hi[k]
+        else:
+            hi = min(n - 1, k + hi_off)
+        out.append((lo, hi))
+    return out
+
+
+def _frame_aggregates(op: str, vals: list, bounds, integral: bool) -> list:
+    """The aggregate of every frame. Frames that start at the partition's
+    start and never shrink (running and whole-partition frames) accumulate
+    in one left-to-right pass (the reference's float order); the others
+    reduce their own rows."""
+    if not (all(lo == 0 for lo, _ in bounds)
+            and all(b[1] <= c[1] for b, c in zip(bounds, bounds[1:]))):
+        return [_host_agg(op, [v for v in vals[lo:hi + 1] if v is not None],
+                          integral) for lo, hi in bounds]
+    out, at, cnt, acc = [], 0, 0, None
+    for _, hi in bounds:
+        while at <= hi:
+            v = vals[at]
+            at += 1
+            if v is None:
+                continue
+            cnt += 1
+            if acc is None:
+                acc = v
+            elif op in ("sum", "avg"):
+                acc = acc + v
+            elif op in ("min", "max"):
+                acc = (min if op == "min" else max)((acc, v),
+                                                      key=_nan_greatest)
+        if op == "count":
+            out.append(cnt)
+        elif acc is None:
+            out.append(None)
+        elif op == "sum":
+            out.append((acc + 2**63) % 2**64 - 2**63 if integral else acc)
+        elif op == "avg":
+            out.append(acc / cnt)
+        else:
+            out.append(acc)
+    return out
+
+
+def cpu_window_column(we: WindowExpression, table, ctx: TaskContext, attr):
+    """One window expression over an Arrow table on the host: the rows in
+    (partition keys ascending, nulls first; order keys) order by the host
+    sort, then each partition's function a row at a time, as the
+    reference's loop. A string ``sum``/``avg`` reads its strings as
+    doubles (Spark's implicit cast); ``lead``/``lag`` take a default of
+    any type."""
+    import pyarrow as pa
+    from ..types import DoubleT, to_arrow
+    n, spec, fn = table.num_rows, we.spec, we.function
+    ectx = ctx.eval_ctx
+
+    def rows(e):
+        arr = arrow_column(e.eval_cpu(table, ectx), n, e.dtype)
+        # dates and timestamps as their integers: the same order, and no
+        # Python datetime a row (the result array takes them back)
+        if pa.types.is_date32(arr.type) or pa.types.is_timestamp(arr.type):
+            arr = arr.cast(pa.int32() if pa.types.is_date32(arr.type)
+                           else pa.int64())
+        return arr.to_pylist()
+
+    keys = [SortOrder(p, True, True) for p in spec.partition_by] \
+        + list(spec.order_by)
+    order = sort_indices(table, keys, ctx).to_numpy() if keys \
+        else np.arange(n)
+    part_vals = [rows(p) for p in spec.partition_by]
+    order_vals = [rows(o.child) for o in spec.order_by]
+    pkey = [tuple(_canon(v[r]) for v in part_vals) for r in order]
+    okey = [tuple(_canon(v[r]) for v in order_vals) for r in order]
+    values = None
+    if isinstance(fn, (AggregateFunction, Lead, Lag)) and fn.children:
+        child = fn.children[0]
+        if isinstance(fn, AggregateFunction) and fn.update_op in (
+                "sum", "avg") and isinstance(child.dtype, StringType):
+            from ..expressions.cast import parse_string
+            values = parse_string(arrow_column(child.eval_cpu(table, ectx),
+                                               n, child.dtype),
+                                  DoubleT).to_pylist()
+        else:
+            values = rows(child)
+    results = [None] * n
+    i = 0
+    while i < n:
+        j = i
+        while j < n and pkey[j] == pkey[i]:
+            j += 1
+        _host_partition(fn, spec, order[i:j], okey[i:j], values, results,
+                        table, ectx)
+        i = j
+    return pa.array(results, type=to_arrow(attr.dtype))
+
+
+def _host_partition(fn, spec, rows, okey, values, results, table, ectx):
+    from ..types import IntegralType
+    n = len(rows)
+    peers_lo, peers_hi = [0] * n, [0] * n
+    start = 0
+    for k in range(1, n + 1):
+        if k == n or okey[k] != okey[start]:
+            for m in range(start, k):
+                peers_lo[m], peers_hi[m] = start, k - 1
+            start = k
+    if isinstance(fn, RowNumber):
+        for k, r in enumerate(rows):
+            results[r] = k + 1
+    elif isinstance(fn, (Rank, DenseRank, PercentRank)):
+        dense = 0
+        for k, r in enumerate(rows):
+            if peers_lo[k] == k:
+                dense += 1
+            rank = peers_lo[k] + 1
+            results[r] = rank if isinstance(fn, Rank) else dense \
+                if isinstance(fn, DenseRank) else \
+                ((rank - 1) / (n - 1) if n > 1 else 0.0)
+    elif isinstance(fn, CumeDist):
+        for k, r in enumerate(rows):
+            results[r] = (peers_hi[k] + 1) / n
+    elif isinstance(fn, NTile):
+        tiles = ntile_tiles(fn)
+        base, rem = n // tiles, n % tiles
+        for k, r in enumerate(rows):
+            results[r] = k // (base + 1) + 1 if k < rem * (base + 1) \
+                else rem + (k - rem * (base + 1)) // max(base, 1) + 1
+    elif isinstance(fn, (Lead, Lag)):
+        off = fn.offset if isinstance(fn, Lead) else -fn.offset
+        default = None
+        if fn.default is not None and not isinstance(fn.default, Literal):
+            default = arrow_column(fn.default.eval_cpu(table, ectx),
+                                   table.num_rows,
+                                   fn.default.dtype).to_pylist()
+        for k, r in enumerate(rows):
+            tk = k + off
+            if 0 <= tk < n:
+                results[r] = values[rows[tk]]
+            elif fn.default is None:
+                results[r] = None
+            else:
+                results[r] = fn.default.value if default is None \
+                    else default[r]
+    elif isinstance(fn, AggregateFunction):
+        vals = [values[r] for r in rows] if fn.children else [1] * n
+        integral = bool(fn.children) and isinstance(fn.children[0].dtype,
+                                                     IntegralType)
+        bounds = _frame_bounds(spec, n, peers_lo, peers_hi)
+        for r, v in zip(rows, _frame_aggregates(fn.update_op, vals, bounds,
+                                                integral)):
+            results[r] = v
+    else:
+        raise NotImplementedError(
+            f"host window function {type(fn).__name__} not yet ported")

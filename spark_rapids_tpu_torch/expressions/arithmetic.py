@@ -2,8 +2,10 @@
 complement, as Java), division by zero is null.
 
 Port of Add/Subtract/Multiply/Divide/Abs from
-``spark_rapids_tpu/expressions/arithmetic.py``. ANSI mode's overflow checks
-are not yet ported: evaluating under ANSI raises.
+``spark_rapids_tpu/expressions/arithmetic.py``, with the reference's host
+evaluation (``eval_cpu``: pyarrow's unchecked kernels, which wrap as Java
+does). ANSI mode's overflow checks are not yet ported: evaluating under
+ANSI raises, on either side.
 """
 
 from __future__ import annotations
@@ -39,6 +41,11 @@ class Add(BinaryArithmetic):
         _no_ansi(ctx, "add")
         return l + r
 
+    def _cpu_compute(self, l, r, ctx):
+        import pyarrow.compute as pc
+        _no_ansi(ctx, "add")
+        return pc.add(l, r)
+
 
 class Subtract(BinaryArithmetic):
     symbol = "-"
@@ -47,6 +54,11 @@ class Subtract(BinaryArithmetic):
         _no_ansi(ctx, "subtract")
         return l - r
 
+    def _cpu_compute(self, l, r, ctx):
+        import pyarrow.compute as pc
+        _no_ansi(ctx, "subtract")
+        return pc.subtract(l, r)
+
 
 class Multiply(BinaryArithmetic):
     symbol = "*"
@@ -54,6 +66,11 @@ class Multiply(BinaryArithmetic):
     def _compute(self, l, r, ctx, valid):
         _no_ansi(ctx, "multiply")
         return l * r
+
+    def _cpu_compute(self, l, r, ctx):
+        import pyarrow.compute as pc
+        _no_ansi(ctx, "multiply")
+        return pc.multiply(l, r)
 
 
 class Divide(BinaryArithmetic):
@@ -81,6 +98,14 @@ class Divide(BinaryArithmetic):
         valid = combine_validity(lv, rv, mask, ~zero & mask)
         return data, valid
 
+    def _cpu_compute(self, l, r, ctx):
+        import pyarrow as pa
+        import pyarrow.compute as pc
+        _no_ansi(ctx, "divide")
+        zero = pc.fill_null(pc.equal(r, pa.scalar(0, r.type)), False)
+        out = pc.divide(l, pc.if_else(zero, pa.scalar(1, r.type), r))
+        return pc.if_else(zero, pa.scalar(None, out.type), out)
+
 
 class Abs(UnaryExpression):
     """``abs(x)``: the smallest integer of its type stays itself (Java's
@@ -89,3 +114,8 @@ class Abs(UnaryExpression):
     def _compute(self, d, ctx, valid):
         _no_ansi(ctx, "abs")
         return torch.abs(d)
+
+    def _cpu_compute(self, arr, ctx):
+        import pyarrow.compute as pc
+        _no_ansi(ctx, "abs")
+        return pc.abs(arr)

@@ -1,8 +1,15 @@
 """Expression-layer core: evaluation contract, binding helpers, nulls.
 
 Port of ``spark_rapids_tpu/expressions/base.py``. Each expression implements
-``eval_device(batch, ctx) -> TorchColumnVector | TorchScalar`` on the
-batch's device (the reference's ``eval_tpu``). Evaluation is eager torch.
+two evaluations:
+
+* ``eval_device(batch, ctx) -> TorchColumnVector | TorchScalar`` on the
+  batch's device (the reference's ``eval_tpu``), eager torch;
+* ``eval_cpu(table, ctx) -> pyarrow.Array | Python scalar`` over a
+  ``pyarrow.Table`` (the reference's ``eval_cpu``): the host engine's
+  evaluation, which the CPU operators (``execs/cpu.py`` and the other
+  ``Cpu*`` execs) run where the override engine kept an operator off the
+  card. A constant subtree gives a Python scalar (None for null).
 """
 
 from __future__ import annotations
@@ -59,6 +66,10 @@ class Expression:
         raise NotImplementedError(
             f"{type(self).__name__} is not yet ported")
 
+    def eval_cpu(self, table, ctx: EvalContext = _DEFAULT_CTX):
+        raise NotImplementedError(
+            f"host evaluation of {type(self).__name__} is not yet ported")
+
     def pretty(self) -> str:
         name = type(self).__name__
         if self.children:
@@ -101,6 +112,9 @@ class Literal(Expression):
 
     def eval_device(self, batch, ctx=_DEFAULT_CTX):
         return TorchScalar(self._dtype, self.value)
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        return self.value
 
     def pretty(self) -> str:
         return repr(self.value)
@@ -174,6 +188,9 @@ class AttributeReference(Expression):
     def eval_device(self, batch, ctx=_DEFAULT_CTX):
         return batch.column(self.ordinal)
 
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        return table.column(self.ordinal).combine_chunks()
+
     def pretty(self) -> str:
         return self.name
 
@@ -200,6 +217,9 @@ class Alias(Expression):
 
     def eval_device(self, batch, ctx=_DEFAULT_CTX):
         return self.child.eval_device(batch, ctx)
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        return self.child.eval_cpu(table, ctx)
 
     def pretty(self) -> str:
         return f"{self.child.pretty()} AS {self.name}"
@@ -258,6 +278,49 @@ def to_column(x: ColOrScalar, batch, dtype: Optional[DataType] = None
                                          batch.device)
 
 
+# ---------------------------------------------------------------------------
+# host-eval helpers (pyarrow)
+# ---------------------------------------------------------------------------
+
+
+def is_arrow(x) -> bool:
+    import pyarrow as pa
+    return isinstance(x, (pa.Array, pa.ChunkedArray))
+
+
+def arrow_column(x, n: int, dtype: DataType):
+    """A host result as a ``pa.Array`` of ``n`` rows of ``dtype``'s Arrow
+    type (a scalar repeated; an array cast where its type differs)."""
+    import pyarrow as pa
+    from ..types import to_arrow
+    at = to_arrow(dtype)
+    if not is_arrow(x):
+        if isinstance(x, pa.Scalar):
+            x = x.as_py()
+        return pa.nulls(n, at) if x is None else \
+            pa.repeat(pa.scalar(x, type=at), n)
+    if isinstance(x, pa.ChunkedArray):
+        x = x.combine_chunks()
+    return x if x.type == at else x.cast(at, safe=False)
+
+
+def arrow_numpy(x, n: int, dtype: DataType):
+    """(values as numpy with nulls filled, null mask) of a host result;
+    dates and timestamps as their integers."""
+    import pyarrow as pa
+    arr = arrow_column(x, n, dtype)
+    fill = False if pa.types.is_boolean(arr.type) else 0
+    if pa.types.is_date32(arr.type):
+        arr = arr.cast(pa.int32())
+    elif pa.types.is_timestamp(arr.type):
+        arr = arr.cast(pa.int64())
+    null = np.asarray(arr.is_null()) if arr.null_count else \
+        np.zeros(len(arr), np.bool_)
+    vals = np.asarray(arr.fill_null(fill).to_numpy(zero_copy_only=False)) \
+        if arr.null_count else np.asarray(arr.to_numpy(zero_copy_only=False))
+    return vals, null
+
+
 class BinaryExpression(Expression):
     """Binary op with standard null propagation (null if either side is)."""
 
@@ -304,6 +367,28 @@ class BinaryExpression(Expression):
         data, valid = self._eval_parts(l, r, batch, ctx)
         return make_column(self.dtype, data, valid, batch.num_rows)
 
+    def _cpu_compute(self, l, r, ctx: EvalContext):
+        """The host operation over Arrow operands (arrays or scalars)."""
+        raise NotImplementedError(
+            f"host evaluation of {type(self).__name__} is not yet ported")
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        """Null in, null out over Arrow operands; two constants fold to a
+        Python scalar."""
+        l = self.left.eval_cpu(table, ctx)
+        r = self.right.eval_cpu(table, ctx)
+        if not is_arrow(l) and not is_arrow(r):
+            if l is None or r is None:
+                return None
+            out = self._cpu_compute(arrow_column(l, 1, self.left.dtype),
+                                    arrow_column(r, 1, self.right.dtype),
+                                    ctx)
+            return arrow_column(out, 1, self.dtype)[0].as_py()
+        n = len(l) if is_arrow(l) else len(r)
+        out = self._cpu_compute(arrow_column(l, n, self.left.dtype),
+                                arrow_column(r, n, self.right.dtype), ctx)
+        return arrow_column(out, n, self.dtype)
+
 
 class UnaryExpression(Expression):
     def __init__(self, child: Expression):
@@ -324,6 +409,24 @@ class UnaryExpression(Expression):
     def _compute(self, data, ctx: EvalContext, valid):
         raise NotImplementedError(
             f"{type(self).__name__} is not yet ported")
+
+    def _cpu_compute(self, arr, ctx: EvalContext):
+        """The host operation over an Arrow array."""
+        raise NotImplementedError(
+            f"host evaluation of {type(self).__name__} is not yet ported")
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        """Null in, null out over the child's Arrow rows; a constant child
+        folds to a Python scalar."""
+        c = self.child.eval_cpu(table, ctx)
+        if not is_arrow(c):
+            if c is None:
+                return None
+            out = self._cpu_compute(arrow_column(c, 1, self.child.dtype), ctx)
+            return arrow_column(out, 1, self.dtype)[0].as_py()
+        return arrow_column(self._cpu_compute(
+            arrow_column(c, len(c), self.child.dtype), ctx), len(c),
+            self.dtype)
 
     def eval_device(self, batch, ctx=_DEFAULT_CTX):
         """Null in, null out: ``_compute`` over the child's data."""

@@ -22,6 +22,11 @@ from Spark (an integral parse of "1.5", "1_000" or a value past the type's
 range as a literal) the port gives Spark's answer (ROADMAP C-ref-15).
 Decimal string casts wait with ``decimal128``; ANSI mode waits too. A
 literal casts by the same rules as a column.
+
+Host evaluation (``eval_cpu``, the host engine) runs the same rules over
+the Arrow rows: the string casts' host code as it is, and the numeric
+casts' Java conversions (``_numeric_cast``) over CPU tensors read from
+the Arrow buffers, so a cast gives the same answer on either side.
 """
 
 from __future__ import annotations
@@ -36,8 +41,9 @@ from ..columnar.vector import TorchScalar, row_mask
 from ..types import (BooleanType, DataType, DateType, DecimalType,
                      DoubleType, FloatType, FractionalType, IntegralType,
                      NullType, NumericType, StringType, TimestampType)
-from .base import (_DEFAULT_CTX, Expression, UnaryExpression,
-                   combine_validity, device_parts, make_column)
+from .base import (_DEFAULT_CTX, Expression, UnaryExpression, arrow_column,
+                   arrow_numpy, combine_validity, device_parts, is_arrow,
+                   make_column)
 
 _INT_BOUNDS = {np.dtype(np.int8): (-128, 127),
                np.dtype(np.int16): (-32768, 32767),
@@ -80,7 +86,9 @@ class Cast(UnaryExpression):
     def pretty(self) -> str:
         return f"cast({self.child.pretty()} AS {self._to.simple_string()})"
 
-    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+    def _check(self, ctx) -> bool:
+        """Whether the cast is a string cast; raises where the port has no
+        such cast."""
         src, dst = self.child.dtype, self._to
         ansi = self._ansi if self._ansi is not None else ctx.ansi
         if ansi:
@@ -89,12 +97,39 @@ class Cast(UnaryExpression):
         if src != dst and not (string_castable(src, dst) if strings
                                else _castable(src, dst)):
             raise NotImplementedError(f"cast {src} -> {dst} not yet ported")
+        return strings
+
+    def _cast_constant(self, v, strings: bool):
+        src, dst = self.child.dtype, self._to
+        if strings and src != dst:
+            return _cast_scalar_string(v, src, dst)
+        return _cast_scalar(v, dst)
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        import pyarrow as pa
+        from ..types import to_arrow
+        src, dst = self.child.dtype, self._to
+        strings = self._check(ctx)
+        c = self.child.eval_cpu(table, ctx)
+        if not is_arrow(c):
+            return self._cast_constant(c, strings)
+        arr = arrow_column(c, len(c), src)
+        if src == dst:
+            return arr
+        if strings:
+            return format_to_string(arr, src) if isinstance(dst, StringType) \
+                else parse_string(arr, dst)
+        vals, null = arrow_numpy(arr, len(arr), src)
+        out = _numeric_cast(torch.from_numpy(np.array(vals)), src, dst)
+        return pa.array(out.numpy(), type=to_arrow(dst),
+                        mask=null if null.any() else None)
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        src, dst = self.child.dtype, self._to
+        strings = self._check(ctx)
         c = self.child.eval_device(batch, ctx)
         if isinstance(c, TorchScalar):
-            if strings and src != dst:
-                return TorchScalar(dst, _cast_scalar_string(c.value, src,
-                                                            dst))
-            return TorchScalar(dst, _cast_scalar(c.value, dst))
+            return TorchScalar(dst, self._cast_constant(c.value, strings))
         if src == dst:
             return c
         if strings:
@@ -194,11 +229,27 @@ def format_to_string(arr, src: DataType):
     if isinstance(src, (FloatType, DoubleType)):
         return _float_strings(arr, isinstance(src, FloatType))
     if isinstance(src, TimestampType):
-        return pa.array(
-            [None if v is None else v.strftime("%Y-%m-%d %H:%M:%S")
-             + (f".{v.microsecond:06d}".rstrip("0") if v.microsecond else "")
-             for v in arr.to_pylist()], pa.string())
+        return _timestamp_strings(arr)
     raise NotImplementedError(f"cast {src} -> string not yet ported")
+
+
+def _timestamp_strings(arr):
+    """``y-MM-dd HH:mm:ss[.f]`` of each timestamp (the year unpadded, as
+    the reference's ``strftime`` gives it), the fraction's trailing zeros
+    trimmed, with numpy over the microseconds: no Python ``datetime`` a
+    row."""
+    import pyarrow as pa
+    us = np.asarray(arr.cast(pa.int64()).fill_null(0).to_numpy(
+        zero_copy_only=False), np.int64)
+    secs = np.floor_divide(us, 1_000_000)
+    frac = us - secs * 1_000_000
+    text = np.char.lstrip(np.char.replace(np.datetime_as_string(
+        secs.astype("datetime64[s]"), unit="s"), "T", " "), "0")
+    digits = np.char.rstrip(np.char.zfill(frac.astype(str), 6), "0")
+    text = np.where(frac != 0, np.char.add(np.char.add(text, "."), digits),
+                    text)
+    mask = np.asarray(arr.is_null()) if arr.null_count else None
+    return pa.array(text.tolist(), pa.string(), mask=mask)
 
 
 def _float_strings(arr, is_float32: bool):

@@ -17,6 +17,9 @@ bytes shared by every row), and one ragged gather
 (``kernels/strings.concat_columns``, each branch emitting only on the
 rows it takes) builds the result, as ``concat`` and a string ``coalesce``
 do; nothing is read back to the host.
+
+Host evaluation (``eval_cpu``) blends Arrow arrays with ``if_else`` from
+the last branch back, each value cast to the common type first.
 """
 
 from __future__ import annotations
@@ -28,7 +31,25 @@ import torch
 from ..columnar.vector import TorchColumnVector, row_mask
 from ..types import (DataType, NullT, NullType, NumericType, StringT,
                      StringType, numeric_promote)
-from .base import _DEFAULT_CTX, Expression, device_parts, make_column
+from .base import (_DEFAULT_CTX, Expression, arrow_column, device_parts,
+                   make_column)
+
+
+def _cpu_blend(pairs, else_value, dtype: DataType, table, ctx):
+    """Host CASE WHEN: ``pairs`` [(predicate, value)] with the first true
+    predicate's value (a null predicate is not true), else ``else_value``
+    (None: null)."""
+    import pyarrow.compute as pc
+    from .base import BooleanT
+    n = table.num_rows
+    out = arrow_column(None if else_value is None
+                       else else_value.eval_cpu(table, ctx), n, dtype)
+    for pred, value in reversed(pairs):
+        cond = pc.fill_null(arrow_column(pred.eval_cpu(table, ctx), n,
+                                         BooleanT), False)
+        out = pc.if_else(cond, arrow_column(value.eval_cpu(table, ctx), n,
+                                            dtype), out)
+    return out
 
 
 def branch_type(values: Sequence[Expression]) -> DataType:
@@ -114,6 +135,10 @@ class If(Expression):
         return make_column(dt, torch.where(cond, td, fd),
                            torch.where(cond, tv, fv) & mask, batch.num_rows)
 
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        c = self.children
+        return _cpu_blend([(c[0], c[1])], c[2], self.dtype, table, ctx)
+
     def pretty(self) -> str:
         c = self.children
         return f"if({c[0].pretty()}, {c[1].pretty()}, {c[2].pretty()})"
@@ -181,6 +206,10 @@ class CaseWhen(Expression):
         # no ELSE: the rows no branch took stay null
         mask = row_mask(batch.num_rows, cap, dev)
         return make_column(dt, data, valid & mask, batch.num_rows)
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        return _cpu_blend(self.branches, self.else_value, self.dtype, table,
+                          ctx)
 
     def pretty(self) -> str:
         parts = [f"WHEN {p.pretty()} THEN {v.pretty()}"

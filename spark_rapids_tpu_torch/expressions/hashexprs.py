@@ -9,6 +9,11 @@ in which partition, so the result must be bit-identical to the reference
 every uint32 lives in the low 32 bits of an int64 (values in [0, 2^32)):
 products split into 16-bit halves so nothing overflows, and a right shift
 of a non-negative int64 is the logical shift the hash needs.
+
+On the host (``Murmur3Hash.eval_cpu``, and the host engine's hash
+exchange through ``host_partition_ids``) the same functions run over CPU
+tensors read from the Arrow rows, so the host's bits are the card's by
+construction: a host side and a device side of one join co-partition.
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ from ..columnar.vector import TorchColumnVector
 from ..types import (BooleanType, ByteType, DataType, DateType, DoubleType,
                      FloatType, IntegerT, IntegerType, LongType, ShortType,
                      StringType, TimestampType)
-from .base import _DEFAULT_CTX, Expression, make_column, to_column
+from .base import (_DEFAULT_CTX, Expression, arrow_column, make_column,
+                   to_column)
 
 _MASK = 0xFFFFFFFF
 _C1 = 0xCC9E2D51
@@ -163,3 +169,28 @@ class Murmur3Hash(Expression):
                 for c in self.children]
         h = murmur3_batch(cols, batch.capacity, self.seed)
         return make_column(IntegerT, h.to(torch.int32), None, batch.num_rows)
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        import pyarrow as pa
+        n = table.num_rows
+        h = murmur3_arrow([arrow_column(c.eval_cpu(table, ctx), n, c.dtype)
+                           for c in self.children],
+                          [c.dtype for c in self.children], n, self.seed)
+        return pa.array(h.to(torch.int32).numpy())
+
+
+def murmur3_arrow(arrays, dtypes, n: int, seed: int = 42) -> torch.Tensor:
+    """Spark's row hash of Arrow columns on the host (int32 values in an
+    int64 CPU tensor): each column read into a CPU column, then
+    ``murmur3_batch``, the device's own code."""
+    from ..columnar.batch import TorchColumnarBatch
+    import pyarrow as pa
+    if not arrays:
+        return torch.full((n,), seed, dtype=torch.int64)
+    t = pa.Table.from_arrays(list(arrays),
+                             names=[f"k{i}" for i in range(len(arrays))])
+    cols = TorchColumnarBatch.from_arrow(t).columns
+    cols = [c if c.dtype == dt else type(c)(dt, c.data, c.validity,
+                                               c.num_rows, c.offsets)
+            for c, dt in zip(cols, dtypes)]
+    return murmur3_batch(cols, n, seed)[:n]

@@ -1,7 +1,8 @@
 """``IS NULL``, ``IS NOT NULL`` and ``coalesce`` (port of ``IsNull``,
 ``IsNotNull`` and ``Coalesce`` in
-``spark_rapids_tpu/expressions/nullexprs.py``). The tests are never null
-themselves; padding rows read false."""
+``spark_rapids_tpu/expressions/nullexprs.py``, with their pyarrow host
+evaluation). The tests are never null themselves; padding rows read
+false."""
 
 from __future__ import annotations
 
@@ -9,8 +10,8 @@ import torch
 
 from ..columnar.vector import TorchColumnVector, TorchScalar, row_mask
 from ..types import BooleanT, DataType, StringT, StringType
-from .base import (_DEFAULT_CTX, Expression, UnaryExpression, device_parts,
-                   make_column)
+from .base import (_DEFAULT_CTX, Expression, UnaryExpression, arrow_column,
+                   device_parts, is_arrow, make_column)
 
 
 class _NullTest(UnaryExpression):
@@ -41,12 +42,20 @@ class _NullTest(UnaryExpression):
         return make_column(BooleanT, self._test(self._is_null(c, batch))
                            & mask, None, batch.num_rows)
 
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        import pyarrow.compute as pc
+        c = self.child.eval_cpu(table, ctx)
+        if not is_arrow(c):
+            return bool(self._test(torch.tensor([c is None]))[0])
+        return getattr(pc, self._arrow_op)(c)
+
     def pretty(self) -> str:
         return f"{self.child.pretty()} {self.word}"
 
 
 class IsNull(_NullTest):
     word = "IS NULL"
+    _arrow_op = "is_null"
 
     def _test(self, is_null):
         return is_null
@@ -54,6 +63,7 @@ class IsNull(_NullTest):
 
 class IsNotNull(_NullTest):
     word = "IS NOT NULL"
+    _arrow_op = "is_valid"
 
     def _test(self, is_null):
         return ~is_null
@@ -105,6 +115,14 @@ class Coalesce(Expression):
                                data)
             valid = valid | vv
         return make_column(self.dtype, data, valid, batch.num_rows)
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        import pyarrow.compute as pc
+        vals = [c.eval_cpu(table, ctx) for c in self.children]
+        if not any(is_arrow(v) for v in vals):
+            return next((v for v in vals if v is not None), None)
+        n = table.num_rows
+        return pc.coalesce(*[arrow_column(v, n, self.dtype) for v in vals])
 
     def pretty(self) -> str:
         return f"coalesce({', '.join(c.pretty() for c in self.children)})"

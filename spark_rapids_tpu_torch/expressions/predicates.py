@@ -4,19 +4,23 @@ Port of ``spark_rapids_tpu/expressions/predicates.py`` (fixed-width
 operands): NaN equals NaN and sorts above every other double; AND/OR use
 Kleene three-valued logic; ``IN`` lists (``In``, ``InSet``) give Spark's
 three-valued result. String operands compare on the device in
-UTF-8 byte order (``strings.py``).
+UTF-8 byte order (``strings.py``). The host evaluation (``eval_cpu``) is
+pyarrow's, with Spark's NaN order where a double side holds a NaN (Arrow
+compares strings by their bytes, as the device does).
 """
 
 from __future__ import annotations
 
 from typing import List
 
+import numpy as np
 import torch
 
 from ..columnar.vector import TorchScalar, row_mask
 from ..types import BooleanT, DataType, StringType
 from .base import (BinaryExpression, Expression, UnaryExpression,
-                   _DEFAULT_CTX, device_parts, make_column, to_column)
+                   _DEFAULT_CTX, arrow_column, arrow_numpy, device_parts,
+                   is_arrow, make_column, to_column)
 
 
 def nan_aware_eq(l, r):
@@ -65,6 +69,21 @@ class BinaryComparison(BinaryExpression):
     def _compute(self, l, r, ctx, valid):
         return self._device_cmp(l, r)
 
+    def _cpu_compute(self, l, r, ctx):
+        import pyarrow as pa
+        import pyarrow.compute as pc
+        if l.type != r.type:  # a date against its day number, as on the card
+            l, r = (x.cast(pa.int32()) if pa.types.is_date32(x.type)
+                    else x for x in (l, r))
+        if pa.types.is_floating(l.type) or pa.types.is_floating(r.type):
+            # Spark's order: NaN equals NaN and sorts above every number
+            ln, lm = arrow_numpy(l, len(l), self.left.dtype)
+            rn, rm = arrow_numpy(r, len(r), self.right.dtype)
+            lt, rt = torch.from_numpy(np.array(ln)), torch.from_numpy(np.array(rn))
+            out = self._device_cmp(lt, rt).numpy()
+            return pa.array(out, mask=(lm | rm) if (lm | rm).any() else None)
+        return getattr(pc, self._arrow_op)(l, r)
+
     def _device_cmp(self, l, r):
         raise NotImplementedError
 
@@ -74,6 +93,7 @@ class BinaryComparison(BinaryExpression):
 
 
 class EqualTo(BinaryComparison):
+    _arrow_op = "equal"
     symbol = "="
 
     def _device_cmp(self, l, r):
@@ -84,6 +104,7 @@ class EqualTo(BinaryComparison):
 
 
 class LessThan(BinaryComparison):
+    _arrow_op = "less"
     symbol = "<"
 
     def _device_cmp(self, l, r):
@@ -94,6 +115,7 @@ class LessThan(BinaryComparison):
 
 
 class LessThanOrEqual(BinaryComparison):
+    _arrow_op = "less_equal"
     symbol = "<="
 
     def _device_cmp(self, l, r):
@@ -104,6 +126,7 @@ class LessThanOrEqual(BinaryComparison):
 
 
 class GreaterThan(BinaryComparison):
+    _arrow_op = "greater"
     symbol = ">"
 
     def _device_cmp(self, l, r):
@@ -114,6 +137,7 @@ class GreaterThan(BinaryComparison):
 
 
 class GreaterThanOrEqual(BinaryComparison):
+    _arrow_op = "greater_equal"
     symbol = ">="
 
     def _device_cmp(self, l, r):
@@ -142,6 +166,13 @@ class _Kleene(BinaryExpression):
         data, valid = self._kleene(lb, lv, rb, rv)
         return data & valid, valid & mask
 
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        import pyarrow.compute as pc
+        n = table.num_rows
+        l = arrow_column(self.left.eval_cpu(table, ctx), n, BooleanT)
+        r = arrow_column(self.right.eval_cpu(table, ctx), n, BooleanT)
+        return getattr(pc, self._arrow_op)(l, r)
+
     def pretty(self) -> str:
         return f"({self.children[0].pretty()} {self.word} {self.children[1].pretty()})"
 
@@ -149,6 +180,7 @@ class _Kleene(BinaryExpression):
 class And(_Kleene):
     """Kleene AND: false AND null = false."""
     word = "AND"
+    _arrow_op = "and_kleene"
 
     @staticmethod
     def _kleene(lb, lv, rb, rv):
@@ -159,6 +191,7 @@ class And(_Kleene):
 class Or(_Kleene):
     """Kleene OR: true OR null = true."""
     word = "OR"
+    _arrow_op = "or_kleene"
 
     @staticmethod
     def _kleene(lb, lv, rb, rv):
@@ -177,6 +210,10 @@ class Not(UnaryExpression):
             return type(c)(BooleanT, None if c.value is None else not c.value)
         return make_column(BooleanT, ~c.data.to(torch.bool), c.validity,
                            c.num_rows)
+
+    def _cpu_compute(self, arr, ctx):
+        import pyarrow.compute as pc
+        return pc.invert(arr)
 
     def pretty(self) -> str:
         return f"NOT {self.child.pretty()}"
@@ -203,6 +240,9 @@ class _Evaluated(Expression):
         return self._dtype
 
     def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        return self._result
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
         return self._result
 
 
@@ -249,6 +289,23 @@ class In(Expression):
             null_item = null_item | (~iv & vv)
         return _in_result(found, vv, null_item, batch.num_rows)
 
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        """Spark's three-valued IN over the host rows: the item
+        comparisons (``EqualTo``'s, NaN matching NaN) or'd in Kleene
+        logic, null for a null value."""
+        import pyarrow.compute as pc
+        n = table.num_rows
+        v = self.value.eval_cpu(table, ctx)
+        value = _Evaluated(v, self.value.dtype)
+        found = arrow_column(False, n, BooleanT)
+        for item in self.items:
+            eq = arrow_column(EqualTo(value, item).eval_cpu(table, ctx), n,
+                              BooleanT)
+            found = pc.or_kleene(found, eq)
+        out = pc.if_else(pc.is_null(arrow_column(v, n, self.value.dtype)),
+                         arrow_column(None, n, BooleanT), found)
+        return out if is_arrow(v) or table is not None else out[0].as_py()
+
     def pretty(self) -> str:
         return (f"{self.value.pretty()} IN "
                 f"({', '.join(i.pretty() for i in self.items)})")
@@ -294,6 +351,11 @@ class InSet(Expression):
         null_item = torch.full((cap,), self._has_null, dtype=torch.bool,
                                device=dev)
         return _in_result(found, vv, null_item, batch.num_rows)
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        from .base import Literal
+        return In(self.value, [Literal(i, self.value.dtype)
+                               for i in self.items]).eval_cpu(table, ctx)
 
     def pretty(self) -> str:
         return f"{self.value.pretty()} INSET {self.items}"

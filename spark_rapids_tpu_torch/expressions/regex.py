@@ -19,13 +19,24 @@ validate / rewrite / reject design.
    ``\\p{...}``, lookbehind, ``\\G``/``\\Z``) is rejected: the expression is
    tagged off the card (``tpu_supported``).
 
+Java's readings that neither RE2 nor Python's ``re`` share are rewritten
+first (``java_pattern``): a ``[`` inside a character class opens a nested
+set, unioned into the outer one (``[[:digit:]]`` is one of ``:digit``;
+RE2 reads a POSIX class there), so nested sets are flattened. The
+replacement of ``regexp_replace`` follows ``Matcher.appendReplacement``
+(``java_replacement``): ``\\x`` is a literal ``x``, ``$n`` a group with
+Java's greedy group number.
+
+Host evaluation (``eval_cpu``, the host engine) runs the host hop's code
+over the Arrow rows, so both sides read a pattern the same way.
+
 ``LIKE`` is ``expressions/strings.Like`` in the port.
 """
 
 from __future__ import annotations
 
 import re as _re
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,7 +45,7 @@ from ..columnar.vector import bucket_capacity
 from ..kernels import regex_dfa as RD
 from ..kernels import strings as SK
 from ..types import BooleanT, DataType, StringT
-from .base import _DEFAULT_CTX, Expression, make_column
+from .base import _DEFAULT_CTX, Expression, is_arrow, make_column
 from .strings import (Contains, EndsWith, StartsWith, _str_col,
                       _string_input, _valid, column_from_arrow,
                       column_to_arrow, host_path)
@@ -50,17 +61,91 @@ _REJECT_PATTERNS = [
 ]
 
 
+def java_pattern(pattern: str) -> Optional[str]:
+    """The pattern with Java's nested character classes flattened into
+    their enclosing class (a union in Java), or None where Java reads a
+    class in a way this cannot express (a negated nested set, ``&&``)."""
+    out, depth, i = [], 0, 0
+    while i < len(pattern):
+        ch = pattern[i]
+        if ch == "\\" and i + 1 < len(pattern):
+            out.append(pattern[i:i + 2])
+            i += 2
+            continue
+        if ch == "[":
+            if depth and pattern.startswith("[^", i):
+                return None
+            if not depth:
+                out.append(ch)
+                if pattern.startswith("[^", i):
+                    out.append("^")
+                    i += 1
+            depth += 1
+        elif ch == "]" and depth:
+            depth -= 1
+            if not depth:
+                out.append(ch)
+        elif depth and pattern.startswith("&&", i):
+            return None
+        else:
+            out.append(ch)
+        i += 1
+    return "".join(out)
+
+
 def transpile(pattern: str) -> Optional[str]:
-    """Java regex → Python ``re`` pattern, or None when rejected
-    (reference ``transpile``)."""
+    """Java regex → Python ``re`` pattern (``java_pattern``'s rewrite), or
+    None when rejected (reference ``transpile``)."""
     for rej in _REJECT_PATTERNS:
         if rej.search(pattern):
             return None
+    flat = java_pattern(pattern)
+    if flat is None:
+        return None
     try:
-        _re.compile(pattern)
+        _re.compile(flat)
     except _re.error:
         return None
-    return pattern
+    return flat
+
+
+def java_replacement(replacement: str, groups: int) -> List[Union[str, int]]:
+    """``Matcher.appendReplacement``'s reading of a replacement: literal
+    text and group numbers. ``\\x`` is a literal ``x``; ``$`` takes one
+    digit, then more while the number stays a group of the pattern
+    (``groups`` of them); Java's errors raise ``ValueError``."""
+    parts: List[Union[str, int]] = []
+    text, i = [], 0
+    while i < len(replacement):
+        ch = replacement[i]
+        if ch == "\\":
+            if i + 1 == len(replacement):
+                raise ValueError("character to be escaped is missing")
+            text.append(replacement[i + 1])
+            i += 2
+            continue
+        if ch == "$":
+            if i + 1 == len(replacement) or \
+                    not replacement[i + 1].isdigit():
+                raise ValueError("Illegal group reference")
+            g = int(replacement[i + 1])
+            i += 2
+            while i < len(replacement) and replacement[i].isdigit() \
+                    and g * 10 + int(replacement[i]) <= groups:
+                g = g * 10 + int(replacement[i])
+                i += 1
+            if g > groups:
+                raise ValueError(f"No group {g}")
+            if text:
+                parts.append("".join(text))
+                text = []
+            parts.append(g)
+            continue
+        text.append(ch)
+        i += 1
+    if text:
+        parts.append("".join(text))
+    return parts
 
 
 def literal_prefix_rewrite(pattern: str) -> Optional[Tuple[str, str]]:
@@ -140,6 +225,39 @@ def _re2_or_python(arr, pattern: str, re2_call, py_call):
         return pa.array(py_call(arr.to_pylist()))
 
 
+_JAVA_ONLY = _re.compile(r"\\[pP]\{|\\[GZ]")
+
+
+def _host_pattern(expr) -> str:
+    """The pattern the host engines run: Java's reading. A pattern kept off
+    the card for its possessive quantifiers or lookbehind runs in Python's
+    ``re``, which reads those as Java does; one whose reading neither
+    engine shares (``\\p{...}``, ``\\G``, ``\\Z``, a negated nested set)
+    raises."""
+    if expr._transpiled is not None:
+        return expr._transpiled
+    flat = java_pattern(expr.pattern)
+    if flat is not None and not _JAVA_ONLY.search(flat):
+        try:
+            _re.compile(flat)
+            return flat
+        except _re.error:
+            pass
+    raise NotImplementedError(
+        f"pattern {expr.pattern!r}: Java's reading has no host equivalent "
+        "(not yet ported)")
+
+
+def _host_eval(expr, table, ctx):
+    """``eval_cpu`` of a regex expression: its host hop over the child's
+    Arrow rows (a constant child folds)."""
+    import pyarrow as pa
+    v = expr.children[0].eval_cpu(table, ctx)
+    arr = v if is_arrow(v) else pa.array([v], pa.string())
+    out = expr._host(arr)
+    return out if is_arrow(v) else out[0].as_py()
+
+
 class RLike(Expression):
     """rlike / regexp: Java ``find`` semantics (reference ``RLike``)."""
 
@@ -147,7 +265,7 @@ class RLike(Expression):
         self.children = (child,)
         self.pattern = pattern
         self._transpiled = transpile(pattern)
-        self._rewrite = (literal_prefix_rewrite(pattern)
+        self._rewrite = (literal_prefix_rewrite(self._transpiled)
                          if self._transpiled is not None else None)
 
     tpu_supported = property(lambda self: self._transpiled is not None)
@@ -171,21 +289,30 @@ class RLike(Expression):
                    "contains": Contains}[kind]
             return cls(c, Literal(lit)).eval_device(batch, ctx)
         col = _string_input(c, batch, ctx)
-        dfa = RD.compile_dfa(self.pattern, _dfa_cap(ctx))
+        dfa = RD.compile_dfa(self._transpiled, _dfa_cap(ctx))
         steps, reason = _device_gate(dfa, col, ctx, span=False)
         if reason is None:
             data = RD.rlike_device(col.data, col.offsets, dfa, steps)
             return make_column(BooleanT, data, _valid(col, batch),
                                batch.num_rows)
-        import pyarrow.compute as pc
         host_path(ctx, self, reason)
-        prog = _re.compile(self._transpiled)
-        out = _re2_or_python(
-            column_to_arrow(col), self._transpiled,
-            lambda a: pc.match_substring_regex(a, pattern=self._transpiled),
+        return column_from_arrow(self._host(column_to_arrow(col)), BooleanT,
+                                 batch)
+
+    def _host(self, arr):
+        """The match over Arrow rows: RE2, or Python's ``re`` where RE2
+        cannot compile the pattern."""
+        import pyarrow.compute as pc
+        pattern = _host_pattern(self)
+        prog = _re.compile(pattern)
+        return _re2_or_python(
+            arr, pattern,
+            lambda a: pc.match_substring_regex(a, pattern=pattern),
             lambda vals: [None if v is None else prog.search(v) is not None
                           for v in vals])
-        return column_from_arrow(out, BooleanT, batch)
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        return _host_eval(self, table, ctx)
 
 
 class RegexpReplace(Expression):
@@ -211,46 +338,65 @@ class RegexpReplace(Expression):
         return (f"regexp_replace({self.children[0].pretty()}, "
                 f"{self.pattern!r}, {self.replacement!r})")
 
-    def _java_to_py_repl(self) -> str:
-        return _re.sub(r"\$(\d+)", r"\\\1", self.replacement)
+    def _parts(self) -> List[Union[str, int]]:
+        return java_replacement(self.replacement,
+                                _re.compile(_host_pattern(self)).groups)
 
     def eval_device(self, batch, ctx=_DEFAULT_CTX):
         col = _string_input(self.children[0], batch, ctx)
-        if "$" in self.replacement or "\\" in self.replacement:
+        parts = self._parts()
+        if any(isinstance(p, int) for p in parts):
             reason = "group reference in the replacement"
         else:
-            dfa = RD.compile_exact_dfa(self.pattern, _dfa_cap(ctx))
+            dfa = RD.compile_exact_dfa(self._transpiled, _dfa_cap(ctx))
             steps, reason = _device_gate(dfa, col, ctx, span=True)
             if reason is None:
-                return self._device_replace(col, dfa, steps, batch)
+                return self._device_replace(col, dfa, steps, batch,
+                                            "".join(parts))
+        host_path(ctx, self, reason)
+        return column_from_arrow(self._host(column_to_arrow(col)), StringT,
+                                 batch)
+
+    def _host(self, arr):
+        """Every match replaced over Arrow rows. The replacement is
+        Java's (``java_replacement``): RE2's rewrite (``\\\\`` a backslash,
+        ``\\n`` a group) when its groups are single digits, else a
+        function of the match."""
         import pyarrow as pa
         import pyarrow.compute as pc
-        host_path(ctx, self, reason)
-        prog = _re.compile(self._transpiled)
-        repl = self._java_to_py_repl()
+        pattern = _host_pattern(self)
+        prog = _re.compile(pattern)
+        parts = self._parts()
+
+        def repl(m):
+            return "".join(p if isinstance(p, str) else (m.group(p) or "")
+                           for p in parts)
 
         def python(vals):
             return [None if v is None else prog.sub(repl, v) for v in vals]
 
-        arr = column_to_arrow(col)
-        if prog.match(""):
+        if prog.match("") or any(isinstance(p, int) and p > 9
+                                 for p in parts):
             # an empty-matchable pattern: RE2's global replace advances
             # otherwise than Java after a non-empty match; Python's re
             # agrees with Java (the reference's rule)
-            out = pa.array(python(arr.to_pylist()), pa.string())
-        else:
-            out = _re2_or_python(arr, self._transpiled, lambda a:
-                                 pc.replace_substring_regex(
-                                     a, pattern=self._transpiled,
-                                     replacement=repl), python)
-        return column_from_arrow(out, StringT, batch)
+            return pa.array(python(arr.to_pylist()), pa.string())
+        rewrite = "".join(p.replace("\\", "\\\\") if isinstance(p, str)
+                          else f"\\{p}" for p in parts)
+        return _re2_or_python(arr, pattern, lambda a:
+                              pc.replace_substring_regex(
+                                  a, pattern=pattern, replacement=rewrite),
+                              python)
 
-    def _device_replace(self, col, dfa, steps: int, batch):
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        return _host_eval(self, table, ctx)
+
+    def _device_replace(self, col, dfa, steps: int, batch, literal: str):
         data, offsets = col.data, col.offsets
         nbytes = data.numel()
         if nbytes == 0:
             return col
-        repl = np.frombuffer(self.replacement.encode(), np.uint8)
+        repl = np.frombuffer(literal.encode(), np.uint8)
         mlen = RD.match_lengths_device(data, offsets, dfa, steps)
         taken = RD.select_leftmost_nonoverlapping(mlen, offsets)
         from .strings import _covered
@@ -287,7 +433,7 @@ class RegexpExtract(Expression):
                 f"{self.pattern!r}, {self.group})")
 
     def _extract(self, vals):
-        prog = _re.compile(self.pattern)
+        prog = _re.compile(_host_pattern(self))
         out = []
         for v in vals:
             if v is None:
@@ -303,14 +449,20 @@ class RegexpExtract(Expression):
         if self.group != 0:
             reason = "capture group"
         else:
-            dfa = RD.compile_exact_dfa(self.pattern, _dfa_cap(ctx))
+            dfa = RD.compile_exact_dfa(self._transpiled, _dfa_cap(ctx))
             steps, reason = _device_gate(dfa, col, ctx, span=True)
             if reason is None:
                 return self._device_extract(col, dfa, steps, batch)
-        import pyarrow as pa
         host_path(ctx, self, reason)
-        return column_from_arrow(pa.array(self._extract(col.to_pylist()),
-                                          pa.string()), StringT, batch)
+        return column_from_arrow(self._host(column_to_arrow(col)), StringT,
+                                 batch)
+
+    def _host(self, arr):
+        import pyarrow as pa
+        return pa.array(self._extract(arr.to_pylist()), pa.string())
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        return _host_eval(self, table, ctx)
 
     def _device_extract(self, col, dfa, steps: int, batch):
         data, offsets = col.data, col.offsets

@@ -22,6 +22,10 @@ ASCII, and its longest string, is one host read a column a batch
 counted in the session's counters as ``strings.hostPath`` and
 ``strings.hostPath.<class>.<reason>`` (``host_path_counts``).
 
+Host evaluation (``eval_cpu``, the host engine) runs each function over
+Arrow rows with the host hop's own code: pyarrow's kernels where Spark's
+rule and Arrow's agree, the reference's row functions elsewhere.
+
 The reference compares strings on the host through pyarrow. Here both
 sides stay as offsets + bytes on the device: a column, or a literal whose
 bytes every row shares. The comparison walks byte position k = 0, 1, ...
@@ -49,12 +53,13 @@ import numpy as np
 import torch
 
 from ..columnar.vector import (TorchColumnVector, TorchScalar,
+                               column_to_arrow,
                                bucket_capacity, row_mask)
 from ..kernels import strings as SK
 from ..kernels.strings import concat_columns  # noqa: F401  (callers here)
 from ..types import BooleanT, DataType, IntegerT, StringT
-from .base import (_DEFAULT_CTX, Expression, UnaryExpression,
-                   combine_validity, make_column, to_column)
+from .base import (_DEFAULT_CTX, Expression, UnaryExpression, arrow_column,
+                   combine_validity, is_arrow, make_column, to_column)
 
 _INT64_SIGN = -2**63
 #: strings up to this many bytes pack into one int64 with their length
@@ -225,42 +230,6 @@ def host_path_counts(counters) -> dict:
     return out
 
 
-def column_to_arrow(col: TorchColumnVector):
-    """A column's logical rows as an Arrow array (the host hop's
-    download: offsets, bytes and validity, no per-row Python)."""
-    import pyarrow as pa
-    from ..types import BinaryType, DateType, NullType, TimestampType
-    n = col.num_rows
-    valid = col.validity[:n].cpu().numpy() if col.validity is not None \
-        else None
-    if valid is not None and valid.all():
-        valid = None
-    if isinstance(col.dtype, NullType):
-        return pa.nulls(n)
-    if col.offsets is not None:
-        offs = col.offsets[:n + 1].cpu().numpy().astype(np.int64)
-        base = int(offs[0])
-        offs = (offs - base).astype(np.int32)
-        nb = int(offs[-1])
-        data = col.data[base:base + nb].cpu().numpy() if nb else \
-            np.zeros(0, np.uint8)
-        bitmap = None if valid is None else pa.py_buffer(
-            np.packbits(valid, bitorder="little").tobytes())
-        at = pa.binary() if isinstance(col.dtype, BinaryType) else pa.string()
-        return pa.Array.from_buffers(
-            at, n, [bitmap, pa.py_buffer(offs.tobytes()),
-                    pa.py_buffer(data.tobytes())],
-            null_count=0 if valid is None else int((~valid).sum()))
-    vals = col.data[:n].cpu().numpy()
-    mask = None if valid is None else ~valid
-    if isinstance(col.dtype, DateType):
-        return pa.array(vals.astype(np.int32), type=pa.date32(), mask=mask)
-    if isinstance(col.dtype, TimestampType):
-        return pa.array(vals.astype(np.int64), type=pa.timestamp("us"),
-                        mask=mask)
-    return pa.array(vals, mask=mask)
-
-
 def column_from_arrow(arr, dtype: DataType, batch) -> TorchColumnVector:
     """An Arrow result of the batch's rows as a column at the batch's
     capacity on its device (the host hop's upload)."""
@@ -300,6 +269,33 @@ def rows_of(x, n: int) -> list:
     if isinstance(x, TorchScalar):
         return [x.value] * n
     return x.to_pylist()
+
+
+def cpu_rows_of(x, n: int) -> list:
+    """A host result's rows as Python values (a constant repeated)."""
+    return x.to_pylist() if is_arrow(x) else [x] * n
+
+
+def _cpu_unary(expr, table, ctx, fn):
+    """``eval_cpu`` of a function of its first (string) child: ``fn`` over
+    the child's Arrow rows; a constant child folds to a Python value."""
+    import pyarrow as pa
+    v = expr.children[0].eval_cpu(table, ctx)
+    if is_arrow(v):
+        return fn(arrow_column(v, len(v), StringT))
+    if v is None:
+        return None
+    return fn(pa.array([v], pa.string()))[0].as_py()
+
+
+def _cpu_row_map(expr, table, ctx, row_fn):
+    """``eval_cpu`` a row at a time over every child's Python values."""
+    import pyarrow as pa
+    from ..types import to_arrow
+    n = table.num_rows
+    ins = [cpu_rows_of(c.eval_cpu(table, ctx), n) for c in expr.children]
+    return pa.array([row_fn(*r) for r in zip(*ins)],
+                    type=to_arrow(expr.dtype))
 
 
 def _pat_bytes(s: str) -> np.ndarray:
@@ -410,11 +406,8 @@ class Like(Expression):
     def _match_host(self, c: TorchColumnVector, batch):
         """Character-wise LIKE on the host (reference ``_match_host``:
         fullmatch, so a trailing newline is not matched by ``$``)."""
-        prog = re.compile(self._to_regex(), re.DOTALL)
-        vals = [None if v is None else bool(prog.fullmatch(v))
-                for v in c.to_pylist()]
-        import pyarrow as pa
-        return column_from_arrow(pa.array(vals, pa.bool_()), BooleanT, batch)
+        return column_from_arrow(self._host(column_to_arrow(c)), BooleanT,
+                                 batch)
 
     def eval_device(self, batch, ctx=_DEFAULT_CTX):
         c = to_column(self.children[0].eval_device(batch, ctx), batch,
@@ -480,6 +473,28 @@ class Like(Expression):
             ok = ok & (tail >= cur) & matches_at(segs[-1], tail)
         return make_column(BooleanT, ok, valid, batch.num_rows)
 
+    def _host(self, arr):
+        """LIKE by character over Arrow rows: Arrow's ``match_like`` (its
+        ``%`` and ``_`` match any character, a newline too) where the
+        escape is ``\\`` before ``%``, ``_`` or itself; else the pattern's
+        regex, a row at a time."""
+        import pyarrow as pa
+        import pyarrow.compute as pc
+        p, i, arrow_ok = self.pattern, 0, self.escape == "\\"
+        while i < len(p) and arrow_ok:
+            if p[i] == "\\":
+                arrow_ok = i + 1 < len(p) and p[i + 1] in "%_\\"
+                i += 1
+            i += 1
+        if arrow_ok:
+            return pc.match_like(arr, pattern=p)
+        prog = re.compile(self._to_regex(), re.DOTALL)
+        return pa.array([None if v is None else bool(prog.fullmatch(v))
+                         for v in arr.to_pylist()], pa.bool_())
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        return _cpu_unary(self, table, ctx, self._host)
+
 
 # ---------------------------------------------------------------------------
 # substring
@@ -527,14 +542,8 @@ class Substring(Expression):
         dev = batch.device
         if not _ascii(c):
             host_path(ctx, self, "non-ASCII")
-            import pyarrow.compute as pc
-            start = pos - 1 if pos > 0 else (0 if pos == 0 else pos)
-            if start >= 0:
-                stop = start + max(ln, 0)
-            else:
-                stop = start + ln if start + ln < 0 else np.iinfo(np.int32).max
-            return column_from_arrow(pc.utf8_slice_codeunits(
-                column_to_arrow(c), start=start, stop=stop), StringT, batch)
+            return column_from_arrow(self._host(column_to_arrow(c)), StringT,
+                                     batch)
         starts, lens = _starts_lengths(c)
         valid = combine_validity(c.validity, row_mask(c.num_rows, c.capacity,
                                                       dev))
@@ -568,6 +577,20 @@ class Substring(Expression):
         c = self.children
         return (f"substring({c[0].pretty()}, {c[1].pretty()}, "
                 f"{c[2].pretty()})")
+
+    def _host(self, arr):
+        """Spark's positions by character over Arrow rows."""
+        import pyarrow.compute as pc
+        pos, ln = self._literals()
+        start = pos - 1 if pos > 0 else (0 if pos == 0 else pos)
+        if start >= 0:
+            stop = start + max(ln, 0)
+        else:
+            stop = start + ln if start + ln < 0 else np.iinfo(np.int32).max
+        return pc.utf8_slice_codeunits(arr, start=start, stop=stop)
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        return _cpu_unary(self, table, ctx, self._host)
 
 
 # ---------------------------------------------------------------------------
@@ -619,6 +642,16 @@ class ConcatStr(Expression):
     def pretty(self) -> str:
         return f"concat({', '.join(c.pretty() for c in self.children)})"
 
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        import pyarrow.compute as pc
+        vals = [c.eval_cpu(table, ctx) for c in self.children]
+        if not any(is_arrow(v) for v in vals):
+            return None if any(v is None for v in vals) else "".join(vals)
+        n = table.num_rows
+        return pc.binary_join_element_wise(
+            *[arrow_column(v, n, StringT) for v in vals], "",
+            null_handling="emit_null")
+
 
 # ---------------------------------------------------------------------------
 # the string function family (reference stringFunctions.scala through
@@ -660,6 +693,10 @@ class Length(_StringUnary):
         counts = (lead[offs[1:]] - lead[offs[:-1]]).to(torch.int32)
         return make_column(IntegerT, counts, _valid(c, batch), batch.num_rows)
 
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        import pyarrow.compute as pc
+        return _cpu_unary(self, table, ctx, pc.utf8_length)
+
 
 class _CaseMap(_StringUnary):
     """ASCII case mapping on the device, in place of the bytes; non-ASCII
@@ -681,6 +718,10 @@ class _CaseMap(_StringUnary):
         hit = (c.data >= self._lo) & (c.data <= self._hi)
         data = torch.where(hit, c.data + self._delta, c.data).to(torch.uint8)
         return _str_col(batch, data, c.offsets, c.validity)
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        import pyarrow.compute as pc
+        return _cpu_unary(self, table, ctx, getattr(pc, self._pc))
 
 
 class Upper(_CaseMap):
@@ -741,6 +782,25 @@ class _PatternPredicate(Expression):
     def pretty(self) -> str:
         return f"{self._pc.replace('_', '')}({self.children[0].pretty()}, " \
             f"{self.children[1].pretty()})"
+
+    def _row(self, v, p):
+        if v is None or p is None:
+            return None
+        return v.startswith(p) if self._pc == "starts_with" else \
+            v.endswith(p) if self._pc == "ends_with" else p in v
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        import pyarrow.compute as pc
+        pat = _literal_value(self.children[1])
+        if pat is _NOT_LITERAL:
+            return _cpu_row_map(self, table, ctx, self._row)
+        if pat is None:  # null in, null out (Spark; ROADMAP C-ref-18)
+            v = self.children[0].eval_cpu(table, ctx)
+            return arrow_column(None, table.num_rows, BooleanT) \
+                if is_arrow(v) else None
+        fn = "match_substring" if self._pc == "contains" else self._pc
+        return _cpu_unary(self, table, ctx,
+                          lambda a: getattr(pc, fn)(a, pattern=pat))
 
 
 def _window_at(c: TorchColumnVector, at: torch.Tensor, pb: np.ndarray):
@@ -818,6 +878,10 @@ class _TrimBase(_StringUnary):
         out, offs = SK.build_ranges(c.data, starts + lead, end - lead, nbytes)
         return _str_col(batch, out, offs, c.validity)
 
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        import pyarrow.compute as pc
+        return _cpu_unary(self, table, ctx, getattr(pc, self._pc))
+
 
 class Trim(_TrimBase):
     _pc = "utf8_trim_whitespace"
@@ -855,6 +919,10 @@ class Reverse(_StringUnary):
                                     c.data.numel(),
                                     stride=torch.full_like(starts, -1))
         return _str_col(batch, out, offs, c.validity)
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        import pyarrow.compute as pc
+        return _cpu_unary(self, table, ctx, pc.utf8_reverse)
 
 
 class InitCap(_StringUnary):
@@ -896,6 +964,11 @@ class InitCap(_StringUnary):
                           torch.where(~word & upper, b + 32, b))
         return _str_col(batch, out.to(torch.uint8), c.offsets, c.validity)
 
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        import pyarrow as pa
+        return _cpu_unary(self, table, ctx, lambda a: pa.array(
+            self._initcap_list(a.to_pylist()), pa.string()))
+
 
 class StringRepeat(Expression):
     """repeat(str, n): byte tiling on the device (UTF-8 safe); a
@@ -928,6 +1001,10 @@ class StringRepeat(Expression):
     def pretty(self) -> str:
         return f"repeat({self.children[0].pretty()}, " \
             f"{self.children[1].pretty()})"
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        return _cpu_row_map(self, table, ctx, lambda v, k: None
+                            if v is None or k is None else v * max(int(k), 0))
 
 
 def _covered(taken: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
@@ -986,6 +1063,19 @@ class StringReplace(Expression):
         c = self.children
         return f"replace({c[0].pretty()}, {c[1].pretty()}, {c[2].pretty()})"
 
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        import pyarrow.compute as pc
+        s = _literal_value(self.children[1])
+        r = _literal_value(self.children[2])
+        if s is _NOT_LITERAL or r is _NOT_LITERAL:
+            return _cpu_row_map(self, table, ctx, lambda v, a, b: None
+                                if v is None else v if not a
+                                else v.replace(a, b or ""))
+        if s is None or s == "":
+            return self.children[0].eval_cpu(table, ctx)
+        return _cpu_unary(self, table, ctx, lambda a: pc.replace_substring(
+            a, pattern=s, replacement=r or ""))
+
 
 class StringLocate(Expression):
     """locate(substr, str[, pos]): the 1-based position of the first
@@ -1042,6 +1132,13 @@ class StringLocate(Expression):
     def pretty(self) -> str:
         return f"locate({self.children[0].pretty()}, " \
             f"{self.children[1].pretty()})"
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        def row(subs, v, start):
+            if v is None or subs is None or start is None:
+                return None
+            return 0 if start < 1 else v.find(subs, start - 1) + 1
+        return _cpu_row_map(self, table, ctx, row)
 
 
 class StringInstr(StringLocate):
@@ -1111,6 +1208,13 @@ class _PadBase(Expression):
         c = self.children
         name = "lpad" if self.left_side else "rpad"
         return f"{name}({c[0].pretty()}, {c[1].pretty()}, {c[2].pretty()})"
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        def row(v, n, pad):
+            if v is None or n is None or pad is None:
+                return None
+            return self._compute_list([v], int(n), pad)[0]
+        return _cpu_row_map(self, table, ctx, row)
 
 
 class LPad(_PadBase):
@@ -1186,6 +1290,15 @@ class StringTranslate(Expression):
         return f"translate({c[0].pretty()}, {c[1].pretty()}, " \
             f"{c[2].pretty()})"
 
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        import pyarrow as pa
+        if not all(_literal_value(e) is not _NOT_LITERAL
+                   for e in self.children[1:]):
+            raise NotImplementedError(
+                "translate with a non-literal argument not yet ported")
+        return _cpu_unary(self, table, ctx, lambda a: pa.array(
+            self._compute_list(a.to_pylist()), pa.string()))
+
 
 class _HostRowOp(Expression):
     """An op computed a row at a time over Python values on the host (the
@@ -1204,6 +1317,10 @@ class _HostRowOp(Expression):
 
     def _row(self, *vals, ctx):
         raise NotImplementedError
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        return _cpu_row_map(self, table, ctx,
+                            lambda *vals: self._row(*vals, ctx=ctx))
 
 
 class ConcatWs(Expression):
@@ -1265,6 +1382,10 @@ class ConcatWs(Expression):
     def pretty(self) -> str:
         return f"concat_ws({', '.join(c.pretty() for c in self.children)})"
 
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        return _cpu_row_map(self, table, ctx,
+                            lambda sep, *parts: self._join(sep, parts))
+
 
 class SubstringIndex(Expression):
     """substring_index(str, delim, count): before the count-th delimiter
@@ -1324,6 +1445,9 @@ class SubstringIndex(Expression):
         return f"substring_index({c[0].pretty()}, {c[1].pretty()}, " \
             f"{c[2].pretty()})"
 
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        return _cpu_row_map(self, table, ctx, self._row)
+
 
 class OctetLength(_StringUnary):
     """octet_length: UTF-8 bytes, from the offsets."""
@@ -1340,6 +1464,11 @@ class OctetLength(_StringUnary):
         _, lens = SK.starts_lengths(c.offsets)
         return make_column(IntegerT, (lens * self._scale).to(torch.int32),
                            _valid(c, batch), batch.num_rows)
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        import pyarrow.compute as pc
+        return _cpu_unary(self, table, ctx, lambda a: pc.multiply(
+            pc.binary_length(a), self._scale).cast("int32"))
 
 
 class BitLength(OctetLength):
@@ -1463,3 +1592,9 @@ class Ascii(_StringUnary):
             first = c.data[starts.clamp(0, nbytes - 1)].to(torch.int32)
             data = torch.where(lens > 0, first, 0)
         return make_column(IntegerT, data, _valid(c, batch), batch.num_rows)
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        import pyarrow as pa
+        return _cpu_unary(self, table, ctx, lambda a: pa.array(
+            [None if v is None else (ord(v[0]) if v else 0)
+             for v in a.to_pylist()], pa.int32()))

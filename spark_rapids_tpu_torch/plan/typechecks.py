@@ -187,14 +187,34 @@ _register_builtin_exprs()
 
 
 def conf_gate_reason(e, conf) -> Optional[str]:
-    """Config-driven expression gates beyond the per-class switch. The
-    reference's cast switches (castFloatToString, castStringToFloat,
-    castStringToTimestamp) wait for the host engine: with none, a cast
-    switched off could only fail its query. The float-aggregation gate is
-    here."""
-    from ..config import VARIABLE_FLOAT_AGG_ENABLED
+    """Config-driven expression gates beyond the per-class switch
+    (reference RapidsConf incompatibility switches: castFloatToString,
+    castStringToFloat, castStringToTimestamp, variableFloatAgg). A gated
+    expression keeps its operator in the host engine."""
+    from ..config import (CAST_FLOAT_TO_STRING_ENABLED,
+                          CAST_STRING_TO_FLOAT_ENABLED,
+                          CAST_STRING_TO_TIMESTAMP_ENABLED,
+                          VARIABLE_FLOAT_AGG_ENABLED)
     from ..expressions.aggregates import Average, Sum
-    from ..types import DoubleType, FloatType
+    from ..expressions.cast import Cast
+    from ..types import DoubleType, FloatType, StringType, TimestampType
+    if isinstance(e, Cast) and e.children:
+        src, dst = e.children[0].dtype, e.dtype
+        if isinstance(src, (FloatType, DoubleType)) \
+                and isinstance(dst, StringType) \
+                and not conf.get(CAST_FLOAT_TO_STRING_ENABLED):
+            return ("float-to-string cast disabled via "
+                    f"{CAST_FLOAT_TO_STRING_ENABLED.key}")
+        if isinstance(src, StringType) \
+                and isinstance(dst, (FloatType, DoubleType)) \
+                and not conf.get(CAST_STRING_TO_FLOAT_ENABLED):
+            return ("string-to-float cast disabled via "
+                    f"{CAST_STRING_TO_FLOAT_ENABLED.key}")
+        if isinstance(src, StringType) \
+                and isinstance(dst, TimestampType) \
+                and not conf.get(CAST_STRING_TO_TIMESTAMP_ENABLED):
+            return ("string-to-timestamp cast disabled via "
+                    f"{CAST_STRING_TO_TIMESTAMP_ENABLED.key}")
     if isinstance(e, (Sum, Average)) and e.children \
             and isinstance(e.children[0].dtype, (FloatType, DoubleType)) \
             and not conf.get(VARIABLE_FLOAT_AGG_ENABLED):

@@ -29,6 +29,8 @@ from __future__ import annotations
 import threading
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
+
 from ..columnar.batch import TorchColumnarBatch, concat_batches
 from ..expressions.base import Expression
 from ..execs.base import (CpuExec, PhysicalPlan, TaskContext, TorchExec,
@@ -239,14 +241,22 @@ class TorchShuffleExchangeExec(_ExchangeBase, TorchExec):
 
 
 class CpuShuffleExchangeExec(_ExchangeBase, CpuExec):
-    """The planner's exchange node; the override engine converts it. Its
-    host execution (pyarrow in the reference) is not yet ported."""
+    """Hash exchange on the host (reference ``CpuShuffleExchangeExec``):
+    each map partition's rows split by Spark's HashPartitioning, pid =
+    pmod(murmur3(keys, 42), n), the murmur3 the device's own code over CPU
+    tensors (``hashexprs.murmur3_arrow``), so a host side and a device side
+    of one join co-partition. The blocks stay in host memory, a reduce
+    partition reads them in map order; materialization runs once per
+    exchange instance and the blocks go when the query ends."""
 
     def __init__(self, child: PhysicalPlan, partitioning: str,
                  keys: Sequence[Expression], num_partitions: int):
         CpuExec.__init__(self, [child])
         self._init_exchange(partitioning, bind_all(list(keys), child.output),
                             num_partitions)
+        self._shuffle_id: Optional[int] = None
+        self._n_maps = 0
+        self._host_blocks: Dict[int, List[TorchColumnarBatch]] = {}
 
     @property
     def output(self):
@@ -255,6 +265,57 @@ class CpuShuffleExchangeExec(_ExchangeBase, CpuExec):
     def node_desc(self) -> str:
         return f"CpuShuffleExchange[{self.partitioning}, n={self._n_out}]"
 
+    def _ensure_materialized(self, ctx: TaskContext) -> None:
+        if self._shuffle_id is not None:
+            return
+        from ..execs.base import op_time
+        from ..execs.cpu import table_batch
+        from ..serving.query_context import checkpoint
+        n, child = self._n_out, self.children[0]
+        blocks: Dict[int, List[TorchColumnarBatch]] = \
+            {p: [] for p in range(n)}
+        for map_id in range(child.num_partitions()):
+            checkpoint(f"shuffle.map host m{map_id}")
+            for b in child.execute_partition(map_id,
+                                             ctx.for_partition(map_id)):
+                if b.num_rows == 0:
+                    continue
+                t = b.to_arrow()
+                with op_time(ctx, type(self).__name__):
+                    pids = host_partition_ids(t, self.keys, n, ctx)
+                    order = np.argsort(pids, kind="stable")
+                    bounds = np.searchsorted(pids[order], np.arange(n + 1))
+                    for p in range(n):
+                        lo, hi = bounds[p], bounds[p + 1]
+                        if hi > lo:
+                            blocks[p].append(table_batch(
+                                t.take(order[lo:hi]), self.output))
+        self._host_blocks = blocks
+        self._n_maps = child.num_partitions()
+        self._shuffle_id = -1  # materialized: the blocks are on the exec
+
     def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
-        raise NotImplementedError(
-            "CPU execution of CpuShuffleExchangeExec not yet ported")
+        self._ensure_materialized(ctx)
+        names = [a.name for a in self.output]
+        for b in self._host_blocks.get(idx, []):
+            yield b.rename(names)
+
+    def cleanup_shuffle(self) -> None:
+        """Drop the host blocks (the session calls it when the query
+        ends)."""
+        self._host_blocks = {}
+        self._shuffle_id = None
+
+
+def host_partition_ids(table, keys: Sequence[Expression], n: int,
+                       ctx: TaskContext, seed: int = 42) -> np.ndarray:
+    """Spark's hash partition id of every row of an Arrow table, as the
+    device's ``hash_partition_ids`` gives it."""
+    import torch
+    from ..expressions.base import arrow_column
+    from ..expressions.hashexprs import murmur3_arrow
+    rows = table.num_rows
+    h = murmur3_arrow([arrow_column(k.eval_cpu(table, ctx.eval_ctx), rows,
+                                    k.dtype) for k in keys],
+                      [k.dtype for k in keys], rows, seed)
+    return torch.remainder(h, n).numpy().astype(np.int64)

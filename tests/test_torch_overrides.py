@@ -107,16 +107,34 @@ def test_explain_matches_reference(name, cached, compiled):
         "== Physical Plan ==") + 1] == "  DeviceToHostExec"
 
 
+def _group_key(row):
+    return (row["l_returnflag"], row["l_linestatus"])
+
+
+def _assert_rows(want, got):
+    """The same rows in the same order: keys and counts exact, floats
+    within rtol 1e-9."""
+    assert want and len(got) == len(want)
+    for w, g in zip(want, got):
+        assert list(g) == list(w)
+        for k, v in w.items():
+            if isinstance(v, float):
+                np.testing.assert_allclose(g[k], v, rtol=1e-9)
+            else:
+                assert g[k] == v
+
+
 def test_sql_disabled_plans_cpu_execs_like_the_reference():
     conf = {"spark.rapids.sql.enabled": "false"}
     want, got = _plans("q1_sorted", conf, cached=False)
     assert got == want
     physical = got.split("== Physical Plan ==\n")[1]
     assert not _device_nodes(physical) and "CpuHashAggregate" in physical
+    # every operator runs in the host engine, with the reference's rows
     df = TorchSession(conf, device="cpu").createDataFrame(_table())
-    with pytest.raises(NotImplementedError,
-                       match="CPU execution of CpuSortExec not yet ported"):
-        _q1_sorted(TF, df).collect()
+    ref = TpuSession(dict(REF_ONLY_OFF, **conf)).createDataFrame(_table())
+    _assert_rows(_q1_sorted(RF, ref).collect(),
+                 _q1_sorted(TF, df).collect())
 
 
 def test_disabled_exec_falls_back_with_the_reference_reason():
@@ -132,9 +150,9 @@ def test_disabled_exec_falls_back_with_the_reference_reason():
     want = "\n".join(line.replace("Tpu", "Torch")
                      for line in ref.explain().splitlines())
     assert port.explain() == want
-    with pytest.raises(NotImplementedError,
-                       match="CPU execution of CpuHashAggregateExec"):
-        port.collect()
+    # the aggregate runs in the host engine between its transitions
+    _assert_rows(sorted(ref.collect(), key=_group_key),
+                 sorted(port.collect(), key=_group_key))
 
 
 def test_disabled_expression_keeps_its_operator_on_the_cpu():

@@ -157,6 +157,15 @@ RE2_REJECTS = [r"(a)\1", r"(\w)\1", "a(?=b)"]
 def test_rlike_outside_the_subset_takes_the_counted_host_path(pat):
     got, want, hops = _run(lambda r: RRX.RLike(r, pat),
                            lambda r: PRX.RLike(r, pat), SUBJECTS)
+    if "[[" in pat:
+        # Java unions a nested set into its class: '[[:alpha:]]' is one of
+        # ':alph'. The reference's RE2 reads a POSIX class (ROADMAP C5 and
+        # C-ref-20); the port flattens the set, inside the DFA subset
+        java = re.compile(PRX.java_pattern(pat))
+        assert got == [None if v is None else java.search(v) is not None
+                       for v in SUBJECTS]
+        assert got != want and hops == {}
+        return
     assert got == want
     rewritten = PRX.literal_prefix_rewrite(pat) is not None
     assert hops == ({} if rewritten else

@@ -1,6 +1,11 @@
 """TPC-DS q61-q80 of ``benchmarks/tpcds.py`` through the port on the CPU,
 each held to the reference (``test_torch_tpcds.py``): the rows to its CPU
-session, the physical plan to its device session's ``explain()``."""
+session, the physical plan to its device session's ``explain()``. q78's
+``round(ss_qty / ws_qty, 2)`` is held to Spark's rounding of the
+quotient's decimal text (51 / 40 = 1.275 rounds to 1.28), where the
+reference's float rounding gives 1.27 (ROADMAP C4, C-ref-19)."""
+
+import decimal
 
 import pytest
 
@@ -13,6 +18,28 @@ QUERIES = [
 ]
 
 
+def _spark_round2(x: float) -> float:
+    return float(decimal.Decimal(repr(x)).quantize(
+        decimal.Decimal("0.01"), rounding=decimal.ROUND_HALF_UP))
+
+
+def _assert_q78_held_to_spark() -> None:
+    rows = T.query_rows("q78")
+    plan, cols, got = T.port("q78", rows)
+    T.assert_same_plan(T.reference_plan("q78", rows), plan)
+    want_cols, want = T.reference_rows("q78", rows)
+    spark = [dict(r, ratio=_spark_round2(r["ss_qty"] / r["ws_qty"]))
+             for r in want]
+    T.assert_rows_match(want_cols, spark, cols, got, "q78")
+    # the reference departs only at the quotients whose text is a tie
+    for r, s in zip(want, spark):
+        if r["ratio"] != s["ratio"]:
+            assert repr(r["ss_qty"] / r["ws_qty"]).endswith("5"), (r, s)
+
+
 @pytest.mark.parametrize("query", QUERIES)
 def test_query_matches_reference(query):
+    if query == "q78":
+        _assert_q78_held_to_spark()
+        return
     T.assert_query_matches(query)

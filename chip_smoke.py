@@ -205,6 +205,29 @@ prints no result):
    (c) a timing line a query (as phase 12's) and the DFA walk alone by
        CUDA events with its step count. It launches neither Q1 kernel.
 
+15. observability on the card (spark.rapids.tpu.trace.enabled, the
+   operator metrics, the sync ledger, the profiler), over phase 4's
+   cached lineitem, phase 7's 2^22-row tables and phase 9's file:
+   (a) framework Q1 at 2^24 (cached), q3 on the general path at 2^22 (4
+       partitions, 8 shuffle partitions, compiled join off) and scan_agg
+       with the device decode on, each traced with trace.dir in a
+       temporary directory: the bundle reconciles, the span tree is query
+       → plan.build → partition p → operators with one scan.decode span a
+       row group, the root's numOutputRows equals the oracle's rows, the
+       rows equal an untraced collect's, the Chrome trace loads as JSON;
+   (b) hot_repeat traced at phase 11's shapes (q6 at 2^24, q3 on the
+       star-join stage at 2^22, six submissions each): every bundle holds
+       a plan.build span, the steady submissions hit the plan cache; the
+       steady planning share (summed plan.build over summed end-to-end);
+   (c) the tracer's price: best of 2 warm collects untraced and traced,
+       framework Q1 and q3 general, with the count of spans;
+   (d) one collect each of q3 general and scan_agg under
+       torch.cuda.set_sync_debug_mode("warn"): the synchronizing calls
+       beside the SyncLedger's total, and the top Python lines of those
+       the audited gate did not see (printed, not checked);
+   (e) one collect under session.profiler(): the trace file holds CUDA
+       kernel events and the operators' ranges.
+
 After each phase a phase_wall line gives its wall, its collects, their
 planning ms and the batches the spill catalog registered.
 
@@ -1603,17 +1626,25 @@ def copy_rate_gbps(nbytes: int = 256 << 20) -> float:
 
 def scan_paths(F, TorchSession, smi, device: str = "cuda",
                rows: int = N_BIG, part_rows: int = 1 << 21,
-               row_group: int = 1 << 20, enc_rows: int = 1 << 20) -> None:
+               row_group: int = 1 << 20, enc_rows: int = 1 << 20,
+               keep: dict = None) -> None:
     """Phase 9: (a)-(d). With ``device="cpu"`` and small sizes it checks
-    the script's own logic off the card (no timing lines)."""
+    the script's own logic off the card (no timing lines). ``keep`` gets
+    the file for phase 15 (``keep["scan"]``: its directory, removed at
+    exit, its path, the scan_agg oracle and its row groups)."""
+    import atexit
     import os
+    import shutil
     import tempfile
 
     import pyarrow.parquet as pq
 
     from spark_rapids_tpu_torch.io.device_decode import FALLBACK_KEYS
     on_card = device == "cuda"
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_scan_") as d:
+    d = tempfile.mkdtemp(prefix="chip_smoke_scan_")
+    if keep is not None:
+        atexit.register(shutil.rmtree, d, True)
+    try:
         # (a) the file
         path = os.path.join(d, "lineitem.parquet")
         t0 = time.perf_counter()
@@ -1716,6 +1747,11 @@ def scan_paths(F, TorchSession, smi, device: str = "cuda",
         t_case = time.perf_counter()
         encoding_classes(TorchSession, d, enc_rows, device)
         print(f"  (d): {time.perf_counter() - t_case:.1f} s", flush=True)
+        if keep is not None:
+            keep["scan"] = (d, path, agg_oracle, n_rg)
+    finally:
+        if keep is None:
+            shutil.rmtree(d, ignore_errors=True)
     print(f"phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -4546,6 +4582,268 @@ def timestamp_oracle(li) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: observability on the card — the traced bundle, hot_repeat's
+# planning share, the tracer's price, the sync ledger against the syncs it
+# does not see, the profiler
+# ---------------------------------------------------------------------------
+
+
+def flat_spans(span, acc=None) -> list:
+    acc = [] if acc is None else acc
+    acc.append(span)
+    for c in span["children"]:
+        flat_spans(c, acc)
+    return acc
+
+
+def root_output_rows(profile) -> int:
+    """numOutputRows of the plan's topmost operator that counts its output
+    (the result download, as in the reference, does not)."""
+    return next(v["numOutputRows"][0] for v in profile["metrics"].values()
+                if "numOutputRows" in v)
+
+
+def check_bundle(key: str, p, want_rows: int, n_parts: int,
+                 row_groups: int = 0) -> None:
+    """(15a)'s checks of one traced collect's bundle."""
+    rec = p["reconcile"]
+    check(not rec["overflow"] and rec["dispatch_ok"] and rec["sync_ok"],
+          f"{key}: the bundle does not reconcile: {rec}")
+    root = p["spans"]
+    top = [(c["name"], c["cat"]) for c in root["children"]]
+    check(top == [("plan.build", "plan")]
+          + [(f"partition {i}", "task") for i in range(n_parts)],
+          f"{key}: query span's children {top}")
+    for part in root["children"][1:]:
+        check(part["children"] and all(c["cat"] == "op"
+                                       for c in part["children"]),
+              f"{key}: {part['name']} holds no operator spans")
+    decodes = [sp for sp in flat_spans(root) if sp["name"] == "scan.decode"]
+    check(len(decodes) == row_groups,
+          f"{key}: {len(decodes)} scan.decode spans, {row_groups} row groups")
+    got = root_output_rows(p)
+    check(got == want_rows, f"{key}: root numOutputRows {got} != {want_rows}")
+    with open(p["artifacts"]["chrome_trace"]) as f:
+        trace = json.load(f)
+    check(len(trace["traceEvents"]) > 0, f"{key}: empty Chrome trace")
+
+
+def best_collect_s(q, n: int = 2) -> float:
+    best = float("inf")
+    for _ in range(n):
+        t0 = time.perf_counter()
+        q.collect()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def set_trace(session, on: bool, trace_dir: str = None,
+              tag: str = None) -> None:
+    session.conf.set("spark.rapids.tpu.trace.enabled", str(on).lower())
+    if trace_dir:
+        session.conf.set("spark.rapids.tpu.trace.dir", trace_dir)
+    if tag:
+        session.conf.set("spark.rapids.tpu.trace.tag", tag)
+
+
+def gate_lines() -> set:
+    """(file, line) of every line of the audited sync gate."""
+    import inspect
+    import os
+
+    from spark_rapids_tpu_torch.columnar import vector
+    from spark_rapids_tpu_torch.execs import compiled_join
+    out = set()
+    for fn in (vector.audited_device_get, vector.audited_sync_int,
+               vector.audited_tolist, compiled_join._to_host):
+        lines, start = inspect.getsourcelines(fn)
+        f = os.path.realpath(inspect.getsourcefile(fn))
+        out.update((f, n) for n in range(start, start + len(lines)))
+    return out
+
+
+def sync_audit(key: str, q, s, smi) -> None:
+    """(15d) One collect under torch.cuda.set_sync_debug_mode("warn"):
+    every synchronizing call torch reports, beside the SyncLedger's total
+    for the query; the Python lines of the ones outside the audited gate
+    (boolean-mask indexing, nonzero, unique, ...). Printed, not checked."""
+    import collections
+    import os
+    import warnings
+    gate = gate_lines()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            q.collect()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    hidden = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in syncs
+        if (os.path.realpath(w.filename), w.lineno) not in gate)
+    ledger = sum(sum(k.values()) for k in s.last_sync_ledger().values())
+    print(json.dumps({f"sync_audit_{key}": {
+        "sync_calls": len(syncs),
+        "gate_calls": len(syncs) - sum(hidden.values()),
+        "ledger_total": ledger, "ledger": s.last_sync_ledger(),
+        "hidden_calls": sum(hidden.values()),
+        "top_hidden_lines": hidden.most_common(12)}, "card": smi}),
+        flush=True)
+
+
+def obs_paths(F, TorchSession, smi, tables, df, cols, oracle, scan,
+              device: str = "cuda", mid: int = 1 << 22) -> None:
+    """Phase 15: (a)-(e). ``df`` is phase 4's cached lineitem (``cols``,
+    its framework ``oracle``), ``tables`` holds phase 7's 2^22-row
+    tables, ``scan`` is phase 9's file (dir, path, scan_agg oracle, row
+    groups). With ``device="cpu"`` and small sizes it checks the script's
+    own logic off the card (no sync audit, a host-only profile)."""
+    import os
+    import tempfile
+
+    from spark_rapids_tpu_torch import tpch
+    from spark_rapids_tpu_torch.datagen import q3_frames, tpch_frames
+    from spark_rapids_tpu_torch.serving.bench import (SEGMENTS, q3_variant,
+                                                      q6_variant,
+                                                      run_repeated)
+    from spark_rapids_tpu_torch.serving.scheduler import QueryScheduler
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    _scan_dir, scan_path, agg_oracle, n_rg = scan
+    host = tpch_host(tables, mid, 4)
+    q3_top = q3_oracle(host)[1]
+    base = {"spark.rapids.shuffle.mode": "ICI",
+            "spark.sql.shuffle.partitions": "8"}
+    g = TorchSession(dict(base, **{
+        "spark.rapids.tpu.join.compiledStage.enabled": "false"}),
+        device=device)
+    sc = TorchSession({}, device=device)
+    queries = {
+        "framework_q1": (df.session, framework_query(F, df), len(oracle),
+                         lambda r: check_framework_rows(r, oracle), 0),
+        "q3_general": (g, tpch.q3(q3_frames(g, host)), len(q3_top),
+                       lambda r: check_q3_rows(r, q3_top, "q3 traced"), 0),
+        "scan_agg": (sc, scan_agg_query(F, sc.read.parquet(scan_path)),
+                     len(agg_oracle),
+                     lambda r: check_scan_agg(r, agg_oracle, "scan traced"),
+                     n_rg)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tdir:
+        # (a) traced queries against untraced collects and the oracles;
+        # (c) the tracer's price, best of 2 warm collects each way
+        for key, (s, q, want, check_rows, rgs) in queries.items():
+            set_trace(s, False)
+            plain_rows = q.collect()
+            untraced_s = best_collect_s(q) if key != "scan_agg" else None
+            set_trace(s, True, tdir, key)
+            rows = q.collect()
+            p = s.last_query_profile()
+            check(rows == plain_rows, f"{key}: traced rows differ")
+            check_rows(rows)
+            n_parts = sum(1 for c in p["spans"]["children"]
+                          if c["cat"] == "task")
+            check(n_parts >= 1, f"{key}: no partition task span")
+            check_bundle(key, p, want, n_parts, rgs)
+            traced_s = best_collect_s(q) if key != "scan_agg" else None
+            set_trace(s, False)
+            spans = flat_spans(p["spans"])
+            print(json.dumps({f"obs_traced_{key}": {
+                "rows": len(rows), "spans": len(spans),
+                "op_spans": sum(sp["cat"] == "op" for sp in spans),
+                "event_counts": p["event_counts"],
+                "dispatches_by_kind": p["dispatches_by_kind"],
+                "sync_events": p["sync_events_total"],
+                "duration_ms": p["duration_ms"],
+                "plan_build_ms": sum(sp["dur_ns"] / 1e6 for sp in spans
+                                     if sp["name"] == "plan.build"),
+                "partitions": n_parts, "scan_decode_spans": rgs,
+                "root_num_output_rows": root_output_rows(p),
+                "reconcile": p["reconcile"],
+                "trace_bytes": os.path.getsize(
+                    p["artifacts"]["chrome_trace"])}, "card": smi}),
+                flush=True)
+            if untraced_s is not None:
+                print(json.dumps({f"tracer_price_{key}": {
+                    "untraced_best_s": untraced_s, "traced_best_s": traced_s,
+                    "traced_over_untraced": traced_s / untraced_s,
+                    "spans": len(spans)}, "card": smi}), flush=True)
+        print("(a) traced framework Q1, q3 general and scan_agg ok: bundles "
+              "reconcile, the span trees hold plan.build and the partition "
+              "tasks, one scan.decode a row group, the root's numOutputRows "
+              "equal the oracle's rows, the rows equal the untraced ones | "
+              f"card: {smi}", flush=True)
+
+        # (b) hot_repeat traced, at phase 11's shapes
+        QueryScheduler.get().plan_cache.clear()
+        set_trace(df.session, True, tdir, "hot_repeat_q6")
+        try:
+            r6 = run_repeated(df.session, lambda i: q6_variant(df, i, F), 6,
+                              sync)
+        finally:
+            set_trace(df.session, False)
+        for i, rows in enumerate(r6["rows"]):
+            check_close(rows[0]["revenue"], q6_variant_oracle(cols, i),
+                        f"hot_repeat traced q6 submission {i}")
+        s3 = TorchSession(dict(base, **{
+            "spark.rapids.sql.batchSizeRows": str(mid)}), device=device)
+        set_trace(s3, True, tdir, "hot_repeat_q3")
+        t = tpch_frames(s3, host, 1)
+        t["lineitem"] = t["lineitem"].device_cache()
+        r3 = run_repeated(s3, lambda i: q3_variant(t, i, F), 6, sync)
+        top0 = q3_oracle(host, SEGMENTS[0])[1]
+        for i in (0, 5):
+            check_q3_rows(r3["rows"][i], top0,
+                          f"hot_repeat traced q3 submission {i}")
+        for key, r in (("q6", r6), ("q3_compiled", r3)):
+            check("plan_ms" in r and all(ms > 0 for ms in r["plan_ms"]),
+                  f"hot_repeat {key}: a bundle without a plan.build span")
+            check(r["cache_by_iter"][1:] == ["hit"] * 5,
+                  f"hot_repeat {key}: {r['cache_by_iter']}")
+            print(json.dumps({f"hot_repeat_traced_{key}": {
+                "rows": len(cols["l_shipdate"]) if key == "q6" else mid,
+                "planning_share": r["planning_share"],
+                "planning_share_pct": 100.0 * r["planning_share"],
+                "plan_ms": r["plan_ms"], "e2e_ms": r["e2e_ms"],
+                **{k: r[k] for k in ("first_ms", "steady_ms", "warm_p50_ms",
+                                     "hits", "misses", "cache_by_iter")}},
+                "card": smi}), flush=True)
+        del t, s3
+        QueryScheduler.get().plan_cache.clear()
+        print("(b) hot_repeat traced ok: a plan.build span in every "
+              "submission's bundle, five plan-cache hits each | "
+              f"card: {smi}", flush=True)
+
+        # (d) the sync ledger against every synchronizing call
+        if on_card:
+            for key in ("q3_general", "scan_agg"):
+                s, q = queries[key][:2]
+                sync_audit(key, q, s, smi)
+
+        # (e) the profiler over one collect
+        s, q = queries["framework_q1"][:2]
+        s.conf.set("spark.rapids.profile.pathPrefix",
+                   os.path.join(tdir, "profile"))
+        with s.profiler() as prof:
+            check_framework_rows(q.collect(), oracle)
+        with open(prof.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        check(not on_card or len(kernels) > 0,
+              "the profiler's trace holds no CUDA kernel event")
+        check(any(e.get("name") == "TorchCompiledAggStageExec"
+                  for e in events), "no operator range in the trace")
+        print(json.dumps({"profiler_trace": {
+            "events": len(events), "kernel_events": len(kernels),
+            "file_bytes": os.path.getsize(prof.trace_path)}, "card": smi}),
+            flush=True)
+    del queries, g, sc
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s | card: {smi}",
+          flush=True)
+
+
 def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--strings-prep":
         # phase 13's CPU answers, tables and oracles, beside the card's run
@@ -4591,7 +4889,7 @@ def main() -> int:
 
 def run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
                cpu_answers, prep) -> int:
-    """Phases 2-13 (``main`` prints phase 1 and starts phase 12's CPU
+    """Phases 2-15 (``main`` prints phase 1 and starts phase 12's CPU
     answers and phase 13's host work)."""
     from spark_rapids_tpu_torch.entry import entry
     from spark_rapids_tpu_torch.kernels import build, q1_cuda
@@ -4785,7 +5083,8 @@ def run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
     clock.mark(8)
 
     # 9. the parquet scan: bench.py's scan_agg queries and Q1 from parquet
-    scan_paths(F, TorchSession, smi)
+    scan_keep: dict = {}  # the file phase 15 reads again
+    scan_paths(F, TorchSession, smi, keep=scan_keep)
     release_plans()
     clock.mark(9)
 
@@ -4799,9 +5098,8 @@ def run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
     # deadline and cancel
     lifecycle_paths(F, TorchSession, smi, tables, df, cols, oracle)
     clock.mark(11)
-    del df, cols
     for key in [k for k in tables if k != (1 << 22, 4)]:
-        del tables[key]  # phase 10's tables stay for phase 14
+        del tables[key]  # phase 10's tables stay for phases 14 and 15
     release_plans()
 
     # 12. the 99 TPC-DS queries: the card against the port's CPU answers
@@ -4830,9 +5128,19 @@ def run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
     fallback_paths(F, TorchSession, smi, tables, keep)
     check(dict(q1_cuda.launches) == before, "phase 14 launched a Q1 kernel")
     del keep
-    tables.clear()
     release_plans()
     clock.mark(14)
+
+    # 15. observability on the card: traced framework Q1, q3 general and
+    # scan_agg (bundles, span trees, artifacts), hot_repeat's planning
+    # share, the tracer's price, the sync ledger against every sync torch
+    # reports, the profiler
+    obs_paths(F, TorchSession, smi, tables, df, cols, oracle,
+              scan_keep["scan"])
+    del df, cols
+    tables.clear()
+    release_plans()
+    clock.mark(15)
 
     print(kernels_line, flush=True)  # again, near the end of the output
     print(nvidia_smi())

@@ -384,13 +384,18 @@ class FaultInjector:
     def _obs_event(site: str, seq: int, kind: str, detail: str,
                    forced: bool) -> None:
         """Every injection lands in the always-on registry (per-site
-        counter) and the crash flight recorder, so a postmortem bundle
-        shows the fault that preceded the death."""
+        counter), the crash flight recorder, so a postmortem bundle shows
+        the fault that preceded the death, and — when the query is traced —
+        the timeline, inside whatever span the injection interrupted."""
         from ..obs import flight as _flight
         from ..obs import metrics as _metrics
+        from ..obs import tracer as _obs
         _metrics.counter_inc("chaos.injections", site=site, kind=kind)
         _flight.note("chaos.inject", site=site, seq=seq, kind=kind,
                      detail=detail, forced=forced)
+        if _obs._ACTIVE:
+            _obs.event("chaos", cat="chaos", site=site, seq=seq, kind=kind,
+                       detail=detail, forced=forced)
 
     def _raise(self, site: str, kind: str, delay: float) -> None:
         if kind == "latency":

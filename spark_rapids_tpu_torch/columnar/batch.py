@@ -16,8 +16,8 @@ import torch
 
 from ..types import (BinaryType, BooleanType, StringT, StringType,
                      StructField, StructType, from_arrow, from_numpy_dtype)
-from .vector import (HostStrings, TorchColumnVector, bucket_capacity,
-                     column_to_arrow)
+from .vector import (HostStrings, TorchColumnVector, audited_device_get,
+                     bucket_capacity, column_to_arrow)
 
 
 class TorchColumnarBatch:
@@ -85,7 +85,7 @@ class TorchColumnarBatch:
     def to_pylist(self) -> List[dict]:
         """Host rows as dicts (the reference ``collect()`` shape)."""
         names = self.names or [f"c{i}" for i in range(len(self.columns))]
-        cols = [c.to_pylist() for c in self.columns]
+        cols = [c.to_pylist(kind=None) for c in self.columns]
         return [dict(zip(names, vals)) for vals in zip(*cols)] if cols \
             else [{} for _ in range(self.num_rows)]
 
@@ -206,7 +206,7 @@ class TorchColumnarBatch:
         names = self.names or [f"c{i}" for i in range(len(self.columns))]
         if not self.columns:
             return pa.table({"_": pa.nulls(self.num_rows)}).select([])
-        return pa.Table.from_arrays([column_to_arrow(c)
+        return pa.Table.from_arrays([column_to_arrow(c, kind=None)
                                      for c in self.columns], names=names)
 
     def slice(self, start: int, length: int) -> "TorchColumnarBatch":
@@ -225,18 +225,25 @@ class TorchColumnarBatch:
                 cols.append(TorchColumnVector(c.dtype, c.data[start:end], v, n))
         return TorchColumnarBatch(cols, n, self.names)
 
-    def to_host(self) -> "TorchColumnarBatch":
-        """The same batch on the CPU (a no-op for a host batch). A string
-        column downloads only the bytes its rows use: a gathered column
-        keeps its source's byte buffer (``gather``)."""
-        cpu = lambda t: None if t is None else t.cpu()  # noqa: E731
-        cols = []
-        for c in self.columns:
-            offsets = cpu(c.offsets)
-            data = c.data if offsets is None \
-                else c.data[:int(offsets[c.num_rows])]
-            cols.append(TorchColumnVector(c.dtype, cpu(data), cpu(c.validity),
-                                          c.num_rows, offsets=offsets))
+    def to_host(self, kind: str = "batch") -> "TorchColumnarBatch":
+        """The same batch on the CPU, one download through the sync gate
+        (recorded as `kind`, also for a host batch: the gate records by
+        site). A string column downloads only the bytes its rows use: a
+        gathered column keeps its source's byte buffer (``gather``), so
+        its offsets come first."""
+        offsets = [c.offsets for c in self.columns]
+        data_kind = kind
+        if any(o is not None for o in offsets):
+            offsets = audited_device_get(offsets, kind)
+            data_kind = "chars"
+        parts = []
+        for c, offs in zip(self.columns, offsets):
+            parts += [c.validity, c.data if offs is None
+                      else c.data[:int(offs[c.num_rows])]]
+        host = audited_device_get(parts, data_kind)
+        cols = [TorchColumnVector(c.dtype, host[2 * i + 1], host[2 * i],
+                                  c.num_rows, offsets=offs)
+                for i, (c, offs) in enumerate(zip(self.columns, offsets))]
         return TorchColumnarBatch(cols, self.num_rows, self.names)
 
     def to_device(self, device, bucket: bool = True) -> "TorchColumnarBatch":

@@ -34,6 +34,68 @@ def row_mask(num_rows: int, capacity: int, device) -> torch.Tensor:
     return torch.arange(capacity, device=device) < num_rows
 
 
+# ---------------------------------------------------------------------------
+# the audited device→host sync gate (profiling sync ledger; reference
+# columnar/vector.py:560-600)
+#
+# Every explicit BLOCKING device→host transfer of the port routes through
+# these helpers: each records itself in the process-wide sync ledger
+# (profiling.SyncLedger) under the active operator scope, so a per-batch
+# sync shows in the ledger, explain("metrics") and the traced bundle
+# instead of only in wall time. The gate records by SITE, whatever the
+# tensor's device: on the CPU the tests see the ledger the card sees.
+# Torch also syncs inside some ops that are not transfers (boolean-mask
+# indexing, nonzero, unique, repeat_interleave without output_size); the
+# ledger does not see those, as the reference's does not see XLA's.
+# ---------------------------------------------------------------------------
+
+
+def audited_device_get(tensors: Sequence[Optional[torch.Tensor]],
+                       kind: str = "batch") -> List[Optional[torch.Tensor]]:
+    """The tensors on the host (None kept), as ONE recorded sync: the first
+    copy waits for the queued work, the rest follow it (a whole batch's
+    download is one round trip)."""
+    from ..profiling import record_sync
+    record_sync(kind)
+    return [None if t is None else t.cpu() for t in tensors]
+
+
+def audited_sync_int(value, kind: str = "scalar") -> int:
+    """int() of a one-element tensor through the ledger (free for an
+    int)."""
+    if isinstance(value, (int, np.integer)):
+        return int(value)
+    from ..profiling import record_sync
+    record_sync(kind)
+    return int(value.item())
+
+
+def audited_tolist(value, kind: str = "fetch") -> list:
+    """A tensor's values as a Python list through the ledger."""
+    from ..profiling import record_sync
+    record_sync(kind)
+    return value.tolist()
+
+
+def host_tensors(tensors: Sequence[Optional[torch.Tensor]],
+                 kind: Optional[str]) -> List[Optional[torch.Tensor]]:
+    """Tensors on the host: through the gate under `kind`; with `kind`
+    None the caller holds a host batch, whose CPU tensors need no transfer
+    (a device tensor there still downloads through the gate, as
+    ``batch``)."""
+    if kind is None and all(t is None or t.device.type == "cpu"
+                            for t in tensors):
+        return list(tensors)
+    return audited_device_get(tensors, kind or "batch")
+
+
+def host_arrays(tensors: Sequence[Optional[torch.Tensor]],
+                kind: Optional[str]) -> List[Optional[np.ndarray]]:
+    """``host_tensors`` as numpy arrays (host tensors: a view, no copy)."""
+    return [None if t is None else t.numpy()
+            for t in host_tensors(tensors, kind)]
+
+
 class HostStrings(NamedTuple):
     """A host string column already in Arrow layout: int32 offsets [n+1]
     and the uint8 bytes (what the data generator builds, vectorized)."""
@@ -109,21 +171,25 @@ class TorchColumnVector:
         return row_mask(self.num_rows, self.capacity, self.device)
 
     # ---- host materialization ----
-    def to_pylist(self) -> List[Any]:
-        """Logical values as python objects, None for nulls."""
+    def to_pylist(self, kind: Optional[str] = "fetch") -> List[Any]:
+        """Logical values as python objects, None for nulls; downloaded
+        through the sync gate under `kind` (None: a host column)."""
         n = self.num_rows
-        valid = (self.validity[:n].cpu().numpy() if self.validity is not None
-                 else np.ones(n, np.bool_))
         if isinstance(self.dtype, NullType):
             return [None] * n
+        v = None if self.validity is None else self.validity[:n]
         if isinstance(self.dtype, (StringType, BinaryType)):
-            offs = self.offsets[: n + 1].cpu().numpy().astype(np.int64)
-            raw = self.data[: int(offs[-1]) if n else 0].cpu().numpy().tobytes()
+            valid, offs = host_arrays([v, self.offsets[: n + 1]], kind)
+            offs = offs.astype(np.int64)
+            raw = host_arrays([self.data[: int(offs[-1]) if n else 0]],
+                              kind and "chars")[0].tobytes()
+            valid = np.ones(n, np.bool_) if valid is None else valid
             text = isinstance(self.dtype, StringType)
             return [(raw[offs[i]:offs[i + 1]].decode() if text
                      else raw[offs[i]:offs[i + 1]]) if valid[i] else None
                     for i in range(n)]
-        vals = self.data[:n].cpu().numpy()
+        valid, vals = host_arrays([v, self.data[:n]], kind)
+        valid = np.ones(n, np.bool_) if valid is None else valid
         if isinstance(self.dtype, DateType):
             import datetime
             epoch = datetime.date(1970, 1, 1)
@@ -135,7 +201,7 @@ class TorchColumnVector:
                                       tzinfo=datetime.timezone.utc)
             return [epoch + datetime.timedelta(microseconds=int(v))
                     if ok else None for v, ok in zip(vals, valid)]
-        out = vals.tolist()
+        out = vals.tolist()  # a host array: no transfer
         if not valid.all():
             out = [v if ok else None for v, ok in zip(out, valid)]
         return out
@@ -239,24 +305,26 @@ class TorchScalar:
         return self.value is None
 
 
-def column_to_arrow(col: TorchColumnVector):
+def column_to_arrow(col: TorchColumnVector, kind: Optional[str] = "fetch"):
     """A column's logical rows as an Arrow array (the host hop's
-    download: offsets, bytes and validity, no per-row Python)."""
+    download: offsets, bytes and validity, no per-row Python), through the
+    sync gate under `kind` (None: a host column)."""
     import pyarrow as pa
     n = col.num_rows
-    valid = col.validity[:n].cpu().numpy() if col.validity is not None \
-        else None
-    if valid is not None and valid.all():
-        valid = None
     if isinstance(col.dtype, NullType):
         return pa.nulls(n)
+    v = None if col.validity is None else col.validity[:n]
     if col.offsets is not None:
-        offs = col.offsets[:n + 1].cpu().numpy().astype(np.int64)
+        valid, offs = host_arrays([v, col.offsets[:n + 1]], kind)
+        offs = offs.astype(np.int64)
         base = int(offs[0])
         offs = (offs - base).astype(np.int32)
         nb = int(offs[-1])
-        data = col.data[base:base + nb].cpu().numpy() if nb else \
+        data = host_arrays([col.data[base:base + nb]],
+                           kind and "chars")[0] if nb else \
             np.zeros(0, np.uint8)
+        if valid is not None and valid.all():
+            valid = None
         bitmap = None if valid is None else pa.py_buffer(
             np.packbits(valid, bitorder="little").tobytes())
         at = pa.binary() if isinstance(col.dtype, BinaryType) else pa.string()
@@ -264,7 +332,9 @@ def column_to_arrow(col: TorchColumnVector):
             at, n, [bitmap, pa.py_buffer(offs.tobytes()),
                     pa.py_buffer(data.tobytes())],
             null_count=0 if valid is None else int((~valid).sum()))
-    vals = col.data[:n].cpu().numpy()
+    valid, vals = host_arrays([v, col.data[:n]], kind)
+    if valid is not None and valid.all():
+        valid = None
     mask = None if valid is None else ~valid
     if isinstance(col.dtype, DateType):
         return pa.array(vals.astype(np.int32), type=pa.date32(), mask=mask)

@@ -424,10 +424,69 @@ SCHED_SHED_AFTER_MS = ConfEntry(
     "running class is shed through its cancel token. 0 disables overload "
     "shedding.", 5000.0, float)
 
+# ---------------------------------------------------------------------------
+# metrics, profiling and the query tracer (reference config.py:966,
+# 1115-1170)
+# ---------------------------------------------------------------------------
+
+DEBUG_DUMP_PATH = ConfEntry(
+    "spark.rapids.sql.debug.dumpPath",
+    "When set, operators dump their last good batch to parquet under this "
+    "directory on failure (reference DumpUtils.scala).", None, str)
+
+METRICS_LEVEL = ConfEntry(
+    "spark.rapids.sql.metrics.level",
+    "ESSENTIAL, MODERATE, or DEBUG metric verbosity (reference GpuMetric "
+    "levels).", "MODERATE", str)
+
+PROFILE_PATH_PREFIX = ConfEntry(
+    "spark.rapids.profile.pathPrefix",
+    "If set, session.profiler() writes torch.profiler Chrome traces of the "
+    "enclosed queries under this path (reference spark.rapids.profile.* "
+    "CUPTI profiler).", None, str)
+
 TRACE_ENABLED = ConfEntry(
     "spark.rapids.tpu.trace.enabled",
-    "Query timeline tracing (not yet ported: true raises).",
-    False, _parse_bool)
+    "Query timeline tracing: record a span tree per query — query → "
+    "plan.build → partition task → operator → shuffle map task — with "
+    "instant events for compiled-stage and parquet-decode launches, "
+    "audited device→host syncs, budget alloc/pressure, spill, semaphore "
+    "waits, shuffle reads, transient device-error retries and chaos "
+    "injections. Exported as Chrome trace-event JSON, "
+    "session.explain(\"metrics\") and the session.last_query_profile() "
+    "diagnostics bundle. Near-zero overhead when off (a module-flag check "
+    "per site).", False, _parse_bool)
+
+TRACE_BUFFER_EVENTS = ConfEntry(
+    "spark.rapids.tpu.trace.bufferEvents",
+    "Ring-buffer capacity of the query tracer in records (one span costs "
+    "two records, one instant event one). On overflow the oldest records "
+    "are overwritten and the bundle reports the drop count.",
+    262144, lambda v: int(str(v), 0))
+
+TRACE_CATEGORIES = ConfEntry(
+    "spark.rapids.tpu.trace.categories",
+    "Comma-separated event/span categories to record (op, task, dispatch, "
+    "sync, memory, shuffle, shuffle.map, retry, chaos); empty records "
+    "everything.", [], _parse_list)
+
+TRACE_TAG = ConfEntry(
+    "spark.rapids.tpu.trace.tag",
+    "Stem prefix for traced-query names and their artifact files "
+    "(<tag>-<n>.trace.json instead of query-<n>.trace.json).", None, str)
+
+TRACE_DIR = ConfEntry(
+    "spark.rapids.tpu.trace.dir",
+    "When set (and tracing is enabled), every traced query writes its "
+    "Chrome trace (<query>.trace.json) and diagnostics bundle "
+    "(<query>.profile.json) under this directory; the paths are recorded "
+    "in last_query_profile()['artifacts'].", None, str)
+
+TRACE_MAX_CONCURRENT = ConfEntry(
+    "spark.rapids.tpu.trace.maxConcurrentQueries",
+    "Capacity cap on simultaneously traced queries. A query beyond the cap "
+    "runs untraced and increments the trace.dropped_queries registry "
+    "counter.", 16, lambda v: int(str(v), 0))
 
 # ---------------------------------------------------------------------------
 # the always-on metrics registry and the flight recorder (reference

@@ -36,15 +36,16 @@ import numpy as np
 import torch
 
 from ..columnar.batch import TorchColumnarBatch, concat_batches, gather
-from ..columnar.vector import TorchColumnVector, bucket_capacity, row_mask
+from ..columnar.vector import (TorchColumnVector, audited_sync_int,
+                               bucket_capacity, host_arrays, row_mask)
 from ..expressions.aggregates import (VARIANCE_OPS, AggregateFunction,
                                       Count)
 from ..expressions.base import (AttributeReference, Expression, arrow_column,
                                 to_column)
 from ..expressions.strings import longest_string, string_key_codes
 from ..types import DoubleT, LongT, StringType, is_fixed_width
-from .base import (CpuExec, PhysicalPlan, TaskContext, TorchExec, bind_all,
-                   bind_references, op_time)
+from .base import (DEBUG, CpuExec, PhysicalPlan, TaskContext, TorchExec,
+                   bind_all, bind_references, counts_output, op_time)
 from .cpu import concat_child, host_batch
 
 
@@ -120,13 +121,14 @@ class CpuHashAggregateExec(CpuExec):
     def node_desc(self) -> str:
         return f"CpuHashAggregate[keys={len(self.grouping)}]"
 
+    @counts_output
     def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
         import pyarrow as pa
         base = concat_child(self.children[0], ctx,
                             idx if self.per_partition else None)
         if base.num_rows == 0 and self.grouping:
             return
-        with op_time(ctx, type(self).__name__):
+        with op_time(ctx, self):
             ectx, n = ctx.eval_ctx, base.num_rows
             agg_fns, result_exprs = split_result_exprs(self.aggregates)
             cols, keys, specs = {}, [], []
@@ -409,7 +411,8 @@ def _host_string_minmax(op: str, col: TorchColumnVector, segs: _Segments,
     if n and g:
         arr = column_to_arrow(col)
         group = np.empty(n, np.int64)  # each input row's group
-        group[segs.perm.cpu().numpy()] = segs.seg_ids.cpu().numpy()
+        perm, seg_ids = host_arrays([segs.perm, segs.seg_ids], "fetch")
+        group[perm] = seg_ids
         agg = pa.table({"g": group, "v": arr}).group_by("g").aggregate(
             [("v", op)])
         at = np.full(g, -1, np.int64)
@@ -616,6 +619,9 @@ class TorchHashAggregateExec(TorchExec):
     def node_desc(self) -> str:
         return f"TorchHashAggregate[keys={len(self.grouping)}]"
 
+    def additional_metrics(self):
+        return {"numGroups": DEBUG}
+
     def internal_do_execute_columnar(self, idx: int,
                                      ctx: TaskContext) -> Iterator:
         child = self.children[0]
@@ -731,7 +737,15 @@ class TorchHashAggregateExec(TorchExec):
     def _aggregate_batch(self, batch: TorchColumnarBatch, agg_fns,
                          result_exprs, ctx: TaskContext) -> TorchColumnarBatch:
         """Sort phase, then the segmented reduction (the reference's eager
-        two-phase body)."""
+        two-phase body), timed as the operator's opTime."""
+        with op_time(ctx, self):
+            out = self._aggregate_sorted(batch, agg_fns, result_exprs, ctx)
+        self.metrics["numGroups"].add(out.num_rows)
+        return out
+
+    def _aggregate_sorted(self, batch: TorchColumnarBatch, agg_fns,
+                          result_exprs, ctx: TaskContext
+                          ) -> TorchColumnarBatch:
         n, cap, dev = batch.num_rows, batch.capacity, batch.device
         if not self.grouping:
             segs = self._global_segments(batch, bucket_capacity(1))
@@ -743,7 +757,8 @@ class TorchHashAggregateExec(TorchExec):
             perm = lex_sort_permutation(enc, n, cap)
             _, seg_ids, ng = segment_boundaries(enc, perm,
                                                 row_mask(n, cap, dev))
-            n_groups = int(ng)  # host sync: it sizes the group table
+            # host sync: it sizes the group table
+            n_groups = audited_sync_int(ng, "rows")
             g_cap = bucket_capacity(max(n_groups, 1))
             bounds = torch.searchsorted(
                 seg_ids[:n], torch.arange(g_cap + 1, dtype=seg_ids.dtype,

@@ -3,23 +3,67 @@
 Port of ``PhysicalPlan``, ``CpuExec``, ``TaskContext`` and
 ``bind_references`` from ``spark_rapids_tpu/execs/base.py``, with the
 task-completion listeners (the device semaphore releases through them),
-the per-batch cancel checkpoint of ``TorchExec.execute_partition`` and the
-plan cache's clone protocol (``clone_for_execution``). Operator metrics and
-the tracing hooks of the reference are not yet ported; the session's
-``counters`` stand in for the few the port reads.
+the plan cache's clone protocol (``clone_for_execution``), and the
+operator metrics of the reference's GpuMetric taxonomy
+(GpuExec.scala:41-61): ESSENTIAL/MODERATE/DEBUG levels and the standard
+names ``numOutputRows``, ``numOutputBatches`` and ``opTime`` (ns), plus each
+operator's ``additional_metrics()``. ``TorchExec.execute_partition`` runs
+every batch pull under the operator's sync-ledger scope and a cancel
+checkpoint; with tracing or the profiler on, also under a profiler range
+and an ``op`` span of the query tracer (``obs/tracer.py``).
 """
 
 from __future__ import annotations
 
+import functools
+import threading
 import time
 from collections import Counter
-from typing import Iterator, List, Optional, Sequence
+from contextlib import contextmanager
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import torch
 
 from ..config import RapidsConf
 from ..expressions.base import AttributeReference, EvalContext, Expression
 from ..serving.query_context import checkpoint as _cancel_checkpoint
+
+ESSENTIAL = "ESSENTIAL"
+MODERATE = "MODERATE"
+DEBUG = "DEBUG"
+
+
+class TorchMetric:
+    """Accumulator metric (reference GpuMetric, the reference's
+    ``TpuMetric``). Thread-safe: several threads may add to one operator's
+    metrics. Values are host integers (a batch's ``num_rows`` is one), so
+    reading a metric never waits on the device."""
+
+    __slots__ = ("name", "level", "_value", "_lock")
+
+    def __init__(self, name: str, level: str = MODERATE):
+        self.name = name
+        self.level = level
+        self._value = 0
+        self._lock = threading.Lock()
+
+    def add(self, v: int) -> None:
+        with self._lock:
+            self._value += int(v)
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            return self._value
+
+    @contextmanager
+    def timed(self):
+        """Add the host time of the block in ns (no device sync)."""
+        t0 = time.perf_counter_ns()
+        try:
+            yield
+        finally:
+            self.add(time.perf_counter_ns() - t0)
 
 
 class TaskContext:
@@ -154,6 +198,8 @@ class PhysicalPlan:
 
     def __init__(self, children: Sequence["PhysicalPlan"]):
         self.children = list(children)
+        self.metrics: Dict[str, TorchMetric] = {}
+        self._register_metrics()
 
     @property
     def output(self) -> List[AttributeReference]:
@@ -164,8 +210,24 @@ class PhysicalPlan:
         """Runs on the device (the reference's name for the property)."""
         return isinstance(self, TorchExec)
 
-    def node_desc(self) -> str:
+    def node_name(self) -> str:
         return type(self).__name__
+
+    def node_desc(self) -> str:
+        return self.node_name()
+
+    # --- metrics ----------------------------------------------------------
+    def _register_metrics(self) -> None:
+        self.metrics["numOutputRows"] = TorchMetric("numOutputRows",
+                                                    ESSENTIAL)
+        self.metrics["numOutputBatches"] = TorchMetric("numOutputBatches",
+                                                       MODERATE)
+        self.metrics["opTime"] = TorchMetric("opTime", MODERATE)
+        for name, level in self.additional_metrics().items():
+            self.metrics[name] = TorchMetric(name, level)
+
+    def additional_metrics(self) -> Dict[str, str]:
+        return {}
 
     def num_partitions(self) -> int:
         return self.children[0].num_partitions() if self.children else 1
@@ -210,6 +272,10 @@ class PhysicalPlan:
                     x.clone_for_execution(rebind, memo) for x in v)
             elif getattr(v, "_PLAN_SPEC", False):
                 new.__dict__[k] = _clone_spec(v, rebind, memo)
+        # each execution counts into its own metrics: a plan-cache hit
+        # must not add to the template's (or another clone's) numbers
+        new.metrics = {}
+        new._register_metrics()
         if rebind:
             _rebind_plan_exprs(new, rebind)
         new._reset_execution_state(rebind)
@@ -223,6 +289,7 @@ class PhysicalPlan:
         for k, v in list(d.items()):
             if isinstance(v, _LOCK_TYPES):
                 d[k] = _threading.Lock()
+        d.pop("_last_batch", None)
         if "_shuffle_id" in d:           # exchange materialization
             d["_shuffle_id"] = None
             d["_n_maps"] = 0
@@ -256,30 +323,102 @@ class PhysicalPlan:
 
 class CpuExec(PhysicalPlan):
     """Host operator: the planner's output and the override engine's input
-    (reference CpuExec). Host batches are TorchColumnarBatch on the CPU."""
+    (reference CpuExec). Host batches are TorchColumnarBatch on the CPU.
+    The host engine's operators count their output (``counts_output``)."""
+
+
+def counts_output(execute_partition):
+    """Decorator for a host-engine operator's ``execute_partition``: each
+    batch it yields adds to ``numOutputRows`` and ``numOutputBatches``, as
+    ``TorchExec``'s loop counts a device operator's."""
+
+    @functools.wraps(execute_partition)
+    def counted(self, idx: int, ctx: TaskContext) -> Iterator:
+        rows = self.metrics["numOutputRows"]
+        n = self.metrics["numOutputBatches"]
+        for b in execute_partition(self, idx, ctx):
+            rows.add(b.num_rows)
+            n.add(1)
+            yield b
+
+    return counted
 
 
 class TorchExec(PhysicalPlan):
-    """Device operator over TorchColumnarBatch (reference TpuExec)."""
+    """Device operator over TorchColumnarBatch (reference TpuExec).
+    Subclasses implement internal_do_execute_columnar per partition."""
 
     def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
+        from .. import profiling
+        from ..config import DEBUG_DUMP_PATH
+        from ..obs import tracer as obs
+        out_rows = self.metrics["numOutputRows"]
+        out_batches = self.metrics["numOutputBatches"]
+        keep_last = bool(ctx.conf.get(DEBUG_DUMP_PATH))
+        self._last_batch = None  # don't attribute a prior partition's batch
         it = self.internal_do_execute_columnar(idx, ctx)
-        name = type(self).__name__
+        # a query that is not traced stays on the plain loop even while a
+        # concurrent query on another thread is traced
+        tracing = profiling._PROFILING_ACTIVE or (obs._ACTIVE and
+                                                  obs.thread_traced())
+        name = self.node_name()
         try:
+            if not (tracing or keep_last):
+                while True:
+                    # cooperative cancellation at every batch pull (one
+                    # thread-local read when no query is bound); the pull
+                    # runs under this operator's sync-ledger scope, so a
+                    # blocking transfer attributes to the operator that
+                    # caused it
+                    _cancel_checkpoint(name)
+                    with profiling.sync_scope(name):
+                        batch = next(it, None)
+                    if batch is None:
+                        return
+                    out_rows.add(batch.num_rows)
+                    out_batches.add(1)
+                    yield batch
             while True:
-                # cooperative cancellation at every batch pull: one
-                # thread-local read when no query is bound
                 _cancel_checkpoint(name)
-                batch = next(it, None)
-                if batch is None:
-                    return
+                # each pull is one profiler range and one operator span:
+                # upstream operators' pulls run inside this frame on the
+                # same thread, so the span tree nests like the plan
+                with profiling.trace_scope(name), \
+                        profiling.sync_scope(name), \
+                        obs.span(name, cat="op", partition=idx):
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        return
+                    except Exception:
+                        self._dump_on_failure(ctx)
+                        raise
+                out_rows.add(batch.num_rows)
+                out_batches.add(1)
+                if keep_last:
+                    self._last_batch = batch
                 yield batch
         finally:
             # an abandoned pull (a limit, an unwind) closes the operator's
             # generator now, so its finally blocks release what it holds
+            self._last_batch = None
             close = getattr(it, "close", None)
             if close is not None:
                 close()
+
+    def _dump_on_failure(self, ctx: TaskContext) -> None:
+        """Dump the operator's last good output batch for offline repro when
+        spark.rapids.sql.debug.dumpPath is set (reference DumpUtils)."""
+        from ..config import DEBUG_DUMP_PATH
+        path = ctx.conf.get(DEBUG_DUMP_PATH)
+        batch = getattr(self, "_last_batch", None)
+        if not path or batch is None:
+            return
+        try:
+            from ..profiling import dump_batch
+            dump_batch(batch, str(path), self.node_name())
+        except Exception:  # noqa: BLE001 — dumping must not mask the error
+            pass
 
     def internal_do_execute_columnar(self, idx: int,
                                      ctx: TaskContext) -> Iterator:
@@ -312,20 +451,23 @@ def bind_all(exprs: Sequence[Expression],
 
 
 class op_time:
-    """Times one operator's own work into the session's counters as
-    ``opTime.<operator>`` milliseconds (the reference's per-operator
-    ``opTime`` metric). Like the reference's, it reads the host clock
-    only and never blocks: on the card it is the time the operator spends
-    on the host, launching its work and waiting where the operator itself
-    waits, not the device time of what it queued."""
+    """Times one operator's own work: ONE host-clock reading feeds both the
+    operator's time metric (``opTime`` unless the reference names it
+    otherwise, e.g. the transitions' ``uploadTime``/``downloadTime``; ns)
+    and the session's ``opTime.<operator>`` counter (ms). Like the
+    reference's, it never blocks: on the card it is the time the operator
+    spends on the host, launching its work and waiting where the operator
+    itself waits, not the device time of what it queued."""
 
-    def __init__(self, ctx: TaskContext, name: str):
-        self._ctx, self._name = ctx, name
+    def __init__(self, ctx: TaskContext, node: PhysicalPlan,
+                 metric: str = "opTime"):
+        self._ctx, self._node, self._metric = ctx, node, metric
 
     def __enter__(self) -> "op_time":
-        self._t0 = time.perf_counter()
+        self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc) -> None:
-        self._ctx.counters[f"opTime.{self._name}"] += \
-            (time.perf_counter() - self._t0) * 1e3
+        dt = time.perf_counter_ns() - self._t0
+        self._node.metrics[self._metric].add(dt)
+        self._ctx.counters[f"opTime.{self._node.node_name()}"] += dt / 1e6

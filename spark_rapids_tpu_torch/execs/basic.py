@@ -41,9 +41,10 @@ class TorchProjectExec(TorchExec):
         names = [a.name for a in self._output]
 
         def project(batch: TorchColumnarBatch) -> TorchColumnarBatch:
-            cols = [to_column(e.eval_device(batch, ctx.eval_ctx), batch,
-                              a.dtype)
-                    for e, a in zip(self.exprs, self._output)]
+            with op_time(ctx, self):
+                cols = [to_column(e.eval_device(batch, ctx.eval_ctx), batch,
+                                  a.dtype)
+                        for e, a in zip(self.exprs, self._output)]
             return TorchColumnarBatch(cols, batch.num_rows, names)
 
         for batch in self.children[0].execute_partition(idx, ctx):
@@ -75,12 +76,14 @@ class TorchFilterExec(TorchExec):
         from ..memory.retry import with_retry
 
         def do_filter(batch: TorchColumnarBatch) -> TorchColumnarBatch:
-            c = to_column(self.condition.eval_device(batch, ctx.eval_ctx),
-                          batch)
-            mask = c.data.to(torch.bool)
-            if c.validity is not None:
-                mask = mask & c.validity  # null predicate drops the row
-            return compact(batch, mask)
+            with op_time(ctx, self):
+                c = to_column(self.condition.eval_device(batch,
+                                                         ctx.eval_ctx),
+                              batch)
+                mask = c.data.to(torch.bool)
+                if c.validity is not None:
+                    mask = mask & c.validity  # null predicate drops the row
+                return compact(batch, mask)
 
         for batch in self.children[0].execute_partition(idx, ctx):
             # the framework registers the batch inside its first attempt
@@ -128,7 +131,7 @@ class TorchUnionExec(TorchExec):
             n = c.num_partitions()
             if idx < n:
                 for b in c.execute_partition(idx, ctx):
-                    with op_time(ctx, "TorchUnionExec"):
+                    with op_time(ctx, self):
                         if casts is not None:
                             b = TorchColumnarBatch(
                                 [to_column(e.eval_device(b, ctx.eval_ctx),

@@ -25,8 +25,8 @@ subtree (``fallback``) on the general device path, which has the full
 spill/retry/split machinery, as the reference does, and counts the re-run
 in ``TaskContext.counters["fallback_runs"]``. The batches the stage holds
 between its two passes are spillable, and each batch's stage run is the
-``device.dispatch`` chaos site under ``failure.with_device_retry``. The
-reference's tracing hooks are not yet ported.
+``device.dispatch`` chaos site under ``failure.with_device_retry``, and
+each launch is one ``compiledagg`` dispatch (``execs/opjit.py``).
 """
 
 from __future__ import annotations
@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from ..columnar.batch import TorchColumnarBatch, gather
-from ..columnar.vector import TorchColumnVector, row_mask
+from ..columnar.vector import (TorchColumnVector, audited_tolist,
+                               host_arrays, row_mask)
 from ..expressions import arithmetic as A
 from ..expressions import bitwise as BW
 from ..expressions import conditional as CO
@@ -51,7 +52,8 @@ from ..expressions.base import (Alias, AttributeReference, Expression,
 from ..expressions.cast import Cast
 from ..types import (BooleanType, DataType, DateType, DecimalType, DoubleType,
                      FloatType, IntegralType, StringType, is_fixed_width)
-from .base import PhysicalPlan, TaskContext, TorchExec
+from .base import (DEBUG, MODERATE, PhysicalPlan, TaskContext, TorchExec,
+                   op_time)
 
 _SUPPORTED_AGGS = (Sum, Count, Average, Min, Max)
 
@@ -272,7 +274,7 @@ def _int_stats(col: TorchColumnVector) -> Tuple[Optional[int], Optional[int]]:
     big = torch.iinfo(torch.int64).max
     lo = torch.where(mask, data, big).min()
     hi = torch.where(mask, data, -big - 1).max()
-    lo, hi, n = torch.stack([lo, hi, mask.sum()]).tolist()
+    lo, hi, n = audited_tolist(torch.stack([lo, hi, mask.sum()]), "bounds")
     stats = (None, None) if n == 0 else (int(lo), int(hi))
     col._gb_range = stats
     return stats
@@ -629,12 +631,17 @@ class TorchCompiledAggStageExec(TorchExec):
         keys = ", ".join(g.name for g in self.spec.grouping) or "<global>"
         return f"TorchCompiledAggStage[keys={keys}]"
 
+    def additional_metrics(self):
+        return {"stageTime": MODERATE, "numGroups": DEBUG,
+                "fallbackReruns": DEBUG}
+
     def internal_do_execute_columnar(self, idx: int,
                                      ctx: TaskContext) -> Iterator:
         from ..memory.hbm import TorchRetryOOM, TorchSplitAndRetryOOM
         from ..memory.retry import _release_device_cache
         try:
-            result = self._run_compiled(ctx)
+            with op_time(ctx, self, "stageTime"):
+                result = self._run_compiled(ctx)
         except (_StageFallback, TorchRetryOOM, TorchSplitAndRetryOOM):
             # ineligible at runtime OR memory pressure: the general path
             # has the full spill/retry/split machinery
@@ -645,10 +652,12 @@ class TorchCompiledAggStageExec(TorchExec):
         if result is None:
             # re-run on the general (sort-based) device path
             ctx.counters["fallback_runs"] += 1
+            self.metrics["fallbackReruns"].add(1)
             for p in range(self.fallback.num_partitions()):
                 yield from self.fallback.execute_partition(
                     p, ctx.for_partition(p))
             return
+        self.metrics["numGroups"].add(result.num_rows)
         yield result
 
     def _run_compiled(self, ctx: TaskContext) -> TorchColumnarBatch:
@@ -681,7 +690,9 @@ class TorchCompiledAggStageExec(TorchExec):
             # once every batch is queued
             outs = [self._run_batch(sb.get_batch(), domains, ctx)
                     for sb in held]
-            host = [[t.cpu().numpy() for t in out] for out in outs]
+            flat = iter(host_arrays([t for out in outs for t in out],
+                                    "fetch"))
+            host = [[next(flat) for _ in out] for out in outs]
         finally:
             for sb in held:
                 sb.close()
@@ -725,11 +736,13 @@ class TorchCompiledAggStageExec(TorchExec):
         fn = _build_stage_fn(spec, cap, domains, ctx.eval_ctx)
         from ..chaos import inject
         from ..failure import with_device_retry
+        from . import opjit
 
         def dispatch():
             # the stage is pure over its device inputs: a transient device
             # error re-runs it (reference compiled.py:837-843)
             inject("device.dispatch", detail="compiled_stage")
+            opjit.record_external_dispatch("compiledagg")
             return fn(rowmask, *flat)
 
         return with_device_retry(dispatch, ctx.conf)

@@ -46,11 +46,14 @@ import torch
 
 from ..columnar.batch import TorchColumnarBatch, compact, concat_batches, \
     gather
-from ..columnar.vector import TorchColumnVector, bucket_capacity, row_mask
+from ..columnar.vector import (TorchColumnVector, audited_sync_int,
+                               audited_tolist, bucket_capacity, row_mask)
 from ..expressions.base import AttributeReference, Expression
 from ..types import (DateType, DecimalType, IntegralType, StringType,
                      is_fixed_width)
-from .base import PhysicalPlan, TaskContext, TorchExec
+from . import opjit
+from .base import (DEBUG, MODERATE, PhysicalPlan, TaskContext, TorchExec,
+                   op_time)
 from .compiled import (_agg_eligible, _identity_source_ordinal, _is_fp,
                        _np_finalize, _np_merge_carries, _refs, apply_layers,
                        walk_pure_chain)
@@ -615,12 +618,17 @@ class TorchCompiledJoinAggStageExec(TorchExec):
         return (f"TorchCompiledJoinAggStage[keys={keys}, "
                 f"dims={len(self.spec.dims)}]")
 
+    def additional_metrics(self):
+        return {"stageTime": MODERATE, "numGroups": DEBUG,
+                "fallbackReruns": DEBUG}
+
     def internal_do_execute_columnar(self, idx: int,
                                      ctx: TaskContext) -> Iterator:
         from ..memory.hbm import TorchRetryOOM, TorchSplitAndRetryOOM
         from ..memory.retry import _release_device_cache
         try:
-            result = self._run_compiled(ctx)
+            with op_time(ctx, self, "stageTime"):
+                result = self._run_compiled(ctx)
         except (_JoinStageFallback, TorchRetryOOM, TorchSplitAndRetryOOM):
             result = None
         except torch.cuda.OutOfMemoryError:
@@ -629,10 +637,12 @@ class TorchCompiledJoinAggStageExec(TorchExec):
         if result is None:
             # re-run on the general join path
             ctx.counters["fallbackReruns"] += 1
+            self.metrics["fallbackReruns"].add(1)
             for p in range(self.fallback.num_partitions()):
                 yield from self.fallback.execute_partition(
                     p, ctx.for_partition(p))
             return
+        self.metrics["numGroups"].add(result.num_rows)
         yield result
 
     # -- dimension build ---------------------------------------------------
@@ -667,9 +677,9 @@ class TorchCompiledJoinAggStageExec(TorchExec):
             maxs = torch.full((1,), _INT64_MAX - 1, **i64)
         else:
             # monotone composite: Σ (k_i - min_i) · stride_i
-            lo_hi = torch.stack([torch.stack([p.min(), p.max()])
-                                 for p in parts]).tolist() if n else \
-                [[0, 0]] * len(parts)
+            lo_hi = audited_tolist(torch.stack(
+                [torch.stack([p.min(), p.max()]) for p in parts]),
+                "bounds") if n else [[0, 0]] * len(parts)
             spans = [hi - lo + 1 for lo, hi in lo_hi]
             if np.prod([float(s) for s in spans]) >= 2.0 ** 62:
                 raise _JoinStageFallback("composite key would overflow")
@@ -755,7 +765,7 @@ class TorchCompiledJoinAggStageExec(TorchExec):
             perm = lex_sort_permutation(enc, n, table.capacity)
             _, _, ng = segment_boundaries(
                 enc, perm, row_mask(n, table.capacity, table.device))
-            entry[2][ords] = n <= 1 or int(ng) == n
+            entry[2][ords] = n <= 1 or audited_sync_int(ng, "rows") == n
         return entry[2][ords]
 
     # -- the run -----------------------------------------------------------
@@ -790,6 +800,7 @@ class TorchCompiledJoinAggStageExec(TorchExec):
                     # pure over its device inputs: a transient device error
                     # re-runs it (reference compiled_join.py:1238-1244)
                     inject("device.dispatch", detail="compiled_join_stage")
+                    opjit.record_external_dispatch("compiledjoin")
                     return _run_stage(spec, sb.get_batch(), flats, caps,
                                       dense, ctx.eval_ctx)
 
@@ -832,7 +843,7 @@ class TorchCompiledJoinAggStageExec(TorchExec):
             occ = torch.nonzero(merged[0][:G - 1] > 0).flatten()
         else:
             occ = torch.zeros(1, dtype=torch.int64, device=merged[0].device)
-        return occ, [_to_host(m[occ]) for m in merged], int(occ.shape[0])
+        return occ, _to_host([m[occ] for m in merged]), int(occ.shape[0])
 
     def _assemble(self, dim_tables, occ, carry_np, nocc: int,
                   ctx: TaskContext) -> TorchColumnarBatch:
@@ -872,14 +883,22 @@ class TorchCompiledJoinAggStageExec(TorchExec):
         return TorchColumnarBatch(out, nocc, names)
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    """A device tensor as numpy, through pinned host memory from a card
-    (a pageable copy runs at a fraction of the link's rate)."""
-    if not t.is_cuda:
-        return t.numpy()
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t)
-    return host.numpy()
+def _to_host(ts: List[torch.Tensor], kind: str = "fetch"
+             ) -> List[np.ndarray]:
+    """Device tensors as numpy, through pinned host memory from a card (a
+    pageable copy runs at a fraction of the link's rate): the sync gate's
+    one recorded download (columnar/vector.py), pinned."""
+    from ..profiling import record_sync
+    record_sync(kind)
+    out = []
+    for t in ts:
+        if not t.is_cuda:
+            out.append(t.numpy())  # a CPU tensor: no transfer
+            continue
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
+        out.append(host.numpy())  # pinned host memory: no transfer
+    return out
 
 
 def compile_join_agg_stages(plan: PhysicalPlan, conf) -> PhysicalPlan:

@@ -15,7 +15,9 @@ The host engine is chosen only at planning: a ``Cpu*`` node is left in a
 plan where the override engine tagged it off the card, with the reason
 ``explain_fallback()`` prints, and transitions at its edges. No device
 operator gives way to one at run time. Each CPU operator's own work is
-timed into the session's counters as ``opTime.<operator>`` (host clock).
+timed into its ``opTime`` metric and the session's counters as
+``opTime.<operator>`` (one host-clock reading), and it counts its output
+(``numOutputRows``, ``numOutputBatches``).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from ..columnar.batch import TorchColumnarBatch
 from ..expressions.base import AttributeReference, Expression, arrow_column
 from ..plan.logical import SortOrder
 from .base import (CpuExec, PhysicalPlan, TaskContext, bind_all,
-                   bind_references, op_time)
+                   bind_references, counts_output, op_time)
 
 
 def host_batch(columns, attrs: Sequence[AttributeReference],
@@ -125,9 +127,10 @@ class CpuProjectExec(CpuExec):
     def node_desc(self) -> str:
         return f"CpuProject[{', '.join(e.pretty() for e in self.exprs)}]"
 
+    @counts_output
     def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
         for t in child_tables(self.children[0], ctx, idx):
-            with op_time(ctx, type(self).__name__):
+            with op_time(ctx, self):
                 out = host_batch([e.eval_cpu(t, ctx.eval_ctx)
                                   for e in self.exprs], self._output,
                                  t.num_rows)
@@ -146,11 +149,12 @@ class CpuFilterExec(CpuExec):
     def node_desc(self) -> str:
         return f"CpuFilter[{self.condition.pretty()}]"
 
+    @counts_output
     def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
         import pyarrow.compute as pc
         from ..types import BooleanT
         for t in child_tables(self.children[0], ctx, idx):
-            with op_time(ctx, type(self).__name__):
+            with op_time(ctx, self):
                 mask = arrow_column(self.condition.eval_cpu(t, ctx.eval_ctx),
                                     t.num_rows, BooleanT)
                 out = table_batch(t.filter(pc.fill_null(mask, False)),
@@ -215,12 +219,13 @@ class CpuSortExec(CpuExec):
     def num_partitions(self) -> int:
         return 1 if self.global_sort else self.children[0].num_partitions()
 
+    @counts_output
     def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
         t = concat_child(self.children[0], ctx,
                          None if self.global_sort else idx)
         if t.num_rows == 0:
             return
-        with op_time(ctx, type(self).__name__):
+        with op_time(ctx, self):
             out = table_batch(sort_table(t, self.order, ctx), self.output)
         yield out
 
@@ -234,6 +239,7 @@ class CpuLocalLimitExec(CpuExec):
     def output(self):
         return self.children[0].output
 
+    @counts_output
     def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
         remaining = self.n
         for b in self.children[0].execute_partition(idx, ctx):
@@ -260,9 +266,10 @@ class CpuGlobalLimitExec(CpuExec):
     def num_partitions(self) -> int:
         return 1
 
+    @counts_output
     def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
         t = concat_child(self.children[0], ctx)
-        with op_time(ctx, type(self).__name__):
+        with op_time(ctx, self):
             out = table_batch(t.slice(self.offset, self.n), self.output)
         yield out
 
@@ -289,6 +296,7 @@ class CpuTopNExec(CpuExec):
     def node_desc(self) -> str:
         return f"CpuTopN[n={self.n}]"
 
+    @counts_output
     def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
         import pyarrow as pa
         keep = self.offset + self.n
@@ -297,7 +305,7 @@ class CpuTopNExec(CpuExec):
         for p in range(child.num_partitions()):
             running = None
             for t in child_tables(child, ctx, p):
-                with op_time(ctx, type(self).__name__):
+                with op_time(ctx, self):
                     cand = t if running is None else \
                         pa.concat_tables([running, t])
                     running = sort_table(cand, self.order, ctx).slice(0, keep)
@@ -305,7 +313,7 @@ class CpuTopNExec(CpuExec):
                 tops.append(running)
         if not tops:
             return
-        with op_time(ctx, type(self).__name__):
+        with op_time(ctx, self):
             whole = sort_table(pa.concat_tables(tops), self.order, ctx)
             out = table_batch(whole.slice(self.offset, self.n), self.output)
         if out.num_rows:
@@ -328,6 +336,7 @@ class CpuUnionExec(CpuExec):
     def num_partitions(self) -> int:
         return sum(c.num_partitions() for c in self.children)
 
+    @counts_output
     def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
         names = [a.name for a in self._output]
         for c in self.children:
@@ -340,7 +349,7 @@ class CpuUnionExec(CpuExec):
                         yield b.rename(names)
                         continue
                     t = b.to_arrow()
-                    with op_time(ctx, type(self).__name__):
+                    with op_time(ctx, self):
                         out = table_batch(t, self._output)
                     yield out
                 return
@@ -364,10 +373,11 @@ class CpuExpandExec(CpuExec):
     def node_desc(self) -> str:
         return f"CpuExpand[{len(self.projections)} projections]"
 
+    @counts_output
     def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
         for t in child_tables(self.children[0], ctx, idx):
             for proj in self.projections:
-                with op_time(ctx, type(self).__name__):
+                with op_time(ctx, self):
                     out = host_batch([e.eval_cpu(t, ctx.eval_ctx)
                                       for e in proj], self._output,
                                      t.num_rows)
@@ -394,12 +404,13 @@ class CpuWindowExec(CpuExec):
     def num_partitions(self) -> int:
         return 1
 
+    @counts_output
     def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
         from .window import cpu_window_column
         t = concat_child(self.children[0], ctx)
         if t.num_rows == 0:
             return
-        with op_time(ctx, type(self).__name__):
+        with op_time(ctx, self):
             n_in = t.num_columns
             cols = list(t.columns) + [
                 cpu_window_column(we, t, ctx, attr)

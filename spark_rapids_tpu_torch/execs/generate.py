@@ -49,7 +49,7 @@ class TorchExpandExec(TorchExec):
             with SpillableColumnarBatch(batch) as spill:
                 del batch  # the catalog holds the input from here on
                 for proj in self.projections:
-                    with op_time(ctx, "TorchExpandExec"):
+                    with op_time(ctx, self):
                         # each projection's own retryable handle over the
                         # shared input (the outer one keeps it spillable)
                         outs = list(with_retry(

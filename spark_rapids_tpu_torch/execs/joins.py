@@ -41,7 +41,8 @@ import torch
 
 from ..columnar.batch import (TorchColumnarBatch, compact, concat_batches,
                              gather)
-from ..columnar.vector import TorchColumnVector, bucket_capacity, row_mask
+from ..columnar.vector import (TorchColumnVector, audited_sync_int,
+                               bucket_capacity, row_mask)
 from ..config import BATCH_SIZE_ROWS
 from ..expressions.base import (AttributeReference, Expression, arrow_column,
                                 to_column)
@@ -49,8 +50,8 @@ from ..shuffle.partitioner import hash_split_parts
 from ..types import StringType
 from .aggregates import (_sortable_bits, lex_sort_permutation,
                          segment_boundaries)
-from .base import (CpuExec, PhysicalPlan, TaskContext, TorchExec, bind_all,
-                   bind_references, op_time)
+from .base import (MODERATE, CpuExec, PhysicalPlan, TaskContext, TorchExec,
+                   bind_all, bind_references, counts_output, op_time)
 from .cpu import concat_child, table_batch
 
 _INT64_MAX = torch.iinfo(torch.int64).max
@@ -147,7 +148,8 @@ def _device_equi_join(build_enc, build_rows: int, probe_enc,
     b_code, b_ok, p_code, p_ok = _row_codes(build_enc, build_rows, probe_enc,
                                             probe_rows)
     counts, lo, order = _join_probe_ranges(b_code, b_ok, p_code, p_ok)
-    total = int(counts.sum())  # the host sync: it sizes the output
+    # the host sync: it sizes the output
+    total = audited_sync_int(counts.sum(), "pairs")
     out_cap = bucket_capacity(max(total, 1))
     pi, bi = _join_emit_pairs(counts, lo, order, total, out_cap)
     return pi, bi, total, out_cap
@@ -213,6 +215,9 @@ class TorchShuffledHashJoinExec(TorchExec):
     def node_desc(self) -> str:
         return f"TorchShuffledHashJoin[{self.join_type}]"
 
+    def additional_metrics(self):
+        return {"joinTime": MODERATE}
+
     def _collect_side(self, child: PhysicalPlan, ctx: TaskContext,
                       idx: int) -> Optional[TorchColumnarBatch]:
         if self.per_partition:
@@ -243,7 +248,8 @@ class TorchShuffledHashJoinExec(TorchExec):
         else:
             pairs = [(left, right)]
         for lp, rp in pairs:
-            out = self._join_pair(lp, rp, ctx)
+            with op_time(ctx, self, "joinTime"):
+                out = self._join_pair(lp, rp, ctx)
             if out is not None and out.num_rows:
                 yield out
 
@@ -447,11 +453,12 @@ class CpuShuffledHashJoinExec(CpuExec):
     def node_desc(self) -> str:
         return f"CpuShuffledHashJoin[{self.join_type}]"
 
+    @counts_output
     def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
         part = idx if self.per_partition else None
         lt = concat_child(self.children[0], ctx, part, "l")
         rt = concat_child(self.children[1], ctx, part, "r")
-        with op_time(ctx, type(self).__name__):
+        with op_time(ctx, self):
             ectx = ctx.eval_ctx
             lkeys, rkeys = [], []
             for i, (lk, rk) in enumerate(zip(self.left_keys,
@@ -801,11 +808,12 @@ class CpuBroadcastNestedLoopJoinExec(CpuExec):
     def node_desc(self) -> str:
         return f"CpuBroadcastNestedLoopJoin[{self.join_type}]"
 
+    @counts_output
     def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
         import pyarrow as pa
         lt = concat_child(self.children[0], ctx, None, "l")
         rt = concat_child(self.children[1], ctx, None, "r")
-        with op_time(ctx, type(self).__name__):
+        with op_time(ctx, self):
             l_out, r_out = list(lt.column_names), list(rt.column_names)
             jt = self.join_type
             sel = l_out if jt in _SEMI_ANTI else l_out + r_out
@@ -851,6 +859,7 @@ class CpuCartesianProductExec(CpuExec):
     def node_desc(self) -> str:
         return "CpuCartesianProduct"
 
+    @counts_output
     def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
         nr = self.children[1].num_partitions()
         lt = concat_child(self.children[0], ctx, idx // nr, "l")
@@ -858,7 +867,7 @@ class CpuCartesianProductExec(CpuExec):
         names = list(lt.column_names) + list(rt.column_names)
         for pairs in _host_pairs(lt, rt, self.condition, ctx,
                                  ctx.conf.batch_size_rows):
-            with op_time(ctx, type(self).__name__):
+            with op_time(ctx, self):
                 out = table_batch(pairs.select(names), self._output)
             if out.num_rows:
                 yield out

@@ -24,6 +24,7 @@ import torch
 
 from ..columnar.batch import (TorchColumnarBatch, bucket_capacity,
                               concat_batches, gather)
+from ..columnar.vector import host_arrays
 from ..expressions.strings import PADDING_WORD, longest_string, string_words
 from ..plan.logical import SortOrder
 
@@ -56,10 +57,14 @@ class OutOfCoreSorter:
         n = batch.num_rows
         run = gather(batch, perm, n, out_capacity=batch.capacity)
         rows = perm[:n]
-        self.run_keys.append([
-            ([w[rows].cpu().numpy() for w in _run_key_words(c)],
-             None if c.validity is None else c.validity[rows].cpu().numpy())
-            for c in key_cols])
+        # the run's key words and validity, one download
+        keys = [([w[rows] for w in _run_key_words(c)],
+                 None if c.validity is None else c.validity[rows])
+                for c in key_cols]
+        host = iter(host_arrays([t for ws, v in keys for t in ws + [v]],
+                                "fetch"))
+        self.run_keys.append([([next(host) for _ in ws], next(host))
+                              for ws, _ in keys])
         self.runs.append(SpillableColumnarBatch(run))
         self.total_rows += n
 

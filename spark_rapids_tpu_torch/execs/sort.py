@@ -18,7 +18,8 @@ from ..columnar.batch import (TorchColumnarBatch, concat_batches, gather,
 from ..expressions.base import to_column
 from ..plan.logical import SortOrder
 from .aggregates import encode_group_keys, lex_sort_permutation
-from .base import PhysicalPlan, TaskContext, TorchExec, bind_references
+from .base import (MODERATE, PhysicalPlan, TaskContext, TorchExec,
+                   bind_references)
 
 
 def sort_permutation(batch: TorchColumnarBatch, order: List[SortOrder],
@@ -56,12 +57,18 @@ class TorchSortExec(TorchExec):
     def node_desc(self) -> str:
         return f"TorchSort[{', '.join(o.pretty() for o in self.order)}]"
 
+    def additional_metrics(self):
+        return {"sortTime": MODERATE}
+
     def internal_do_execute_columnar(self, idx: int,
                                      ctx: TaskContext) -> Iterator:
         child = self.children[0]
+        sort_time = self.metrics["sortTime"]
         if not self.global_sort:
             for b in child.execute_partition(idx, ctx):
-                yield sort_batch(b, self.order, ctx)
+                with sort_time.timed():
+                    out = sort_batch(b, self.order, ctx)
+                yield out
             return
         max_rows = ctx.conf.batch_size_rows
         batches: List[TorchColumnarBatch] = []
@@ -89,7 +96,9 @@ class TorchSortExec(TorchExec):
             if ooc is not None:
                 ooc.close()
         if batches:
-            yield sort_batch(concat_batches(batches), self.order, ctx)
+            with sort_time.timed():
+                out = sort_batch(concat_batches(batches), self.order, ctx)
+            yield out
 
 
 class TorchTopNExec(TorchExec):
@@ -117,12 +126,16 @@ class TorchTopNExec(TorchExec):
         keys = ", ".join(o.pretty() for o in self.order)
         return f"TorchTopN[n={self.n}, {keys}]"
 
+    def additional_metrics(self):
+        return {"sortTime": MODERATE}
+
     def _topn_of_partition(self, p: int, ctx: TaskContext, keep: int):
         running = None
         for b in self.children[0].execute_partition(p, ctx.for_partition(p)):
-            cand = b if running is None else concat_batches([running, b])
-            s = sort_batch(cand, self.order, ctx)
-            running = slice_batch(s, 0, min(keep, s.num_rows))
+            with self.metrics["sortTime"].timed():
+                cand = b if running is None else concat_batches([running, b])
+                s = sort_batch(cand, self.order, ctx)
+                running = slice_batch(s, 0, min(keep, s.num_rows))
         return running
 
     def internal_do_execute_columnar(self, idx: int,
@@ -133,7 +146,8 @@ class TorchTopNExec(TorchExec):
                 if t is not None]
         if not tops:
             return
-        s = sort_batch(concat_batches(tops), self.order, ctx)
-        out = slice_batch(s, self.offset, self.n)
+        with self.metrics["sortTime"].timed():
+            s = sort_batch(concat_batches(tops), self.order, ctx)
+            out = slice_batch(s, self.offset, self.n)
         if out.num_rows:
             yield out

@@ -6,10 +6,13 @@ upload and a download; the reference's row ↔ columnar leg collapses away.
 ``HostToDeviceExec`` uploads to ``TaskContext.device``, the session's
 device: the plan itself names no device.
 
-Both transitions time their own work into the session's counters
-(``opTime.HostToDeviceExec``, ``opTime.DeviceToHostExec``, host clock):
-the price of moving an operator off the card. A download waits for the
-device work queued before it, so its time holds that wait too.
+Both transitions time their own work into their ``uploadTime`` and
+``downloadTime`` metrics and the session's counters
+(``opTime.HostToDeviceExec``, ``opTime.DeviceToHostExec``; one host-clock
+reading): the price of moving an operator off the card. A download waits
+for the device work queued before it, so its time holds that wait too; it
+is the chain's one blocking download, recorded in the sync ledger as
+``batch`` under ``DeviceToHostExec``.
 
 ``TorchDeviceScanExec`` serves device-resident cached batches with no
 upload, and its column objects stay the same across runs, so statistics
@@ -21,7 +24,8 @@ from __future__ import annotations
 
 from typing import Iterator
 
-from .base import CpuExec, PhysicalPlan, TaskContext, TorchExec, op_time
+from .base import (DEBUG, MODERATE, CpuExec, PhysicalPlan, TaskContext,
+                   TorchExec, op_time)
 
 
 class HostToDeviceExec(TorchExec):
@@ -35,11 +39,16 @@ class HostToDeviceExec(TorchExec):
     def output(self):
         return self.children[0].output
 
+    def additional_metrics(self):
+        return {"uploadTime": MODERATE, "numInputBatches": DEBUG}
+
     def internal_do_execute_columnar(self, idx: int,
                                      ctx: TaskContext) -> Iterator:
         names = [a.name for a in self.output]
+        n_in = self.metrics["numInputBatches"]
         for t in self.children[0].execute_partition(idx, ctx):
-            with op_time(ctx, "HostToDeviceExec"):
+            n_in.add(1)
+            with op_time(ctx, self, "uploadTime"):
                 out = t.to_device(ctx.device).rename(names)
             yield out
 
@@ -63,8 +72,11 @@ class CpuDeviceScanExec(CpuExec):
         return f"CpuDeviceScan[{len(self.batches)} batches]"
 
     def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
+        from ..profiling import sync_scope
         if idx < len(self.batches):
-            yield self.batches[idx].to_host()
+            with sync_scope(self.node_name()):
+                out = self.batches[idx].to_host()
+            yield out
 
 
 class TorchDeviceScanExec(TorchExec):
@@ -103,8 +115,13 @@ class DeviceToHostExec(CpuExec):
     def output(self):
         return self.children[0].output
 
+    def additional_metrics(self):
+        return {"downloadTime": MODERATE}
+
     def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
+        from ..profiling import sync_scope
+        name = self.node_name()
         for b in self.children[0].execute_partition(idx, ctx):
-            with op_time(ctx, "DeviceToHostExec"):
+            with op_time(ctx, self, "downloadTime"), sync_scope(name):
                 out = b.to_host()
             yield out

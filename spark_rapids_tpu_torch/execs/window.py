@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from ..columnar.batch import TorchColumnarBatch, concat_batches, gather
-from ..columnar.vector import TorchColumnVector, bucket_capacity, row_mask
+from ..columnar.vector import (TorchColumnVector, audited_sync_int,
+                               bucket_capacity, row_mask)
 from ..expressions.aggregates import AggregateFunction
 from ..expressions.base import (AttributeReference, Literal, arrow_column,
                                 device_parts, to_column)
@@ -115,7 +116,7 @@ class TorchWindowExec(TorchExec):
             return
         batch = concat_batches(batches)
         del batches
-        with op_time(ctx, "TorchWindowExec"):
+        with op_time(ctx, self):
             cols = list(batch.columns)
             for we in self.window_exprs:
                 cols.append(self._eval_window(we, batch, ctx))
@@ -276,7 +277,8 @@ class TorchWindowExec(TorchExec):
         rows = torch.where(row_mask(n, cap, dev), rows_sorted[inv], -1)
         lens = (col.offsets[1:] - col.offsets[:-1]).to(torch.int64)
         # one host read: the result's bytes (a row may repeat)
-        total = int(torch.where(rows >= 0, lens[rows.clamp(min=0)], 0).sum())
+        total = audited_sync_int(torch.where(
+            rows >= 0, lens[rows.clamp(min=0)], 0).sum(), "chars")
         return gather(TorchColumnarBatch([col], n), rows, n, cap,
                       byte_capacity=bucket_capacity(max(total, 1))
                       ).columns[0]

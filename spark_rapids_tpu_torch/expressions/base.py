@@ -350,6 +350,7 @@ class BinaryExpression(Expression):
                 for s in (l, r)]
         data, valid = self._eval_parts(cols[0], cols[1], one, ctx)
         ok = valid is None or bool(valid[0])
+        # a one-row host batch: no device transfer
         return TorchScalar(self.dtype, data[0].item() if ok else None)
 
     def _eval_parts(self, l, r, batch, ctx):

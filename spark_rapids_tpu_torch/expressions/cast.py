@@ -121,6 +121,7 @@ class Cast(UnaryExpression):
                 else parse_string(arr, dst)
         vals, null = arrow_numpy(arr, len(arr), src)
         out = _numeric_cast(torch.from_numpy(np.array(vals)), src, dst)
+        # a host tensor (eval_cpu): no device transfer
         return pa.array(out.numpy(), type=to_arrow(dst),
                         mask=null if null.any() else None)
 
@@ -249,7 +250,7 @@ def _timestamp_strings(arr):
     text = np.where(frac != 0, np.char.add(np.char.add(text, "."), digits),
                     text)
     mask = np.asarray(arr.is_null()) if arr.null_count else None
-    return pa.array(text.tolist(), pa.string(), mask=mask)
+    return pa.array(text.tolist(), pa.string(), mask=mask)  # numpy: no sync
 
 
 def _float_strings(arr, is_float32: bool):

@@ -176,6 +176,7 @@ class Murmur3Hash(Expression):
         h = murmur3_arrow([arrow_column(c.eval_cpu(table, ctx), n, c.dtype)
                            for c in self.children],
                           [c.dtype for c in self.children], n, self.seed)
+        # a host tensor (eval_cpu): no device transfer
         return pa.array(h.to(torch.int32).numpy())
 
 

@@ -31,7 +31,7 @@ import decimal
 import numpy as np
 import torch
 
-from ..columnar.vector import row_mask
+from ..columnar.vector import audited_sync_int, audited_tolist, row_mask
 from ..types import DataType, FractionalType, LongT
 from .base import (_DEFAULT_CTX, Expression, Literal, UnaryExpression,
                    arrow_numpy, combine_validity, device_parts, is_arrow,
@@ -74,10 +74,10 @@ def round_float_half_up(d: torch.Tensor, scale: int) -> torch.Tensor:
             + 2.0 ** -60) | ~(ay < _TWO52)
     slow = finite & near
     out = torch.where(finite, out, x)
-    if bool(slow.any()):
+    if audited_sync_int(slow.any(), "scalar"):
         idx = torch.nonzero(slow).flatten()
         vals = [_round_decimal_text(v, scale)
-                for v in x[idx].cpu().tolist()]
+                for v in audited_tolist(x[idx], "fetch")]
         out[idx] = torch.tensor(vals, dtype=torch.float64).to(out.device)
     return out.to(d.dtype)
 
@@ -117,6 +117,7 @@ class Round(Expression):
         c = self.children[0].eval_cpu(table, ctx)
         n = len(c) if is_arrow(c) else 1
         vals, null = arrow_numpy(c, n, self.dtype)
+        # a host tensor (eval_cpu): no device transfer
         out = _round_tensor(torch.from_numpy(np.array(vals)), scale).numpy()
         arr = pa.array(out, type=to_arrow(self.dtype),
                        mask=null if null.any() else None)

@@ -80,6 +80,7 @@ class BinaryComparison(BinaryExpression):
             ln, lm = arrow_numpy(l, len(l), self.left.dtype)
             rn, rm = arrow_numpy(r, len(r), self.right.dtype)
             lt, rt = torch.from_numpy(np.array(ln)), torch.from_numpy(np.array(rn))
+            # host tensors (eval_cpu): no device transfer
             out = self._device_cmp(lt, rt).numpy()
             return pa.array(out, mask=(lm | rm) if (lm | rm).any() else None)
         return getattr(pc, self._arrow_op)(l, r)

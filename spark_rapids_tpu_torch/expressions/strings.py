@@ -53,8 +53,8 @@ import numpy as np
 import torch
 
 from ..columnar.vector import (TorchColumnVector, TorchScalar,
-                               column_to_arrow,
-                               bucket_capacity, row_mask)
+                               audited_tolist, bucket_capacity,
+                               column_to_arrow, row_mask)
 from ..kernels import strings as SK
 from ..kernels.strings import concat_columns  # noqa: F401  (callers here)
 from ..types import BooleanT, DataType, IntegerT, StringT
@@ -175,7 +175,8 @@ def compare_strings(l, r, capacity: int, device) -> tuple:
     # for the column sides; a literal's length is known)
     longest = [ln.max() if isinstance(x, TorchColumnVector) else ln[0]
                for x, ln in ((l, ll), (r, rl))]
-    steps = min(torch.stack(longest).tolist()) if capacity else 0
+    steps = min(audited_tolist(torch.stack(longest), "scalar")) \
+        if capacity else 0
     common = torch.minimum(ll, rl)
     sign = torch.zeros(capacity, dtype=torch.int8, device=device)
     open_ = torch.ones(capacity, dtype=torch.bool, device=device)
@@ -807,7 +808,7 @@ def _window_at(c: TorchColumnVector, at: torch.Tensor, pb: np.ndarray):
     """Whether each row's bytes at [at, at + len(pb)) equal ``pb``."""
     hit = torch.ones_like(at, dtype=torch.bool)
     last = c.data.numel() - 1
-    for k, b in enumerate(pb.tolist()):
+    for k, b in enumerate(pb.tolist()):  # a numpy pattern: no sync
         hit &= c.data[(at + k).clamp(0, max(last, 0))] == b
     return hit
 

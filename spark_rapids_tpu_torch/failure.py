@@ -153,7 +153,13 @@ def with_device_retry(fn: Callable[[], T], conf=None,
                              message=str(exc)[:120])
                 raise
             attempt += 1
+            from .obs import tracer as _obs
             from .profiling import TaskMetricsRegistry
+            if _obs._ACTIVE:
+                # the healing retry lands in the SAME span as the failure
+                # (and as any chaos injection that caused it)
+                _obs.event("device.retry", cat="retry", attempt=attempt,
+                           error=type(exc).__name__, message=str(exc)[:120])
             _metrics.counter_inc("device.retries")
             _flight.note("device.retry", attempt=attempt,
                          error=type(exc).__name__, message=str(exc)[:120])

@@ -50,7 +50,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..columnar.vector import TorchColumnVector, bucket_capacity
+from ..columnar.vector import (TorchColumnVector, audited_device_get,
+                               bucket_capacity)
+from ..obs import tracer as _obs
 from ..kernels.parquet_decode import RUN_COLS, RUN_PAD_START, RUN_START
 from ..types import (BinaryType, BooleanType, ByteType, DataType, DateType,
                      DoubleType, FloatType, IntegerType, LongType, ShortType,
@@ -150,14 +152,23 @@ class ScanTimes:
             end.record()
             self._events.append((name, start, end))
 
-    def flush(self, counters) -> None:
-        """Add every span to ``counters`` and forget them."""
+    #: the scan operator's time metric (ns) of each span, as the
+    #: reference's TpuFileSourceScanExec names it
+    METRICS = {"stage": "scanTime", "upload": "uploadTime",
+               "deviceDecode": "decodeTime", "hostDecode": "hostDecodeTime"}
+
+    def flush(self, counters, metrics=None) -> None:
+        """Add every span to ``counters`` (ms) and, one reading each, to
+        the scan operator's `metrics` (ns); forget them."""
         if self._events:
             self._events[-1][2].synchronize()
-        for name, start, end in self._events:
-            counters[f"scan.{name}Ms"] += start.elapsed_time(end)
-        for name, ms in self.host_ms.items():
+        spans = [(name, start.elapsed_time(end))
+                 for name, start, end in self._events]
+        spans += list(self.host_ms.items())
+        for name, ms in spans:
             counters[f"scan.{name}Ms"] += ms
+            if metrics is not None and name in self.METRICS:
+                metrics[self.METRICS[name]].add(int(ms * 1e6))
         self._events.clear()
         self.host_ms.clear()
 
@@ -446,6 +457,7 @@ def _accum_index_counts(runs: List[List[int]], data, start: int, bw: int,
     takes = np.diff(np.append(out_start, n))
     lit = r[:, 3] != 0
     rle_vals, rle_takes = r[~lit, 2], takes[~lit]
+    # numpy run tables on the host: no device transfer
     vals = _literal_values(data, ((r[lit, 1] - bit_base) // 8 + start)
                            .tolist(), takes[lit].tolist(), bw)
     if (len(vals) and int(vals.max()) >= len(counts)) \
@@ -629,6 +641,10 @@ def _stage_string_column(chunk: bytes, cc, plan: _ColPlan, num_rows: int,
                 raise ValueError("page body out of bounds")
             body = chunk[dpos:dpos + csize]
             pos = dpos + csize
+            if _obs._ACTIVE:
+                _obs.event("scan.page", cat="io", column=plan.name,
+                           page_type=ptype, compressed=csize,
+                           uncompressed=usize)
             if ptype == _PAGE_DICT:
                 dph = hdr[7]
                 if dph[2] not in (_ENC_PLAIN, _ENC_PLAIN_DICT):
@@ -819,6 +835,10 @@ def _stage_column(chunk: bytes, cc, plan: _ColPlan, num_rows: int,
                 raise ValueError("page body out of bounds")
             body = chunk[dpos:dpos + csize]
             pos = dpos + csize
+            if _obs._ACTIVE:
+                _obs.event("scan.page", cat="io", column=plan.name,
+                           page_type=ptype, compressed=csize,
+                           uncompressed=usize)
             if ptype == _PAGE_DICT:
                 dph = hdr[7]
                 if dph[2] not in (_ENC_PLAIN, _ENC_PLAIN_DICT):
@@ -1134,7 +1154,7 @@ class PinnedStaging:
             buf = torch.empty(max(total, 1 << 20), dtype=torch.uint8,
                               pin_memory=True)
             self._bufs[k] = buf
-        host = buf.numpy()
+        host = buf.numpy()  # pinned host memory: no device transfer
         for a, o in zip(arrays, offs):
             host[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(
                 np.uint8)
@@ -1212,13 +1232,13 @@ def _verify_against_host(pf, rgi: int, batch, device_names: List[str],
 
 
 def _same_values(a: TorchColumnVector, b: TorchColumnVector, n: int) -> bool:
-    va = a.validity_or_true()[:n].cpu()
-    vb = b.validity_or_true()[:n].cpu()
+    va, vb, da, db = audited_device_get(
+        [a.validity_or_true()[:n], b.validity_or_true()[:n],
+         a.data[:n], b.data[:n]], "fetch")
     if not torch.equal(va, vb):
         return False
     if a.offsets is not None:
         return a.to_pylist() == b.to_pylist()
-    da, db = a.data[:n].cpu(), b.data[:n].cpu()
     if da.is_floating_point():
         bits = torch.int32 if da.element_size() == 4 else torch.int64
         da, db = da.view(bits), db.view(bits)
@@ -1315,6 +1335,7 @@ class DeviceFileDecoder:
         """Stage, upload and decode one row group: a ``TorchColumnarBatch``
         on the device, columns in attribute order."""
         from ..columnar.batch import TorchColumnarBatch
+        from ..execs import opjit
         times = times or ScanTimes(self.device)
         rg = self.md.row_group(rgi)
         num_rows = rg.num_rows
@@ -1322,9 +1343,12 @@ class DeviceFileDecoder:
         plans: List[_ColPlan] = []
         host_names: List[str] = []
 
-        def demote(name: str) -> None:
+        def demote(name: str, err=None) -> None:
             host_names.append(name)
             bump("fallback_columns", 1, self.counters)
+            if _obs._ACTIVE:
+                _obs.event("scan.fallback", cat="io", column=name,
+                           reason=str(err)[:120])
 
         for a in self.attrs:
             leaf = self.leaf_by_name[a.name]
@@ -1332,58 +1356,64 @@ class DeviceFileDecoder:
                 plans.append(_column_plan(
                     a, leaf, self.pf.schema.column(leaf), rg.column(leaf),
                     self.arrow_schema.field(a.name).type))
-            except DeviceDecodeError:
-                demote(a.name)
+            except DeviceDecodeError as err:
+                demote(a.name, err)
         if not plans:
             raise DeviceDecodeError(
                 f"{self.path}: no device-decodable column in row group {rgi}")
 
-        staged: List[_Staged] = []
-        kept: List[_ColPlan] = []
-        with times.host("stage"):
-            for plan in plans:
-                cc = rg.column(plan.leaf)
-                try:
-                    chunk = self._read(*_chunk_range(cc))
-                    staged.append(_stage_column(chunk, cc, plan, num_rows,
-                                                cap))
-                    kept.append(plan)
-                except (DeviceDecodeError, OSError):
-                    demote(plan.name)
-        if not kept:
-            raise DeviceDecodeError(
-                f"{self.path}: every column demoted in row group {rgi}")
+        # one span a row group: staging, upload, the decode launch and
+        # the host columns (host clock; it closes when the launch is queued)
+        with _obs.span("scan.decode", cat="io", file=self.path,
+                       row_group=rgi, device=True, rows=num_rows,
+                       device_cols=len(plans), host_cols=len(host_names)):
+            staged: List[_Staged] = []
+            kept: List[_ColPlan] = []
+            with times.host("stage"):
+                for plan in plans:
+                    cc = rg.column(plan.leaf)
+                    try:
+                        chunk = self._read(*_chunk_range(cc))
+                        staged.append(_stage_column(chunk, cc, plan,
+                                                    num_rows, cap))
+                        kept.append(plan)
+                    except (DeviceDecodeError, OSError) as err:
+                        demote(plan.name, err)
+            if not kept:
+                raise DeviceDecodeError(
+                    f"{self.path}: every column demoted in row group {rgi}")
 
-        arrays = [a for st in staged for a in st.arrays]
-        bump("bytes_staged", sum(a.nbytes for a in arrays))
-        with times.device("upload"):
-            bufs = _upload(arrays, self.device, self._staging)
-        bump("dispatches")
-        bump("row_groups")
-        bump("rows", num_rows)
-        bump("device_columns", len(kept))
-        with times.device("deviceDecode"):
-            outs = iter(decode_program([st.spec for st in staged], num_rows,
-                                       bufs))
-        dev_cols: Dict[str, TorchColumnVector] = {}
-        for st, plan in zip(staged, kept):
-            if st.spec[0] in ("str_plain", "str_dict"):
-                offs, chars, valid = next(outs), next(outs), next(outs)
-                dev_cols[plan.name] = TorchColumnVector(
-                    plan.out_dtype, chars, valid, num_rows, offsets=offs)
-            else:
-                data, valid = next(outs), next(outs)
-                dev_cols[plan.name] = TorchColumnVector(
-                    plan.out_dtype, data, valid, num_rows)
-        host_cols: Dict[str, TorchColumnVector] = {}
-        if host_names:
-            with times.host("hostDecode"):
-                host_cols = _host_columns(self.pf, rgi, host_names,
-                                          self.attrs_by_name, self.device)
-        batch = TorchColumnarBatch(
-            [dev_cols[a.name] if a.name in dev_cols else host_cols[a.name]
-             for a in self.attrs],
-            num_rows, [a.name for a in self.attrs])
+            arrays = [a for st in staged for a in st.arrays]
+            bump("bytes_staged", sum(a.nbytes for a in arrays))
+            with times.device("upload"):
+                bufs = _upload(arrays, self.device, self._staging)
+            bump("dispatches")
+            opjit.record_external_dispatch("parquet_decode")
+            bump("row_groups")
+            bump("rows", num_rows)
+            bump("device_columns", len(kept))
+            with times.device("deviceDecode"):
+                outs = iter(decode_program([st.spec for st in staged],
+                                           num_rows, bufs))
+            dev_cols: Dict[str, TorchColumnVector] = {}
+            for st, plan in zip(staged, kept):
+                if st.spec[0] in ("str_plain", "str_dict"):
+                    offs, chars, valid = next(outs), next(outs), next(outs)
+                    dev_cols[plan.name] = TorchColumnVector(
+                        plan.out_dtype, chars, valid, num_rows, offsets=offs)
+                else:
+                    data, valid = next(outs), next(outs)
+                    dev_cols[plan.name] = TorchColumnVector(
+                        plan.out_dtype, data, valid, num_rows)
+            host_cols: Dict[str, TorchColumnVector] = {}
+            if host_names:
+                with times.host("hostDecode"):
+                    host_cols = _host_columns(self.pf, rgi, host_names,
+                                              self.attrs_by_name, self.device)
+            batch = TorchColumnarBatch(
+                [dev_cols[a.name] if a.name in dev_cols else host_cols[a.name]
+                 for a in self.attrs],
+                num_rows, [a.name for a in self.attrs])
         if self.verify:
             _verify_against_host(self.pf, rgi, batch, list(dev_cols),
                                  self.attrs_by_name)

@@ -31,7 +31,9 @@ from typing import Iterator, List, Optional, Sequence
 from ..config import (MULTITHREAD_READ_NUM_THREADS, PARQUET_CHUNK_BYTES,
                       PARQUET_DEVICE_DECODE_ENABLED,
                       PARQUET_REBASE_MODE_READ, PARQUET_READER_TYPE)
-from ..execs.base import CpuExec, TaskContext, TorchExec
+from ..execs.base import (DEBUG, ESSENTIAL, MODERATE, CpuExec, TaskContext,
+                          TorchExec)
+from ..obs import tracer as _obs
 from ..expressions.base import AttributeReference, Expression
 from .base_scan import arrow_filter_from_condition, rg_excluded
 from .device_decode import (DeviceDecodeError, DeviceFileDecoder,
@@ -278,9 +280,15 @@ class FileScanBase:
             strategy = "COALESCING" if len(files) > 1 else "PERFILE"
         if strategy == "MULTITHREADED":
             n_threads = conf.get(MULTITHREAD_READ_NUM_THREADS)
+            # the reader threads' records nest under this thread's span
+            parent = _obs.current_span()
+
+            def read(f):
+                with _obs.inherit(parent):
+                    return self._read_one(f, cols, row_filter, conf)
+
             with _fut.ThreadPoolExecutor(max_workers=n_threads) as pool:
-                futs = [pool.submit(self._read_one, f, cols, row_filter,
-                                    conf) for f in files]
+                futs = [pool.submit(read, f) for f in files]
                 for fut in futs:
                     t = fut.result()
                     if t.num_rows:
@@ -351,6 +359,12 @@ class TorchFileScanExec(FileScanBase, TorchExec):
         self._init_scan(paths, fmt, output, pushed_filters, options,
                         num_partitions)
 
+    def additional_metrics(self):
+        return {"scanTime": ESSENTIAL, "uploadTime": MODERATE,
+                "filesRead": DEBUG, "decodeTime": MODERATE,
+                "hostDecodeTime": MODERATE, "decodeDispatches": DEBUG,
+                "decodeFallbackColumns": DEBUG}
+
     def internal_do_execute_columnar(self, idx: int,
                                      ctx: TaskContext) -> Iterator:
         times = ScanTimes(ctx.device)
@@ -360,7 +374,7 @@ class TorchFileScanExec(FileScanBase, TorchExec):
             else:
                 yield from self._execute_host(idx, ctx, times)
         finally:
-            times.flush(ctx.counters)
+            times.flush(ctx.counters, self.metrics)
 
     def _upload(self, t, schema, ctx: TaskContext, times: ScanTimes):
         from ..memory.semaphore import TorchSemaphore
@@ -382,6 +396,7 @@ class TorchFileScanExec(FileScanBase, TorchExec):
             if t is None:
                 return
             ctx.counters["scan.files"] += 1
+            self.metrics["filesRead"].add(1)
             yield self._upload(t, schema, ctx, times)
 
     def _execute_device(self, idx: int, ctx: TaskContext,
@@ -396,6 +411,7 @@ class TorchFileScanExec(FileScanBase, TorchExec):
         staging = PinnedStaging() if ctx.device.type == "cuda" else None
         for f in files:
             ctx.counters["scan.files"] += 1
+            self.metrics["filesRead"].add(1)
             try:
                 with times.host("stage"):
                     dec = DeviceFileDecoder(f, attrs, ctx.conf, ctx.device,
@@ -414,8 +430,12 @@ class TorchFileScanExec(FileScanBase, TorchExec):
                     # (reference device_decode.py:1376)
                     TorchSemaphore.get(ctx.conf).acquire_if_necessary(ctx)
                     try:
+                        demoted = ctx.counters["fallback_columns"]
                         batch = self._attach_partition_vectors(
                             dec.decode_row_group(rgi, times), f, ctx)
+                        self.metrics["decodeDispatches"].add(1)
+                        self.metrics["decodeFallbackColumns"].add(
+                            ctx.counters["fallback_columns"] - demoted)
                     except DeviceDecodeError:
                         bump("fallback_row_groups", 1, ctx.counters)
                         with times.host("hostDecode"):

@@ -138,6 +138,7 @@ def q1_inputs_from_numpy(arrays: Dict[str, np.ndarray],
 
 def q1_reference_numpy(batch: Q1Inputs, cutoff: int) -> Dict[str, np.ndarray]:
     """Pure-numpy oracle (float64 sums, integer counts)."""
+    # the oracle's own copy of its inputs, off the engine's path: no gate
     b = {k: v.detach().cpu().numpy() for k, v in batch._asdict().items()}
     keep = b["valid"] & (b["shipdate"] <= cutoff)
     group = b["returnflag"] * N_STATUS + b["linestatus"]

@@ -85,7 +85,8 @@ def fill_string_stats(cols) -> None:
         got.append((col, torch.stack([longest, wide.to(torch.int64),
                                       used])))
     if got:
-        vals = torch.stack([g for _, g in got]).tolist()
+        from ..columnar.vector import audited_tolist
+        vals = audited_tolist(torch.stack([g for _, g in got]), "fetch")
         for (col, _), (longest, wide, used) in zip(got, vals):
             col._stats, col._used = (not wide, int(longest)), int(used)
 

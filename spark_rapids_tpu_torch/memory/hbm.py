@@ -92,9 +92,13 @@ class HbmBudget:
     def allocate(self, nbytes: int) -> None:
         from ..chaos import inject
         from ..obs import metrics as _metrics
+        from ..obs import tracer as _obs
         with self._alloc_lock:
             self.alloc_count += 1
             inject("hbm.alloc", detail=f"{nbytes}B")
+            if _obs._ACTIVE:
+                _obs.event("hbm.alloc", cat="memory", bytes=nbytes,
+                           used=self.used)
             retries = 0
             while self.used + nbytes > self.budget:
                 freed = 0
@@ -102,6 +106,9 @@ class HbmBudget:
                     freed = self._spill_callback(
                         self.used + nbytes - self.budget)
                 _metrics.counter_inc("hbm.pressure_events")
+                if _obs._ACTIVE:
+                    _obs.event("hbm.pressure", cat="memory", bytes=nbytes,
+                               used=self.used, freed=freed)
                 if freed <= 0:
                     retries += 1
                     if retries > self.oom_max_retries:

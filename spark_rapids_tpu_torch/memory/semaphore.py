@@ -77,6 +77,9 @@ class TorchSemaphore:
         TaskMetricsRegistry.get().add("semaphoreWaitNs", waited)
         _metrics.counter_inc("semaphore.waits")
         _metrics.counter_inc("semaphore.wait_ns", waited)
+        from ..obs import tracer as _obs
+        if _obs._ACTIVE:
+            _obs.event("semaphore.wait", cat="memory", wait_ns=waited)
         with self._state_lock:
             self.total_waits_ns += waited
             self._holders[tid] = (ctx, th)

@@ -130,6 +130,7 @@ def _serialize(host: List[_Parts]) -> Tuple[bytes, list]:
                 layout.append(None)
                 continue
             layout.append((t.dtype, tuple(t.shape)))
+            # host-tier tensors: no device transfer
             chunks.append(t.contiguous().view(torch.uint8).numpy().tobytes()
                           if t.numel() else b"")
     return b"".join(chunks), layout
@@ -292,9 +293,13 @@ class TorchBufferCatalog:
             e.host = None
             self.host_used -= e.nbytes
             e.tier = TIER_DEVICE
-        TaskMetricsRegistry.get().add("readSpillTimeNs",
-                                      _time.perf_counter_ns() - t0)
+        dt = _time.perf_counter_ns() - t0
+        TaskMetricsRegistry.get().add("readSpillTimeNs", dt)
         _metrics.counter_inc("spill.read_bytes", e.nbytes)
+        from ..obs import tracer as _obs
+        if _obs._ACTIVE:
+            _obs.event("spill.read", cat="memory", bytes=e.nbytes,
+                       wait_ns=dt)
 
     # --- spilling ----------------------------------------------------------
     def synchronous_spill(self, bytes_needed: int) -> int:
@@ -324,6 +329,11 @@ class TorchBufferCatalog:
             _metrics.counter_inc("spill.held_elsewhere_bytes", e.nbytes)
             return 0
         _metrics.counter_inc("spill.to_host_bytes", e.nbytes)
+        from ..obs import tracer as _obs
+        if _obs._ACTIVE:
+            _obs.event("spill.to_host", cat="memory", bytes=e.nbytes)
+        # the spill's own copy: counted in the spill bytes and task
+        # metrics, not in the sync ledger (as in the reference)
         e.host = [[None if t is None else t.cpu() for t in p]
                   for p in parts]
         del parts  # the last device references: the memory goes back
@@ -362,6 +372,10 @@ class TorchBufferCatalog:
                 inject("spill.to_disk")  # pre-mutation, like spill.to_host
                 _metrics.counter_inc("spill.to_disk_bytes", e.nbytes)
                 _flight.note("spill.to_disk", bytes=e.nbytes)
+                from ..obs import tracer as _obs
+                if _obs._ACTIVE:
+                    _obs.event("spill.to_disk", cat="memory",
+                               bytes=e.nbytes)
                 path = os.path.join(self._spill_dir(), f"buf_{e.handle}.bin")
                 data, layout = _serialize(e.host)
                 # checksum BEFORE the chaos mangle: injected corruption

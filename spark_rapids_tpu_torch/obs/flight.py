@@ -17,8 +17,8 @@ though nobody was profiling):
   / scheduler state, the active query names and the failure. Writing never
   raises and never masks the original error.
 
-The reference tags each note with the thread's traced query; the port has
-no tracer yet and tags with the thread's bound query context instead.
+Each note is tagged with the thread's traced query or, untraced, its
+bound query context.
 """
 
 from __future__ import annotations
@@ -71,9 +71,13 @@ def note(event: str, **fields) -> None:
     must never wait on the device)."""
     global _SEQ
     from ..serving.query_context import current
-    q = current()
-    if q is not None:
-        fields.setdefault("query", q.name)
+    from .tracer import current_query_name
+    name = current_query_name()
+    if name is None:
+        q = current()
+        name = None if q is None else q.name
+    if name is not None:
+        fields.setdefault("query", name)
     rec = {"seq": 0, "ts": time.time(),
            "thread": threading.current_thread().name, "event": event,
            **fields}

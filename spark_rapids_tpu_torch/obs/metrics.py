@@ -20,9 +20,9 @@ Design (as the reference):
   ``queries.active`` gauge and the ``query.latency_ms`` /
   ``query.rows_per_s`` histograms for every query.
 
-The reference also folds its opjit cache statistics, the mesh collective
-counters and the shuffle manager's byte counts into the snapshot; the port
-has none of those yet, and folds its own shuffle catalog's block count.
+The snapshot also folds the dispatch counts (``execs/opjit.py``
+``calls_by_kind``) and the shuffle catalog's block count; the reference's
+mesh collective counters and shuffle byte counts wait for those planes.
 """
 
 from __future__ import annotations
@@ -341,6 +341,11 @@ def full_snapshot() -> Dict[str, Any]:
             return {}
         return s.snapshot()
 
+    def _opjit():
+        from ..execs import opjit
+        return opjit.cache_stats()
+
+    fold("opjit", _opjit)
     fold("sync_ledger", _syncs)
     fold("task_metrics", _task_metrics)
     fold("chaos", _chaos)

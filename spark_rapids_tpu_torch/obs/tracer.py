@@ -1,0 +1,479 @@
+"""Concurrent per-query span/event tracers: the correlated record of each
+query, N queries at a time.
+
+Port of ``spark_rapids_tpu/obs/tracer.py`` (docs/observability.md, "Span
+model" and "Event taxonomy"; reference: the plugin's NVTX ranges,
+NvtxWithMetrics.scala, and its per-execution SQLMetrics sinks):
+
+* a **per-query tracer object** — each ``begin_query`` creates its own
+  ring buffer, span-id space and counters;
+* **thread-local routing** — the session thread that arms a tracer owns it
+  through a thread-local binding, and every emission helper routes to the
+  calling thread's bound tracer. Worker threads inherit the owning query's
+  tracer through :func:`current_span`'s :class:`SpanRef` (span id AND
+  tracer), passed to ``span(..., parent=ref)`` or ``inherit(ref)``;
+* a **span tree** per query — query → plan.build / partition task →
+  operator → shuffle map task → scan.decode;
+* **instant events** inside those spans — compiled-stage and parquet
+  decode launches, audited device→host syncs (attributed through the
+  SyncLedger's thread-local operator scopes, so attribution is IDENTICAL
+  to the ledger), budget alloc/pressure, spill, semaphore waits, shuffle
+  reads, device retries and chaos injections;
+* **per-query ground-truth counters** — :func:`dispatch_event` and
+  :func:`sync_event` increment the bound tracer's own counters at exactly
+  the sites where ``execs/opjit.calls_by_kind`` and the SyncLedger
+  increment, so a bundle reconciles against ITS OWN query's deltas even
+  when other queries run concurrently.
+
+Near-zero cost when off: every public entry point first reads the
+module-level ``_ACTIVE`` armed-tracer count (a plain int, no lock);
+``span()`` returns a shared null context manager, and ``execs/base.py``
+keeps its untraced loop. Records land in a ``deque(maxlen=bufferEvents)``
+ring whose overwritten records are counted. A query that cannot be traced
+(the ``trace.maxConcurrentQueries`` cap, or a nested begin on a tracing
+thread) increments the ``trace.dropped_queries`` registry counter.
+
+Spans and events read the host clock only and never synchronize the
+device: a span closes when its work is queued.
+
+Exports: obs/export.py (Chrome trace-event JSON, the span tree, the
+per-query diagnostics bundle).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, Optional, Tuple
+
+from ..profiling import current_sync_scope
+
+#: record layout (tuples, not objects: the tracer may absorb hundreds of
+#: thousands of records per query):
+#:   (phase, ts_ns, tid, span_id, parent_id, name, cat, op, args)
+#: phase: "B" span begin / "E" span end / "i" instant event
+REC_PHASE, REC_TS, REC_TID, REC_SPAN, REC_PARENT, REC_NAME, REC_CAT, \
+    REC_OP, REC_ARGS = range(9)
+
+#: hot-path gate — the COUNT of armed tracers, read unlocked everywhere
+#: (truthy exactly when any query is being traced); mutated only under
+#: _REG_LOCK by begin_query/end_query
+_ACTIVE = 0
+
+_REG_LOCK = threading.Lock()
+#: armed tracers (begin_query registered, end_query not yet) — the
+#: capacity cap and reset_for_tests operate on this set
+_TRACERS: "set[QueryTracer]" = set()
+
+#: default cap on simultaneously traced queries (conf
+#: spark.rapids.tpu.trace.maxConcurrentQueries overrides via begin_query)
+DEFAULT_MAX_CONCURRENT = 16
+
+
+class _ObsTls(threading.local):
+    """Per-thread tracer binding + stack of open span ids (same idiom as
+    the profiling sync-scope stack). ``stack`` always belongs to
+    ``tracer``; rebinding replaces both together."""
+    tracer: Optional["QueryTracer"] = None
+    stack: Tuple[int, ...] = ()
+
+
+_tls = _ObsTls()
+
+
+class SpanRef:
+    """Opaque cross-thread handoff token: a span id PLUS the tracer that
+    owns it. Capture on the submitting thread (``current_span()`` or a
+    ``span()`` ``__enter__`` value), pass to the worker thread — a
+    ``span(..., parent=ref)`` or ``inherit(ref)`` there routes the
+    worker's records into the owning query's tracer."""
+
+    __slots__ = ("tracer", "sid")
+
+    def __init__(self, tracer: "QueryTracer", sid: int):
+        self.tracer = tracer
+        self.sid = sid
+
+
+class _NullSpan:
+    """Shared no-op context manager returned when tracing is off."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class QueryTracer:
+    """One query's ring-buffered recorder. Use the module-level helpers
+    (``span`` / ``event`` / ``begin_query`` / ``end_query``) — they carry
+    the off-fast-path and the thread-local routing; this class is the
+    storage."""
+
+    def __init__(self, name: str, buffer_events: int, categories=()):
+        self._mu = threading.Lock()
+        self._ring: deque = deque(maxlen=max(int(buffer_events), 1024))
+        self._appended = 0
+        self._next_span = 1
+        self._t0_ns = time.perf_counter_ns()
+        self._cats: Optional[frozenset] = frozenset(categories) or None
+        self._closed = False
+        self.name = name
+        self.root = 0
+        # per-query ground-truth counters (never ring-dropped): the bundle
+        # reconciles its ring-derived counts against THESE when other
+        # queries ran concurrently (process-wide deltas would cross-bleed)
+        self._disp_counts: Dict[str, int] = {}
+        self._sync_counts: Dict[str, Dict[str, int]] = {}
+        # exclusivity: snapshot the process-wide query epoch/active count
+        # at begin; end() compares — TRUE means no other query (traced or
+        # not) overlapped, so process-wide counter deltas are attributable
+        from . import metrics as _metrics
+        self._epoch0 = _metrics.query_epoch()
+        self._solo0 = _metrics.active_query_count() <= 1
+
+    # --- lifecycle ---------------------------------------------------------
+    def _begin(self) -> None:
+        """Open the root span on the CALLING thread (so partition spans
+        nest) and bind this tracer there."""
+        with self._mu:
+            self.root = self._next_span
+            self._next_span += 1
+            self._ring.append(("B", 0, threading.get_ident(), self.root,
+                               None, self.name, "query", None, None))
+            self._appended += 1
+        _tls.tracer = self
+        _tls.stack = (self.root,)
+
+    def end(self) -> Dict[str, Any]:
+        """Close the query record; returns the raw profile dict consumed by
+        obs/export.py."""
+        from . import metrics as _metrics
+        exclusive = self._solo0 and _metrics.query_epoch() == self._epoch0
+        self._append(("E", self.now_ns(), threading.get_ident(), self.root,
+                      None, None, "query", None, None))
+        with self._mu:
+            self._closed = True
+            events = list(self._ring)
+            dropped = self._appended - len(self._ring)
+            disp = dict(self._disp_counts)
+            syncs = {op: dict(kinds)
+                     for op, kinds in self._sync_counts.items()}
+            # drop the ring storage: SpanRefs parked on plan nodes (e.g.
+            # an exchange's captured parent) may pin this tracer past the
+            # query — they must not pin bufferEvents of records with it
+            self._ring.clear()
+        if _tls.tracer is self:
+            _tls.tracer = None
+            _tls.stack = ()
+        return {"name": self.name, "root": self.root, "events": events,
+                "dropped": dropped,
+                "duration_ns": events[-1][REC_TS] if events else 0,
+                "dispatch_counts": disp, "sync_counts": syncs,
+                "exclusive": exclusive}
+
+    # --- recording ---------------------------------------------------------
+    def _append(self, rec: Tuple) -> None:
+        with self._mu:
+            self._ring.append(rec)
+            self._appended += 1
+
+    def begin_span(self, ts: int, tid: int, parent: Optional[int],
+                   name: str, cat: str, op: str,
+                   args: Optional[Dict[str, Any]]) -> int:
+        """Allocate a span id and append its begin record under ONE lock
+        acquisition (pool threads hammer this during traced shuffles)."""
+        with self._mu:
+            sid = self._next_span
+            self._next_span += 1
+            self._ring.append(("B", ts, tid, sid, parent, name, cat, op,
+                               args))
+            self._appended += 1
+        return sid
+
+    def record_dispatch(self, kind: str, cache: str, source: str, op: str,
+                        sid: Optional[int], ts: int, tid: int) -> None:
+        """One program dispatch: per-query counter + ring event under ONE
+        lock acquisition (called exactly where ``calls_by_kind``
+        increments — execs/opjit.py)."""
+        with self._mu:
+            self._disp_counts[kind] = self._disp_counts.get(kind, 0) + 1
+            if self._cats is None or "dispatch" in self._cats:
+                self._ring.append(("i", ts, tid, sid, None, "dispatch",
+                                   "dispatch", op,
+                                   {"kind": kind, "cache": cache,
+                                    "source": source}))
+                self._appended += 1
+
+    def record_sync(self, op: str, kind: str, sid: Optional[int], ts: int,
+                    tid: int) -> None:
+        """One audited blocking D→H sync: per-query counter + ring event
+        (called by ``profiling.SyncLedger.record`` itself, with the SAME
+        operator attribution the ledger used)."""
+        with self._mu:
+            ops = self._sync_counts.setdefault(op, {})
+            ops[kind] = ops.get(kind, 0) + 1
+            if self._cats is None or "sync" in self._cats:
+                self._ring.append(("i", ts, tid, sid, None, "sync", "sync",
+                                   op, {"kind": kind}))
+                self._appended += 1
+
+    def now_ns(self) -> int:
+        return time.perf_counter_ns() - self._t0_ns
+
+    # --- test hooks --------------------------------------------------------
+    @classmethod
+    def reset_for_tests(cls) -> None:
+        global _ACTIVE
+        with _REG_LOCK:
+            for tr in _TRACERS:
+                tr._closed = True
+            _TRACERS.clear()
+            _ACTIVE = 0
+        _tls.tracer = None
+        _tls.stack = ()
+
+
+class _Span:
+    """Open span context manager (only constructed when tracing is on).
+    ``__enter__`` returns a :class:`SpanRef` — pass it to worker threads as
+    ``span(..., parent=ref)`` for cross-thread nesting."""
+
+    __slots__ = ("_tracer", "_name", "_cat", "_parent", "_args", "_sid",
+                 "_saved")
+
+    def __init__(self, tracer: QueryTracer, name: str, cat: str, parent,
+                 args: Optional[Dict[str, Any]]):
+        self._tracer = tracer
+        self._name = name
+        self._cat = cat
+        self._parent = parent
+        self._args = args
+        self._sid = 0
+        self._saved = None
+
+    def _parent_sid(self) -> Optional[int]:
+        p = self._parent
+        if type(p) is SpanRef:
+            return p.sid
+        return p if isinstance(p, int) else None
+
+    def __enter__(self) -> SpanRef:
+        tr = self._tracer
+        if _tls.tracer is tr:
+            st = _tls.stack
+            # natural nesting wins; the explicit parent serves worker
+            # threads whose stacks start empty
+            parent = st[-1] if st else self._parent_sid()
+        else:
+            # cross-thread adoption: bind the owning query's tracer to
+            # this worker thread for the span's duration (restored on
+            # exit, so a pool thread serving query A then query B never
+            # leaks A's binding into B's span)
+            self._saved = (_tls.tracer, _tls.stack)
+            _tls.tracer = tr
+            _tls.stack = ()
+            parent = self._parent_sid()
+        sid = tr.begin_span(tr.now_ns(), threading.get_ident(), parent,
+                            self._name, self._cat, current_sync_scope(),
+                            self._args)
+        self._sid = sid
+        _tls.stack = _tls.stack + (sid,)
+        return SpanRef(tr, sid)
+
+    def __exit__(self, *exc) -> bool:
+        tr = self._tracer
+        st = _tls.stack
+        if st and st[-1] == self._sid:
+            _tls.stack = st[:-1]
+        tr._append(("E", tr.now_ns(), threading.get_ident(), self._sid,
+                    None, None, self._cat, None, None))
+        if self._saved is not None:
+            _tls.tracer, _tls.stack = self._saved
+            self._saved = None
+        return False
+
+
+class _Inherit:
+    """Bind a captured SpanRef's tracer (and its span as the ambient
+    parent) to this thread WITHOUT opening a new span — the handoff for
+    worker threads whose nested operator pulls open their own spans
+    (prefetch uploaders, the join side-collector)."""
+
+    __slots__ = ("_ref", "_saved")
+
+    def __init__(self, ref: SpanRef):
+        self._ref = ref
+        self._saved = None
+
+    def __enter__(self):
+        self._saved = (_tls.tracer, _tls.stack)
+        _tls.tracer = self._ref.tracer
+        # seed the stack with the captured span id: nested spans/events on
+        # this thread nest under the capture point; span __exit__ only pops
+        # its OWN sid, so the seed survives until restore
+        _tls.stack = (self._ref.sid,)
+        return self._ref
+
+    def __exit__(self, *exc):
+        _tls.tracer, _tls.stack = self._saved
+        return False
+
+
+def _thread_tracer() -> Optional[QueryTracer]:
+    tr = _tls.tracer
+    return None if tr is None or tr._closed else tr
+
+
+def span(name: str, cat: str = "op", parent=None, **args):
+    """Context manager for one timed span. Near-free when tracing is off.
+    ``parent`` (a :class:`SpanRef`) is honored when the current thread has
+    no bound tracer — the cross-thread handoff — and as the nesting parent
+    when the thread has no open span."""
+    if not _ACTIVE:
+        return _NULL_SPAN
+    tr = _thread_tracer()
+    if tr is None:
+        if type(parent) is SpanRef and not parent.tracer._closed:
+            tr = parent.tracer
+        else:
+            return _NULL_SPAN
+    if tr._cats is not None and cat not in tr._cats and cat != "query":
+        return _NULL_SPAN
+    return _Span(tr, name, cat, parent, args or None)
+
+
+def inherit(ref):
+    """Context manager binding ``ref``'s tracer to this thread (no new
+    span). No-op (shared null CM) when ``ref`` is None or tracing is off —
+    callers can pass ``current_span()``'s result unconditionally."""
+    if not _ACTIVE or type(ref) is not SpanRef or ref.tracer._closed:
+        return _NULL_SPAN
+    return _Inherit(ref)
+
+
+def event(name: str, cat: str = "event", op: Optional[str] = None,
+          **args) -> None:
+    """One instant event inside the current thread's innermost span. ``op``
+    defaults to the profiling sync-scope operator (so sync/dispatch events
+    reconcile exactly with the SyncLedger's attribution)."""
+    if not _ACTIVE:
+        return
+    tr = _thread_tracer()
+    if tr is None:
+        return
+    if tr._cats is not None and cat not in tr._cats:
+        return
+    st = _tls.stack
+    tr._append(("i", tr.now_ns(), threading.get_ident(),
+                st[-1] if st else None, None, name, cat,
+                op if op is not None else current_sync_scope(),
+                args or None))
+
+
+def dispatch_event(kind: str, cache: str, source: str) -> None:
+    """One opjit-accounted program dispatch: increments the bound tracer's
+    per-query dispatch counter AND appends the ring event — call exactly
+    where ``calls_by_kind`` increments (execs/opjit.py) so both the
+    per-query and the process-wide ground truth see every launch."""
+    if not _ACTIVE:
+        return
+    tr = _thread_tracer()
+    if tr is None:
+        return
+    st = _tls.stack
+    tr.record_dispatch(kind, cache, source, current_sync_scope(),
+                       st[-1] if st else None, tr.now_ns(),
+                       threading.get_ident())
+
+
+def sync_event(op: str, kind: str) -> None:
+    """One audited blocking D→H sync (called by SyncLedger.record with the
+    ledger's own operator attribution)."""
+    if not _ACTIVE:
+        return
+    tr = _thread_tracer()
+    if tr is None:
+        return
+    st = _tls.stack
+    tr.record_sync(op, kind, st[-1] if st else None, tr.now_ns(),
+                   threading.get_ident())
+
+
+def current_span() -> Optional[SpanRef]:
+    """Handoff token for the innermost open span on this thread (the query
+    root when no narrower span is open; None when this thread's query is
+    not being traced) — capture before handing work to a pool thread, pass
+    as ``span(..., parent=...)`` or ``inherit(...)`` there."""
+    if not _ACTIVE:
+        return None
+    tr = _thread_tracer()
+    if tr is None:
+        return None
+    st = _tls.stack
+    return SpanRef(tr, st[-1] if st else tr.root)
+
+
+def is_active() -> bool:
+    """True when ANY query in the process is being traced."""
+    return _ACTIVE > 0
+
+
+def thread_traced() -> bool:
+    """True when THIS thread's query is being traced (the per-batch slow-
+    path gate in execs/base.py: a concurrent untraced query must stay on
+    the fast loop while another query traces)."""
+    return _ACTIVE > 0 and _thread_tracer() is not None
+
+
+def current_query_name() -> Optional[str]:
+    """Name of the traced query bound to this thread, if any (flight-
+    recorder notes tag themselves with it)."""
+    tr = _thread_tracer() if _ACTIVE else None
+    return tr.name if tr is not None else None
+
+
+def begin_query(name: str, buffer_events: int = 262144, categories=(),
+                max_concurrent: int = DEFAULT_MAX_CONCURRENT
+                ) -> Optional[QueryTracer]:
+    """Arm a NEW tracer for one query on the calling thread; returns the
+    tracer handle (pass to :func:`end_query`). Returns None — and counts a
+    ``trace.dropped_queries`` registry drop, never silently — when the
+    ``max_concurrent`` capacity cap is reached or this thread is already
+    tracing a query (a nested collect inside a traced query)."""
+    global _ACTIVE
+    from . import metrics as _metrics
+    if _thread_tracer() is not None:
+        _metrics.counter_inc("trace.dropped_queries",
+                             reason="nested_thread")
+        return None
+    tracer = QueryTracer(name, buffer_events, categories)
+    with _REG_LOCK:
+        if len(_TRACERS) >= max(1, int(max_concurrent)):
+            dropped = True
+        else:
+            dropped = False
+            _TRACERS.add(tracer)
+            _ACTIVE += 1
+    if dropped:
+        _metrics.counter_inc("trace.dropped_queries", reason="capacity")
+        return None
+    tracer._begin()
+    return tracer
+
+
+def end_query(tracer: QueryTracer) -> Dict[str, Any]:
+    """Close a tracer armed by :func:`begin_query`; returns the raw profile
+    dict (obs/export.py builds the bundle/Chrome trace from it)."""
+    global _ACTIVE
+    with _REG_LOCK:
+        if tracer in _TRACERS:
+            _TRACERS.discard(tracer)
+            _ACTIVE -= 1
+    return tracer.end()

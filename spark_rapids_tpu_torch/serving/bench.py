@@ -6,9 +6,11 @@ scheduler; ``chip_smoke.py`` runs them on the card and checks their rows.
 * :func:`run_repeated` — N literal-varying submissions of one query shape:
   the first plans cold and seeds the plan cache, every later one re-binds
   its literals into the cached template. Reports the first, steady and
-  warm-p50 wall times and the plan cache's hit and miss deltas. The
-  reference also reads each submission's planning share from the tracer's
-  ``plan.build`` span; the tracer is not yet ported.
+  warm-p50 wall times and the plan cache's hit and miss deltas; when the
+  session traces (``spark.rapids.tpu.trace.enabled``), each submission's
+  ``plan.build`` time and end-to-end time from its bundle, and the steady
+  planning share (their sums over the submissions after the first), as
+  the reference's hot_repeat reads them (``bench.py:421-490``).
 * :func:`serving_run` — N tenant threads, each its own session and tables,
   an SLO class each (round-robin over ``CLASS_OF``), running q1, q6 and q3
   ``reps`` times through the scheduler's admission path. Reports rows/s
@@ -89,7 +91,7 @@ def run_repeated(session, make_query: Callable, iters: int = 6,
     plan cache's verdict per submission, its hit/miss deltas and every
     submission's rows."""
     st0 = _cache_stats()
-    walls, verdicts, rows = [], [], []
+    walls, verdicts, rows, profiles = [], [], [], []
     for i in range(iters):
         q = make_query(i)
         t0 = time.perf_counter()
@@ -98,13 +100,32 @@ def run_repeated(session, make_query: Callable, iters: int = 6,
         walls.append((time.perf_counter() - t0) * 1e3)
         verdicts.append(getattr(session, "_last_plan_cache", None))
         rows.append(out)
+        profiles.append(session.last_query_profile())
     st1 = _cache_stats()
     steady = walls[1:] or walls
-    return {"iters": iters, "first_ms": walls[0],
-            "steady_ms": min(steady), "warm_p50_ms": _p50(steady),
-            "hits": st1.get("hits", 0) - st0.get("hits", 0),
-            "misses": st1.get("misses", 0) - st0.get("misses", 0),
-            "cache_by_iter": verdicts, "rows": rows}
+    out = {"iters": iters, "first_ms": walls[0],
+           "steady_ms": min(steady), "warm_p50_ms": _p50(steady),
+           "hits": st1.get("hits", 0) - st0.get("hits", 0),
+           "misses": st1.get("misses", 0) - st0.get("misses", 0),
+           "cache_by_iter": verdicts, "rows": rows}
+    if all(p is not None for p in profiles):
+        plan = [plan_build_ms(p["spans"]) for p in profiles]
+        e2e = [p["duration_ms"] or w for p, w in zip(profiles, walls)]
+        out.update(plan_ms=plan, e2e_ms=e2e,
+                   planning_share=sum(plan[1:] or plan)
+                   / (sum(e2e[1:] or e2e) or 1.0))
+    return out
+
+
+def plan_build_ms(span) -> float:
+    """The summed ``plan.build`` span time (ms) of a bundle's span tree."""
+    total, stack = 0.0, [span]
+    while stack:
+        nd = stack.pop()
+        if nd.get("name") == "plan.build" and nd.get("dur_ns"):
+            total += nd["dur_ns"] / 1e6
+        stack.extend(nd.get("children") or ())
+    return total
 
 
 def serving_run(n_sessions: int, host_tables: Dict, reps: int = 2,

@@ -723,19 +723,22 @@ def execute_plan(session, plan, timeout: Optional[float] = None,
     this call; `priority` overrides its spark.rapids.tpu.query.priority
     class."""
     from ..config import (QUERY_PRIORITY, QUERY_RETRY_BUDGET,
-                          QUERY_TIMEOUT_MS, TRACE_ENABLED)
+                          QUERY_TIMEOUT_MS, TRACE_TAG)
     # ONE conf snapshot at submission: every later planning step (logical
     # optimize, physical plan, override pass, plan-cache fingerprint) reads
     # this frozen view, so a concurrent conf.set() can never produce a
     # plan half-built under two conf views
     conf = session._rapids_conf()
-    if conf.get(TRACE_ENABLED):
-        raise NotImplementedError(
-            "spark.rapids.tpu.trace.enabled: the query tracer is not yet "
-            "ported")
     session._query_seq = getattr(session, "_query_seq", 0) + 1
-    sid_n = session._session_id.rsplit("-", 1)[-1]
-    qname = f"query-s{sid_n}-{session._query_seq}"
+    tag = conf.get(TRACE_TAG)
+    if tag and str(tag) != "None":
+        # tagged names stay `<tag>-<n>`: the artifact files' stems
+        qname = f"{tag}-{session._query_seq}"
+    else:
+        # untagged sessions fold the session id into the query name, so
+        # concurrent sessions' queries never share one
+        sid_n = session._session_id.rsplit("-", 1)[-1]
+        qname = f"query-s{sid_n}-{session._query_seq}"
     timeout_ms = float(timeout) * 1000.0 if timeout is not None \
         else float(conf.get(QUERY_TIMEOUT_MS))
     deadline_ns = (time.perf_counter_ns() + int(timeout_ms * 1e6)
@@ -783,20 +786,45 @@ def _run_admitted(session, plan_fn, conf, qctx: QueryContext, qname: str,
                   on_device: bool) -> List:
     """One admitted query's execution window: planning (through the
     scheduler-owned plan cache), the partition loop, failure handling and
-    the per-query task-metric snapshot. Runs on the submitting thread
-    with the QueryContext bound."""
-    from ..config import FATAL_ERROR_EXIT
+    the per-query snapshots (task metrics, operator metrics, the plan
+    tree, the sync-ledger delta, the traced bundle). Runs on the
+    submitting thread with the QueryContext bound; planning runs AFTER the
+    tracer arms, so the plan.build span is part of the query's bundle."""
+    from .. import obs
+    from ..config import (FATAL_ERROR_EXIT, TRACE_BUFFER_EVENTS,
+                          TRACE_CATEGORIES, TRACE_ENABLED,
+                          TRACE_MAX_CONCURRENT)
     from ..execs.transitions import DeviceToHostExec, HostToDeviceExec
     from ..failure import handle_task_failure
-    from ..profiling import TaskMetricsRegistry
+    from ..profiling import (SyncLedger, TaskMetricsRegistry,
+                             snapshot_plan_metrics)
     task_metrics_before = TaskMetricsRegistry.get().snapshot()
+    syncs_before = SyncLedger.get().snapshot()
     qtok = _metrics.query_begin(qname, cls=qctx.priority)
+    qroot = None
+    opjit_before = None
     final = None
     out: List = []
     failed = True  # cleared by the last statement of the try body
     try:
+        if conf.get(TRACE_ENABLED):
+            from ..execs import opjit
+            # armed first inside the try whose finally ends it: an
+            # exception never strands an armed tracer. The dispatch
+            # snapshot before arming is trusted only when the query ran
+            # alone; otherwise the bundle reconciles against the tracer's
+            # own per-query counters
+            opjit_before = opjit.cache_stats()["calls_by_kind"]
+            qroot = obs.begin_query(
+                qname, buffer_events=conf.get(TRACE_BUFFER_EVENTS),
+                categories=conf.get(TRACE_CATEGORIES),
+                max_concurrent=conf.get(TRACE_MAX_CONCURRENT))
+        # planning: a plan-cache fetch (literal re-bind) or the full
+        # optimize → physical plan → override pass — one span, one
+        # histogram, so the planning share is measurable from the bundle
         t_plan0 = time.perf_counter_ns()
-        final = plan_fn()
+        with obs.span("plan.build", cat="plan"):
+            final = plan_fn()
         _metrics.histogram_observe(
             "plan.build_ms", (time.perf_counter_ns() - t_plan0) / 1e6)
         run = final
@@ -812,7 +840,8 @@ def _run_admitted(session, plan_fn, conf, qctx: QueryContext, qname: str,
             checkpoint(f"task.start p{p}")
             ctx = TaskContext(p, conf, session.device, session.counters)
             try:
-                out.extend(run.execute_partition(p, ctx))
+                with obs.span(f"partition {p}", cat="task", partition=p):
+                    out.extend(run.execute_partition(p, ctx))
             except BaseException as exc:
                 # fatal device errors capture diagnostics and (when
                 # configured) exit (RapidsExecutorPlugin.onTaskFailed)
@@ -823,10 +852,24 @@ def _run_admitted(session, plan_fn, conf, qctx: QueryContext, qname: str,
                 ctx.complete()
         failed = False  # reached only when every partition completed
     finally:
+        # metrics and the plan as plain data, so no plan (and no device
+        # buffer it holds) outlives the query; a planning failure leaves
+        # no stale snapshot of the previous query
+        session._last_metrics_snapshot = (
+            snapshot_plan_metrics(final) if final is not None else None)
+        session._last_plan_tree = (
+            _plan_tree_snapshot(final) if final is not None else None)
         after = TaskMetricsRegistry.get().snapshot()
         session._last_task_metrics = {
             k: after.get(k, 0) - task_metrics_before.get(k, 0)
             for k in after}
+        session._last_sync_ledger = _ledger_delta(
+            syncs_before, SyncLedger.get().snapshot())
+        if qroot is not None:
+            _finish_query_profile(session, qroot, conf, opjit_before)
+        else:
+            # an untraced query leaves no earlier query's bundle behind
+            session._last_query_profile = None
         # the query's shuffle blocks leave the device with it (reference:
         # Spark's ContextCleaner removing shuffle state)
         if final is not None:
@@ -835,4 +878,78 @@ def _run_admitted(session, plan_fn, conf, qctx: QueryContext, qname: str,
                     node.cleanup_shuffle()
         _metrics.query_end(qtok, rows=sum(b.num_rows for b in out),
                            failed=failed)
+    return out
+
+
+def _ledger_delta(before: Dict[str, Dict[str, int]],
+                  after: Dict[str, Dict[str, int]]
+                  ) -> Dict[str, Dict[str, int]]:
+    """Per-operator blocking-sync counts this query added to the
+    process-wide ledger."""
+    ledger = {}
+    for op, kinds in after.items():
+        prev = before.get(op, {})
+        d = {k: v - prev.get(k, 0) for k, v in kinds.items()
+             if v - prev.get(k, 0)}
+        if d:
+            ledger[op] = d
+    return ledger
+
+
+def _finish_query_profile(session, qroot, conf, opjit_before) -> None:
+    """Close the tracer, build the diagnostics bundle (metric snapshot,
+    sync-ledger delta, dispatch-by-kind delta, the span/event record) and
+    write the Chrome trace and bundle under spark.rapids.tpu.trace.dir
+    when it is set. The bundle reconciles the tracer's events against
+    these deltas: the tracer must have seen every launch
+    (``calls_by_kind``) and every blocking sync (SyncLedger)."""
+    from .. import obs
+    from ..config import TRACE_DIR
+    from ..execs import opjit
+    profile = obs.end_query(qroot)
+    if profile.get("exclusive", True):
+        # no other query overlapped: the process-wide deltas belong to
+        # this query (counters kept independently of the tracer)
+        disp_after = opjit.cache_stats()["calls_by_kind"]
+        disp_delta = {
+            k: disp_after.get(k, 0) - (opjit_before or {}).get(k, 0)
+            for k in set(disp_after) | set(opjit_before or {})}
+    else:
+        # concurrent queries: process-wide deltas cross-bleed, so the
+        # bundle reconciles against the query's own counters, kept by the
+        # tracer where calls_by_kind and the SyncLedger increment
+        disp_delta = {k: v for k, v in
+                      profile.get("dispatch_counts", {}).items() if v}
+        session._last_sync_ledger = {
+            op: dict(kinds)
+            for op, kinds in profile.get("sync_counts", {}).items()}
+    bundle = obs.build_bundle(
+        profile, plan_tree=session._last_plan_tree,
+        metrics=session._last_metrics_snapshot,
+        sync_ledger=session._last_sync_ledger, dispatch_delta=disp_delta,
+        task_metrics=session._last_task_metrics)
+    out_dir = conf.get(TRACE_DIR)
+    if out_dir and str(out_dir) != "None":
+        try:
+            obs.write_artifacts(bundle, profile, str(out_dir),
+                                profile.get("name", "query"))
+        except OSError:
+            bundle["artifacts"] = {"error": "trace.dir not writable"}
+    session._last_query_profile = bundle
+
+
+def _plan_tree_snapshot(plan) -> List[dict]:
+    """Plain-data snapshot of the executed physical plan for
+    explain("metrics") and the bundle — preorder, so index i matches
+    snapshot_plan_metrics's "i:NodeName" keys."""
+    out: List[dict] = []
+
+    def walk(node, depth: int) -> None:
+        out.append({"i": len(out), "depth": depth,
+                    "name": node.node_name(), "desc": node.node_desc(),
+                    "tpu": node.is_tpu})
+        for c in node.children:
+            walk(c, depth + 1)
+
+    walk(plan, 0)
     return out

@@ -399,11 +399,15 @@ class DataFrame:
             rows.extend(b.rename(names).to_pylist())
         return rows
 
-    def explain(self) -> str:
+    def explain(self, mode: str = "formatted") -> str:
         """The plan cache's verdict for this query (``planCache=hit``,
         ``miss``, ``off`` or ``uncacheable``), the applied optimizer rules,
         the optimized logical plan and the physical plan ('*' marks device
-        operators), as the reference prints them."""
+        operators), as the reference prints them. ``mode="metrics"`` hands
+        over to the session: the LAST executed query's plan annotated with
+        its metrics (``TorchSession.explain``)."""
+        if str(mode) == "metrics":
+            return self.session.explain("metrics")
         from .config import PLAN_CACHE_ENABLED
         from .plan.optimizer import explain_logical, optimize_logical
         from .serving.plan_cache import fingerprint
@@ -777,6 +781,69 @@ class TorchSession:
         from .obs import metrics as _metrics
         return _metrics.full_snapshot()
 
+    def last_query_metrics(self, level: Optional[str] = None
+                           ) -> Dict[str, Dict[str, int]]:
+        """Per-operator metrics of the last executed query, keyed
+        ``"i:NodeName"`` in preorder, at `level` or below (default
+        ``spark.rapids.sql.metrics.level``; the reference surfaces these
+        as SQLMetrics in the Spark SQL UI)."""
+        from .config import METRICS_LEVEL
+        from .profiling import metric_level_filter
+        snap = getattr(self, "_last_metrics_snapshot", None)
+        if snap is None:
+            return {}
+        lvl = str(level or self._rapids_conf().get(METRICS_LEVEL)).upper()
+        return metric_level_filter(snap, lvl)
+
+    def last_sync_ledger(self) -> Dict[str, Dict[str, int]]:
+        """Per-operator blocking device→host transfer counts of the last
+        query alone ({operator: {kind: count}}), from the audited gate."""
+        return {op: dict(kinds)
+                for op, kinds in (getattr(self, "_last_sync_ledger", None)
+                                  or {}).items()}
+
+    def last_query_profile(self) -> Optional[Dict[str, Any]]:
+        """The diagnostics bundle of the last TRACED query
+        (spark.rapids.tpu.trace.enabled; docs/observability.md "Bundle
+        schema"): span tree, per-operator dispatch and sync counts
+        reconciled against ``calls_by_kind`` and the sync ledger, chaos
+        and retry events, and — with spark.rapids.tpu.trace.dir set — the
+        paths of the Chrome trace and bundle JSON under ['artifacts'].
+        None when the last query ran untraced."""
+        return getattr(self, "_last_query_profile", None)
+
+    def explain(self, mode: str = "metrics", level: Optional[str] = None
+                ) -> str:
+        """The LAST executed query's physical plan annotated per node with
+        its metric values, dispatch counts and blocking-sync counts (the
+        Spark SQL UI analogue). Works with tracing off."""
+        if str(mode) != "metrics":
+            raise ValueError(
+                f"TorchSession.explain supports mode='metrics'; for plan "
+                f"shape use DataFrame.explain() (got {mode!r})")
+        from .config import METRICS_LEVEL
+        from .obs import render_explain_metrics
+        lvl = str(level or self._rapids_conf().get(METRICS_LEVEL))
+        s = render_explain_metrics(
+            getattr(self, "_last_plan_tree", None) or [],
+            getattr(self, "_last_metrics_snapshot", None) or {},
+            self.last_sync_ledger(), level=lvl)
+        print(s)
+        return s
+
+    def profiler(self):
+        """Context manager running torch.profiler over the enclosed
+        queries; the Chrome trace lands under
+        spark.rapids.profile.pathPrefix (required) as
+        ``<prefix>/rapids-torch-profile-<ns>/trace.json``. On a CUDA
+        session it records the device's kernels too, or raises."""
+        from .config import PROFILE_PATH_PREFIX
+        from .profiling import TorchProfiler
+        prefix = self._rapids_conf().get(PROFILE_PATH_PREFIX)
+        if not prefix or prefix == "None":
+            raise ValueError("set spark.rapids.profile.pathPrefix to profile")
+        return TorchProfiler(prefix, self.device)
+
     def cancel(self) -> int:
         """Cancel this session's queued and running queries: each observes
         its cancel token at its next checkpoint and unwinds, returning its
@@ -799,7 +866,9 @@ class TorchSession:
         n = sched.cancel_session(self._session_id, reason="session.stop")
         drained = sched.drain_session(self._session_id, timeout_s=30.0)
         for attr in ("_last_task_metrics", "_last_plan_cache",
-                     "_last_opt_rules"):
+                     "_last_opt_rules", "_last_metrics_snapshot",
+                     "_last_plan_tree", "_last_sync_ledger",
+                     "_last_query_profile"):
             if hasattr(self, attr):
                 setattr(self, attr, None)
         _flight.note("session.stop", session=self._session_id,

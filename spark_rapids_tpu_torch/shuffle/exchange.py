@@ -33,8 +33,9 @@ import numpy as np
 
 from ..columnar.batch import TorchColumnarBatch, concat_batches
 from ..expressions.base import Expression
-from ..execs.base import (CpuExec, PhysicalPlan, TaskContext, TorchExec,
-                          bind_all)
+from ..execs.base import (MODERATE, CpuExec, PhysicalPlan, TaskContext,
+                          TorchExec, bind_all, counts_output)
+from ..obs import tracer as obs
 from .partitioner import hash_split_parts
 
 
@@ -157,27 +158,38 @@ class TorchShuffleExchangeExec(_ExchangeBase, TorchExec):
     def node_desc(self) -> str:
         return f"TorchShuffleExchange[{self.partitioning}, n={self._n_out}]"
 
+    def additional_metrics(self):
+        return {"partitionTime": MODERATE, "deserializationTime": MODERATE}
+
     def _ensure_materialized(self, ctx: TaskContext) -> None:
         if self._shuffle_id is not None:
             return
         from ..chaos import inject
         from ..failure import with_device_retry
+        from ..profiling import sync_scope
         from ..serving.query_context import checkpoint
         _check_mode(ctx.conf)
         catalog = ShuffleCatalog.get()
         sid = catalog.new_shuffle_id()
         child = self.children[0]
         try:
-            for map_id in range(child.num_partitions()):
-                # one map task under the chaos site and the transient
-                # device-error retry (reference exchange.py:130-137): a map
-                # task is idempotent, as put_block replaces its blocks
-                def attempt(map_id=map_id) -> None:
-                    checkpoint(f"shuffle.map s{sid}m{map_id}")
-                    inject("pipeline.task", detail=f"s{sid}m{map_id}")
-                    self._materialize_map(sid, map_id, ctx, catalog)
+            with obs.span(f"exchange s{sid} materialize", cat="shuffle",
+                          shuffle=sid):
+                for map_id in range(child.num_partitions()):
+                    # one map task under the chaos site and the transient
+                    # device-error retry (reference exchange.py:130-137):
+                    # a map task is idempotent, as put_block replaces its
+                    # blocks
+                    def attempt(map_id=map_id) -> None:
+                        checkpoint(f"shuffle.map s{sid}m{map_id}")
+                        inject("pipeline.task", detail=f"s{sid}m{map_id}")
+                        self._materialize_map(sid, map_id, ctx, catalog)
 
-                with_device_retry(attempt, ctx.conf)
+                    with sync_scope(self.node_name()), \
+                            obs.span(f"map s{sid}m{map_id}",
+                                     cat="shuffle.map", shuffle=sid,
+                                     map=map_id):
+                        with_device_retry(attempt, ctx.conf)
         except BaseException:
             catalog.remove_shuffle(sid)  # no half-written shuffle remains
             raise
@@ -192,11 +204,13 @@ class TorchShuffleExchangeExec(_ExchangeBase, TorchExec):
         try:
             TorchSemaphore.get(ctx.conf).acquire_if_necessary(map_ctx)
             acc: List[List[TorchColumnarBatch]] = [[] for _ in range(n)]
+            split_time = self.metrics["partitionTime"]
             for batch in self.children[0].execute_partition(map_id,
                                                             map_ctx):
                 if batch.num_rows == 0:
                     continue
-                parts = hash_split_parts(batch, self.keys, n, ctx)
+                with split_time.timed():
+                    parts = hash_split_parts(batch, self.keys, n, ctx)
                 del batch
                 for p in range(n):
                     if parts[p] is not None:
@@ -225,10 +239,15 @@ class TorchShuffleExchangeExec(_ExchangeBase, TorchExec):
             inject("ici.fetch", detail=f"s{sid}r{idx}")
             return list(catalog.blocks(sid, idx, self._n_maps))
 
-        blocks = with_device_retry(fetch, ctx.conf)
+        with self.metrics["deserializationTime"].timed():
+            blocks = with_device_retry(fetch, ctx.conf)
         while blocks:
             b = blocks.pop(0)
             if b.num_rows:
+                if obs._ACTIVE:
+                    # one reduce-side block read (its row count is a host
+                    # int; an event never reads the device)
+                    obs.event("shuffle.read", cat="shuffle")
                 yield b.rename(names)
             del b
 
@@ -281,7 +300,7 @@ class CpuShuffleExchangeExec(_ExchangeBase, CpuExec):
                 if b.num_rows == 0:
                     continue
                 t = b.to_arrow()
-                with op_time(ctx, type(self).__name__):
+                with op_time(ctx, self):
                     pids = host_partition_ids(t, self.keys, n, ctx)
                     order = np.argsort(pids, kind="stable")
                     bounds = np.searchsorted(pids[order], np.arange(n + 1))
@@ -294,6 +313,7 @@ class CpuShuffleExchangeExec(_ExchangeBase, CpuExec):
         self._n_maps = child.num_partitions()
         self._shuffle_id = -1  # materialized: the blocks are on the exec
 
+    @counts_output
     def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
         self._ensure_materialized(ctx)
         names = [a.name for a in self.output]

@@ -15,7 +15,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from ..columnar.batch import TorchColumnarBatch, gather
-from ..columnar.vector import bucket_capacity
+from ..columnar.vector import audited_tolist, bucket_capacity
 from ..expressions.base import Expression, to_column
 from ..expressions.hashexprs import murmur3_batch
 
@@ -47,7 +47,7 @@ def split_by_partition(batch: TorchColumnarBatch, pids: torch.Tensor,
     """The batch's rows of each partition, in input order (None for an
     empty partition); the bounds are the one host read."""
     order, bounds_dev = _split_plan(pids, batch.num_rows, n)
-    bounds = bounds_dev.tolist()
+    bounds = audited_tolist(bounds_dev, "bounds")
     cap = batch.capacity
     out: List[Optional[TorchColumnarBatch]] = []
     for p in range(n):

@@ -89,9 +89,10 @@ prints no result):
    physical plan;
 9. the parquet scan (session.read.parquet → the device page decode →
    the device operators), in a temporary directory deleted at exit:
-   (a) the port's datagen lineitem at 2^24 rows written in bench.py's
+   (a) the port's datagen lineitem at 2^23 rows (bench.py: 2^24; halved
+       for phase 16's room in the script's time) written in bench.py's
        layout (parts of 2^21 rows through one writer, snappy, row groups
-       of 2^20: 16 row groups), its size printed; the pinned
+       of 2^20: 8 row groups), its size printed; the pinned
        host-to-device copy rate;
    (b) bench.py's two scan_agg queries (a filter and a group by
        l_returnflag; a group by three string columns) with the device
@@ -170,15 +171,16 @@ prints no result):
        same query through the port on the CPU over the same tables (a
        second process, ``chip_smoke.py --tpcds-cpu``), with the tests'
        compare (rows sorted, floats to 4 places, rel/abs 1e-4);
-   (b) every query at 2^22 store_sales rows (the other tables at
-       load_tables' ratios) in test mode (an operator left off the card
+   (b) every query at 2^21 store_sales rows (the other tables at
+       load_tables' ratios; 2^22 until PR 13, halved for phase 16's room
+       in the script's time) in test mode (an operator left off the card
        fails): rows (q75's answer, the brands whose yearly sales count
        fell 10 %, is empty at this size: then every brand's ratio from
        q75_brand_years must be at least 0.9), two collects identical;
        q98, q47, q51, q44, q22,
        q38, q87 and q39 against numpy float64 oracles (integers, strings
        and nulls exact, floats rtol 1e-9, rows in the query's order);
-   (c) a timing line a query at 2^22: one warm collect(); the
+   (c) a timing line a query at 2^21: one warm collect(); the
        first collect, profiled (its rows are (b)'s), for the busy, HtoD,
        idle share (busy over the best warm collect) and device ops; the
        opTime of the window, Expand and union execs and the compiled
@@ -227,6 +229,29 @@ prints no result):
        the audited gate did not see (printed, not checked);
    (e) one collect under session.profiler(): the trace file holds CUDA
        kernel events and the operators' ranges.
+16. the DataFrame and session surface in test mode, over phase 10's
+   2^22-row datagen lineitem (4 partitions):
+   (a) session.range(0, 2^27, 1, numPartitions=4) (1 GiB of int64 ids on
+       the card) filtered, summed and counted against the closed form;
+       count();
+   (b) sample(0.1, seed) and sample(True, 0.5, seed): the rows of a numpy
+       oracle of the same hash, and of the port's host engine;
+   (c) repartition(16), repartition(16, "l_orderkey"), coalesce(2): each
+       partition's rows from to_device_batches' partitions equal the host
+       engine's, and the rows are the source's;
+   (d) the writer over device batches: parquet partitionBy(l_returnflag,
+       l_linestatus) and bucketBy(8, l_orderkey) (each bucket file's ids
+       Spark's) read back through the device decode; orc and csv at 2^20
+       rows, json at 2^15 (written row by row, as the reference): csv and
+       json text equal pyarrow's and json.dumps' of the same rows, each
+       read back; a write_<fmt> line each (wall, MB, files, writeTime,
+       numWrittenRows);
+   (e) cache() of a 2^22-row Q1 lineitem: framework Q1 twice against its
+       oracle, its rows beside device_cache()'s; count(), show(5),
+       toPandas() (where pandas imports), to_device_arrays() on the card,
+       dropDuplicates(["l_orderkey"]) (First on the card: each key's first
+       row) and a join on names. Neither Q1 kernel launches; nothing
+       leaks.
 
 After each phase a phase_wall line gives its wall, its collects, their
 planning ms and the batches the spill catalog registered.
@@ -245,12 +270,16 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 N_BIG = 1 << 24
+#: phase 9's parquet file (bench.py's scan_agg: 2^24; halved to make room
+#: for phase 16 in the script's time)
+SCAN_ROWS = 1 << 23
 SIZES = (100, 12345, 1 << 15, N_BIG)
 RTOL_KERNEL = 1e-4  # f32 sums in another order (tests/test_q1_kernels.py)
 RTOL_FRAMEWORK = 1e-9  # float64 sums in another order
@@ -2767,12 +2796,14 @@ def lifecycle_paths(F, TorchSession, smi, tables, df6, cols6, oracle6,
 # phase 12: the 99 TPC-DS queries
 # ---------------------------------------------------------------------------
 
-#: the queries phase 12 holds to numpy float64 oracles at 2^22 rows, one or
-#: more a new operator
+#: the queries phase 12 holds to numpy float64 oracles at TPCDS_BIG rows,
+#: one or more a new operator
 TPCDS_ORACLE_QUERIES = ("q98", "q47", "q51", "q44", "q22", "q38", "q87",
                         "q39")
 TPCDS_SMALL = 12_000
-TPCDS_BIG = 1 << 22
+#: phase 12's (b) and (c), and phase 14's TPC-DS cases (2^22 until PR 13;
+#: halved to make room for phase 16 in the script's time)
+TPCDS_BIG = 1 << 21
 
 
 def tpcds_cpu_answers(rows: int, path: str) -> None:
@@ -3134,7 +3165,7 @@ def tpcds_paths(F, TorchSession, smi, device: str = "cuda",
                 cpu_answers: "CpuAnswers" = None, keep: dict = None) -> None:
     """Phase 12. With ``device="cpu"`` it checks the script's oracles and
     compares off the card at the sizes given (no timing lines). ``keep``
-    receives the 2^22-row tables and their oracles (for phase 14)."""
+    receives the TPCDS_BIG-row tables and their oracles (for phase 14)."""
     from spark_rapids_tpu_torch import tpcds
     from spark_rapids_tpu_torch.datagen import tpcds_host_tables, tpch_frames
     on_card = device == "cuda"
@@ -4843,6 +4874,403 @@ def obs_paths(F, TorchSession, smi, tables, df, cols, oracle, scan,
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s | card: {smi}",
           flush=True)
 
+# ---------------------------------------------------------------------------
+# phase 16: the DataFrame and session surface on the card — range, sample,
+# repartition and coalesce, the file writer, cache() and the actions
+# ---------------------------------------------------------------------------
+
+SURFACE_SEED = 16
+SURFACE_RANGE = 1 << 27  # 1 GiB of int64 ids on the card
+SURFACE_TEXT_ROWS = 1 << 20  # orc and csv
+SURFACE_JSON_ROWS = 1 << 15  # json: written row by row, as the reference
+SURFACE_Q1_ROWS = 1 << 22  # framework Q1 over cache()
+_M32 = 0xFFFFFFFF
+
+
+def sample_uniforms(seed: int, part: int, start: int, n: int) -> np.ndarray:
+    """The sample exec's uniforms, by numpy uint32: the murmur3 finalizer
+    over (seed, partition, row index in the partition) (the reference's
+    ``execs/sample._uniform_np``)."""
+    u = np.uint32
+    h = (np.arange(start, start + n, dtype=np.int64) & _M32).astype(u)
+    h ^= u((((seed & _M32) * 0x9E3779B1) & _M32)
+           ^ ((part * 0x85EBCA6B) & _M32))
+    h ^= h >> u(16)
+    h *= u(0x85EBCA6B)
+    h ^= h >> u(13)
+    h *= u(0xC2B2AE35)
+    h ^= h >> u(16)
+    return h.astype(np.float64) / float(1 << 32)
+
+
+def _poisson_cdf(lam: float) -> np.ndarray:
+    import math
+    p = math.exp(-lam)
+    cum, out = p, [p]
+    for k in range(1, max(16, int(lam + 10.0 * math.sqrt(lam) + 10.0)) + 1):
+        p *= lam / k
+        cum += p
+        out.append(cum)
+        if cum > 1.0 - 1e-12:
+            break
+    return np.array(out)
+
+
+def local_partition_rows(n: int, parts: int) -> list:
+    """createDataFrame's split of n rows into parts partitions."""
+    return [n // parts + (1 if p < n % parts else 0) for p in range(parts)]
+
+
+def sample_oracle(part_rows, fraction: float, replace: bool,
+                  seed: int) -> np.ndarray:
+    """The rows (global indices, in output order) a sample keeps."""
+    out, off = [], 0
+    for p, n in enumerate(part_rows):
+        u = sample_uniforms(seed, p, 0, n)
+        if replace:
+            counts = np.searchsorted(_poisson_cdf(fraction), u, side="right")
+            out.append(np.repeat(np.arange(n), counts) + off)
+        else:
+            out.append(np.flatnonzero(u < fraction) + off)
+        off += n
+    return np.concatenate(out)
+
+
+def spark_hash_int(v: np.ndarray) -> np.ndarray:
+    """Spark's ``hash`` of int32 values (Murmur3 x86_32 of the 4 bytes,
+    seed 42), by numpy: int64 values of the int32 hashes."""
+    u = np.uint32
+
+    def rotl(x, r):
+        return (x << u(r)) | (x >> u(32 - r))
+    k = rotl(v.astype(np.int32).view(u) * u(0xCC9E2D51), 15) * u(0x1B873593)
+    h = rotl(np.full(len(v), 42, u) ^ k, 13) * u(5) + u(0xE6546B64)
+    h ^= u(4)
+    h ^= h >> u(16)
+    h *= u(0x85EBCA6B)
+    h ^= h >> u(13)
+    h *= u(0xC2B2AE35)
+    h ^= h >> u(16)
+    return h.view(np.int32).astype(np.int64)
+
+
+def _row_codes(arrays, lows=None) -> np.ndarray:
+    """Rows of equal-length non-negative integer arrays as sorted int64
+    codes, each array in its own bits (a multiset of rows in one sort;
+    ``lows`` gives the bit widths, so two sides pack alike)."""
+    code = np.zeros(len(arrays[0]), np.int64)
+    for a, bits in zip(arrays, lows or [int(np.max(a, initial=0))
+                                        .bit_length() for a in arrays]):
+        code = (code << np.int64(bits)) | a.astype(np.int64)
+    return np.sort(code)
+
+
+def _widths(arrays) -> list:
+    widths = [int(np.max(a, initial=0)).bit_length() for a in arrays]
+    check(sum(widths) <= 63, f"row codes need {sum(widths)} bits")
+    return widths
+
+
+def _letter_codes(arr, letters) -> np.ndarray:
+    """A string column's values as their index in ``letters``."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    codes = pc.index_in(arr, value_set=pa.array(list(letters)))
+    check(codes.null_count == 0, f"a value outside {letters}")
+    return codes.to_numpy(zero_copy_only=False).astype(np.int64)
+
+
+def _dir_stats(d: str):
+    import os
+    files = [os.path.join(r, f) for r, _, fs in os.walk(d) for f in fs
+             if not f.startswith("_")]
+    return files, sum(os.path.getsize(f) for f in files)
+
+
+def _write_metrics(s) -> dict:
+    m = s.last_query_metrics("DEBUG")
+    key = [k for k in m if k.endswith("TorchDataWritingCommandExec")]
+    check(len(key) == 1, f"the write plan holds no device write: {list(m)}")
+    return m[key[0]]
+
+
+def surface_paths(F, TorchSession, smi, li, tmpdir: str,
+                  device: str = "cuda", range_rows: int = SURFACE_RANGE,
+                  text_rows: int = SURFACE_TEXT_ROWS,
+                  json_rows: int = SURFACE_JSON_ROWS,
+                  q1_rows: int = SURFACE_Q1_ROWS) -> None:
+    """Phase 16: (a)-(e) in test mode. ``li`` is phase 10's datagen
+    lineitem (host columns, validity, partitions). With ``device="cpu"``
+    and small sizes it checks the script's own logic off the card."""
+    import os
+
+    import pyarrow as pa
+    import pyarrow.csv as pacsv
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.columnar.batch import TorchColumnarBatch
+    from spark_rapids_tpu_torch.serving.scheduler import QueryScheduler
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    base = {"spark.rapids.shuffle.mode": "ICI",
+            "spark.sql.shuffle.partitions": "8"}
+    s = TorchSession(dict(base, **{"spark.rapids.sql.test.enabled": "true"}),
+                     device=device)
+    # the port's host engine: "the port's CPU answer"
+    h = TorchSession(dict(base, **{"spark.rapids.sql.enabled": "false"}),
+                     device=device)
+    state0 = runtime_state(on_card)
+    ms: dict = {}
+
+    def timed(key, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        ms[key] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    # (a) range: 1 GiB of ids on the card, a filter, sum and count
+    r = s.range(0, range_rows, 1, numPartitions=4)
+    lo, hi = range_rows // 5, range_rows // 5 * 4
+    q = r.filter((F.col("id") >= lo) & (F.col("id") < hi)).agg(
+        F.sum("id").alias("s"), F.count("id").alias("c"))
+    check("TorchRange" in quiet_plan(q), "range plan lacks TorchRange")
+    rows = timed("range_filter_sum", q.collect)
+    check(rows == [{"s": (lo + hi - 1) * (hi - lo) // 2, "c": hi - lo}],
+          f"range sum/count {rows}")
+    check(timed("range_count", r.count) == range_rows, "range count")
+    print(f"(16a) range at {range_rows} rows ok: filtered sum and count "
+          "equal the closed form", flush=True)
+
+    # (b) sample: the rows of a numpy oracle of the same hash, and the
+    # host engine's
+    cols, valid, parts = li
+    n = len(cols["l_orderkey"])
+    keys = ["l_orderkey", "l_partkey", "l_quantity"]
+    df = s.createDataFrame(cols, num_partitions=parts, validity=valid)
+    hdf = h.createDataFrame(cols, num_partitions=parts, validity=valid)
+    for replace, frac in ((False, 0.1), (True, 0.5)):
+        tag = f"sample_{'replace' if replace else 'bernoulli'}"
+        q = df.select(*keys).sample(replace, frac, SURFACE_SEED)
+        check("TorchSample" in quiet_plan(q), f"{tag}: no TorchSample")
+        got = timed(tag, q.to_arrow)
+        idx = sample_oracle(local_partition_rows(n, parts), frac, replace,
+                            SURFACE_SEED)
+        for k in keys:
+            check(np.array_equal(got.column(k).to_numpy(), cols[k][idx]),
+                  f"{tag}: {k} differs from the oracle")
+        cpu = hdf.select(*keys).sample(replace, frac, SURFACE_SEED) \
+            .to_arrow()
+        check(cpu.equals(got), f"{tag}: the host engine's rows differ")
+        print(f"(16b) {tag} at {n} rows ok: {got.num_rows} rows equal the "
+              "numpy oracle and the host engine's", flush=True)
+
+    # (c) repartition and coalesce: partition row counts as the host
+    # engine's, the source's rows
+    widths = _widths([cols[k] for k in keys])
+    src = _row_codes([cols[k] for k in keys], widths)
+    for tag, q, hq in (
+            ("repartition_16", df.select(*keys).repartition(16),
+             hdf.select(*keys).repartition(16)),
+            ("repartition_16_key",
+             df.select(*keys).repartition(16, "l_orderkey"),
+             hdf.select(*keys).repartition(16, "l_orderkey")),
+            ("coalesce_2", df.select(*keys).coalesce(2),
+             hdf.select(*keys).coalesce(2))):
+        plan = quiet_plan(q)
+        want_kind = "hash" if tag.endswith("key") else (
+            "coalesce" if tag.startswith("coalesce") else "roundrobin")
+        check(f"TorchShuffleExchange[{want_kind}" in plan, f"{tag}: {plan}")
+        parts_dev = timed(tag, q._device_partitions)
+        counts = [sum(b.num_rows for b in p) for p in parts_dev]
+        want = [sum(b.num_rows for b in p) for p in hq._device_partitions()]
+        check(counts == want, f"{tag}: partition rows {counts} vs {want}")
+        flat = [b for p in parts_dev for b in p]
+        check(all(b.device.type == device for b in flat),
+              f"{tag}: a batch off the {device}")
+        got = _row_codes([np.concatenate([
+            b.columns[i].data[:b.num_rows].cpu().numpy() for b in flat])
+            for i in range(len(keys))], widths)
+        check(np.array_equal(got, src), f"{tag}: rows differ from the source")
+        del parts_dev, flat
+        print(f"(16c) {tag} ok: partition rows {counts} equal the host "
+              "engine's; the rows are the source's", flush=True)
+
+    # (d) writes: the device batches download once, at the file boundary
+    full = TorchColumnarBatch.from_numpy_columns(cols, valid).to_arrow()
+    dc = s.createDataFrame(full, num_partitions=parts).device_cache()
+    part_keys = keys + ["l_returnflag", "l_linestatus"]
+
+    def write_line(fmt, d, rows_written, wall_ms, s_):
+        files, nbytes = _dir_stats(d)
+        m = _write_metrics(s_)
+        check(m.get("numWrittenRows") == rows_written,
+              f"write_{fmt}: numWrittenRows {m}")
+        check(m.get("numFiles") == len(files), f"write_{fmt}: numFiles {m}")
+        print(json.dumps({f"write_{fmt}": {
+            "rows": rows_written, "wall_ms": wall_ms, "mb": nbytes / 1e6,
+            "files": len(files), "write_time_ms": m["writeTime"] / 1e6,
+            "num_written_rows": m["numWrittenRows"]}, "card": smi}),
+            flush=True)
+
+    def part_codes(t):
+        return _row_codes([t.column(k).to_numpy() for k in keys]
+                          + [_letter_codes(t.column("l_returnflag"), "ANR"),
+                             _letter_codes(t.column("l_linestatus"), "FO")],
+                          widths + [2, 1])
+    want_part = part_codes(full)
+    d = os.path.join(tmpdir, "parquet_partitioned")
+    timed("write_parquet_partitioned", lambda: dc.write.partitionBy(
+        "l_returnflag", "l_linestatus").parquet(d))
+    write_line("parquet_partitioned", d, n, ms["write_parquet_partitioned"],
+               s)
+    back = timed("read_parquet_partitioned", lambda: s.read.parquet(d)
+                 .select(*part_keys).to_arrow())
+    check(np.array_equal(part_codes(back), want_part),
+          "partitioned parquet read back differs")
+    d = os.path.join(tmpdir, "parquet_bucketed")
+    timed("write_parquet_bucketed", lambda: dc.write.bucketBy(
+        8, "l_orderkey").parquet(d))
+    write_line("parquet_bucketed", d, n, ms["write_parquet_bucketed"], s)
+    for f in os.listdir(d):
+        if f.endswith(".parquet"):
+            ok = pq.read_table(os.path.join(d, f), columns=["l_orderkey"])
+            ids = set(np.mod(spark_hash_int(
+                ok.column(0).to_numpy()), 8).tolist())
+            check(ids == {int(f.split("_")[1].split(".")[0])},
+                  f"bucket file {f} holds buckets {ids}")
+    back = timed("read_parquet_bucketed", lambda: s.read.parquet(d)
+                 .select(*keys).to_arrow())
+    check(np.array_equal(_row_codes([back.column(k).to_numpy()
+                                     for k in keys], widths), src),
+          "bucketed parquet read back differs")
+    print("(16d) parquet partitionBy(l_returnflag, l_linestatus) and "
+          "bucketBy(8, l_orderkey) ok: every bucket file's ids are Spark's; "
+          "both read back (the device decode) to the source rows",
+          flush=True)
+    del dc
+    for fmt, rows_n in (("orc", text_rows), ("csv", text_rows),
+                        ("json", json_rows)):
+        t = full.slice(0, rows_n)
+        tdf = s.createDataFrame(t, num_partitions=2)
+        d = os.path.join(tmpdir, fmt)
+        timed(f"write_{fmt}", lambda: getattr(tdf.write, fmt)(d))
+        write_line(fmt, d, rows_n, ms[f"write_{fmt}"], s)
+        names = sorted(f for f in os.listdir(d) if not f.startswith("_"))
+        check(len(names) == 2, f"{fmt}: files {names}")
+        start = 0
+        for name, cnt in zip(names, local_partition_rows(rows_n, 2)):
+            part = t.slice(start, cnt)
+            start += cnt
+            if fmt == "orc":
+                continue
+            buf = io.BytesIO()
+            if fmt == "csv":
+                pacsv.write_csv(part, buf, write_options=pacsv.WriteOptions(
+                    include_header=True))
+                want_text = buf.getvalue()
+            else:
+                want_text = "".join(json.dumps(row, default=str) + "\n"
+                                    for row in part.to_pylist()).encode()
+            with open(os.path.join(d, name), "rb") as fh:
+                check(fh.read() == want_text,
+                      f"{fmt} file {name} differs from the oracle's text")
+        if fmt == "orc":
+            back = timed("read_orc", lambda: s.read.orc(d).to_arrow())
+            check(back.equals(t.cast(back.schema)), "orc read back differs")
+        elif fmt == "csv":
+            back = timed("read_csv", lambda: s.read.csv(d, header=True)
+                         .select(*keys).to_arrow())
+            check(all(np.array_equal(back.column(k).to_numpy(),
+                                     t.column(k).to_numpy())
+                      for k in keys), "csv read back differs")
+        else:
+            back = timed("read_json", lambda: s.read.json(d).select(
+                *keys).to_arrow())
+            check(all(np.array_equal(back.column(k).to_numpy(),
+                                     t.column(k).to_numpy())
+                      for k in keys), "json read back differs")
+    print(f"(16d) orc and csv at {text_rows} rows, json at {json_rows}: "
+          "csv and json text equal pyarrow's and json.dumps' of the same "
+          "rows; every format reads back", flush=True)
+
+    # (e) cache() and the actions
+    q1cols = lineitem(q1_rows)
+    cached = timed("cache", s.createDataFrame(q1cols).cache)
+    check("CpuCachedScan" in quiet_plan(cached), "no cached scan")
+    oracle = framework_oracle(q1cols)
+    fq = framework_query(F, cached)
+    first = timed("framework_q1_cached", fq.collect)
+    second = fq.collect()
+    check_framework_rows(first, oracle)
+    check(first == second, "two collects over cache() differ")
+    dq = s.createDataFrame(q1cols).device_cache()
+    a = timed("cached_to_arrow", cached.to_arrow)
+    b = timed("device_cache_to_arrow", dq.to_arrow)
+    check(a.equals(b), "cache() and device_cache() rows differ")
+    del a, b
+    check(timed("count", cached.count) == q1_rows, "count of cache()")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cached.show(5)
+    lines = out.getvalue().splitlines()
+    check(len(lines) == 10 and lines[-1] == "only showing top 5 rows",
+          f"show(5): {lines}")
+    try:
+        import pandas  # noqa: F401
+        has_pandas = True
+    except ImportError:
+        has_pandas = False
+    if has_pandas:
+        m = min(1 << 16, q1_rows)
+        pdf = timed("to_pandas", dq.limit(m).toPandas)
+        check(pdf.shape == (m, len(q1cols)), f"toPandas {pdf.shape}")
+    arrays = timed("to_device_arrays", dq.select(
+        "l_quantity", "l_shipdate").to_device_arrays)
+    check(all(v.device.type == device for v in arrays.values()),
+          "to_device_arrays: a tensor off the card")
+    check(np.array_equal(arrays["l_quantity"].cpu().numpy(),
+                         q1cols["l_quantity"])
+          and np.array_equal(arrays["l_shipdate"].cpu().numpy(),
+                             q1cols["l_shipdate"]),
+          "to_device_arrays differ from the rows")
+    del arrays, dq, cached, fq
+    dd = df.dropDuplicates(["l_orderkey"]).select(*keys)
+    check("TorchHashAggregate" in quiet_plan(dd), "dropDuplicates plan")
+    got = timed("drop_duplicates", dd.to_arrow)
+    uk, first_idx = np.unique(cols["l_orderkey"], return_index=True)
+    order = np.argsort(got.column("l_orderkey").to_numpy(), kind="stable")
+    for k in keys:
+        check(np.array_equal(got.column(k).to_numpy()[order],
+                             cols[k][first_idx]),
+              f"dropDuplicates: {k} is not each key's first row")
+    agg = df.groupBy("l_orderkey").agg(F.count("l_quantity").alias("n"))
+    j = df.select("l_orderkey", "l_quantity").join(agg, "l_orderkey")
+    check(j.columns == ["l_orderkey", "l_quantity", "n"],
+          f"join on names: columns {j.columns}")
+    got = timed("join_on_names", j.to_arrow)
+    _, inv, cnt = np.unique(cols["l_orderkey"], return_inverse=True,
+                            return_counts=True)
+    check(got.num_rows == n and int(np.sum(got.column("n").to_numpy()))
+          == int(np.sum(cnt.astype(np.int64) ** 2)), "join on names rows")
+    print(f"(16e) cache() ok: framework Q1 over {q1_rows} cached rows "
+          "equals the oracle twice, its rows equal device_cache()'s; "
+          f"count, show(5), toPandas ({'ok' if has_pandas else 'no pandas'}"
+          "), to_device_arrays on the device, dropDuplicates (First), a "
+          "join on names", flush=True)
+    del df, hdf, dd, agg, j, got, full
+    s.stop()
+    h.stop()
+    QueryScheduler.get().plan_cache.clear()
+    if on_card:
+        torch.cuda.empty_cache()
+    check_no_leak(state0, on_card, "phase 16")
+    print(json.dumps({"surface_ms": ms, "card": smi}), flush=True)
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s | card: {smi}",
+          flush=True)
+
 
 def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--strings-prep":
@@ -4871,6 +5299,10 @@ def main() -> int:
     has_pyarrow = subprocess.run([sys.executable, "-c", "import pyarrow"],
                                  capture_output=True).returncode == 0
     print(f"import pyarrow: {'ok' if has_pyarrow else 'fails'}", flush=True)
+    has_pandas = subprocess.run([sys.executable, "-c", "import pandas"],
+                                capture_output=True).returncode == 0
+    # toPandas() needs it; phase 16 checks it where it imports
+    print(f"import pandas: {'ok' if has_pandas else 'fails'}", flush=True)
     check(has_pyarrow, "pyarrow does not import: the parquet scan needs it")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
 
@@ -4889,7 +5321,7 @@ def main() -> int:
 
 def run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
                cpu_answers, prep) -> int:
-    """Phases 2-15 (``main`` prints phase 1 and starts phase 12's CPU
+    """Phases 2-16 (``main`` prints phase 1 and starts phase 12's CPU
     answers and phase 13's host work)."""
     from spark_rapids_tpu_torch.entry import entry
     from spark_rapids_tpu_torch.kernels import build, q1_cuda
@@ -5082,9 +5514,10 @@ def run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
     release_plans()
     clock.mark(8)
 
-    # 9. the parquet scan: bench.py's scan_agg queries and Q1 from parquet
+    # 9. the parquet scan: bench.py's scan_agg queries and Q1 from parquet,
+    # at 2^23 rows (bench.py: 2^24; cut for phase 16's time)
     scan_keep: dict = {}  # the file phase 15 reads again
-    scan_paths(F, TorchSession, smi, keep=scan_keep)
+    scan_paths(F, TorchSession, smi, rows=SCAN_ROWS, keep=scan_keep)
     release_plans()
     clock.mark(9)
 
@@ -5103,7 +5536,7 @@ def run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
     release_plans()
 
     # 12. the 99 TPC-DS queries: the card against the port's CPU answers
-    # at 12,000 rows; at 2^22 rows in test mode, eight against numpy
+    # at 12,000 rows; at 2^21 rows in test mode, eight against numpy
     # oracles, and a timing line each. It launches neither Q1 kernel.
     before = dict(q1_cuda.launches)
     tpcds_paths(F, TorchSession, smi, cpu_answers=cpu_answers, keep=keep)
@@ -5138,9 +5571,22 @@ def run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
     obs_paths(F, TorchSession, smi, tables, df, cols, oracle,
               scan_keep["scan"])
     del df, cols
-    tables.clear()
     release_plans()
     clock.mark(15)
+
+    # 16. the DataFrame and session surface: range, sample, repartition
+    # and coalesce, the writer and its formats read back, cache() and the
+    # actions, in test mode over phase 10's 2^22-row lineitem. It launches
+    # neither Q1 kernel.
+    before = dict(q1_cuda.launches)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_surface_") as d:
+        surface_paths(F, TorchSession, smi,
+                      tpch_host(tables, 1 << 22, 4, ("lineitem",))
+                      ["lineitem"], d)
+    check(dict(q1_cuda.launches) == before, "phase 16 launched a Q1 kernel")
+    tables.clear()
+    release_plans()
+    clock.mark(16)
 
     print(kernels_line, flush=True)  # again, near the end of the output
     print(nvidia_smi())

@@ -267,6 +267,57 @@ FILECACHE_ENABLED = ConfEntry(
     False, _parse_bool)
 
 # ---------------------------------------------------------------------------
+# the other host formats, the file writer and df.cache() (reference
+# config.py:904-946, :992, :1096-1100, :1497)
+# ---------------------------------------------------------------------------
+
+CSV_ENABLED = ConfEntry(
+    "spark.rapids.sql.format.csv.enabled",
+    "Enable device CSV scans (host read, one upload a table).", True,
+    _parse_bool)
+
+JSON_ENABLED = ConfEntry(
+    "spark.rapids.sql.format.json.enabled",
+    "Enable device JSON scans (host read, one upload a table).", True,
+    _parse_bool)
+
+ORC_ENABLED = ConfEntry(
+    "spark.rapids.sql.format.orc.enabled",
+    "Enable device ORC scans (host read, one upload a table).", True,
+    _parse_bool)
+
+PARQUET_WRITE_ENABLED = ConfEntry(
+    "spark.rapids.sql.format.parquet.write.enabled",
+    "Enable accelerated parquet writes.", True, _parse_bool)
+
+ORC_WRITE_ENABLED = ConfEntry(
+    "spark.rapids.sql.format.orc.write.enabled",
+    "Enable accelerated ORC writes.", True, _parse_bool)
+
+BUCKETING_WRITE_ENABLED = ConfEntry(
+    "spark.rapids.sql.format.write.bucketing.enabled",
+    "Enable bucketBy writes (per-bucket files with a bucket-spec sidecar; "
+    "reference GpuFileFormatWriter bucketing).", True, _parse_bool)
+
+CACHE_BATCH_ROWS = ConfEntry(
+    "spark.rapids.sql.cache.batchSizeRows",
+    "Rows per parquet-compressed cached batch in df.cache() (reference "
+    "ParquetCachedBatchSerializer per-batch encoding).", 1 << 18,
+    lambda v: int(str(v), 0))
+
+CACHE_HOST_LIMIT = ConfEntry(
+    "spark.rapids.sql.cache.hostMemoryLimit",
+    "Host-memory budget for cached-relation blobs; overflow spills whole "
+    "compressed batches to local disk (0 disables the cap).", 0,
+    _parse_bytes)
+
+LOGICAL_PUSHDOWN = ConfEntry(
+    "spark.rapids.tpu.optimizer.pushdown.enabled",
+    "Logical filter/projection pushdown through explicit exchanges "
+    "(Repartition), so rows are dropped before they are shuffled.", True,
+    _parse_bool)
+
+# ---------------------------------------------------------------------------
 # the memory runtime (reference config.py:531-566)
 # ---------------------------------------------------------------------------
 

@@ -166,7 +166,8 @@ def _normalize_fp_key_arrow(arr):
 
 
 _ARROW_AGG = {"sum": "sum", "count": "count", "min": "min", "max": "max",
-              "avg": "mean", "stddev_samp": "stddev", "stddev_pop": "stddev",
+              "avg": "mean", "first": "first", "last": "last",
+              "stddev_samp": "stddev", "stddev_pop": "stddev",
               "var_samp": "variance", "var_pop": "variance"}
 
 
@@ -189,6 +190,8 @@ def _arrow_aggregate(flat, keys: List[str], specs):
             opts = pc.VarianceOptions(ddof=1)
         elif fn.update_op in ("stddev_pop", "var_pop"):
             opts = pc.VarianceOptions(ddof=0)
+        elif fn.update_op in ("first", "last"):
+            opts = pc.ScalarAggregateOptions(skip_nulls=fn.ignore_nulls)
         if pa.types.is_floating(col.type) and fn.update_op in ("min", "max"):
             nan = pc.fill_null(pc.is_nan(col), False)
             neutral = pa.scalar(np.inf if fn.update_op == "min" else -np.inf,
@@ -212,7 +215,10 @@ def _arrow_aggregate(flat, keys: List[str], specs):
             table = table.append_column(
                 "_d", pa.array(np.ones(table.num_rows, np.int8)))
             calls.append(("_d", "count", None))
-        res = table.group_by(keys).aggregate(
+        # first/last are ordered: Arrow takes them only single-threaded,
+        # which keeps each group's rows in input order
+        ordered = any(op in ("first", "last") for _, op, _ in calls)
+        res = table.group_by(keys, use_threads=not ordered).aggregate(
             [(c, op) if o is None else (c, op, o) for c, op, o in calls])
 
         def get(c, op):
@@ -220,7 +226,8 @@ def _arrow_aggregate(flat, keys: List[str], specs):
         out = [res.column(k) for k in keys]
     else:
         fns = {"sum": pc.sum, "count": pc.count, "min": pc.min,
-               "max": pc.max, "mean": pc.mean, "stddev": pc.stddev,
+               "max": pc.max, "mean": pc.mean, "first": pc.first,
+               "last": pc.last, "stddev": pc.stddev,
                "variance": pc.variance}
         vals = {}
         for c, op, o in calls:
@@ -444,6 +451,8 @@ def _segment_update(fn: AggregateFunction, col: Optional[TorchColumnVector],
         valid = col.validity[segs.perm]
     if op == "count":
         return {"count": segs.count(valid)}
+    if op in ("first", "last"):
+        return _segment_pick(fn, col, segs, valid)
     if col.offsets is not None:
         if op in ("min", "max"):
             return _host_string_minmax(op, col, segs, ctx)
@@ -496,9 +505,36 @@ def _segment_update(fn: AggregateFunction, col: Optional[TorchColumnVector],
     raise NotImplementedError(f"update op {op} not yet ported")
 
 
+def _segment_pick(fn: AggregateFunction, col: TorchColumnVector,
+                  segs: _Segments, valid: Optional[torch.Tensor]) -> Dict:
+    """first/last: each group's first (last) row in input order, among its
+    non-null rows with ``ignore_nulls`` (the reference's selection by row
+    position, ``execs/aggregates.py:720``). The group sort is stable, so a
+    group's sorted positions keep the input order; one gather takes the
+    chosen rows of any column type, and a group with no row to choose
+    gives null."""
+    first = fn.update_op == "first"
+    n, dev = segs.n, segs.perm.device
+    sent = n if first else -1
+    sel = torch.full((segs.g_cap,), sent, dtype=torch.int64, device=dev)
+    if n:
+        pos = torch.arange(n, dtype=torch.int64, device=dev)
+        if fn.ignore_nulls and valid is not None:
+            pos = torch.where(valid, pos, sent)
+        sel = sel.scatter_reduce(0, segs.seg_ids, pos,
+                                 reduce="amin" if first else "amax",
+                                 include_self=True)
+    has = sel != sent
+    rows = torch.where(has, segs.perm[sel.clamp(0, max(n - 1, 0))]
+                       if n else sel, -1)
+    picked = gather(TorchColumnarBatch([col], col.num_rows), rows,
+                    segs.n_groups, segs.g_cap)
+    return {"column": picked.columns[0]}
+
+
 def _evaluate_agg(fn: AggregateFunction, state: Dict[str, torch.Tensor],
                   n_groups: int, cap: int) -> TorchColumnVector:
-    if "column" in state:  # a string min/max: the chosen rows
+    if "column" in state:  # first/last, a string min/max: the chosen rows
         return state["column"]
     dev = next(iter(state.values())).device
     gmask = row_mask(n_groups, cap, dev)

@@ -1,6 +1,7 @@
-"""Project, filter, union and limit operators on torch batches (port of
-TpuProjectExec, TpuFilterExec, TpuUnionExec, TpuLocalLimitExec and
-TpuGlobalLimitExec from ``spark_rapids_tpu/execs/basic.py``). Expressions
+"""Project, filter, union, limit and range operators on torch batches (port
+of TpuProjectExec, TpuFilterExec, TpuUnionExec, TpuLocalLimitExec,
+TpuGlobalLimitExec and TpuRangeExec from
+``spark_rapids_tpu/execs/basic.py``). Expressions
 evaluate eagerly (the reference's per-operator jit cache is a JAX compile
 cache with nothing to port). Project and filter run each batch under the
 retry framework (``memory/retry.with_retry``): the input is spillable, and
@@ -92,6 +93,55 @@ class TorchFilterExec(TorchExec):
                              max_retries=ctx.conf.get(TASK_RETRY_LIMIT))
             del batch
             yield from gen
+
+
+class TorchRangeExec(TorchExec):
+    """``session.range`` on the device (reference ``TpuRangeExec``,
+    GpuRangeExec): ``torch.arange`` in ``batch_rows``-row batches, the
+    partitions split as ``CpuRangeExec``'s."""
+
+    def __init__(self, start: int, end: int, step: int, num_partitions: int,
+                 output: List[AttributeReference], batch_rows: int = 1 << 20):
+        super().__init__([])
+        self.start, self.end, self.step = start, end, step
+        self._num_partitions = max(1, num_partitions)
+        self._output = list(output)
+        self.batch_rows = batch_rows
+
+    @property
+    def output(self):
+        return self._output
+
+    def num_partitions(self) -> int:
+        return self._num_partitions
+
+    def node_desc(self) -> str:
+        return f"TorchRange({self.start}, {self.end}, step={self.step})"
+
+    def internal_do_execute_columnar(self, idx: int,
+                                     ctx: TaskContext) -> Iterator:
+        from ..columnar.vector import TorchColumnVector, bucket_capacity
+        from ..memory.semaphore import TorchSemaphore
+        from ..types import LongT
+        from .cpu import range_partition
+        lo, cnt = range_partition(self.start, self.end, self.step,
+                                  self._num_partitions, idx)
+        names = [a.name for a in self._output]
+        # the ids take device memory: admission first, as a scan's upload
+        TorchSemaphore.get(ctx.conf).acquire_if_necessary(ctx)
+        pos = 0
+        while True:
+            n = min(self.batch_rows, cnt - pos)
+            with op_time(ctx, self):
+                cap = bucket_capacity(max(n, 1))
+                ids = (torch.arange(cap, dtype=torch.int64,
+                                    device=ctx.device) + (lo + pos)) \
+                    * self.step + self.start
+            yield TorchColumnarBatch([TorchColumnVector(LongT, ids, None, n)],
+                                     n, names)
+            pos += max(n, 1)
+            if pos >= cnt:
+                return
 
 
 class TorchUnionExec(TorchExec):

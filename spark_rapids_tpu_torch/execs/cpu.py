@@ -9,7 +9,9 @@ input batch into a ``pa.Table`` once (``TorchColumnarBatch.to_arrow``),
 evaluates its expressions through their ``eval_cpu``, and turns its
 output back once (``host_batch``). ``CpuLocalTableScanExec`` slices the
 host table into partitions and ``batchSizeRows`` batches;
-``CpuFileScanExec`` (``io/parquet.py``) reads parquet files on the host.
+``CpuCachedScanExec`` decodes a ``df.cache()``d relation a batch at a
+time; ``CpuRangeExec`` makes ``session.range``'s ids;
+``CpuFileScanExec`` (``io/parquet.py``) reads files on the host.
 
 The host engine is chosen only at planning: a ``Cpu*`` node is left in a
 plan where the override engine tagged it off the card, with the reason
@@ -111,6 +113,83 @@ class CpuLocalTableScanExec(CpuExec):
             chunk = self.table.slice(start + off, min(step, count - off))
             if chunk.num_rows or count == 0:
                 yield chunk.rename(names)
+
+
+def range_partition(start: int, end: int, step: int, n_parts: int,
+                    idx: int):
+    """(first id index, id count) of partition ``idx`` of a range: the ids
+    split into ``n_parts`` runs of nearly equal length, as Spark's."""
+    total = max(0, -(-(end - start) // step))
+    base = total // n_parts
+    return (idx * base + min(idx, total % n_parts),
+            base + (1 if idx < total % n_parts else 0))
+
+
+class CpuRangeExec(CpuExec):
+    """``session.range`` on the host: one batch of ids a partition
+    (reference ``CpuRangeExec``)."""
+
+    def __init__(self, start: int, end: int, step: int, num_partitions: int,
+                 output: List[AttributeReference]):
+        super().__init__([])
+        self.start, self.end, self.step = start, end, step
+        self._num_partitions = max(1, num_partitions)
+        self._output = list(output)
+
+    @property
+    def output(self) -> List[AttributeReference]:
+        return self._output
+
+    def num_partitions(self) -> int:
+        return self._num_partitions
+
+    def node_desc(self) -> str:
+        return f"CpuRange({self.start}, {self.end}, step={self.step})"
+
+    @counts_output
+    def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
+        from ..columnar.vector import TorchColumnVector
+        from ..types import LongT
+        lo, cnt = range_partition(self.start, self.end, self.step,
+                                  self._num_partitions, idx)
+        with op_time(ctx, self):
+            vals = self.start + (lo + np.arange(cnt, dtype=np.int64)) \
+                * self.step
+            out = TorchColumnarBatch(
+                [TorchColumnVector.from_numpy(LongT, vals, None,
+                                              capacity=cnt, bucket=False)],
+                cnt, [a.name for a in self._output])
+        yield out
+
+
+class CpuCachedScanExec(CpuExec):
+    """Scan of a ``df.cache()``d relation (``io/cache.CachedRelation``):
+    each parquet-compressed batch decodes on its own (reference: the read
+    side of ParquetCachedBatchSerializer). A host source like the local
+    table scan; a transition uploads its output."""
+
+    def __init__(self, relation, output: List[AttributeReference]):
+        super().__init__([])
+        self.relation = relation
+        self._output = list(output)
+
+    @property
+    def output(self) -> List[AttributeReference]:
+        return self._output
+
+    def num_partitions(self) -> int:
+        return 1
+
+    def node_desc(self) -> str:
+        return f"CpuCachedScan[{self.relation.node_desc()}]"
+
+    @counts_output
+    def execute_partition(self, idx: int, ctx: TaskContext) -> Iterator:
+        for t in self.relation.iter_tables():
+            if t.num_rows:
+                with op_time(ctx, self):
+                    out = table_batch(t, self._output)
+                yield out
 
 
 class CpuProjectExec(CpuExec):

@@ -1,6 +1,7 @@
-"""Aggregate function declarations (port of the Sum/Count/Min/Max/Average
-and variance-family part of ``spark_rapids_tpu/expressions/aggregates.py``). They are driven by
-the aggregate execs, not evaluated directly."""
+"""Aggregate function declarations (port of the Sum/Count/Min/Max/Average/
+First/Last and variance-family part of
+``spark_rapids_tpu/expressions/aggregates.py``). They are driven by the
+aggregate execs, not evaluated directly."""
 
 from __future__ import annotations
 
@@ -74,6 +75,34 @@ class Average(AggregateFunction):
         if isinstance(ct, DecimalType):
             return DecimalType(min(ct.precision + 4, 38), min(ct.scale + 4, 38))
         return DoubleT
+
+
+class First(AggregateFunction):
+    """The first value of a group in input order (with ``ignore_nulls``
+    the first non-null one)."""
+    update_op = "first"
+
+    def __init__(self, child: Expression, ignore_nulls: bool = False):
+        super().__init__(child)
+        self.ignore_nulls = ignore_nulls
+
+    @property
+    def dtype(self) -> DataType:
+        return self.child.dtype
+
+
+class Last(AggregateFunction):
+    """The last value of a group in input order (with ``ignore_nulls``
+    the last non-null one)."""
+    update_op = "last"
+
+    def __init__(self, child: Expression, ignore_nulls: bool = False):
+        super().__init__(child)
+        self.ignore_nulls = ignore_nulls
+
+    @property
+    def dtype(self) -> DataType:
+        return self.child.dtype
 
 
 class StddevBase(AggregateFunction):

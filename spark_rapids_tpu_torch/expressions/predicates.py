@@ -148,6 +148,68 @@ class GreaterThanOrEqual(BinaryComparison):
         return sign >= 0
 
 
+class EqualNullSafe(BinaryComparison):
+    """``<=>``: null-safe equality, never null (two nulls are equal, a null
+    and a value are not)."""
+    symbol = "<=>"
+
+    @property
+    def nullable(self) -> bool:
+        return False
+
+    @staticmethod
+    def _validity(x, capacity: int, mask):
+        if isinstance(x, TorchScalar):
+            return torch.zeros(capacity, dtype=torch.bool,
+                               device=mask.device) if x.value is None \
+                else mask
+        return mask if x.validity is None else x.validity & mask
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        l = self.left.eval_device(batch, ctx)
+        r = self.right.eval_device(batch, ctx)
+        if isinstance(l, TorchScalar) and isinstance(r, TorchScalar):
+            if l.value is None or r.value is None:
+                return TorchScalar(BooleanT, l.value is None
+                                   and r.value is None)
+            return TorchScalar(BooleanT, bool(l.value == r.value))
+        cap, dev = batch.capacity, batch.device
+        mask = row_mask(batch.num_rows, cap, dev)
+        lv, rv = self._validity(l, cap, mask), self._validity(r, cap, mask)
+        if any(isinstance(x, TorchScalar) and x.value is None
+               for x in (l, r)):
+            eq = torch.zeros(cap, dtype=torch.bool, device=dev)
+        elif isinstance(self.left.dtype, StringType):
+            from .strings import compare_strings
+            eq = compare_strings(l, r, cap, dev)[0] == 0
+        else:
+            ld, _ = device_parts(l, cap, dev)
+            rd, _ = device_parts(r, cap, dev)
+            eq = nan_aware_eq(ld, rd).expand(cap)
+        data = torch.where(lv & rv, eq, lv == rv) & mask
+        return make_column(BooleanT, data, None, batch.num_rows)
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        import pyarrow as pa
+        import pyarrow.compute as pc
+        n = table.num_rows
+        l = arrow_column(self.left.eval_cpu(table, ctx), n, self.left.dtype)
+        r = arrow_column(self.right.eval_cpu(table, ctx), n,
+                         self.right.dtype)
+        if pa.types.is_floating(l.type) or pa.types.is_floating(r.type):
+            ln, lm = arrow_numpy(l, n, self.left.dtype)
+            rn, rm = arrow_numpy(r, n, self.right.dtype)
+            eq = nan_aware_eq(torch.from_numpy(np.array(ln)),
+                              torch.from_numpy(np.array(rn))).numpy()
+            return pa.array(np.where(~lm & ~rm, eq, lm == rm))
+        if l.type != r.type:  # a date against its day number
+            l, r = (x.cast(pa.int32()) if pa.types.is_date32(x.type)
+                    else x for x in (l, r))
+        eq = pc.equal(l, r)
+        both_null = pc.and_(pc.is_null(l), pc.is_null(r))
+        return pc.if_else(pc.is_null(eq), both_null, eq)
+
+
 class _Kleene(BinaryExpression):
     """Three-valued AND/OR over boolean operands."""
     word = "?"

@@ -223,6 +223,14 @@ def regexp_extract(c, pattern: str, idx: int = 1) -> Column:
     return Column(RegexpExtract(_expr_or_col(c), pattern, idx))
 
 
+def first(c, ignorenulls: bool = False) -> Column:
+    return Column(_G.First(_expr_or_col(c), ignorenulls))
+
+
+def last(c, ignorenulls: bool = False) -> Column:
+    return Column(_G.Last(_expr_or_col(c), ignorenulls))
+
+
 # --- the variance family ---------------------------------------------------
 
 def stddev(c) -> Column:

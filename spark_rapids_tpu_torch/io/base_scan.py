@@ -105,3 +105,30 @@ def rg_excluded(rg, arrow_filter) -> bool:
         except TypeError:
             continue
     return False
+
+
+def dataset_filter_expr(arrow_filter):
+    """Pushed-filter tuples as a ``pyarrow.dataset`` expression, or None
+    when none converts: the ORC read applies it with stripe statistics
+    pruning (the ORC analogue of parquet's ``filters=``); the exact Filter
+    above the scan keeps the rows the same either way."""
+    import pyarrow.compute as pc
+    expr = None
+    for name, op, val in arrow_filter or ():
+        f = pc.field(name)
+        if op in ("=", "=="):
+            e = f == val
+        elif op == "<":
+            e = f < val
+        elif op == "<=":
+            e = f <= val
+        elif op == ">":
+            e = f > val
+        elif op == ">=":
+            e = f >= val
+        elif op == "in":
+            e = f.isin(list(val))
+        else:
+            continue
+        expr = e if expr is None else (expr & e)
+    return expr

@@ -1,4 +1,4 @@
-"""Parquet file scans (port of the parquet part of
+"""File scans (port of the parquet, ORC, CSV and JSON part of
 ``spark_rapids_tpu/io/parquet.py``).
 
 ``CpuFileScanExec`` is the planner's node: it reads on the host with
@@ -17,10 +17,14 @@ usual upload. ``TorchFileScanExec`` is its device counterpart:
 
 Before a partition's first upload or device decode, its task takes a
 permit of the device semaphore (reference parquet.py:625-671).
+ORC, CSV and JSON files always read on the host (``read_host_file``:
+ORC with the pushed filters as a dataset expression, CSV with ``header``,
+``sep`` and a user schema whose column count may differ from the file's
+(Spark's PERMISSIVE mode), JSON lines) and upload a table at a time.
 Hive-partitioned directories (``key=value``) add their partition columns
 as constants. Bucket pruning, deletion vectors, dynamic partition pruning
-and the other formats wait for later slices; pyarrow is imported only when
-a scan runs.
+and the Avro and Hive text formats wait for later slices (A9); pyarrow is
+imported only when a scan runs.
 """
 
 from __future__ import annotations
@@ -162,11 +166,27 @@ def file_scan_rows(paths) -> float:
     return max(1.0, total / FILE_ROW_BYTES)
 
 
-def read_schema(path: str):
-    """A parquet file's Arrow schema, with the clean encrypted-file
-    message where pyarrow cannot read the footer."""
+def read_schema(path: str, fmt: str = "parquet", options=None):
+    """A file's Arrow schema (parquet and ORC from the footer, CSV and JSON
+    from a read of the file), with the clean encrypted-file message where
+    pyarrow cannot read a parquet footer."""
     import_pyarrow()
     import pyarrow.parquet as pq
+    options = options or {}
+    if fmt == "orc":
+        import pyarrow.orc as paorc
+        return paorc.ORCFile(path).schema
+    if fmt == "csv":
+        import pyarrow.csv as pacsv
+        return pacsv.read_csv(path, read_options=pacsv.ReadOptions(
+            autogenerate_column_names=not _csv_header(options)),
+            parse_options=pacsv.ParseOptions(
+                delimiter=_csv_sep(options))).schema
+    if fmt == "json":
+        import pyarrow.json as pajson
+        return pajson.read_json(path).schema
+    if fmt != "parquet":
+        raise NotImplementedError(f"{fmt} reads not yet ported (A9)")
     try:
         return pq.read_schema(path)
     except Exception:
@@ -176,6 +196,80 @@ def read_schema(path: str):
             raise ParquetEncryptedException(
                 encrypted_message(path, reason)) from None
         raise
+
+
+def _csv_header(options) -> bool:
+    return str(options.get("header", "false")).lower() == "true"
+
+
+def _csv_sep(options) -> str:
+    return options.get("sep", options.get("delimiter", ","))
+
+
+def read_host_file(path: str, fmt: str, columns, arrow_filter, options):
+    """One ORC, CSV or JSON file as an Arrow table on the host (reference
+    ``io/parquet._read_one``, :89-157)."""
+    pa = import_pyarrow()
+    if fmt == "orc":
+        import pyarrow.orc as paorc
+        from .base_scan import dataset_filter_expr
+        expr = dataset_filter_expr(arrow_filter) if arrow_filter else None
+        if expr is not None:
+            try:
+                import pyarrow.dataset as pads
+                return pads.dataset(path, format="orc").to_table(
+                    columns=columns, filter=expr)
+            except Exception:  # noqa: BLE001 — a filter the dataset
+                pass  # cannot take: the plain read below is exact too
+        return paorc.read_table(path, columns=columns)
+    if fmt == "csv":
+        t = _read_csv(pa, path, options)
+    elif fmt == "json":
+        import pyarrow.json as pajson
+        t = pajson.read_json(path)
+    else:
+        raise NotImplementedError(f"{fmt} reads not yet ported (A9)")
+    if columns:
+        t = t.select([c for c in columns if c in t.column_names])
+    return t
+
+
+def _read_csv(pa, path: str, options):
+    """A CSV file at the user schema's names and types where one is given
+    (reference GpuCSVScan's cast pass): a file whose column count differs
+    reads PERMISSIVE, extra file columns dropped and missing ones null
+    (Spark's CSV default mode)."""
+    import pyarrow.csv as pacsv
+    from ..types import to_arrow
+    header = _csv_header(options)
+    popts = pacsv.ParseOptions(delimiter=_csv_sep(options))
+    ddl = options.get("__user_schema__")
+    if ddl is None:
+        return pacsv.read_csv(path, read_options=pacsv.ReadOptions(
+            autogenerate_column_names=not header), parse_options=popts)
+    names = [f.name for f in ddl.fields]
+    try:
+        return pacsv.read_csv(
+            path, read_options=pacsv.ReadOptions(
+                column_names=names, skip_rows=1 if header else 0),
+            parse_options=popts,
+            convert_options=pacsv.ConvertOptions(column_types={
+                f.name: to_arrow(f.data_type) for f in ddl.fields}))
+    except pa.lib.ArrowInvalid:
+        raw = pacsv.read_csv(path, read_options=pacsv.ReadOptions(
+            autogenerate_column_names=not header), parse_options=popts)
+    out = {}
+    for i, f in enumerate(ddl.fields):
+        at = to_arrow(f.data_type)
+        if header and f.name in raw.column_names:
+            src = raw.column(f.name)
+        elif not header and i < raw.num_columns:
+            src = raw.column(i)
+        else:
+            src = None
+        out[f.name] = pa.nulls(raw.num_rows, at) if src is None \
+            else src.cast(at)
+    return pa.table(out)
 
 
 class FileScanBase:
@@ -265,6 +359,9 @@ class FileScanBase:
         return files, cols, row_filter
 
     def _read_one(self, f: str, cols, row_filter, conf):
+        if self.fmt != "parquet":
+            return self._attach_partition_cols(read_host_file(
+                f, self.fmt, cols, row_filter, self.options), f)
         return self._attach_partition_cols(_postprocess_parquet(
             _read_parquet_table(f, columns=cols, filters=row_filter), f,
             conf), f)
@@ -300,7 +397,8 @@ class FileScanBase:
             tables = [t for t in tables if t.num_rows] or tables[:1]
             yield pa.concat_tables(tables, promote_options="permissive")
         else:  # PERFILE
-            chunk_bytes = conf.get(PARQUET_CHUNK_BYTES)
+            chunk_bytes = conf.get(PARQUET_CHUNK_BYTES) \
+                if self.fmt == "parquet" else 0
             for f in files:
                 if chunk_bytes > 0:
                     for t in _read_parquet_chunks(f, cols, row_filter, conf,
@@ -369,7 +467,8 @@ class TorchFileScanExec(FileScanBase, TorchExec):
                                      ctx: TaskContext) -> Iterator:
         times = ScanTimes(ctx.device)
         try:
-            if ctx.conf.get(PARQUET_DEVICE_DECODE_ENABLED):
+            if self.fmt == "parquet" \
+                    and ctx.conf.get(PARQUET_DEVICE_DECODE_ENABLED):
                 yield from self._execute_device(idx, ctx, times)
             else:
                 yield from self._execute_host(idx, ctx, times)

@@ -1,15 +1,17 @@
-"""DataFrameReader: lazy file-source scans (port of the parquet part of
-``spark_rapids_tpu/io/reader.py``). ``session.read.parquet(path)`` and
-``session.read.format("parquet").load(path)`` plan a ``FileScan``; a
-directory reads its data files, and ``key=value`` subdirectories become
-partition columns. The other formats raise "not yet ported".
+"""DataFrameReader: lazy file-source scans (port of
+``spark_rapids_tpu/io/reader.py``). ``session.read.parquet(path)``,
+``.orc``, ``.csv``, ``.json`` and ``session.read.format(fmt).load(path)``
+plan a ``FileScan``; a directory reads its data files, and ``key=value``
+subdirectories become partition columns. ``schema`` takes a
+``StructType`` or a DDL string (``"a INT, b STRING"``). Avro, Hive text,
+Delta and Iceberg raise "not yet ported (A9)".
 """
 
 from __future__ import annotations
 
 import glob as _glob
 import os
-from typing import List
+from typing import List, Optional
 
 
 _DATA_EXTS = ("parquet", "orc", "csv", "json", "avro", "txt")
@@ -95,12 +97,10 @@ class DataFrameReader:
         return self
 
     def schema(self, schema) -> "DataFrameReader":
-        """A user schema: a ``StructType`` (a DDL string waits for the DDL
-        parser)."""
-        from ..types import StructType
-        if not isinstance(schema, StructType):
-            raise NotImplementedError("DDL schema strings not yet ported")
-        self._schema = schema
+        """A user schema: a ``StructType`` or a DDL string."""
+        from ..types import StructType, parse_ddl
+        self._schema = schema if isinstance(schema, StructType) \
+            else parse_ddl(str(schema))
         return self
 
     def format(self, fmt: str) -> "DataFrameReader":
@@ -109,8 +109,8 @@ class DataFrameReader:
 
     def load(self, path: str):
         fmt = self._options.pop("__format__", "parquet")
-        if fmt != "parquet":
-            raise NotImplementedError(f"{fmt} reads not yet ported")
+        if fmt not in ("parquet", "orc", "csv", "json"):
+            self._not_ported(fmt)
         return self._scan([path], fmt)
 
     def _scan(self, paths, fmt: str):
@@ -133,6 +133,7 @@ class DataFrameReader:
             scan_options["__partition_values__"] = pvals
         schema_attrs = None
         if self._schema is not None:
+            scan_options["__user_schema__"] = self._schema
             schema_attrs = [AttributeReference(f.name, f.data_type, f.nullable)
                             for f in self._schema.fields]
             schema_attrs += [AttributeReference(c, t, True) for c, t in
@@ -144,16 +145,27 @@ class DataFrameReader:
         return self._scan(paths, "parquet")
 
     def _not_ported(self, fmt: str):
-        raise NotImplementedError(f"{fmt} reads not yet ported")
+        raise NotImplementedError(f"{fmt} reads not yet ported (A9)")
 
-    def csv(self, path: str, *args, **kw):
-        self._not_ported("csv")
+    def csv(self, path: str, header: Optional[bool] = None,
+            inferSchema: Optional[bool] = None, sep: Optional[str] = None,
+            schema=None, **kw):
+        """CSV: ``header`` (default false), ``sep``, a user schema; types
+        are inferred without one."""
+        if header is not None:
+            self._options["header"] = str(bool(header)).lower()
+        if sep is not None:
+            self._options["sep"] = sep
+        if schema is not None:
+            self.schema(schema)
+        return self._scan([path], "csv")
 
     def json(self, path: str):
-        self._not_ported("json")
+        """JSON lines: one object a line."""
+        return self._scan([path], "json")
 
     def orc(self, path: str):
-        self._not_ported("orc")
+        return self._scan([path], "orc")
 
     def avro(self, path: str):
         self._not_ported("avro")

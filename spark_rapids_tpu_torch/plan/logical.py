@@ -1,8 +1,8 @@
 """Logical plan nodes + analysis (attribute resolution, type coercion).
 
-Port of the LocalRelation/FileScan/Project/Filter/Limit/Sort/Aggregate/
-Join/Union/WindowOp/Expand part of ``spark_rapids_tpu/plan/logical.py``
-with Spark's implicit-cast coercion.
+Port of the LocalRelation/FileScan/Range/Project/Filter/Limit/Sample/
+Sort/Aggregate/Join/Union/WindowOp/Expand/Repartition part of
+``spark_rapids_tpu/plan/logical.py`` with Spark's implicit-cast coercion.
 ``node_desc`` strings are the reference's, so the optimized logical plan
 in ``explain()`` reads the same in both packages.
 """
@@ -17,7 +17,8 @@ from ..expressions.base import (Alias, AttributeReference, Expression,
                                 UnresolvedAttribute, output_name)
 from ..expressions.cast import Cast
 from ..types import (BooleanT, DataType, DecimalType, DoubleT, IntegralType,
-                     NullType, NumericType, StringType, numeric_promote)
+                     LongT, NullType, NumericType, StringType,
+                     numeric_promote)
 
 
 class LogicalPlan:
@@ -65,9 +66,10 @@ class LocalRelation(LogicalPlan):
 
 
 class FileScan(LogicalPlan):
-    """Lazy file-source relation (reference GpuFileSourceScanExec); parquet
-    only. Without a user schema the columns come from the first file's
-    footer, with hive partition columns after them."""
+    """Lazy file-source relation (reference GpuFileSourceScanExec): parquet,
+    orc, csv or json. Without a user schema the columns come from the first
+    file (a footer, or a read of a text file), with hive partition columns
+    after them."""
 
     def __init__(self, paths, fmt: str, schema_attrs=None, options=None,
                  num_partitions=None):
@@ -82,7 +84,7 @@ class FileScan(LogicalPlan):
     def _infer_schema(self):
         from ..io.parquet import read_schema
         from ..types import from_arrow
-        sch = read_schema(self.paths[0])
+        sch = read_schema(self.paths[0], self.fmt, self.options)
         attrs = []
         for f in sch:
             try:
@@ -100,6 +102,26 @@ class FileScan(LogicalPlan):
 
     def node_desc(self) -> str:
         return f"FileScan[{self.fmt}, {len(self.paths)} files]"
+
+
+class Range(LogicalPlan):
+    """``session.range`` (reference GpuRangeExec): one non-null bigint
+    column ``id``."""
+
+    def __init__(self, start: int, end: int, step: int = 1,
+                 num_partitions: int = 1):
+        if step == 0:
+            raise ValueError("range step must not be 0")
+        self.start, self.end, self.step = int(start), int(end), int(step)
+        self.num_partitions = num_partitions
+        self._output = [AttributeReference("id", LongT, False)]
+
+    @property
+    def output(self) -> List[AttributeReference]:
+        return self._output
+
+    def node_desc(self) -> str:
+        return f"Range({self.start}, {self.end}, step={self.step})"
 
 
 class _Unported(DataType):
@@ -172,6 +194,29 @@ class Limit(LogicalPlan):
 
     def node_desc(self) -> str:
         return f"Limit[{self.n}]"
+
+
+class Sample(LogicalPlan):
+    """``df.sample`` (reference GpuSampleExec / GpuFastSampleExec,
+    basicPhysicalOperators.scala:873,948)."""
+
+    def __init__(self, child: LogicalPlan, fraction: float,
+                 with_replacement: bool = False, seed: Optional[int] = None):
+        self.children = (child,)
+        self.fraction = float(fraction)
+        self.with_replacement = bool(with_replacement)
+        if seed is None:
+            import random
+            seed = random.randrange(1 << 31)  # pyspark draws a random seed
+        self.seed = int(seed)
+
+    @property
+    def output(self) -> List[AttributeReference]:
+        return self.children[0].output
+
+    def node_desc(self) -> str:
+        r = ", replace" if self.with_replacement else ""
+        return f"Sample[{self.fraction}{r}, seed={self.seed}]"
 
 
 class SortOrder:
@@ -348,6 +393,24 @@ class Expand(LogicalPlan):
         return f"Expand[{len(self.projections)} projections]"
 
 
+class Repartition(LogicalPlan):
+    """An exchange the user asked for: ``hash`` on keys, ``roundrobin``,
+    ``coalesce`` or ``single`` (reference GpuOverrides ``parts``
+    registry, GpuOverrides.scala:3876)."""
+
+    def __init__(self, child: LogicalPlan, num_partitions: int,
+                 partitioning: str = "roundrobin",
+                 keys: Sequence[Expression] = ()):
+        self.children = (child,)
+        self.num_partitions = num_partitions
+        self.partitioning = partitioning
+        self.keys = [resolve_expression(k, child) for k in keys]
+
+    @property
+    def output(self) -> List[AttributeReference]:
+        return self.children[0].output
+
+
 def _as_nullable(a: AttributeReference) -> AttributeReference:
     return AttributeReference(a.name, a.dtype, True, expr_id=a.expr_id)
 
@@ -391,8 +454,8 @@ def coerce_types(expr: Expression) -> Expression:
                 return A.Divide(_cast_if(l, DoubleT), _cast_if(r, DoubleT))
             return None
         if isinstance(e, (A.Add, A.Subtract, A.Multiply, P.EqualTo,
-                          P.LessThan, P.LessThanOrEqual, P.GreaterThan,
-                          P.GreaterThanOrEqual)):
+                          P.EqualNullSafe, P.LessThan, P.LessThanOrEqual,
+                          P.GreaterThan, P.GreaterThanOrEqual)):
             l, r = e.children
             lt, rt = l.dtype, r.dtype
             if lt == rt:

@@ -1,6 +1,10 @@
-"""Logical optimizer, run before ``plan_physical`` (port of the
-cost-based join swap and the column-pruning rule of
+"""Logical optimizer, run before ``plan_physical`` (port of
 ``spark_rapids_tpu/plan/optimizer.py``).
+
+**pushdown** — a Filter, or a Project that only selects columns, sitting
+on a ``Repartition`` moves below it (the Project only while the
+partitioning keys survive it), so the exchange moves fewer rows and
+columns.
 
 **joinStrategy** — an inner equi-join whose right (build) side is
 estimated larger than its left by ``joinStrategy.swapRatio``
@@ -8,14 +12,12 @@ estimated larger than its left by ``joinStrategy.swapRatio``
 broadcast; a restoring Project keeps the original column order.
 
 **columnPruning** — top-down required-column analysis through Project,
-Filter, Limit, Sort, Aggregate and Join: unreferenced projections and
+Filter, Limit, Sample, Repartition, Sort, Aggregate and Join:
+unreferenced projections and
 aggregate columns drop, a file scan narrows its own output to the columns
 read, and an in-memory relation under an aggregate or a join (whose scan
 yields full-width batches) gets a pass-through Project, so device batches
 carry only the referenced columns.
-
-The reference's third rule, pushdown through a ``Repartition``, waits for
-the node it rewrites.
 
 Every rule keeps expression OBJECT identity for unchanged subtrees and the
 ``expr_id`` of every attribute of a rebuilt node, since
@@ -29,11 +31,12 @@ import copy
 from typing import List, Optional, Set, Tuple
 
 from ..config import (LOGICAL_COLUMN_PRUNING, LOGICAL_JOIN_STRATEGY,
-                      LOGICAL_JOIN_SWAP_RATIO, RapidsConf)
+                      LOGICAL_JOIN_SWAP_RATIO, LOGICAL_PUSHDOWN, RapidsConf)
 from ..expressions.base import AttributeReference
 from . import logical as L
 
 RULE_PRUNE = "ColumnPruning"
+RULE_PUSHDOWN = "PushdownThroughExchange"
 RULE_JOIN = "CostBasedJoin"
 
 
@@ -88,6 +91,34 @@ def _rebuild_with_children(plan: L.LogicalPlan, children) -> L.LogicalPlan:
     return new
 
 
+def _pushdown_exchange(plan: L.LogicalPlan,
+                       applied: Set[str]) -> L.LogicalPlan:
+    children = [_pushdown_exchange(c, applied) for c in plan.children]
+    plan = _rebuild_with_children(plan, children)
+    if isinstance(plan, L.Filter) and isinstance(plan.child, L.Repartition):
+        # Filter(Repartition(c)) -> Repartition(Filter(c)): the exchange
+        # moves only the surviving rows
+        rep = plan.child
+        new_filter = _tag(_rebuild_with_children(plan, (rep.children[0],)),
+                          RULE_PUSHDOWN)
+        new_rep = _tag(_rebuild_with_children(rep, (new_filter,)),
+                       RULE_PUSHDOWN)
+        applied.add(RULE_PUSHDOWN)
+        return _pushdown_exchange(new_rep, applied)
+    if isinstance(plan, L.Project) and isinstance(plan.child, L.Repartition) \
+            and all(isinstance(e, AttributeReference) for e in plan.exprs):
+        rep = plan.child
+        if _refs_all(rep.keys) <= {e.expr_id for e in plan.exprs}:
+            # a pure column selection narrows the exchange's payload
+            new_proj = _tag(_rebuild_with_children(plan, (rep.children[0],)),
+                            RULE_PUSHDOWN)
+            new_rep = _tag(_rebuild_with_children(rep, (new_proj,)),
+                           RULE_PUSHDOWN)
+            applied.add(RULE_PUSHDOWN)
+            return new_rep
+    return plan
+
+
 def _join_swap(plan: L.LogicalPlan, conf: RapidsConf,
                applied: Set[str]) -> L.LogicalPlan:
     children = [_join_swap(c, conf, applied) for c in plan.children]
@@ -140,9 +171,15 @@ def _prune(plan: L.LogicalPlan, required: Optional[Set[int]],
         return _rebuild_with_children(plan,
                                       (_prune(plan.child, need, applied),))
 
-    if isinstance(plan, L.Limit):
+    if isinstance(plan, (L.Limit, L.Sample)):
         return _rebuild_with_children(
             plan, (_prune(plan.children[0], required, applied),))
+
+    if isinstance(plan, L.Repartition):
+        need = None if required is None \
+            else (required | _refs_all(plan.keys))
+        return _rebuild_with_children(
+            plan, (_prune(plan.children[0], need, applied),))
 
     if isinstance(plan, L.Sort):
         need = None if required is None \
@@ -219,6 +256,8 @@ def optimize_logical(plan: L.LogicalPlan,
     """Run the enabled rules; returns (optimized plan, applied rule
     names). A disabled or no-op pipeline returns the input plan."""
     applied: Set[str] = set()
+    if conf.get(LOGICAL_PUSHDOWN):
+        plan = _pushdown_exchange(plan, applied)
     if conf.get(LOGICAL_JOIN_STRATEGY):
         plan = _join_swap(plan, conf, applied)
     if conf.get(LOGICAL_COLUMN_PRUNING):

@@ -1,8 +1,8 @@
 """TorchOverrides: the plan-override engine retargeting CPU operators to
-the device (port of the engine and the Project/Filter/device-scan/
-file-scan/sort/aggregate/join (hash, nested loop, cartesian)/exchange/
-TopN/limit/union/window/expand rules of
-``spark_rapids_tpu/plan/overrides.py``).
+the device (port of the engine and the Project/Filter/range/device-scan/
+file-scan/sort/aggregate/join (hash, nested loop, cartesian)/exchange
+(hash, round robin, coalesce, single)/TopN/limit/union/window/expand/
+sample/data-writing-command rules of ``spark_rapids_tpu/plan/overrides.py``).
 
 Flow: CPU physical plan → wrap in a PlanMeta tree → tag (reasons) →
 convert supported subtrees to device execs → insert HostToDevice /
@@ -10,8 +10,10 @@ DeviceToHost at the boundaries → compiled join stages → compiled
 aggregation stages. Explain and
 fallback reporting (``spark.rapids.sql.explain``) and the explainOnly mode
 are the reference's. Later slices add their operators with
-``register_exec``. Segment fusion (``execs/fusion.py``) and batch
-coalescing (``execs/coalesce.py``) are not yet ported.
+``register_exec``. A ``df.cache()`` scan (``CpuCachedScanExec``) stays on
+the host, as the local table scan does, and a transition uploads its
+output. Segment fusion (``execs/fusion.py``) and batch coalescing
+(``execs/coalesce.py``) are not yet ported.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from ..execs import cpu as CE
 from ..execs.aggregates import CpuHashAggregateExec
 from ..execs.base import CpuExec, PhysicalPlan
 from ..execs.broadcast import CpuBroadcastHashJoinExec
+from ..execs.sample import CpuSampleExec
+from ..execs.write import CpuDataWritingCommandExec
 from ..execs.joins import (CpuBroadcastNestedLoopJoinExec,
                            CpuCartesianProductExec, CpuShuffledHashJoinExec)
 from ..execs.transitions import (CpuDeviceScanExec, DeviceToHostExec,
@@ -125,7 +129,8 @@ def _tag_aggregate(meta: PlanMeta) -> None:
     meta.add_exprs(p.grouping)
     agg_fns, result_exprs = split_result_exprs(p.aggregates)
     for fn in agg_fns:
-        if fn.update_op not in ("sum", "count", "min", "max", "avg") \
+        if fn.update_op not in ("sum", "count", "min", "max", "avg",
+                                "first", "last") \
                 and fn.update_op not in VARIANCE_OPS:
             meta.will_not_work_on_tpu(
                 f"aggregate {type(fn).__name__} is not supported on TPU")
@@ -221,10 +226,13 @@ def _convert_top_n(meta: PlanMeta, children):
 
 def _tag_file_scan(meta: PlanMeta) -> None:
     # the planner already refused column types the port cannot carry
-    from ..config import PARQUET_ENABLED
-    if meta.plan.fmt == "parquet" and not meta.conf.get(PARQUET_ENABLED):
+    from ..config import CSV_ENABLED, JSON_ENABLED, ORC_ENABLED, \
+        PARQUET_ENABLED
+    entry = {"parquet": PARQUET_ENABLED, "csv": CSV_ENABLED,
+             "json": JSON_ENABLED, "orc": ORC_ENABLED}.get(meta.plan.fmt)
+    if entry is not None and not meta.conf.get(entry):
         meta.will_not_work_on_tpu(
-            f"parquet scans disabled via {PARQUET_ENABLED.key}")
+            f"{meta.plan.fmt} scans disabled via {entry.key}")
 
 
 def _convert_file_scan(meta: PlanMeta, children):
@@ -234,6 +242,33 @@ def _convert_file_scan(meta: PlanMeta, children):
                              pushed_filters=p.pushed_filters,
                              options=p.options,
                              num_partitions=p.num_partitions())
+
+
+def _convert_range(meta: PlanMeta, children):
+    p = meta.plan
+    return TB.TorchRangeExec(p.start, p.end, p.step, p.num_partitions(),
+                             p.output)
+
+
+def _convert_sample(meta: PlanMeta, children):
+    from ..execs.sample import TorchSampleExec
+    p = meta.plan
+    return TorchSampleExec(p.fraction, p.with_replacement, p.seed,
+                           children[0])
+
+
+def _tag_write(meta: PlanMeta) -> None:
+    from ..config import ORC_WRITE_ENABLED, PARQUET_WRITE_ENABLED
+    fmt = meta.plan.spec.fmt
+    entry = {"parquet": PARQUET_WRITE_ENABLED,
+             "orc": ORC_WRITE_ENABLED}.get(fmt)
+    if entry is not None and not meta.conf.get(entry):
+        meta.will_not_work_on_tpu(f"{fmt} writes disabled via {entry.key}")
+
+
+def _convert_write(meta: PlanMeta, children):
+    from ..execs.write import TorchDataWritingCommandExec
+    return TorchDataWritingCommandExec(children[0], meta.plan.spec)
 
 
 def _tag_window(meta: PlanMeta) -> None:
@@ -293,6 +328,13 @@ register_exec(CE.CpuProjectExec, "projection",
               _convert_project)
 register_exec(CE.CpuFilterExec, "filter", "spark.rapids.sql.exec.FilterExec",
               _tag_filter, _convert_filter)
+register_exec(CE.CpuRangeExec, "range", "spark.rapids.sql.exec.RangeExec",
+              None, _convert_range)
+register_exec(CpuSampleExec, "sample", "spark.rapids.sql.exec.SampleExec",
+              None, _convert_sample)
+register_exec(CpuDataWritingCommandExec, "data writing command",
+              "spark.rapids.sql.exec.DataWritingCommandExec", _tag_write,
+              _convert_write)
 register_exec(CpuDeviceScanExec, "device-cached scan",
               "spark.rapids.sql.exec.InMemoryTableScanExec", None,
               _convert_device_scan)
@@ -404,7 +446,7 @@ class TorchTransitionOverrides:
     @staticmethod
     def assert_is_on_tpu(plan: PhysicalPlan) -> None:
         allowed_cpu = (DeviceToHostExec, HostToDeviceExec,
-                       CE.CpuLocalTableScanExec)
+                       CE.CpuLocalTableScanExec, CE.CpuCachedScanExec)
         for node in plan.collect_nodes():
             if isinstance(node, CpuExec) and not isinstance(node, allowed_cpu):
                 raise AssertionError(

@@ -3,8 +3,11 @@
 
 The plan is all-CPU; ``TorchOverrides`` then retargets it to the device, as
 the reference does, for the node kinds the port has: LocalRelation,
-DeviceCachedRelation, FileScan (with the pushable conjuncts of a Filter
-right above it), Project, Filter, Limit, Sort, Aggregate and equi-Join.
+DeviceCachedRelation, CachedRelation (``df.cache()``), Range, FileScan
+(with the pushable conjuncts of a Filter right above it), Project,
+Filter, Limit, Sample, Sort, Aggregate, Join, Union, Expand, WindowOp and
+Repartition (``shuffle/exchange.plan_cpu_exchange``). Generate and the
+other nodes of A6/A8 raise "not yet ported".
 
 A grouped aggregate over more than one partition, and a join that cannot
 broadcast its build side, distribute their input through hash exchanges on
@@ -27,13 +30,18 @@ from . import logical as L
 def plan_physical(plan: L.LogicalPlan, conf: RapidsConf) -> PhysicalPlan:
     from ..execs.aggregates import CpuHashAggregateExec
     from ..execs.transitions import CpuDeviceScanExec
-    from ..io.cache import DeviceCachedRelation
+    from ..io.cache import CachedRelation, DeviceCachedRelation
     from ..shuffle.exchange import CpuShuffleExchangeExec
+    if isinstance(plan, CachedRelation):
+        return CE.CpuCachedScanExec(plan, plan.output)
     if isinstance(plan, DeviceCachedRelation):
         return CpuDeviceScanExec(plan.batches(), plan.output)
     if isinstance(plan, L.LocalRelation):
         return CE.CpuLocalTableScanExec(plan.table, plan.num_partitions,
                                         plan.output)
+    if isinstance(plan, L.Range):
+        return CE.CpuRangeExec(plan.start, plan.end, plan.step,
+                               plan.num_partitions, plan.output)
     if isinstance(plan, L.FileScan):
         return _plan_file_scan(plan, ())
     if isinstance(plan, L.Project):
@@ -62,6 +70,13 @@ def plan_physical(plan: L.LogicalPlan, conf: RapidsConf) -> PhysicalPlan:
             plan.n, CE.CpuLocalLimitExec(plan.n + plan.offset,
                                          plan_physical(inner, conf)),
             plan.offset)
+    if isinstance(plan, L.Sample):
+        from ..execs.sample import CpuSampleExec
+        return CpuSampleExec(plan.fraction, plan.with_replacement, plan.seed,
+                             plan_physical(plan.children[0], conf))
+    if isinstance(plan, L.Repartition):
+        from ..shuffle.exchange import plan_cpu_exchange
+        return plan_cpu_exchange(plan, conf)
     if isinstance(plan, L.Union):
         return CE.CpuUnionExec([plan_physical(c, conf)
                                 for c in plan.children], plan.output)

@@ -73,8 +73,8 @@ def _register_builtin_exprs() -> None:
         register_expr(cls, TypeSigs.numeric,
                       f"{cls.__name__.lower()} of numerics")
     register_expr(A.Divide, TypeSigs.numeric, "fractional division")
-    for cls in (P.EqualTo, P.LessThan, P.LessThanOrEqual, P.GreaterThan,
-                P.GreaterThanOrEqual):
+    for cls in (P.EqualTo, P.EqualNullSafe, P.LessThan, P.LessThanOrEqual,
+                P.GreaterThan, P.GreaterThanOrEqual):
         register_expr(cls, TypeSigs.BOOLEAN, f"comparison {cls.symbol}")
     register_expr(P.And, TypeSigs.BOOLEAN, "logical AND (Kleene)")
     register_expr(P.Or, TypeSigs.BOOLEAN, "logical OR (Kleene)")
@@ -153,6 +153,10 @@ def _register_builtin_exprs() -> None:
     register_expr(AGG.Min, minmax, "min aggregate")
     register_expr(AGG.Max, minmax, "max aggregate")
     register_expr(AGG.Count, TypeSigs.integral, "count aggregate")
+    register_expr(AGG.First, TypeSigs.all_basic + TypeSigs.NULL,
+                  "first(ignoreNulls) aggregate")
+    register_expr(AGG.Last, TypeSigs.all_basic + TypeSigs.NULL,
+                  "last(ignoreNulls) aggregate")
     for cls in (AGG.StddevSamp, AGG.StddevPop, AGG.VarianceSamp,
                 AGG.VariancePop):
         register_expr(cls, TypeSigs.fp,

@@ -34,8 +34,9 @@ Invalidation (each counts ``plan.cache_invalidated`` with a reason):
 ``invalidate_conf`` drops entries planned under a different value of a
 plan-relevant conf (wired to ``session.conf.set/unset``); inserting an
 entry drops same-structure/same-conf entries whose scan identity went
-stale. (The reference's ``invalidate_relation`` serves ``unpersist()``,
-which the port does not have.)
+stale. A ``df.cache()``d relation keys on its generation, which its
+``unpersist()`` raises, so no entry replays dropped batches (the
+reference evicts by relation id instead).
 """
 
 from __future__ import annotations
@@ -158,8 +159,16 @@ def _node_sig(plan, id_map: Dict[int, int], params: List[Literal],
               tokens: List[str], scan_paths: List[str]) -> None:
     """Append one preorder token per node; raises _Uncacheable on node
     kinds the fingerprint does not model (windows, generators, ...)."""
-    from ..io.cache import DeviceCachedRelation
+    from ..io.cache import CachedRelation, DeviceCachedRelation
     t = type(plan)
+    if isinstance(plan, CachedRelation):
+        tokens.append(f"{t.__name__}:{id(plan)}:{plan.generation}:"
+                      f"{_attrs_sig(plan.output, id_map)}")
+        return
+    if isinstance(plan, L.Range):
+        tokens.append(f"range:{plan.start}:{plan.end}:{plan.step}:"
+                      f"{plan.num_partitions}")
+        return
     if isinstance(plan, DeviceCachedRelation):
         # identity fingerprint: the entry keeps the logical plan (and so
         # this relation) alive, which pins the id()
@@ -201,6 +210,13 @@ def _node_sig(plan, id_map: Dict[int, int], params: List[Literal],
         c = (_expr_sig(plan.condition, id_map, False, params)
              if plan.condition is not None else "")
         tokens.append(f"join:{plan.join_type}[{lk}][{rk}][{c}]")
+    elif t is L.Repartition:
+        k = ",".join(_expr_sig(e, id_map, False, params) for e in plan.keys)
+        tokens.append(
+            f"repart:{plan.partitioning}:{plan.num_partitions}[{k}]")
+    elif t is L.Sample:
+        tokens.append(f"sample:{plan.fraction}:"
+                      f"{int(plan.with_replacement)}:{plan.seed}")
     elif t is L.Sort:
         o = ",".join(_order_sig(o, id_map, params) for o in plan.order)
         tokens.append(f"sort:{int(plan.global_sort)}[{o}]")

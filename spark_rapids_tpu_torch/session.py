@@ -19,6 +19,8 @@ import itertools
 from collections import Counter
 from typing import Any, Dict, List, Optional, Union
 
+import torch
+
 from .config import RapidsConf
 from .device import DeviceLike, resolve_device
 from .expressions.base import (Alias, Expression, Literal,
@@ -100,6 +102,11 @@ class Column:
     def __or__(self, other):
         from .expressions.predicates import Or
         return self._bin(Or, other)
+
+    def eqNullSafe(self, other) -> "Column":
+        """``<=>``: equality where two nulls are equal; never null."""
+        from .expressions.predicates import EqualNullSafe
+        return self._bin(EqualNullSafe, other)
 
     def __invert__(self):
         from .expressions.predicates import Not
@@ -209,9 +216,91 @@ class DataFrame:
         naming this frame's column through a join)."""
         return Column(self._plan.resolve_name(name))
 
+    def col(self, name: str) -> Column:
+        return self[name]
+
     @property
     def columns(self) -> List[str]:
         return [a.name for a in self._plan.output]
+
+    @property
+    def schema(self):
+        """The columns as a ``StructType``."""
+        from .types import StructField, StructType
+        return StructType([StructField(a.name, a.dtype, a.nullable)
+                           for a in self._plan.output])
+
+    def selectExpr(self, *exprs) -> "DataFrame":
+        """Column names only, as the reference's."""
+        return self.select(*exprs)
+
+    def withColumnRenamed(self, old: str, new: str) -> "DataFrame":
+        exprs = [Alias(a, new) if a.name == old else a
+                 for a in self._plan.output]
+        return DataFrame(L.Project(exprs, self._plan), self.session)
+
+    def drop(self, *names: str) -> "DataFrame":
+        keep = [a for a in self._plan.output if a.name not in names]
+        return DataFrame(L.Project(keep, self._plan), self.session)
+
+    def dropDuplicates(self, subset: Optional[List[str]] = None
+                       ) -> "DataFrame":
+        """Deduplicate on ``subset`` (default: every column), keeping each
+        key's first row (Spark's Dataset.dropDuplicates: ``first()`` of
+        the other columns), in the original column order."""
+        if not subset:
+            return self.distinct()
+        from .expressions.aggregates import First
+        keys = [self._plan.resolve_name(c) for c in subset]
+        key_ids = {k.expr_id for k in keys}
+        rest = [a for a in self._plan.output if a.expr_id not in key_ids]
+        node = L.Aggregate(keys, [Alias(First(a, ignore_nulls=False), a.name)
+                                  for a in rest], self._plan)
+        # back to the original order by expr id (a join's output may repeat
+        # a name)
+        by_orig = {orig.expr_id: out for out, orig in
+                   zip(node.output, list(keys) + rest)}
+        return DataFrame(L.Project([by_orig[a.expr_id]
+                                    for a in self._plan.output], node),
+                         self.session)
+
+    def sample(self, withReplacement=None, fraction=None, seed=None
+               ) -> "DataFrame":
+        """pyspark's forms: ``sample(fraction)``, ``sample(fraction,
+        seed)``, ``sample(withReplacement, fraction[, seed])``."""
+        if not isinstance(withReplacement, bool) \
+                and withReplacement is not None:
+            withReplacement, fraction, seed = False, withReplacement, fraction
+        if fraction is None:
+            raise ValueError("sample() requires a fraction")
+        return DataFrame(L.Sample(self._plan, fraction,
+                                  bool(withReplacement), seed), self.session)
+
+    def sortWithinPartitions(self, *cols) -> "DataFrame":
+        order = [c if isinstance(c, L.SortOrder)
+                 else L.SortOrder(_col_exprs([c])[0], True) for c in cols]
+        return DataFrame(L.Sort(order, False, self._plan), self.session)
+
+    def repartition(self, num: int, *cols) -> "DataFrame":
+        """A hash exchange on ``cols`` into ``num`` partitions, or round
+        robin without them."""
+        if cols:
+            node = L.Repartition(self._plan, num, "hash", _col_exprs(cols))
+        else:
+            node = L.Repartition(self._plan, num, "roundrobin")
+        return DataFrame(node, self.session)
+
+    def coalesce(self, num: int) -> "DataFrame":
+        """Fewer partitions: a round-robin exchange into ``num`` (none when
+        there are no more than ``num`` already)."""
+        return DataFrame(L.Repartition(self._plan, num, "coalesce"),
+                         self.session)
+
+    @property
+    def write(self):
+        """A ``DataFrameWriter`` (``io/writer.py``)."""
+        from .io.writer import DataFrameWriter
+        return DataFrameWriter(self)
 
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(L.Limit(n, self._plan), self.session)
@@ -240,20 +329,55 @@ class DataFrame:
         the sides (e.g. ``a["k"] == b["k"]``) are the equi-keys and the
         other conjuncts the residual condition; mismatched key types widen
         to a common type. With no equality the join is a nested-loop
-        join on the condition, and with ``on=None`` a cross join."""
+        join on the condition, and with ``on=None`` a cross join. On a
+        column name or a list of names, a USING join (``_join_using``)."""
         if on is None:
             return DataFrame(L.Join(self._plan, other._plan,
                                     "cross" if how == "inner" else how),
                              self.session)
-        if isinstance(on, (str, list, tuple)):
-            raise NotImplementedError(
-                "join on column names not yet ported: pass a Column "
-                "condition")
+        if isinstance(on, str):
+            on = [on]
+        if isinstance(on, (list, tuple)) and on \
+                and all(isinstance(c, str) for c in on):
+            return self._join_using(other, list(on), how)
         left, right = self._plan, other._plan
         lk, rk, residual = _extract_equi_keys(_expr(on), left, right)
         lk, rk = _coerce_join_keys(lk, rk)
         return DataFrame(L.Join(left, right, how, lk, rk, residual),
                          self.session)
+
+    def _join_using(self, other: "DataFrame", names: List[str],
+                    how: str) -> "DataFrame":
+        """A USING join, as Spark returns it: the key columns once, first
+        (the left's for inner and left joins, the right's for a right
+        join, their coalesce for a full join), then the left's other
+        columns, then the right's (a semi or anti join: the left's
+        columns). The reference keeps the left's key in place, and for a
+        right or full join its nulls (ROADMAP C-ref-22)."""
+        from .expressions.nullexprs import Coalesce
+        left, right = self._plan, other._plan
+        lk0 = [left.resolve_name(c) for c in names]
+        rk0 = [right.resolve_name(c) for c in names]
+        lk, rk = _coerce_join_keys(lk0, rk0)
+        node = L.Join(left, right, how, lk, rk)
+        jt = node.join_type
+        if jt in ("leftsemi", "semi", "leftanti", "anti"):
+            return DataFrame(node, self.session)
+        by_id = {a.expr_id: a for a in node.output}
+        keys: List[Expression] = []
+        for name, l0, r0, lc, rc in zip(names, lk0, rk0, lk, rk):
+            if jt in ("rightouter", "right"):
+                keys.append(by_id[r0.expr_id])
+            elif jt in ("fullouter", "outer", "full"):
+                same = l0.dtype == r0.dtype
+                keys.append(Alias(Coalesce(
+                    by_id[l0.expr_id] if same else lc,
+                    by_id[r0.expr_id] if same else rc), l0.name))
+            else:
+                keys.append(by_id[l0.expr_id])
+        key_ids = {a.expr_id for a in lk0 + rk0}
+        rest = [a for a in node.output if a.expr_id not in key_ids]
+        return DataFrame(L.Project(keys + rest, node), self.session)
 
     def filter(self, condition) -> "DataFrame":
         return DataFrame(L.Filter(_expr(condition), self._plan), self.session)
@@ -378,6 +502,132 @@ class DataFrame:
         return DataFrame(DeviceCachedRelation(batches, self._plan.output),
                          self.session)
 
+    def cache(self) -> "DataFrame":
+        """Materialize once and replace the plan with a scan of the result,
+        held as parquet-compressed host batches
+        (``spark.rapids.sql.cache.batchSizeRows`` rows each) that spill to
+        disk past ``spark.rapids.sql.cache.hostMemoryLimit`` (reference
+        ParquetCachedBatchSerializer; ``io/cache.CachedRelation``)."""
+        from .config import CACHE_BATCH_ROWS, CACHE_HOST_LIMIT
+        from .io.cache import CachedRelation
+        conf = self.session._rapids_conf()
+        return DataFrame(CachedRelation(
+            self.to_arrow(), batch_rows=conf.get(CACHE_BATCH_ROWS),
+            host_limit_bytes=conf.get(CACHE_HOST_LIMIT)), self.session)
+
+    persist = cache
+
+    def to_arrow(self, timeout: Optional[float] = None,
+                 priority: Optional[str] = None):
+        """Execute (as ``collect``) and return the rows as one
+        ``pyarrow.Table``, or the scheduler's ``QueryShed``."""
+        import pyarrow as pa
+        from .serving.query_context import QueryShed
+        from .types import to_arrow
+        out = self.session._execute_batches(self._plan, timeout=timeout,
+                                            priority=priority)
+        if isinstance(out, QueryShed):
+            return out
+        names = self.columns
+        schema = pa.schema([(a.name, to_arrow(a.dtype))
+                            for a in self._plan.output])
+        tables = [b.rename(names).to_arrow() for b in out]
+        if not tables:
+            return schema.empty_table()
+        return pa.concat_tables(tables).cast(schema)
+
+    toArrow = to_arrow
+
+    def toPandas(self):
+        """The rows as a pandas DataFrame (needs pandas)."""
+        return self.to_arrow().to_pandas()
+
+    def count(self) -> int:
+        """The row count: Spark's ``groupBy().count()``, one aggregate on
+        the device, through the scheduler like ``collect``."""
+        return int(self.groupBy().count().collect()[0]["count"])
+
+    def show(self, n: int = 20, truncate: bool = True) -> None:
+        """Print the first ``n`` rows in Spark's table format (values over
+        20 characters cut to 17 and ``...``; nulls as ``null``; the
+        reference prints pandas' table, ROADMAP C-ref-24)."""
+        rows = self.limit(n + 1).collect()
+        print(_show_string(self.columns, rows, n, truncate), end="")
+
+    def to_device_batches(self) -> List:
+        """ML interop (reference ColumnarRdd): execute the plan and hand
+        back its batches on the session's device, partition by partition
+        (``_device_partitions``)."""
+        return [b for part in self._device_partitions() for b in part]
+
+    def _device_partitions(self) -> List[List]:
+        """Each partition's device batches: the physical plan runs
+        directly, without the final download (a host plan uploads), and
+        its shuffle blocks go when it ends, as a query's do."""
+        from .execs.base import TaskContext
+        from .execs.transitions import DeviceToHostExec, HostToDeviceExec
+        from .plan.optimizer import optimize_logical
+        session = self.session
+        if session._stopped:
+            # a stopped session must not bring the shared shuffle state back
+            raise RuntimeError(
+                f"TorchSession {session._session_id} is stopped")
+        conf = session._rapids_conf()
+        optimized, _ = optimize_logical(self._plan, conf)
+        final = session._final_plan(optimized, conf)
+        while isinstance(final, DeviceToHostExec):
+            final = final.children[0]
+        if not final.is_tpu:
+            final = HostToDeviceExec(final)
+        names = self.columns
+        out: List[List] = []
+        try:
+            for p in range(final.num_partitions()):
+                ctx = TaskContext(p, conf, session.device, session.counters)
+                try:
+                    out.append([b.rename(names)
+                                for b in final.execute_partition(p, ctx)])
+                finally:
+                    ctx.complete()
+        finally:
+            for node in final.collect_nodes():
+                if hasattr(node, "cleanup_shuffle"):
+                    node.cleanup_shuffle()
+        return out
+
+    def to_device_arrays(self) -> dict:
+        """Column name → tensor of the whole result on the session's
+        device. A nullable column comes back zero-filled at its nulls
+        with a bool tensor ``<name>__valid`` beside it (a raw buffer
+        cannot hold SQL nulls); a string column stays an Arrow array on
+        the host."""
+        import pyarrow as pa
+        from .columnar.batch import concat_batches
+        from .columnar.vector import column_to_arrow
+        from .types import to_arrow
+        batches = self.to_device_batches()
+        dev = self.session.device
+        if not batches:
+            return {a.name: _empty_tensor(a.dtype, dev)
+                    if a.dtype.np_dtype is not None
+                    else pa.array([], type=to_arrow(a.dtype))
+                    for a in self._plan.output}
+        whole = concat_batches(batches)
+        n = whole.num_rows
+        out = {}
+        for name, col in zip(self.columns, whole.columns):
+            if col.offsets is not None:
+                out[name] = column_to_arrow(col)
+            elif col.validity is not None:
+                v = col.validity[:n]
+                out[name] = torch.where(v, col.data[:n],
+                                        torch.zeros((), dtype=col.data.dtype,
+                                                    device=col.data.device))
+                out[f"{name}__valid"] = v
+            else:
+                out[name] = col.data[:n]
+        return out
+
     def collect(self, timeout: Optional[float] = None,
                 priority: Optional[str] = None):
         """Execute and fetch all rows as dicts (the reference's shape).
@@ -450,6 +700,39 @@ class DataFrame:
                                for k in FALLBACK_KEYS)
             out += f"\nscan: parquet device decode, {counts}"
         return out
+
+
+def _empty_tensor(dtype, device):
+    """An empty tensor of a fixed-width type's carrier."""
+    return torch.zeros(0, dtype=dtype.torch_dtype, device=device)
+
+
+def _show_cell(v, truncate: bool) -> str:
+    if v is None:
+        return "null"
+    text = ("true" if v else "false") if isinstance(v, bool) else str(v)
+    if truncate and len(text) > 20:
+        text = text[:17] + "..."
+    return text
+
+
+def _show_string(names: List[str], rows: List[dict], n: int,
+                 truncate: bool = True) -> str:
+    """Spark's ``Dataset.showString``: a +---+ framed table, cells right
+    aligned, and a line saying so when more than ``n`` rows exist."""
+    cells = [[_show_cell(r[c], truncate) for c in names] for r in rows[:n]]
+    widths = [max([3, len(c)] + [len(r[i]) for r in cells])
+              for i, c in enumerate(names)]
+    sep = "+" + "+".join("-" * w for w in widths) + "+\n"
+
+    def line(vals):
+        return "|" + "|".join(v.rjust(w) for v, w in zip(vals, widths)) \
+            + "|\n"
+
+    out = sep + line(names) + sep + "".join(line(r) for r in cells) + sep
+    if len(rows) > n:
+        out += f"only showing top {n} row{'s' if n != 1 else ''}\n"
+    return out
 
 
 def _has_file_scan(plan: L.LogicalPlan) -> bool:
@@ -554,6 +837,32 @@ class GroupedData:
         node = L.Aggregate(self._keys, exprs, self._df._plan)
         return DataFrame(node, self._df.session)
 
+    def count(self) -> DataFrame:
+        from .expressions.aggregates import Count
+        return self.agg(Column(Alias(Count(Literal(1)), "count")))
+
+    def _named_aggs(self, cls, word: str, names) -> DataFrame:
+        return self.agg(*[Column(Alias(cls(UnresolvedAttribute(n)),
+                                       f"{word}({n})")) for n in names])
+
+    def sum(self, *names: str) -> DataFrame:
+        from .expressions.aggregates import Sum
+        return self._named_aggs(Sum, "sum", names)
+
+    def avg(self, *names: str) -> DataFrame:
+        from .expressions.aggregates import Average
+        return self._named_aggs(Average, "avg", names)
+
+    mean = avg
+
+    def min(self, *names: str) -> DataFrame:
+        from .expressions.aggregates import Min
+        return self._named_aggs(Min, "min", names)
+
+    def max(self, *names: str) -> DataFrame:
+        from .expressions.aggregates import Max
+        return self._named_aggs(Max, "max", names)
+
     def _agg_grouping_sets(self, agg_exprs: List[Expression]) -> DataFrame:
         """Grouping sets as Expand, then Aggregate, then Project (Spark's
         ResolveGroupingAnalytics, the reference's lowering). The Expand
@@ -654,6 +963,36 @@ def _project_with_windows(exprs, df: DataFrame) -> DataFrame:
                      df.session)
 
 
+class TorchSessionBuilder:
+    """``TorchSession.builder``: settings, then ``getOrCreate()`` (a new
+    session each call, as the reference's)."""
+
+    def __init__(self):
+        self._conf: Dict[str, str] = {}
+
+    def config(self, key: str, value: Any) -> "TorchSessionBuilder":
+        self._conf[key] = str(value)
+        return self
+
+    def appName(self, name: str) -> "TorchSessionBuilder":
+        self._conf["spark.app.name"] = name
+        return self
+
+    def master(self, m: str) -> "TorchSessionBuilder":
+        return self
+
+    def getOrCreate(self, device: DeviceLike = None) -> "TorchSession":
+        """A session on ``device`` (the card unless ``"cpu"``)."""
+        return TorchSession(self._conf, device=device)
+
+
+class _BuilderAccessor:
+    """``TorchSession.builder`` on the class or an instance."""
+
+    def __get__(self, obj, cls) -> TorchSessionBuilder:
+        return TorchSessionBuilder()
+
+
 class TorchSession:
     """The SparkSession analogue on one torch device: ``cuda`` unless the
     caller passes ``device="cpu"``. Each session is one frontend of the
@@ -667,6 +1006,8 @@ class TorchSession:
     decode) and ``scan.*`` time split (``io/parquet.TorchFileScanExec``).
     ``last_task_metrics()`` holds the last query's retry, split, spill and
     semaphore-wait counts."""
+
+    builder = _BuilderAccessor()
 
     #: session-id mint (itertools.count.__next__ is atomic in CPython)
     _session_ids = itertools.count(1)
@@ -730,11 +1071,12 @@ class TorchSession:
         from .io.reader import DataFrameReader
         return DataFrameReader(self)
 
-    def createDataFrame(self, data, num_partitions: int = 1,
+    def createDataFrame(self, data, schema=None, num_partitions: int = 1,
                         validity=None) -> DataFrame:
         """From a dict of numpy arrays, lists or ``HostStrings`` (with an
-        optional dict of bool ``validity`` arrays), a list of dicts, or a
-        ``pyarrow.Table``."""
+        optional dict of bool ``validity`` arrays), a list of dicts, a
+        ``pyarrow.Table``, a pandas DataFrame, or a list of tuples with a
+        ``schema`` (column names, a ``StructType`` or a DDL string)."""
         from .columnar.batch import TorchColumnarBatch
         if isinstance(data, dict):
             table = TorchColumnarBatch.from_numpy_columns(data, validity)
@@ -742,9 +1084,23 @@ class TorchSession:
             table = TorchColumnarBatch.from_pylist(data)
         elif type(data).__module__.startswith("pyarrow"):
             table = TorchColumnarBatch.from_arrow(data)
+        elif type(data).__module__.startswith("pandas"):
+            import pyarrow as pa
+            table = TorchColumnarBatch.from_arrow(
+                pa.Table.from_pandas(data, preserve_index=False))
+        elif isinstance(data, list) and schema is not None:
+            table = _rows_with_schema(data, schema)
         else:
             raise TypeError(f"cannot create DataFrame from {type(data)}")
         return DataFrame(L.LocalRelation(table, num_partitions), self)
+
+    def range(self, start: int, end: Optional[int] = None, step: int = 1,
+              numPartitions: int = 1) -> DataFrame:
+        """One bigint column ``id``: start, start + step, ... below end
+        (``range(n)``: 0 to n - 1)."""
+        if end is None:
+            start, end = 0, start
+        return DataFrame(L.Range(start, end, step, numPartitions), self)
 
     def _final_plan(self, optimized: L.LogicalPlan, conf: RapidsConf):
         from .plan.overrides import TorchOverrides
@@ -882,6 +1238,26 @@ class TorchSession:
 
     def __exit__(self, exc_type, exc, tb) -> None:
         self.stop()
+
+
+def _rows_with_schema(rows: List, schema):
+    """Tuples by position under column names, a ``StructType`` or a DDL
+    string, as a host table (the schema's types where it has them)."""
+    from .columnar.batch import TorchColumnarBatch
+    from .types import StructType, parse_ddl
+    if isinstance(schema, str):
+        schema = parse_ddl(schema)
+    names = schema.field_names if isinstance(schema, StructType) \
+        else list(schema)
+    if not isinstance(schema, StructType):
+        return TorchColumnarBatch.from_pylist(
+            [dict(zip(names, r)) for r in rows])
+    import pyarrow as pa
+    from .types import to_arrow
+    cols = list(zip(*rows)) if rows else [() for _ in names]
+    return TorchColumnarBatch.from_arrow(pa.table(
+        {f.name: pa.array(list(c), type=to_arrow(f.data_type))
+         for f, c in zip(schema.fields, cols)}))
 
 
 def _invalidate_cached_plans(key: str, value: Optional[str]) -> None:

@@ -1,9 +1,13 @@
-"""The hash exchange (port of ``TpuShuffleExchangeExec`` and
-``CpuShuffleExchangeExec`` from ``spark_rapids_tpu/shuffle/exchange.py``,
-hash partitioning, the device-resident ``ICI`` shuffle mode).
+"""The exchange (port of ``TpuShuffleExchangeExec``,
+``CpuShuffleExchangeExec`` and ``plan_cpu_exchange`` from
+``spark_rapids_tpu/shuffle/exchange.py``: hash, round-robin, coalesce and
+single partitioning, the device-resident ``ICI`` shuffle mode).
 
 Materialization runs once per exchange instance: every map partition of
-the child is hash-split on the device (``partitioner.py``) and each
+the child is split on the device (``partitioner.py``: by murmur3 of the
+keys; round robin from the map id for ``roundrobin`` and ``coalesce``,
+which the reference plans as a round-robin exchange; everything to
+partition 0 for ``single``) and each
 (map, reduce) block is registered in the ``ShuffleCatalog`` as a
 ``SpillableColumnarBatch`` at the shuffle-output spill priority, so under
 budget pressure blocks spill to the host and to disk and come back when a
@@ -19,9 +23,9 @@ both are idempotent, so a transient device error re-runs them. The
 executor removes an exchange's blocks when its query ends
 (``cleanup_shuffle``).
 
-Not yet ported: the ``MULTITHREADED`` mode (host-serialized shuffle files;
-it returns the same rows), the AQE readers, the collective mesh plane,
-heartbeats and lost peers.
+Not yet ported: ``range`` partitioning (A8), the ``MULTITHREADED`` mode
+(host-serialized shuffle files; it returns the same rows), the AQE
+readers, the collective mesh plane, heartbeats and lost peers.
 """
 
 from __future__ import annotations
@@ -36,7 +40,11 @@ from ..expressions.base import Expression
 from ..execs.base import (MODERATE, CpuExec, PhysicalPlan, TaskContext,
                           TorchExec, bind_all, counts_output)
 from ..obs import tracer as obs
-from .partitioner import hash_split_parts
+from .partitioner import (hash_split_parts, round_robin_partition_ids,
+                          split_by_partition)
+
+#: the partitionings the port's exchanges take
+PARTITIONINGS = ("hash", "roundrobin", "coalesce", "single")
 
 
 class ShuffleCatalog:
@@ -129,9 +137,9 @@ def _check_mode(conf) -> None:
 
 class _ExchangeBase:
     def _init_exchange(self, partitioning: str, keys, num_partitions: int):
-        if partitioning != "hash":
+        if partitioning not in PARTITIONINGS:
             raise NotImplementedError(
-                f"{partitioning} partitioning not yet ported")
+                f"{partitioning} partitioning not yet ported (A8)")
         self.partitioning = partitioning
         self.keys = keys
         self._n_out = num_partitions
@@ -141,7 +149,7 @@ class _ExchangeBase:
 
 
 class TorchShuffleExchangeExec(_ExchangeBase, TorchExec):
-    """Hash exchange on the device."""
+    """The exchange on the device (hash, round robin, single)."""
 
     def __init__(self, child: PhysicalPlan, partitioning: str,
                  keys: Sequence[Expression], num_partitions: int):
@@ -210,7 +218,7 @@ class TorchShuffleExchangeExec(_ExchangeBase, TorchExec):
                 if batch.num_rows == 0:
                     continue
                 with split_time.timed():
-                    parts = hash_split_parts(batch, self.keys, n, ctx)
+                    parts = self._split(batch, n, map_id, ctx)
                 del batch
                 for p in range(n):
                     if parts[p] is not None:
@@ -224,6 +232,17 @@ class TorchShuffleExchangeExec(_ExchangeBase, TorchExec):
             catalog.mark_map_complete(sid, map_id)
         finally:
             map_ctx.complete()  # releases the permit
+
+    def _split(self, batch: TorchColumnarBatch, n: int, map_id: int,
+               ctx: TaskContext) -> List[Optional[TorchColumnarBatch]]:
+        """A map batch's rows by reduce partition (reference
+        exchange.py:816-829)."""
+        if self.partitioning == "hash":
+            return hash_split_parts(batch, self.keys, n, ctx)
+        if self.partitioning in ("roundrobin", "coalesce"):
+            return split_by_partition(
+                batch, round_robin_partition_ids(batch, n, map_id), n)
+        return [batch] + [None] * (n - 1)  # single
 
     def internal_do_execute_columnar(self, idx: int,
                                      ctx: TaskContext) -> Iterator:
@@ -260,11 +279,12 @@ class TorchShuffleExchangeExec(_ExchangeBase, TorchExec):
 
 
 class CpuShuffleExchangeExec(_ExchangeBase, CpuExec):
-    """Hash exchange on the host (reference ``CpuShuffleExchangeExec``):
+    """The exchange on the host (reference ``CpuShuffleExchangeExec``):
     each map partition's rows split by Spark's HashPartitioning, pid =
     pmod(murmur3(keys, 42), n), the murmur3 the device's own code over CPU
     tensors (``hashexprs.murmur3_arrow``), so a host side and a device side
-    of one join co-partition. The blocks stay in host memory, a reduce
+    of one join co-partition; round robin from the map id, or all to
+    partition 0, as on the device. The blocks stay in host memory, a reduce
     partition reads them in map order; materialization runs once per
     exchange instance and the blocks go when the query ends."""
 
@@ -301,7 +321,12 @@ class CpuShuffleExchangeExec(_ExchangeBase, CpuExec):
                     continue
                 t = b.to_arrow()
                 with op_time(ctx, self):
-                    pids = host_partition_ids(t, self.keys, n, ctx)
+                    if self.partitioning == "hash":
+                        pids = host_partition_ids(t, self.keys, n, ctx)
+                    elif self.partitioning == "single":
+                        pids = np.zeros(t.num_rows, np.int64)
+                    else:  # roundrobin, coalesce
+                        pids = (np.arange(t.num_rows) + map_id) % n
                     order = np.argsort(pids, kind="stable")
                     bounds = np.searchsorted(pids[order], np.arange(n + 1))
                     for p in range(n):
@@ -339,3 +364,16 @@ def host_partition_ids(table, keys: Sequence[Expression], n: int,
                                     k.dtype) for k in keys],
                       [k.dtype for k in keys], rows, seed)
     return torch.remainder(h, n).numpy().astype(np.int64)
+
+
+def plan_cpu_exchange(plan, conf) -> PhysicalPlan:
+    """A ``Repartition``'s CPU exchange: hash when it has keys, else its
+    own partitioning; ``coalesce`` to at least the child's partition count
+    is no exchange at all (reference exchange.py:1313)."""
+    from ..plan.planner import plan_physical
+    child = plan_physical(plan.children[0], conf)
+    part, n = plan.partitioning, plan.num_partitions
+    if part == "coalesce" and n >= child.num_partitions():
+        return child
+    return CpuShuffleExchangeExec(child, "hash" if plan.keys else part,
+                                  plan.keys, n)

@@ -1,8 +1,11 @@
-"""Hash partitioning of device batches (port of ``hash_partition_ids``,
-``_split_plan`` and ``split_by_partition`` from
-``spark_rapids_tpu/shuffle/partitioner.py``).
+"""Hash and round-robin partitioning of device batches (port of
+``hash_partition_ids``, ``round_robin_partition_ids``, ``_split_plan`` and
+``split_by_partition`` from ``spark_rapids_tpu/shuffle/partitioner.py``).
 
-Spark's HashPartitioning: pid = pmod(murmur3(keys, 42), n). A batch splits
+Spark's HashPartitioning: pid = pmod(murmur3(keys, 42), n). Round robin
+(``repartition(n)``, ``coalesce(n)``): pid = (row + map id) % n, each
+batch starting at its map task's id, as the reference (Spark starts at a
+random offset). A batch splits
 by a stable sort on the pid (rows keep their input order within a
 partition), one host read of the n+1 partition bounds, and one gather a
 partition.
@@ -28,6 +31,13 @@ def hash_partition_ids(batch: TorchColumnarBatch,
             for k in key_exprs]
     h = murmur3_batch(cols, batch.capacity, seed)
     return torch.remainder(h, n).to(torch.int32)  # floor mod: pmod
+
+
+def round_robin_partition_ids(batch: TorchColumnarBatch, n: int,
+                              start: int = 0) -> torch.Tensor:
+    """int32 partition id of every row slot: (slot + start) % n."""
+    return ((torch.arange(batch.capacity, dtype=torch.int64,
+                          device=batch.device) + start) % n).to(torch.int32)
 
 
 def _split_plan(pids: torch.Tensor, num_rows: int, n: int):

@@ -203,6 +203,78 @@ def type_from_string(name: str) -> DataType:
     raise ValueError(f"unknown type string {name!r}")
 
 
+# DDL schema strings ("a INT, b STRING"): Spark's StructType.fromDDL syntax,
+# as in read.schema() (reference types.py:486-551)
+
+
+def parse_ddl(ddl: str) -> StructType:
+    """A DDL field list (``"a INT, b: STRING"``, or ``"struct<...>"``) as a
+    StructType of nullable fields."""
+    ddl = ddl.strip()
+    if ddl.lower().startswith("struct<") and ddl.endswith(">"):
+        ddl = ddl[7:-1]
+    fields = []
+    for part in _split_top_level(ddl):
+        part = part.strip()
+        if not part:
+            continue
+        if ":" in part.split("<")[0]:  # "name: type", struct-field style
+            name, typ = part.split(":", 1)
+        else:
+            bits = part.split(None, 1)
+            if len(bits) != 2:
+                raise ValueError(f"cannot parse DDL field {part!r}")
+            name, typ = bits
+        fields.append(StructField(name.strip().strip("`"),
+                                  parse_ddl_type(typ.strip()), True))
+    return StructType(tuple(fields))
+
+
+def _split_top_level(s: str, sep: str = ",") -> list:
+    out, depth, cur = [], 0, []
+    for ch in s:
+        if ch in "<(":
+            depth += 1
+        elif ch in ">)":
+            depth -= 1
+        if ch == sep and depth == 0:
+            out.append("".join(cur))
+            cur = []
+        else:
+            cur.append(ch)
+    out.append("".join(cur))
+    return out
+
+
+_DDL_SIMPLE = {
+    "boolean": BooleanType, "tinyint": ByteType, "byte": ByteType,
+    "smallint": ShortType, "short": ShortType, "int": IntegerType,
+    "integer": IntegerType, "bigint": LongType, "long": LongType,
+    "float": FloatType, "real": FloatType, "double": DoubleType,
+    "string": StringType, "binary": BinaryType, "date": DateType,
+    "timestamp": TimestampType, "void": NullType, "null": NullType,
+}
+
+
+def parse_ddl_type(s: str) -> DataType:
+    """One DDL type: the simple names, ``decimal(p, s)`` and
+    ``struct<...>``; arrays and maps wait for the nested types (A6)."""
+    s = s.strip()
+    low = s.lower()
+    if low in _DDL_SIMPLE:
+        return _DDL_SIMPLE[low]()
+    if low.startswith("decimal"):
+        m = s[s.index("(") + 1: s.rindex(")")] if "(" in s else "10,0"
+        p, sc = (m.split(",") + ["0"])[:2]
+        return DecimalType(int(p), int(sc))
+    if low.startswith(("array<", "map<")) and s.endswith(">"):
+        raise NotImplementedError(
+            f"DDL type {s!r}: arrays and maps not yet ported (A6)")
+    if low.startswith("struct<") and s.endswith(">"):
+        return parse_ddl(s[7:-1])
+    raise ValueError(f"cannot parse DDL type {s!r}")
+
+
 _NP_TO_TORCH = {
     np.dtype(np.bool_): torch.bool,
     np.dtype(np.int8): torch.int8,

@@ -253,6 +253,31 @@ prints no result):
        row) and a join on names. Neither Q1 kernel launches; nothing
        leaks.
 
+17. the scalar functions in test mode over a 2^22-row events table (seed
+   17, 4 partitions: dates 1900-2100, timestamps 1960-2040 with 1 row in
+   16 near an America/Los_Angeles transition, doubles with NaN, ±0.0,
+   ±inf and subnormals, longs with MinValue, strings of 0-40 bytes):
+   (a) a group by year and quarter and 13 date functions against numpy's
+       calendar, exactly;
+   (b) under UTC and America/Los_Angeles (``conf.set``): hour, minute,
+       second, date_format on the card and with a host pattern,
+       from_unixtime, unix_timestamp of the formatted strings (an overlap
+       takes the earlier offset), timestamp_seconds/_millis/_micros,
+       against zoneinfo and the port's CPU answer, exactly;
+   (c) 36 math functions against numpy within rtol 1e-12 / atol 1e-15
+       (bround, round, rint, the logs' nulls exact);
+   (d) pmod, %, div, negative, the shifts, bit_count, the bitwise
+       operators, greatest/least, isnan, nanvl, AtLeastNNonNulls, exact;
+       ANSI i + i raises one message on the card and on the host;
+   (e) xxhash64 and hive_hash of (i, x, s, d, ts) against numpy oracles
+       of Spark's algorithms; md5 of 2^20 strings against hashlib;
+   (f) spark_partition_id, monotonically_increasing_id, rand(42) (the
+       card, the host and another batch size bit-identical) and
+       input_file_name over a 2^20-row parquet file (the device decode).
+   A timing line a part ((a), (b), (e) profiled), the host-hop counts;
+   neither Q1 kernel launches; nothing leaks. ``python3 chip_smoke.py
+   --phase17`` runs phase 1 and phase 17 alone.
+
 After each phase a phase_wall line gives its wall, its collects, their
 planning ms and the batches the spill catalog registered.
 
@@ -5272,6 +5297,904 @@ def surface_paths(F, TorchSession, smi, li, tmpdir: str,
           flush=True)
 
 
+
+# ---------------------------------------------------------------------------
+# phase 17: the scalar functions on the card — dates and timestamps in the
+# session time zone, the math family, integral arithmetic with ANSI checks,
+# bitwise, NaN handling, greatest/least, the hashes, the row and input-file
+# expressions
+# ---------------------------------------------------------------------------
+
+SCALAR_ROWS = 1 << 22
+SCALAR_SEED = 17
+SCALAR_ZONE = "America/Los_Angeles"
+#: md5's host hop is hashlib a row at a time: its check runs over the
+#: events' first 2^20 strings (the other parts over all 2^22 rows)
+SCALAR_MD5_ROWS = 1 << 20
+SCALAR_FILE_ROWS = 1 << 20  # the parquet file input_file_name reads
+MATH_RTOL, MATH_ATOL = 1e-12, 1e-15
+I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
+
+
+def _epoch_micros(text: str) -> int:
+    return int((np.datetime64(text, "us")
+                - np.datetime64("1970-01-01T00:00:00", "us"))
+               .astype(np.int64))
+
+
+def events_table(n: int, seed: int = SCALAR_SEED):
+    """Phase 17's events table as Arrow, and its numpy columns and null
+    masks: ``d`` dates 1900-2100 with every 29 February, ``ts`` 1960-2040
+    with 1 row in 16 within ±2 h of a Los Angeles transition, ``x``
+    doubles with NaN, ±0.0, ±inf, negatives and subnormals, ``i`` longs
+    with MinValue, -1 and 0, ``j`` ints, ``s`` strings of 0-40 bytes (1 in
+    64 non-ASCII); 1 row in 10 null in each column."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.tzdb import TimeZoneDB
+    rng = np.random.default_rng(seed)
+    epoch = np.datetime64("1970-01-01", "D")
+    lo = int((np.datetime64("1900-01-01") - epoch).astype(np.int64))
+    hi = int((np.datetime64("2100-12-31") - epoch).astype(np.int64))
+    d = rng.integers(lo, hi + 1, n).astype(np.int32)
+    leap = np.array([(np.datetime64(f"{y}-02-29") - epoch).astype(np.int64)
+                     for y in range(1904, 2100, 4)], np.int32)
+    d[:min(n, len(leap))] = leap[:n]
+    t_lo, t_hi = _epoch_micros("1960-01-01"), _epoch_micros("2040-01-01")
+    ts = rng.integers(t_lo, t_hi, n)
+    tr = TimeZoneDB.require(SCALAR_ZONE).trans_micros
+    tr = tr[(tr > t_lo) & (tr < t_hi)]
+    near = np.arange(n) % 16 == 5
+    ts[near] = tr[rng.integers(0, len(tr), int(near.sum()))] + rng.integers(
+        -2 * 3600 * 10 ** 6, 2 * 3600 * 10 ** 6, int(near.sum()))
+    x = rng.normal(0, 100, n)
+    x[::4] = rng.uniform(-1, 1, len(x[::4]))
+    special = np.array([np.nan, 0.0, -0.0, np.inf, -np.inf, 5e-324,
+                        -2.5e-310, -1.5, 2.5, 1.0, -1.0, 0.5, 1e300, -1e300,
+                        2.675, 1.005, 0.125])
+    at = np.arange(3, n, 32)
+    x[at] = special[np.arange(len(at)) % len(special)]
+    i = rng.integers(-(1 << 62), 1 << 62, n)
+    i[7::97] = np.array([I64_MIN, -1, 0, I64_MAX])[np.arange(len(i[7::97]))
+                                                   % 4]
+    j = rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)
+    j[11::89] = np.array([-(1 << 31), -1, 0, 1], np.int32)[
+        np.arange(len(j[11::89])) % 4]
+    j[7::97 * 4] = -1  # MinValue div / % / pmod -1
+    lens = rng.integers(0, 41, n)
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    chars = rng.integers(97, 123, int(offs[-1])).astype(np.uint8)
+    wide = np.nonzero((np.arange(n) % 64 == 9) & (lens >= 2))[0]
+    chars[offs[wide]] = 0xC3  # "é": two bytes of UTF-8
+    chars[offs[wide] + 1] = 0xA9
+    nulls = {k: rng.random(n) < 0.1 for k in "dtxijs"}
+
+    def bitmap(k):
+        return pa.py_buffer(np.packbits(~nulls[k], bitorder="little")
+                            .tobytes())
+    s = pa.StringArray.from_buffers(
+        n, pa.py_buffer(offs.astype(np.int32).tobytes()),
+        pa.py_buffer(chars.tobytes()), bitmap("s"), int(nulls["s"].sum()))
+    tbl = pa.table({
+        "d": pa.array(d, pa.int32(), mask=nulls["d"]).cast(pa.date32()),
+        "ts": pa.array(ts, pa.int64(), mask=nulls["t"]).cast(
+            pa.timestamp("us", tz="UTC")),
+        "x": pa.array(x, pa.float64(), mask=nulls["x"]),
+        "i": pa.array(i, pa.int64(), mask=nulls["i"]),
+        "j": pa.array(j, pa.int32(), mask=nulls["j"]),
+        "s": s})
+    cols = {"d": d, "ts": ts, "x": x, "i": i, "j": j, "s": (offs, chars)}
+    return tbl, cols, nulls
+
+
+def _arrow_vals(col, fill=0):
+    """(values, null mask) of an Arrow column; dates and timestamps as
+    their integers."""
+    import pyarrow as pa
+    col = col.combine_chunks() if isinstance(col, pa.ChunkedArray) else col
+    if pa.types.is_date32(col.type):
+        col = col.cast(pa.int32())
+    elif pa.types.is_timestamp(col.type):
+        col = col.cast(pa.int64())
+    null = np.asarray(col.is_null())
+    if pa.types.is_boolean(col.type):
+        fill = False
+    return np.asarray(col.fill_null(fill).to_numpy(zero_copy_only=False)), \
+        null
+
+
+def check_exact(got_col, want, want_null, what: str) -> None:
+    """An Arrow column equal to numpy values with the same nulls."""
+    vals, null = _arrow_vals(got_col)
+    check(np.array_equal(null, want_null), f"{what}: null positions differ")
+    ok = ~null
+    bad = np.nonzero(vals[ok] != np.asarray(want)[ok])[0]
+    check(len(bad) == 0, f"{what}: {len(bad)} rows differ, first "
+          f"{vals[ok][bad[:3]]} vs {np.asarray(want)[ok][bad[:3]]}")
+
+
+def check_float(got_col, want, want_null, what: str,
+                rtol: float = MATH_RTOL, atol: float = MATH_ATOL) -> None:
+    """Doubles within rtol/atol, the same NaN, ±inf and null positions."""
+    vals, null = _arrow_vals(got_col, fill=0.0)
+    want = np.asarray(want, np.float64)
+    check(np.array_equal(null, want_null), f"{what}: null positions differ")
+    ok = ~null
+    g, w = vals[ok], want[ok]
+    with np.errstate(all="ignore"):
+        # equal (±inf too), or both NaN, or finite and within the tolerance
+        good = (g == w) | (np.isnan(g) & np.isnan(w)) \
+            | (np.abs(g - w) <= atol + rtol * np.abs(w))
+    bad = np.nonzero(~good)[0]
+    check(len(bad) == 0, f"{what}: {len(bad)} rows differ, first "
+          f"{g[bad[:3]]} vs {w[bad[:3]]}")
+
+
+def _civil(days):
+    """numpy's calendar: (year, month, day) of int day numbers."""
+    dd = days.astype("datetime64[D]")
+    y = dd.astype("datetime64[Y]").astype(np.int64) + 1970
+    m = dd.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    dom = (dd - dd.astype("datetime64[M]")).astype(np.int64) + 1
+    return y, m, dom
+
+
+def date_oracles(d, j):
+    """numpy oracles of phase 17 (a)'s date functions."""
+    d64 = d.astype(np.int64)
+    y, m, dom = _civil(d64)
+    jan1 = (y - 1970).astype("datetime64[Y]").astype("datetime64[D]") \
+        .astype(np.int64)
+    month0 = d64.astype("datetime64[D]").astype("datetime64[M]")
+    last = ((month0 + 1).astype("datetime64[D]").astype(np.int64) - 1)
+    thursday = d64 - (d64 + 3) % 7 + 3
+    ty = thursday.astype("datetime64[D]").astype("datetime64[Y]")
+    woy = (thursday - ty.astype("datetime64[D]").astype(np.int64)) // 7 + 1
+    delta = np.fmod(j.astype(np.int64), 10000)
+    k = np.fmod(j.astype(np.int64), 240)
+    target = month0 + k
+    t_days = (target + 1).astype("datetime64[D]").astype(np.int64) - \
+        target.astype("datetime64[D]").astype(np.int64)
+    am = target.astype("datetime64[D]").astype(np.int64) + \
+        np.minimum(dom, t_days) - 1
+    return {"y": y, "m": m, "dom": dom, "q": (m - 1) // 3 + 1,
+            "dow": (d64 + 4) % 7 + 1, "wd": (d64 + 3) % 7,
+            "doy": d64 - jan1 + 1, "woy": woy, "ld": last,
+            "add": (d64 + delta).astype(np.int32), "sub": d64 - 45,
+            "diff": d64 - last, "am": am}
+
+
+def _piecewise_offsets(secs, off):
+    """``off(sec)`` (an offset in micros, constant between a zone's
+    transitions) of every instant: one call at each end of a distinct
+    day; the rows of a day holding a transition again by hour, then by
+    minute, then one call a row (a day with two transitions back to the
+    same offset would pass unseen: no zone has one)."""
+    out = np.empty(len(secs), np.int64)
+    rest = np.arange(len(secs))
+    for unit in (86400, 3600, 60):
+        if not len(rest):
+            return out
+        b = np.floor_divide(secs[rest], unit)
+        uniq, inv = np.unique(b, return_inverse=True)
+        first = np.array([off(u * unit) for u in uniq], np.int64)
+        last = np.array([off(u * unit + unit - 1) for u in uniq], np.int64)
+        same = (first == last)[inv]
+        out[rest[same]] = first[inv][same]
+        rest = rest[~same]
+    for k in rest:
+        out[k] = off(secs[k])
+    return out
+
+
+def zone_offsets_micros(utc_micros, zone: str):
+    """zoneinfo's UTC offset (micros) of each UTC instant (some
+    transitions fall off the hour: Los Angeles, 1948-03-14 02:01)."""
+    import datetime as _dt
+    from zoneinfo import ZoneInfo
+    if zone == "UTC":
+        return np.zeros(len(utc_micros), np.int64)
+    zi = ZoneInfo(zone)
+
+    def off(sec):
+        return int(_dt.datetime.fromtimestamp(int(sec), zi).utcoffset()
+                   .total_seconds()) * 1_000_000
+    return _piecewise_offsets(np.floor_divide(utc_micros, 1_000_000), off)
+
+
+def wall_to_utc_micros(local_micros, zone: str):
+    """zoneinfo's instant of each wall time with fold=0 (java.time's: an
+    overlap takes the earlier offset)."""
+    import datetime as _dt
+    from zoneinfo import ZoneInfo
+    if zone == "UTC":
+        return local_micros
+    zi = ZoneInfo(zone)
+    base = _dt.datetime(1970, 1, 1)
+
+    def off(sec):
+        return int((base + _dt.timedelta(seconds=int(sec))).replace(
+            tzinfo=zi, fold=0).utcoffset().total_seconds()) * 1_000_000
+    return local_micros - _piecewise_offsets(
+        np.floor_divide(local_micros, 1_000_000), off)
+
+
+def _u64(v):
+    return np.asarray(v).astype(np.uint64)
+
+
+_P1, _P2, _P3 = (np.uint64(0x9E3779B185EBCA87), np.uint64(0xC2B2AE3D27D4EB4F),
+                 np.uint64(0x165667B19E3779F9))
+_P4, _P5 = np.uint64(0x85EBCA77C2B2AE63), np.uint64(0x27D4EB2F165667C5)
+
+
+def _rotl64(x, r):
+    return (x << np.uint64(r)) | (x >> np.uint64(64 - r))
+
+
+def _xx_fmix(h):
+    h ^= h >> np.uint64(33)
+    h *= _P2
+    h ^= h >> np.uint64(29)
+    h *= _P3
+    return h ^ (h >> np.uint64(32))
+
+
+def _xx_int(v32, seed):
+    h = seed + _P5 + np.uint64(4)
+    h ^= (_u64(np.asarray(v32).astype(np.int64)) & np.uint64(0xFFFFFFFF)) * _P1
+    return _xx_fmix(_rotl64(h, 23) * _P2 + _P3)
+
+
+def _xx_long(v64, seed):
+    h = seed + _P5 + np.uint64(8)
+    h ^= _rotl64(_u64(v64) * _P2, 31) * _P1
+    return _xx_fmix(_rotl64(h, 27) * _P1 + _P4)
+
+
+def _xx_round(acc, val):
+    return _rotl64(acc + val * _P2, 31) * _P1
+
+
+def _string_matrix(offs, chars, width: int, right: bool = False):
+    """(byte matrix [rows, width] zero-padded at the end, or at the start
+    with ``right``, lengths) of strings."""
+    lens = np.diff(offs)
+    mat = np.zeros((len(lens), width), np.uint8)
+    if offs[-1] > offs[0]:
+        rows = np.repeat(np.arange(len(lens), dtype=np.int32), lens)
+        cols = np.arange(offs[0], offs[-1], dtype=np.int64) \
+            - np.repeat(offs[:-1] - (width - lens if right else 0), lens)
+        mat[rows, cols.astype(np.int32)] = chars[offs[0]:offs[-1]]
+    return mat, lens
+
+
+def _xx_strings(offs, chars, seed):
+    """Spark's XXH64.hashUnsafeBytes of every row, vectorized numpy: the
+    rows of one length share every offset, so each length's rows go
+    through the stripe, word and byte steps as whole columns."""
+    mat, lens = _string_matrix(offs, chars, 40)
+    out = np.empty(len(lens), np.uint64)
+
+    def word(m, at, nbytes):
+        return np.ascontiguousarray(m[:, at:at + nbytes]).view(
+            {8: "<u8", 4: "<u4"}[nbytes]).reshape(-1).astype(np.uint64)
+    for ln in np.unique(lens):
+        rows = np.nonzero(lens == ln)[0]
+        m, s0 = mat[rows], seed[rows]
+        pos = 0
+        if ln >= 32:
+            v = [s0 + _P1 + _P2, s0 + _P2, s0.copy(), s0 - _P1]
+            v = [_xx_round(v[k], word(m, 8 * k, 8)) for k in range(4)]
+            h = _rotl64(v[0], 1) + _rotl64(v[1], 7) + _rotl64(v[2], 12) + \
+                _rotl64(v[3], 18)
+            for vk in v:
+                h = (h ^ _xx_round(np.zeros_like(vk), vk)) * _P1 + _P4
+            pos = 32
+        else:
+            h = s0 + _P5
+        h = h + np.uint64(ln)
+        while pos + 8 <= ln:
+            k1 = word(m, pos, 8)
+            h = _rotl64(h ^ (_rotl64(k1 * _P2, 31) * _P1), 27) * _P1 + _P4
+            pos += 8
+        if pos + 4 <= ln:
+            h = _rotl64(h ^ (word(m, pos, 4) * _P1), 23) * _P2 + _P3
+            pos += 4
+        while pos < ln:
+            h = _rotl64(h ^ (m[:, pos].astype(np.uint64) * _P5), 11) * _P1
+            pos += 1
+        out[rows] = _xx_fmix(h)
+    return out
+
+
+def _canonical_double_bits(x):
+    """Java's doubleToLongBits after Spark's -0.0 → 0.0."""
+    x = np.where(x == 0.0, 0.0, x)
+    bits = x.view(np.int64)
+    return np.where(np.isnan(x), np.int64(0x7FF8000000000000), bits)
+
+
+def _by_chunks(fn, cols, nulls, chunk: int = 1 << 20):
+    """``fn`` over row chunks (the strings' byte matrix stays small)."""
+    n = len(cols["i"])
+    offs, chars = cols["s"]
+    out = []
+    for a in range(0, n, chunk):
+        b = min(a + chunk, n)
+        part = {k: (v[a:b] if k != "s" else (offs[a:b + 1], chars))
+                for k, v in cols.items()}
+        out.append(fn(part, {k: m[a:b] for k, m in nulls.items()}))
+    return np.concatenate(out) if out else np.zeros(0, np.int64)
+
+
+def xxhash64_oracle(cols, nulls):
+    """Spark's xxhash64(i, x, s, d, ts) (seed 42), numpy."""
+    if len(cols["i"]) > 1 << 20:
+        return _by_chunks(xxhash64_oracle, cols, nulls)
+    n = len(cols["i"])
+    with np.errstate(over="ignore"):
+        h = np.full(n, 42, np.uint64)
+        for k, kind in (("i", "long"), ("x", "double"), ("s", "string"),
+                        ("d", "int"), ("ts", "long")):
+            valid = ~nulls["t" if k == "ts" else k]
+            if kind == "long":
+                nh = _xx_long(cols[k], h)
+            elif kind == "double":
+                nh = _xx_long(_canonical_double_bits(cols[k]), h)
+            elif kind == "int":
+                nh = _xx_int(cols[k], h)
+            else:
+                nh = _xx_strings(*cols[k], h)
+            h = np.where(valid, nh, h)
+    return h.view(np.int64)
+
+
+def hive_hash_oracle(cols, nulls):
+    """Spark's hive_hash(i, x, s, d, ts): 31·h + field, numpy (uint32
+    arithmetic in uint64 lanes)."""
+    if len(cols["i"]) > 1 << 20:
+        return _by_chunks(hive_hash_oracle, cols, nulls)
+    m32 = np.uint64(0xFFFFFFFF)
+
+    def fold(v):
+        u = _u64(v)
+        return ((u >> np.uint64(32)) ^ u) & m32
+    n = len(cols["i"])
+    with np.errstate(over="ignore"):
+        # right-aligned bytes: the leading zero padding leaves 31·h + b
+        # at 0, so every row folds all 40 columns
+        mat, lens = _string_matrix(*cols["s"], 40, right=True)
+        sh32 = np.zeros(n, np.uint32)
+        for b in range(40):
+            sh32 = sh32 * np.uint32(31) + mat[:, b].view(np.int8).astype(
+                np.int32).view(np.uint32)
+        sh = sh32.astype(np.uint64)
+        ts = cols["ts"]
+        secs = np.where(ts >= 0, ts // 1_000_000, -((-ts) // 1_000_000))
+        nanos = np.fmod(ts, 1_000_000) * 1000
+        fields = {"i": fold(cols["i"]),
+                  "x": fold(_canonical_double_bits(cols["x"])),
+                  "s": sh, "d": _u64(cols["d"].astype(np.int64)) & m32,
+                  "ts": fold((_u64(secs) << np.uint64(30)) | _u64(nanos))}
+        h = np.zeros(n, np.uint64)
+        for k in ("i", "x", "s", "d", "ts"):
+            f = np.where(nulls["t" if k == "ts" else k], np.uint64(0),
+                         fields[k])
+            h = (h * np.uint64(31) + f) & m32
+    return h.astype(np.uint32).view(np.int32)
+
+
+def _java_rem(a, b):
+    """Java's % of int64 arrays; b holds no zero (x % -1 is 0)."""
+    safe = np.where(b == -1, 1, b)
+    return np.fmod(a, safe)
+
+
+def _java_div(a, b):
+    """Java's / of int64 arrays (MinValue / -1 wraps); b holds no 0."""
+    safe = np.where(b == -1, 1, b)
+    q = np.fmod(a, safe)  # a - q*b ... by truncated division
+    q = (a - q) // safe
+    with np.errstate(over="ignore"):
+        return np.where(b == -1, -a, q)
+
+
+def _java_long_of(v):
+    v = np.where(np.isnan(v), 0.0, v)
+    out = np.where(np.abs(v) < 2.0 ** 63, v, 0.0).astype(np.int64)
+    out = np.where(v >= 2.0 ** 63, I64_MAX, out)
+    return np.where(v <= -2.0 ** 63, I64_MIN, out)
+
+
+def math_oracles(x, j):
+    """Spark's math functions over doubles as numpy (Java's specials for
+    pow; Spark's own asinh, acosh, atanh)."""
+    jd = j.astype(np.float64)
+    with np.errstate(all="ignore"):
+        out = {
+            "sqrt": np.sqrt(x), "cbrt": np.cbrt(x), "exp": np.exp(x),
+            "expm1": np.expm1(x), "sin": np.sin(x), "cos": np.cos(x),
+            "tan": np.tan(x), "asin": np.arcsin(x), "acos": np.arccos(x),
+            "atan": np.arctan(x), "sinh": np.sinh(x), "cosh": np.cosh(x),
+            "tanh": np.tanh(x), "cot": 1.0 / np.tan(x),
+            "asinh": np.where(x == -np.inf, -np.inf,
+                              np.log(x + np.sqrt(x * x + 1.0))),
+            "acosh": np.log(x + np.sqrt(x * x - 1.0)),
+            "atanh": 0.5 * (np.log1p(x) - np.log1p(-x)),
+            "degrees": x * 57.29577951308232,
+            "radians": x * 0.017453292519943295,
+            "rint": np.rint(x),
+            "signum": np.where(x > 0, 1.0, np.where(x < 0, -1.0, x)),
+            "log": np.log(x), "log10": np.log10(x), "log2": np.log2(x),
+            "log1p": np.log1p(x), "log_2": np.log(x) / np.log(2.0),
+            "pow3": np.power(x, 3.0),
+            "pow1": np.where(np.isnan(x) | np.isinf(x), np.nan, 1.0),
+            "atan2": np.arctan2(x, jd), "hypot": np.hypot(x, jd),
+            "sqrt_j": np.sqrt(jd), "exp_j": np.exp(jd / 1e9),
+            "ceil": _java_long_of(np.ceil(x)),
+            "floor": _java_long_of(np.floor(x))}
+    asym = {"log": 0.0, "log10": 0.0, "log2": 0.0, "log1p": -1.0,
+            "log_2": 0.0}
+    return out, asym
+
+
+def round_oracle(x, rounding=decimal.ROUND_HALF_EVEN):
+    """Spark's bround(x, 2) (round with ROUND_HALF_UP): the decimal text
+    rounded at 2 digits, vectorized for the rows clear of a tie and below
+    2^52 (where both modes agree with rint), exact through Python's
+    decimal for the others."""
+    with np.errstate(all="ignore"):
+        y = x * 100.0
+        out = np.rint(y) / 100.0 + 0.0
+        ay = np.abs(y)
+        near = (np.abs(ay - np.floor(ay) - 0.5) <= ay * 2.0 ** -40 + 1e-9) \
+            | ~(ay < 2.0 ** 52)
+    out = np.where(np.isfinite(x), out, x)
+    for k in np.nonzero(near & np.isfinite(x))[0]:
+        dec = decimal.Decimal(repr(float(x[k])))
+        out[k] = float(dec.quantize(decimal.Decimal("0.01"),
+                                    rounding=rounding)) + 0.0 \
+            if dec.as_tuple().exponent < -2 else float(x[k])
+    return out
+
+
+def reduced(F, q):
+    """``q`` reduced to one row on the card: the sum of Spark's hash of
+    every column (what a timing line collects, so the download does not
+    dominate; every column stays live)."""
+    return q.agg(F.sum(F.hash(*[F.col(c) for c in q.columns])).alias("h"))
+
+
+def best_of_2_line(key: str, q, rows: int, smi: str) -> None:
+    best = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        q.collect()
+        best = min(best, time.perf_counter() - t0)
+    print(json.dumps({key: {"rows": rows, "best_collect_s": best,
+                            "mrows_per_s": rows / best / 1e6},
+                      "card": smi}), flush=True)
+
+
+def scalar_paths(F, TorchSession, smi, tmpdir: str, device: str = "cuda",
+                 rows: int = SCALAR_ROWS, md5_rows: int = SCALAR_MD5_ROWS,
+                 file_rows: int = SCALAR_FILE_ROWS) -> None:
+    """Phase 17: (a)-(f) in test mode over the events table. With
+    ``device="cpu"`` and small sizes it checks the script's own logic off
+    the card (no timing lines)."""
+    import datetime as _dt
+    import hashlib
+    import os
+
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.expressions import arithmetic as PA
+    from spark_rapids_tpu_torch.expressions import bitwise as PBW
+    from spark_rapids_tpu_torch.expressions import nullexprs as PN
+    from spark_rapids_tpu_torch.expressions.base import ExpressionError
+    from spark_rapids_tpu_torch.expressions.datetime import \
+        host_path_counts as dt_hops
+    from spark_rapids_tpu_torch.expressions.strings import \
+        host_path_counts as str_hops
+    from spark_rapids_tpu_torch.serving.scheduler import QueryScheduler
+    from spark_rapids_tpu_torch.session import Column
+    from spark_rapids_tpu_torch.tzdb import TimeZoneDB
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    if TimeZoneDB.get(SCALAR_ZONE) is None:
+        print(f"(17) no TZif file for {SCALAR_ZONE} on this machine",
+              flush=True)
+        check(False, f"phase 17 needs the TZif file of {SCALAR_ZONE}")
+    tbl, cols, nulls = events_table(rows)
+    base = {"spark.rapids.shuffle.mode": "ICI",
+            "spark.sql.shuffle.partitions": "8",
+            "spark.rapids.sql.batchSizeRows": str(1 << 20)}
+    s = TorchSession(dict(base, **{"spark.rapids.sql.test.enabled": "true"}),
+                     device=device)
+    h = TorchSession(dict(base, **{"spark.rapids.sql.enabled": "false"}),
+                     device=device)
+    state0 = runtime_state(on_card)
+    df = s.createDataFrame(tbl, num_partitions=4)
+    dc = df.device_cache()
+    hdf = h.createDataFrame(tbl, num_partitions=4)
+    counters0 = dict(s.counters)
+    t_setup = time.perf_counter() - t_phase
+    parts: dict = {"setup": t_setup}
+    t_part = time.perf_counter()
+
+    def part_done(key):
+        nonlocal t_part
+        now = time.perf_counter()
+        parts[key] = now - t_part
+        t_part = now
+    print(f"(17) events table: {rows} rows in 4 partitions, "
+          f"{tbl.nbytes / 1e9:.3f} GB, setup {t_setup:.1f} s", flush=True)
+
+    # (a) dates: a group by year and quarter, every date field and the date
+    # arithmetic against numpy's calendar, exactly
+    qa = dc.groupBy(F.year("d").alias("y"), F.quarter("d").alias("q")).agg(
+        F.sum("x").alias("sx"), F.count("x").alias("n"),
+        F.sum("j").alias("sj"))
+    got = qa.to_arrow().sort_by([("y", "ascending"), ("q", "ascending")])
+    o = date_oracles(cols["d"], cols["j"])
+    dv = ~nulls["d"]
+    key = o["y"][dv] * 4 + o["q"][dv] - 1
+    uk, inv = np.unique(key, return_inverse=True)
+    xv = ~nulls["x"][dv]
+    jv = ~nulls["j"][dv]
+    want_n = np.bincount(inv, weights=xv, minlength=len(uk)).astype(np.int64)
+    want_sj = np.bincount(inv[jv], weights=cols["j"][dv][jv].astype(
+        np.float64), minlength=len(uk))
+    want_sx = np.bincount(inv[xv], weights=cols["x"][dv][xv],
+                          minlength=len(uk))
+    # the null date's group: Spark groups the nulls together
+    check(got.num_rows == len(uk) + 1, f"(17a) {got.num_rows} groups")
+    body = got.slice(0, len(uk)) if got.column("y")[0].is_valid \
+        else got.slice(1, len(uk))
+    check_exact(body.column("y"), uk // 4, np.zeros(len(uk), bool),
+                "(17a) year")
+    check_exact(body.column("q"), uk % 4 + 1, np.zeros(len(uk), bool),
+                "(17a) quarter")
+    check_exact(body.column("n"), want_n, np.zeros(len(uk), bool),
+                "(17a) count")
+    # a group without a non-null value sums to null
+    check_exact(body.column("sj"), want_sj.astype(np.int64),
+                np.bincount(inv[jv], minlength=len(uk)) == 0,
+                "(17a) sum(j)")
+    check_float(body.column("sx"), want_sx, want_n == 0, "(17a) sum(x)",
+                rtol=1e-9, atol=1e-6)
+    q = dc.select(
+        F.year("d").alias("y"), F.month("d").alias("m"),
+        F.dayofmonth("d").alias("dom"), F.quarter("d").alias("q"),
+        F.dayofweek("d").alias("dow"), F.weekday("d").alias("wd"),
+        F.dayofyear("d").alias("doy"), F.weekofyear("d").alias("woy"),
+        F.last_day("d").alias("ld"),
+        F.date_add(F.col("d"), F.col("j") % 10000).alias("add"),
+        F.date_sub("d", 45).alias("sub"),
+        F.datediff(F.col("d"), F.last_day("d")).alias("diff"),
+        F.add_months(F.col("d"), F.col("j") % 240).alias("am"))
+    got = q.to_arrow()
+    for k in ("y", "m", "dom", "q", "dow", "wd", "doy", "woy", "ld", "sub",
+              "diff"):
+        check_exact(got.column(k), o[k], nulls["d"], f"(17a) {k}")
+    both = nulls["d"] | nulls["j"]
+    check_exact(got.column("add"), o["add"], both, "(17a) date_add")
+    check_exact(got.column("am"), o["am"], both, "(17a) add_months")
+    print(f"(17a) dates ok: {len(uk)} (year, quarter) groups and 13 date "
+          "functions over every row equal numpy's calendar", flush=True)
+    if on_card:
+        timed_line("scalar_a_dates", qa, rows, smi)
+    part_done("a")
+
+    # (b) timestamps under UTC, then America/Los_Angeles: fields, the
+    # device format, a host pattern, from_unixtime, the round trip of
+    # unix_timestamp, timestamp_seconds/_millis/_micros, against zoneinfo
+    # and the port's CPU answer, exactly
+    ts, j = cols["ts"], cols["j"].astype(np.int64)
+    host_pat = "EEE, dd MMM yyyy HH:mm a"  # outside the device set
+    for zone in ("UTC", SCALAR_ZONE):
+        for sess in (s, h):
+            sess.conf.set("spark.sql.session.timeZone", zone)
+
+        def qb_of(frame):
+            f = F.date_format("ts", "yyyy-MM-dd HH:mm:ss")
+            return frame.select(
+                F.hour("ts").alias("hh"), F.minute("ts").alias("mi"),
+                F.second("ts").alias("ss"), f.alias("f"),
+                F.date_format("ts", host_pat).alias("g"),
+                F.from_unixtime("j").alias("fu"),
+                F.unix_timestamp(f).alias("rt"),
+                F.timestamp_seconds("j").alias("t_s"),
+                F.timestamp_millis("j").alias("t_ms"),
+                F.timestamp_micros("i").alias("t_us"))
+        qb = qb_of(dc)
+        got = qb.to_arrow()
+        cpu = qb_of(hdf).to_arrow()
+        for c in got.column_names:
+            check(got.column(c).equals(cpu.column(c)),
+                  f"(17b) {zone} {c}: the card differs from the CPU answer")
+        local = ts + zone_offsets_micros(ts, zone)
+        tod = np.mod(local, 86_400_000_000)
+        tn = nulls["t"]
+        check_exact(got.column("hh"), tod // 3_600_000_000, tn,
+                    f"(17b) {zone} hour")
+        check_exact(got.column("mi"), tod // 60_000_000 % 60, tn,
+                    f"(17b) {zone} minute")
+        check_exact(got.column("ss"), tod // 1_000_000 % 60, tn,
+                    f"(17b) {zone} second")
+        fcol = got.column("f").combine_chunks()
+        lens_ok = pc.all(pc.equal(pc.utf8_length(fcol), 19)).as_py()
+        check(lens_ok in (True, None), f"(17b) {zone} format widths")
+        parsed, pnull = _arrow_vals(pc.strptime(
+            fcol, format="%Y-%m-%d %H:%M:%S", unit="s", error_is_null=True))
+        check(np.array_equal(pnull, tn), f"(17b) {zone} format nulls")
+        check(np.array_equal(parsed[~tn], np.floor_divide(local, 1_000_000)
+                             [~tn]), f"(17b) {zone} formatted wall time")
+        sample = np.nonzero(~tn)[0][:: max(1, rows // 4096)]
+        gcol = got.column("g").combine_chunks()
+        for k in sample:
+            want = _dt.datetime(1970, 1, 1) + _dt.timedelta(
+                microseconds=int(local[k]))
+            check(gcol[int(k)].as_py() == want.strftime(
+                "%a, %d %b %Y %H:%M %p"), f"(17b) {zone} host pattern "
+                f"row {k}: {gcol[int(k)]} vs {want}")
+        ju = j * 1_000_000
+        lj = ju + zone_offsets_micros(ju, zone)
+        fu, funull = _arrow_vals(pc.strptime(
+            got.column("fu").combine_chunks(), format="%Y-%m-%d %H:%M:%S",
+            unit="s", error_is_null=True))
+        check(np.array_equal(funull, nulls["j"]), f"(17b) {zone} fu nulls")
+        check(np.array_equal(fu[~nulls["j"]], np.floor_divide(
+            lj, 1_000_000)[~nulls["j"]]), f"(17b) {zone} from_unixtime")
+        wall = np.floor_divide(local, 1_000_000) * 1_000_000
+        want_rt = np.floor_divide(wall_to_utc_micros(wall, zone), 1_000_000)
+        check_exact(got.column("rt"), want_rt, tn,
+                    f"(17b) {zone} unix_timestamp round trip")
+        moved = int(np.sum((want_rt != np.floor_divide(ts, 1_000_000))
+                           & ~tn))
+        check((moved > 0) == (zone != "UTC"),
+              f"(17b) {zone}: {moved} round trips moved by an overlap")
+        check_exact(got.column("t_s"), j * 1_000_000, nulls["j"],
+                    f"(17b) {zone} timestamp_seconds")
+        check_exact(got.column("t_ms"), j * 1000, nulls["j"],
+                    f"(17b) {zone} timestamp_millis")
+        check_exact(got.column("t_us"), cols["i"], nulls["i"],
+                    f"(17b) {zone} timestamp_micros")
+        print(f"(17b) timestamps under {zone} ok: fields, formats, "
+              f"from_unixtime and the round trip ({moved} rows in an "
+              "overlap take the earlier offset) equal zoneinfo and the "
+              "CPU answer", flush=True)
+        if on_card and zone == SCALAR_ZONE:  # one timing line for (b)
+            timed_line("scalar_b_timestamps", reduced(F, qb), rows, smi,
+                       zone=zone)
+        part_done(f"b_{zone}")
+
+    # (c) math: the 31 functions over x (and j) against numpy
+    x = cols["x"]
+    mo, asym = math_oracles(x, cols["j"])
+    fns = ["sqrt", "cbrt", "exp", "expm1", "sin", "cos", "tan", "asin",
+           "acos", "atan", "sinh", "cosh", "tanh", "cot", "asinh", "acosh",
+           "atanh", "degrees", "radians", "rint", "signum", "log", "log10",
+           "log2", "log1p", "ceil", "floor"]
+    exprs = [getattr(F, k)("x").alias(k) for k in fns] + [
+        F.log(2.0, "x").alias("log_2"), F.pow("x", 3.0).alias("pow3"),
+        F.pow(F.lit(1.0), "x").alias("pow1"),
+        F.atan2("x", "j").alias("atan2"), F.hypot("x", "j").alias("hypot"),
+        F.sqrt("j").alias("sqrt_j"),
+        F.exp(F.col("j") / 1e9).alias("exp_j"),
+        F.bround("x", 2).alias("bround"), F.round("x", 2).alias("round")]
+    qc = dc.select(*exprs)
+    got = qc.to_arrow()
+    for k, want in mo.items():
+        nl = nulls["j"] if k in ("sqrt_j", "exp_j") else nulls["x"]
+        if k in ("atan2", "hypot"):
+            nl = nulls["x"] | nulls["j"]
+        if k in asym:
+            with np.errstate(invalid="ignore"):
+                nl = nl | (x <= asym[k])
+        if k in ("ceil", "floor"):
+            check_exact(got.column(k), want, nl, f"(17c) {k}")
+        elif k == "rint":
+            check_float(got.column(k), want, nl, f"(17c) {k}", 0.0, 0.0)
+        else:
+            check_float(got.column(k), want, nl, f"(17c) {k}")
+    check_float(got.column("bround"), round_oracle(x), nulls["x"],
+                "(17c) bround", 0.0, 0.0)
+    check_float(got.column("round"), round_oracle(x, decimal.ROUND_HALF_UP),
+                nulls["x"], "(17c) round", 0.0, 0.0)
+    print(f"(17c) math ok: {len(got.column_names)} functions within rtol "
+          f"{MATH_RTOL} / atol {MATH_ATOL} of numpy (bround, round, rint, "
+          "the logs' nulls exact)", flush=True)
+    if on_card:
+        best_of_2_line("scalar_c_math", reduced(F, qc), rows, smi)
+    part_done("c")
+
+    # (d) integral functions, bitwise, NaN and nulls, greatest/least, exact
+    i64, j64 = cols["i"], cols["j"].astype(np.int64)
+    qd = dc.select(
+        F.pmod("i", "j").alias("pmod"), (F.col("i") % F.col("j")).alias("rem"),
+        Column(PA.IntegralDivide(F.col("i")._expr, F.col("j")._expr))
+        .alias("div"),
+        F.negative("i").alias("neg"), F.shiftleft("i", 7).alias("shl"),
+        F.shiftright("i", 5).alias("shr"),
+        F.shiftrightunsigned("i", 13).alias("shru"),
+        F.shiftrightunsigned("j", 3).alias("shru_j"),
+        F.bit_count("i").alias("bc"), F.bit_count("j").alias("bc_j"),
+        F.bitwise_not("j").alias("bn"),
+        Column(PBW.BitwiseOr(F.col("i")._expr, F.col("j")._expr)).alias("or"),
+        Column(PBW.BitwiseXor(F.col("i")._expr, F.col("j")._expr))
+        .alias("xor"),
+        F.greatest("i", "j").alias("gr"), F.least("i", "j").alias("le"),
+        F.isnan("x").alias("isnan"), F.nanvl("x", F.lit(-1.0)).alias("nv"),
+        Column(PN.AtLeastNNonNulls(2, F.col("x")._expr, F.col("i")._expr,
+                                   F.col("j")._expr)).alias("ann"))
+    got = qd.to_arrow()
+    ij = nulls["i"] | nulls["j"]
+    nz = (j64 != 0) & ~ij
+    safe = np.where(j64 == 0, 1, j64)
+    with np.errstate(over="ignore"):
+        rem = _java_rem(i64, safe)
+        wrap = np.where(rem < 0, rem + safe, 0)  # int64 wrap, as Java
+        pm = np.where(rem < 0, _java_rem(wrap, safe), rem)
+        check_exact(got.column("pmod"), pm, ij | ~nz, "(17d) pmod")
+        check_exact(got.column("rem"), rem, ij | ~nz, "(17d) %")
+        check_exact(got.column("div"), _java_div(i64, safe), ij | ~nz,
+                    "(17d) div")
+        check_exact(got.column("neg"), -i64, nulls["i"], "(17d) negative")
+        check_exact(got.column("shl"), i64 << np.int64(7), nulls["i"],
+                    "(17d) shiftleft")
+    check_exact(got.column("shr"), i64 >> np.int64(5), nulls["i"],
+                "(17d) shiftright")
+    check_exact(got.column("shru"), (i64.view(np.uint64) >> np.uint64(13))
+                .view(np.int64), nulls["i"], "(17d) shiftrightunsigned")
+    check_exact(got.column("shru_j"), (cols["j"].view(np.uint32)
+                                       >> np.uint32(3)).view(np.int32),
+                nulls["j"], "(17d) shiftrightunsigned int")
+
+    def popcount(v):
+        u = np.ascontiguousarray(v.astype(np.int64))
+        return np.unpackbits(u.view(np.uint8)).reshape(len(u), 64).sum(1)
+    check_exact(got.column("bc"), popcount(i64), nulls["i"],
+                "(17d) bit_count")
+    check_exact(got.column("bc_j"), popcount(j64), nulls["j"],
+                "(17d) bit_count int")
+    check_exact(got.column("bn"), ~cols["j"], nulls["j"], "(17d) ~")
+    check_exact(got.column("or"), i64 | j64, ij, "(17d) |")
+    check_exact(got.column("xor"), i64 ^ j64, ij, "(17d) ^")
+    gi = np.where(nulls["i"], j64, np.where(nulls["j"], i64,
+                                            np.maximum(i64, j64)))
+    le = np.where(nulls["i"], j64, np.where(nulls["j"], i64,
+                                            np.minimum(i64, j64)))
+    both_null = nulls["i"] & nulls["j"]
+    check_exact(got.column("gr"), gi, both_null, "(17d) greatest")
+    check_exact(got.column("le"), le, both_null, "(17d) least")
+    check_exact(got.column("isnan"), np.isnan(x) & ~nulls["x"],
+                np.zeros(rows, bool), "(17d) isnan")
+    check_float(got.column("nv"), np.where(np.isnan(x), -1.0, x),
+                nulls["x"], "(17d) nanvl", 0.0, 0.0)
+    nonnull = (~nulls["x"] & ~np.isnan(x)).astype(int) \
+        + (~nulls["i"]).astype(int) + (~nulls["j"]).astype(int)
+    check_exact(got.column("ann"), nonnull >= 2, np.zeros(rows, bool),
+                "(17d) AtLeastNNonNulls")
+    # ANSI on: i + i over MinValue raises, on the card and on the host,
+    # with one message
+    msgs = []
+    for conf in ({"spark.rapids.sql.test.enabled": "true"},
+                 {"spark.rapids.sql.enabled": "false"}):
+        a = TorchSession(dict(base, **conf, **{"spark.sql.ansi.enabled":
+                                               "true"}), device=device)
+        try:
+            a.createDataFrame(tbl, num_partitions=4).select(
+                (F.col("i") + F.col("i")).alias("z")).to_arrow()
+            msgs.append(None)
+        except ExpressionError as e:
+            msgs.append(str(e))
+        a.stop()
+    check(msgs[0] is not None and msgs[0] == msgs[1]
+          and "overflow" in msgs[0], f"(17d) ANSI messages {msgs}")
+    print(f"(17d) integral, bitwise and NaN functions ok (exact); ANSI i + i"
+          f" raises on the card and the host: {msgs[0]!r}", flush=True)
+    if on_card:
+        best_of_2_line("scalar_d_integral", reduced(F, qd), rows, smi)
+    part_done("d")
+
+    # (e) hashes against numpy oracles of Spark's algorithms; md5 against
+    # hashlib over the first md5_rows strings
+    qe = dc.select(F.xxhash64("i", "x", "s", "d", "ts").alias("xx"),
+                   F.hive_hash("i", "x", "s", "d", "ts").alias("hh"))
+    got = qe.to_arrow()
+    check_exact(got.column("xx"), xxhash64_oracle(cols, nulls),
+                np.zeros(rows, bool), "(17e) xxhash64")
+    check_exact(got.column("hh"), hive_hash_oracle(cols, nulls),
+                np.zeros(rows, bool), "(17e) hive_hash")
+    small = tbl.select(["s"]).slice(0, md5_rows)
+    md = s.createDataFrame(small).select(F.md5("s").alias("m")).to_arrow()
+    want = [None if v is None else hashlib.md5(v).hexdigest()
+            for v in small.column("s").cast(pa.binary()).to_pylist()]
+    check(md.column("m").to_pylist() == want, "(17e) md5 differs from hashlib")
+    print(f"(17e) hashes ok: xxhash64 and hive_hash of (i, x, s, d, ts) "
+          f"over {rows} rows equal Spark's algorithms; md5 of {md5_rows} "
+          "strings equals hashlib", flush=True)
+    if on_card:
+        timed_line("scalar_e_hashes", reduced(F, qe), rows, smi)
+    part_done("e")
+
+    # (f) partition ids, row ids, rand, the input file
+    qf = df.select(F.spark_partition_id().alias("p"),
+                   F.monotonically_increasing_id().alias("mid"),
+                   F.rand(42).alias("r"))
+    got = qf.to_arrow()
+    part_rows = local_partition_rows(rows, 4)
+    want_p = np.repeat(np.arange(4), part_rows)
+    within = np.concatenate([np.arange(k) for k in part_rows])
+    check_exact(got.column("p"), want_p, np.zeros(rows, bool),
+                "(17f) spark_partition_id")
+    check_exact(got.column("mid"), (want_p.astype(np.int64) << 33) + within,
+                np.zeros(rows, bool), "(17f) monotonically_increasing_id")
+    cpu = hdf.select(F.spark_partition_id().alias("p"),
+                     F.monotonically_increasing_id().alias("mid"),
+                     F.rand(42).alias("r")).to_arrow()
+    check(cpu.equals(got), "(17f) the host engine's ids or rand differ")
+    s2 = TorchSession(dict(base, **{"spark.rapids.sql.test.enabled": "true",
+                                    "spark.rapids.sql.batchSizeRows":
+                                    str(max(rows // 64, 1))}), device=device)
+    other = s2.createDataFrame(tbl, num_partitions=4).select(
+        F.rand(42).alias("r")).to_arrow()
+    check(other.column("r").equals(got.column("r")),
+          "(17f) rand differs at another batch size")
+    s2.stop()
+    path = os.path.join(tmpdir, "events.parquet")
+    pq.write_table(tbl.select(["i", "j"]).slice(0, file_rows), path,
+                   row_group_size=1 << 18)
+    qi = s.read.parquet(path).select(
+        F.input_file_name().alias("f"),
+        F.input_file_block_start().alias("st"),
+        F.input_file_block_length().alias("ln"), "j")
+    check("TorchFileScan" in quiet_plan(qi), "(17f) no device file scan")
+    got_f = qi.to_arrow()
+    size = os.path.getsize(path)
+    check(got_f.num_rows == min(file_rows, rows)
+          and pc.all(pc.equal(got_f.column("f"), path)).as_py()
+          and pc.all(pc.equal(got_f.column("st"), 0)).as_py()
+          and pc.all(pc.equal(got_f.column("ln"), size)).as_py(),
+          "(17f) input_file_name / block start / length")
+    check(s.counters.get("fallback_row_groups", 0) == counters0.get(
+        "fallback_row_groups", 0), "(17f) the file left the device decode")
+    print(f"(17f) misc ok: partition and row ids over 4 partitions exact; "
+          "rand(42) identical on the card, the host and at another batch "
+          f"size; input_file_name over {got_f.num_rows} rows of "
+          f"{size} bytes", flush=True)
+    if on_card:
+        best_of_2_line("scalar_f_misc", reduced(F, qf), rows, smi)
+    part_done("f")
+
+    hops = {"datetime": {f"{c}.{r}": v for (c, r), v in
+                         dt_hops(s.counters).items()},
+            "strings": {f"{c}.{r}": v for (c, r), v in
+                        str_hops(s.counters).items()
+                        if (c, r) not in str_hops(counters0)}}
+    print(json.dumps({"scalar_parts_s": parts, "card": smi}), flush=True)
+    print(json.dumps({"scalar_host_paths": {
+        "datetime.hostPath": s.counters.get("datetime.hostPath", 0)
+        - counters0.get("datetime.hostPath", 0),
+        "strings.hostPath": s.counters.get("strings.hostPath", 0)
+        - counters0.get("strings.hostPath", 0), **hops},
+        "card": smi}), flush=True)
+    del dc, df, hdf, q, qa, qb, qc, qd, qe, qf, qi, got, cpu, got_f
+    s.stop()
+    h.stop()
+    QueryScheduler.get().plan_cache.clear()
+    TimeZoneDB.clear_device_tables()  # the zones' tables on the card
+    if on_card:
+        torch.cuda.empty_cache()
+    check_no_leak(state0, on_card, "phase 17")
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s | card: {smi}",
+          flush=True)
+
+
 def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--strings-prep":
         # phase 13's CPU answers, tables and oracles, beside the card's run
@@ -5305,6 +6228,15 @@ def main() -> int:
     print(f"import pandas: {'ok' if has_pandas else 'fails'}", flush=True)
     check(has_pyarrow, "pyarrow does not import: the parquet scan needs it")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
+    if sys.argv[1:] == ["--phase17"]:
+        # phase 17 alone (no kernel build, no contract line): the quickest
+        # look at the scalar functions on the card
+        import spark_rapids_tpu_torch.functions as F
+        from spark_rapids_tpu_torch.session import TorchSession
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_scalar_") as d:
+            scalar_paths(F, TorchSession, smi, d)
+        print("phase 17 alone: ok", flush=True)
+        return 0
 
     clock = PhaseClock(smi)
     # phase 12's CPU answers and phase 13's host work, done meanwhile by
@@ -5321,7 +6253,7 @@ def main() -> int:
 
 def run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
                cpu_answers, prep) -> int:
-    """Phases 2-16 (``main`` prints phase 1 and starts phase 12's CPU
+    """Phases 2-17 (``main`` prints phase 1 and starts phase 12's CPU
     answers and phase 13's host work)."""
     from spark_rapids_tpu_torch.entry import entry
     from spark_rapids_tpu_torch.kernels import build, q1_cuda
@@ -5587,6 +6519,17 @@ def run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
     tables.clear()
     release_plans()
     clock.mark(16)
+
+    # 17. the scalar functions: dates and timestamps in the session zone,
+    # math, integral arithmetic with ANSI, bitwise, NaN handling, hashes,
+    # partition and row ids, rand, the input file; in test mode over the
+    # 2^22-row events table. It launches neither Q1 kernel.
+    before = dict(q1_cuda.launches)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scalar_") as d:
+        scalar_paths(F, TorchSession, smi, d)
+    check(dict(q1_cuda.launches) == before, "phase 17 launched a Q1 kernel")
+    release_plans()
+    clock.mark(17)
 
     print(kernels_line, flush=True)  # again, near the end of the output
     print(nvidia_smi())

@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from ..types import (BinaryType, BooleanType, StringT, StringType,
-                     StructField, StructType, from_arrow, from_numpy_dtype)
+                     StructField, StructType, TimestampT, from_arrow,
+                     from_numpy_dtype)
 from .vector import (HostStrings, TorchColumnVector, audited_device_get,
                      bucket_capacity, column_to_arrow)
 
@@ -122,16 +123,37 @@ class TorchColumnarBatch:
     @staticmethod
     def from_pylist(rows: List[dict]) -> "TorchColumnarBatch":
         """List of dicts → host table; python int → bigint, float → double,
-        str → string, bool → boolean, None → null (pyarrow's inference)."""
+        str → string, bool → boolean, ``datetime.date`` → date,
+        ``datetime.datetime`` → timestamp (a naive one read as UTC), None →
+        null (pyarrow's inference)."""
+        import datetime as _dt
         names: List[str] = []
         for r in rows:
             names.extend(k for k in r if k not in names)
-        cols, valid = {}, {}
+        cols, valid, times = {}, {}, {}
         for name in names:
             vals = [r.get(name) for r in rows]
             kinds = {type(v) for v in vals if v is not None}
             ok = np.array([v is not None for v in vals], np.bool_)
-            if kinds <= {bool} and kinds:
+            if kinds and all(issubclass(k, _dt.datetime) for k in kinds):
+                epoch = _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
+                micros = [0 if v is None else
+                          (v if v.tzinfo else v.replace(
+                              tzinfo=_dt.timezone.utc)) - epoch
+                          for v in vals]
+                times[name] = TorchColumnVector.from_numpy(
+                    TimestampT, np.array(
+                        [m if isinstance(m, int) else
+                         (m.days * 86_400 + m.seconds) * 1_000_000
+                         + m.microseconds for m in micros], np.int64),
+                    ok, capacity=len(rows), bucket=False)
+                cols[name] = np.zeros(len(rows), np.int64)
+            elif kinds and all(issubclass(k, _dt.date) for k in kinds):
+                epoch = _dt.date(1970, 1, 1)
+                cols[name] = np.array(
+                    [0 if v is None else (v - epoch).days for v in vals],
+                    np.int64).astype("datetime64[D]")
+            elif kinds <= {bool} and kinds:
                 cols[name] = np.array([bool(v) for v in vals], np.bool_)
             elif kinds <= {int}:
                 cols[name] = np.array([v or 0 for v in vals], np.int64)
@@ -145,7 +167,10 @@ class TorchColumnarBatch:
                     f"column {name!r} of {sorted(k.__name__ for k in kinds)} "
                     "not yet ported")
             valid[name] = ok
-        return TorchColumnarBatch.from_numpy_columns(cols, valid)
+        out = TorchColumnarBatch.from_numpy_columns(cols, valid)
+        for name, col in times.items():
+            out.columns[names.index(name)] = col
+        return out
 
     @staticmethod
     def from_arrow(table) -> "TorchColumnarBatch":

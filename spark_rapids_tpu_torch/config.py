@@ -116,6 +116,10 @@ ANSI_ENABLED = ConfEntry(
     "ANSI mode: arithmetic overflow and invalid casts raise instead of "
     "returning null.", False, _parse_bool)
 
+SESSION_TZ = ConfEntry(
+    "spark.sql.session.timeZone",
+    "Session timezone for timestamp semantics.", "UTC", str)
+
 BATCH_SIZE_ROWS = ConfEntry(
     "spark.rapids.sql.batchSizeRows",
     "Target maximum rows per columnar batch.", 1 << 20,

@@ -59,10 +59,12 @@ def table_batch(table, attrs: Sequence[AttributeReference]
 def child_tables(child: PhysicalPlan, ctx: TaskContext,
                  idx=None) -> Iterator:
     """The child's batches as Arrow tables: partition ``idx``, or every
-    partition in turn when ``idx`` is None."""
+    partition in turn when ``idx`` is None; each child partition runs in
+    its own task context, so its expressions see its partition id."""
     parts = range(child.num_partitions()) if idx is None else (idx,)
     for p in parts:
-        for b in child.execute_partition(p, ctx):
+        pctx = ctx if p == ctx.partition_id else ctx.for_partition(p)
+        for b in child.execute_partition(p, pctx):
             yield b.to_arrow()
 
 

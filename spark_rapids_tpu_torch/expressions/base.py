@@ -28,16 +28,52 @@ from ..types import (BooleanT, DataType, DoubleT, IntegerT, LongT, NullT,
 
 
 class EvalContext:
-    """Per-task evaluation context: conf snapshot + ANSI flag, and the
-    session's event counters (an expression that takes the host path
-    counts it there as ``strings.hostPath``)."""
+    """Per-task evaluation context: conf snapshot + ANSI flag and session
+    time zone, the session's event counters (an expression that takes the
+    host path counts it there as ``strings.hostPath``), and the task-scoped
+    fields the nondeterministic expressions read: the partition id, the
+    current input file and its block (set by the file scans; ``''`` and -1
+    outside one), and running row offsets keyed by expression
+    (``monotonically_increasing_id``, ``rand``)."""
 
     def __init__(self, conf: Optional[RapidsConf] = None,
                  partition_id: int = 0, counters: Optional[Counter] = None):
+        from ..config import SESSION_TZ
         self.conf = conf or RapidsConf()
         self.ansi = self.conf.ansi_enabled
+        self.tz = self.conf.get(SESSION_TZ) or "UTC"
         self.partition_id = partition_id
         self.counters = counters if counters is not None else Counter()
+        self.input_file: Optional[str] = None
+        self.input_block_start: int = -1
+        self.input_block_length: int = -1
+        self.row_counters: dict = {}
+
+    def set_input_file(self, path: str, start: int = 0,
+                       length: Optional[int] = None) -> None:
+        """The file a scan's next batch comes from (reference
+        ``InputFileUtils``): its block is the whole file."""
+        import os
+        self.input_file = path
+        self.input_block_start = start
+        if length is None:
+            try:
+                length = os.path.getsize(path)
+            except OSError:
+                length = -1
+        self.input_block_length = length
+
+    def next_rows(self, key, n: int) -> int:
+        """The running row offset of ``key`` in this task, advanced by
+        ``n``."""
+        off = self.row_counters.get(key, 0)
+        self.row_counters[key] = off + n
+        return off
+
+
+class ExpressionError(Exception):
+    """A runtime error of an expression: ANSI mode's overflow and division
+    by zero (reference ``ExpressionError``)."""
 
 
 _DEFAULT_CTX = EvalContext()
@@ -437,3 +473,63 @@ class UnaryExpression(Expression):
         valid = combine_validity(v, row_mask(batch.num_rows, cap, dev))
         return make_column(self.dtype, self._compute(d, ctx, valid), valid,
                            batch.num_rows)
+
+
+def eval_cpu_on_host_tensors(expr: Expression, table, ctx: EvalContext,
+                             fn=None):
+    """Host evaluation through the expression's device code on CPU
+    tensors: each non-literal child's ``eval_cpu`` rows read into a host
+    column, ``eval_device`` over that host batch, the result back as
+    Arrow. The host engine's answer is then the card's by construction
+    (as murmur3's, ``hashexprs.murmur3_arrow``); no device is touched. A
+    constant subtree folds to a Python scalar."""
+    from ..columnar.batch import TorchColumnarBatch
+    from ..columnar.vector import column_to_arrow
+    import pyarrow as pa
+    n = table.num_rows
+    kids, cols = [], []
+    any_arrow = all(isinstance(c, Literal) for c in expr.children)
+    for c in expr.children:
+        if isinstance(c, Literal):
+            kids.append(c)
+            continue
+        v = c.eval_cpu(table, ctx)
+        any_arrow = any_arrow or is_arrow(v)
+        kids.append(c)
+        cols.append((c, v))
+    rows = n if any_arrow else 1
+    host_cols = []
+    for c, v in cols:
+        arr = arrow_column(v, rows, c.dtype)
+        host_cols.append(host_column(arr, c.dtype))
+    batch = TorchColumnarBatch(host_cols, rows)
+    i = 0
+    bound = []
+    for c in kids:
+        if isinstance(c, Literal):
+            bound.append(c)
+        else:
+            bound.append(AttributeReference(f"c{i}", c.dtype, c.nullable,
+                                            ordinal=i))
+            i += 1
+    # all-literal children: the expression itself (a row counter is keyed
+    # by it)
+    node = expr if all(b is c for b, c in zip(bound, expr.children)) \
+        else expr.with_children(bound)
+    res = node.eval_device(batch, ctx) if fn is None else fn(node, batch,
+                                                               ctx)
+    out = to_column(res, batch, expr.dtype)
+    arr = column_to_arrow(out, kind=None)
+    if any_arrow:
+        return arrow_column(arr, rows, expr.dtype)
+    return arrow_column(arr, 1, expr.dtype)[0].as_py()
+
+
+def host_column(arr, dtype: DataType) -> TorchColumnVector:
+    """An Arrow array of ``dtype``'s Arrow type as a host column of
+    ``dtype`` (capacity = rows), read through its buffers."""
+    import pyarrow as pa
+    from ..columnar.batch import TorchColumnarBatch
+    col = TorchColumnarBatch.from_arrow(pa.table({"c": arr})).columns[0]
+    return col if col.dtype == dtype else TorchColumnVector(
+        dtype, col.data, col.validity, col.num_rows, col.offsets)

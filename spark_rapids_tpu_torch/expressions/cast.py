@@ -92,7 +92,9 @@ class Cast(UnaryExpression):
         src, dst = self.child.dtype, self._to
         ansi = self._ansi if self._ansi is not None else ctx.ansi
         if ansi:
-            raise NotImplementedError("ANSI-mode cast not yet ported")
+            raise NotImplementedError(
+                "ANSI-mode cast not yet ported (ROADMAP A6, decimals with "
+                "decimal128 and the ANSI casts)")
         strings = isinstance(src, StringType) or isinstance(dst, StringType)
         if src != dst and not (string_castable(src, dst) if strings
                                else _castable(src, dst)):

@@ -20,6 +20,12 @@ do; nothing is read back to the host.
 
 Host evaluation (``eval_cpu``) blends Arrow arrays with ``if_else`` from
 the last branch back, each value cast to the common type first.
+
+``greatest``/``least`` (``Greatest``, ``Least``) fold their arguments of
+one type (the planner casts them to the common type): nulls are skipped
+(null only where every argument is), and NaN is larger than any other
+value, as in Spark. Their host evaluation runs the same fold over CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from ..columnar.vector import TorchColumnVector, row_mask
 from ..types import (DataType, NullT, NullType, NumericType, StringT,
                      StringType, numeric_promote)
 from .base import (_DEFAULT_CTX, Expression, arrow_column, device_parts,
-                   make_column)
+                   eval_cpu_on_host_tensors, make_column)
 
 
 def _cpu_blend(pairs, else_value, dtype: DataType, table, ctx):
@@ -217,3 +223,59 @@ class CaseWhen(Expression):
         if self._has_else:
             parts.append(f"ELSE {self.else_value.pretty()}")
         return "CASE " + " ".join(parts) + " END"
+
+
+def _nan_lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a < b`` with NaN the largest value (Spark's ordering)."""
+    if not a.is_floating_point():
+        return a < b
+    return (a < b) | (torch.isnan(b) & ~torch.isnan(a))
+
+
+class _MinMaxOf(Expression):
+    """A row-wise fold over the arguments, nulls skipped."""
+
+    def __init__(self, *children: Expression):
+        self.children = tuple(children)
+
+    @property
+    def dtype(self) -> DataType:
+        return branch_type(self.children)
+
+    @property
+    def nullable(self) -> bool:
+        return all(c.nullable for c in self.children)
+
+    def _better(self, cand: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        dt = self.dtype
+        cur = cur_v = None
+        for c in self.children:
+            d, v = _value(c, dt, batch, ctx)
+            if cur is None:
+                cur, cur_v = d, v
+                continue
+            take = v & (~cur_v | self._better(d, cur))
+            cur = torch.where(take, d, cur)
+            cur_v = cur_v | v
+        mask = row_mask(batch.num_rows, batch.capacity, batch.device)
+        return make_column(dt, cur, cur_v & mask, batch.num_rows)
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        return eval_cpu_on_host_tensors(self, table, ctx)
+
+
+class Greatest(_MinMaxOf):
+    """greatest(...): the largest non-null argument; NaN beats all."""
+
+    def _better(self, cand, cur):
+        return _nan_lt(cur, cand)
+
+
+class Least(_MinMaxOf):
+    """least(...): the smallest non-null argument; NaN loses to all."""
+
+    def _better(self, cand, cur):
+        return _nan_lt(cand, cur)

@@ -1,17 +1,21 @@
-"""``IS NULL``, ``IS NOT NULL`` and ``coalesce`` (port of ``IsNull``,
-``IsNotNull`` and ``Coalesce`` in
-``spark_rapids_tpu/expressions/nullexprs.py``, with their pyarrow host
-evaluation). The tests are never null themselves; padding rows read
-false."""
+"""Null and NaN handling (port of
+``spark_rapids_tpu/expressions/nullexprs.py``, with the host evaluation):
+``IS NULL``, ``IS NOT NULL``, ``coalesce``, ``isnan``, ``nanvl``,
+``AtLeastNNonNulls`` (``df.na.drop``'s filter; a float NaN counts as
+null, as in Spark) and the optimizer's markers ``KnownNotNull``,
+``KnownFloatingPointNormalized`` (pass-throughs) and
+``NormalizeNaNAndZero`` (every NaN to the canonical NaN, -0.0 to 0.0).
+The tests are never null themselves; padding rows read false."""
 
 from __future__ import annotations
 
 import torch
 
 from ..columnar.vector import TorchColumnVector, TorchScalar, row_mask
-from ..types import BooleanT, DataType, StringT, StringType
+from ..types import BooleanT, DataType, FractionalType, StringT, StringType
 from .base import (_DEFAULT_CTX, Expression, UnaryExpression, arrow_column,
-                   device_parts, is_arrow, make_column)
+                   combine_validity, device_parts, eval_cpu_on_host_tensors,
+                   is_arrow, make_column)
 
 
 class _NullTest(UnaryExpression):
@@ -126,3 +130,145 @@ class Coalesce(Expression):
 
     def pretty(self) -> str:
         return f"coalesce({', '.join(c.pretty() for c in self.children)})"
+
+
+class IsNaN(UnaryExpression):
+    """isnan(x): true for NaN, false otherwise and for null."""
+
+    @property
+    def dtype(self) -> DataType:
+        return BooleanT
+
+    @property
+    def nullable(self) -> bool:
+        return False
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        cap, dev = batch.capacity, batch.device
+        d, v = device_parts(self.child.eval_device(batch, ctx), cap, dev)
+        d = torch.broadcast_to(d, (cap,))
+        nan = torch.isnan(d) if d.is_floating_point() else \
+            torch.zeros(cap, dtype=torch.bool, device=dev)
+        return make_column(BooleanT, nan & combine_validity(
+            v, row_mask(batch.num_rows, cap, dev)), None, batch.num_rows)
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        return eval_cpu_on_host_tensors(self, table, ctx)
+
+
+class NaNvl(Expression):
+    """nanvl(a, b): ``b`` where ``a`` is NaN, else ``a`` (null where the
+    value taken is)."""
+
+    def __init__(self, left: Expression, right: Expression):
+        self.children = (left, right)
+
+    @property
+    def dtype(self) -> DataType:
+        return self.children[0].dtype
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        cap, dev = batch.capacity, batch.device
+        mask = row_mask(batch.num_rows, cap, dev)
+        ad, av = device_parts(self.children[0].eval_device(batch, ctx), cap,
+                              dev)
+        bd, bv = device_parts(self.children[1].eval_device(batch, ctx), cap,
+                              dev)
+        ad = torch.broadcast_to(ad, (cap,))
+        nan = torch.isnan(ad)
+        data = torch.where(nan, torch.broadcast_to(bd, (cap,)).to(ad.dtype),
+                           ad)
+        av = mask if av is None else av & mask
+        bv = mask if bv is None else bv & mask
+        return make_column(self.dtype, data, torch.where(nan, bv, av),
+                           batch.num_rows)
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        return eval_cpu_on_host_tensors(self, table, ctx)
+
+
+class AtLeastNNonNulls(Expression):
+    """True where at least ``n`` children are non-null (a float NaN counts
+    as null, as in Spark)."""
+
+    def __init__(self, n: int, *children: Expression):
+        self.n = int(n)
+        self.children = tuple(children)
+
+    @property
+    def dtype(self) -> DataType:
+        return BooleanT
+
+    @property
+    def nullable(self) -> bool:
+        return False
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        cap, dev = batch.capacity, batch.device
+        mask = row_mask(batch.num_rows, cap, dev)
+        count = torch.zeros(cap, dtype=torch.int32, device=dev)
+        for c in self.children:
+            v = c.eval_device(batch, ctx)
+            if isinstance(v, TorchScalar):
+                ok = v.value is not None and not (
+                    isinstance(v.value, float) and v.value != v.value)
+                count = count + int(ok)
+                continue
+            ok = mask if v.validity is None else v.validity & mask
+            if v.offsets is None and v.data.is_floating_point():
+                ok = ok & ~torch.isnan(v.data)
+            count = count + ok.to(torch.int32)
+        return make_column(BooleanT, (count >= self.n) & mask, None,
+                           batch.num_rows)
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        return eval_cpu_on_host_tensors(self, table, ctx)
+
+    def pretty(self) -> str:
+        return f"atleastnnonnulls({self.n}, " \
+            f"{', '.join(c.pretty() for c in self.children)})"
+
+
+class _Marker(UnaryExpression):
+    """An optimizer's marker: evaluation is the child's."""
+
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        return self.child.eval_device(batch, ctx)
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        return self.child.eval_cpu(table, ctx)
+
+
+class KnownNotNull(_Marker):
+    """The child is known non-null: a pass-through (dropping the validity
+    would turn a wrongly null row into a zero)."""
+
+    @property
+    def nullable(self) -> bool:
+        return False
+
+    def pretty(self) -> str:
+        return f"knownnotnull({self.child.pretty()})"
+
+
+class KnownFloatingPointNormalized(_Marker):
+    """NaN and -0.0 already normalized: a pass-through."""
+
+
+class NormalizeNaNAndZero(UnaryExpression):
+    """Every NaN to the canonical NaN and -0.0 to 0.0, so float keys
+    compare by equality."""
+
+    def _compute(self, d, ctx, valid):
+        if not d.is_floating_point():
+            return d
+        zero = torch.zeros((), dtype=d.dtype, device=d.device)
+        d = torch.where(d == 0, zero, d)
+        return torch.where(torch.isnan(d), torch.full((), float("nan"),
+                                                      dtype=d.dtype,
+                                                      device=d.device), d)
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        if not isinstance(self.child.dtype, FractionalType):
+            return self.child.eval_cpu(table, ctx)
+        return eval_cpu_on_host_tensors(self, table, ctx)

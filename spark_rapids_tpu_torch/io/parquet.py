@@ -385,21 +385,26 @@ class FileScanBase:
                     return self._read_one(f, cols, row_filter, conf)
 
             with _fut.ThreadPoolExecutor(max_workers=n_threads) as pool:
-                futs = [pool.submit(read, f) for f in files]
-                for fut in futs:
+                futs = [(f, pool.submit(read, f)) for f in files]
+                for f, fut in futs:
                     t = fut.result()
                     if t.num_rows:
+                        ctx.eval_ctx.set_input_file(f)
                         yield t
         elif strategy == "COALESCING":
             pa = import_pyarrow()
             tables = [self._read_one(f, cols, row_filter, conf)
                       for f in files]
             tables = [t for t in tables if t.num_rows] or tables[:1]
+            # a coalesced batch spans files: it names the first (as the
+            # reference's coalescing reader does)
+            ctx.eval_ctx.set_input_file(files[0])
             yield pa.concat_tables(tables, promote_options="permissive")
         else:  # PERFILE
             chunk_bytes = conf.get(PARQUET_CHUNK_BYTES) \
                 if self.fmt == "parquet" else 0
             for f in files:
+                ctx.eval_ctx.set_input_file(f)
                 if chunk_bytes > 0:
                     for t in _read_parquet_chunks(f, cols, row_filter, conf,
                                                   chunk_bytes):
@@ -511,6 +516,7 @@ class TorchFileScanExec(FileScanBase, TorchExec):
         for f in files:
             ctx.counters["scan.files"] += 1
             self.metrics["filesRead"].add(1)
+            ctx.eval_ctx.set_input_file(f)
             try:
                 with times.host("stage"):
                     dec = DeviceFileDecoder(f, attrs, ctx.conf, ctx.device,

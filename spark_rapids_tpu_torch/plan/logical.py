@@ -442,7 +442,10 @@ def resolve_expression(expr: Expression, scope: LogicalPlan) -> Expression:
 
 
 def coerce_types(expr: Expression) -> Expression:
-    """Insert implicit casts per Spark's binary-op coercion rules."""
+    """Insert implicit casts per Spark's coercion rules: the binary
+    operators' common type, the math family's double, ``greatest``/
+    ``least``'s common type, the shifts' int distance, and a string (or
+    a narrow integer for the shifts) argument cast as Spark casts it."""
 
     def rule(e: Expression):
         if isinstance(e, A.Divide):
@@ -453,9 +456,7 @@ def coerce_types(expr: Expression) -> Expression:
                     and not isinstance(rt, DecimalType):
                 return A.Divide(_cast_if(l, DoubleT), _cast_if(r, DoubleT))
             return None
-        if isinstance(e, (A.Add, A.Subtract, A.Multiply, P.EqualTo,
-                          P.EqualNullSafe, P.LessThan, P.LessThanOrEqual,
-                          P.GreaterThan, P.GreaterThanOrEqual)):
+        if isinstance(e, _COMMON_TYPE_BINARY):
             l, r = e.children
             lt, rt = l.dtype, r.dtype
             if lt == rt:
@@ -464,9 +465,66 @@ def coerce_types(expr: Expression) -> Expression:
             if common is None:
                 return None
             return e.with_children([_cast_if(l, common), _cast_if(r, common)])
-        return None
+        return _coerce_functions(e)
 
     return expr.transform(rule)
+
+
+_COMMON_TYPE_BINARY = (A.Add, A.Subtract, A.Multiply, A.Remainder, A.Pmod,
+                       A.IntegralDivide, P.EqualTo, P.EqualNullSafe,
+                       P.LessThan, P.LessThanOrEqual, P.GreaterThan,
+                       P.GreaterThanOrEqual)
+
+
+def _coerce_functions(e: Expression) -> Optional[Expression]:
+    """The scalar functions' implicit casts (Spark's
+    ImplicitCastInputTypes for them)."""
+    from ..expressions import bitwise as BW
+    from ..expressions import conditional as CO
+    from ..expressions import datetime as DT
+    from ..expressions import mathexprs as M
+    from ..expressions import nullexprs as N
+    from ..types import DateT, IntegerT, TimestampT
+    kids = list(e.children)
+
+    def recast(targets):
+        new = [k if t is None else _cast_if(k, t)
+               for k, t in zip(kids, targets)]
+        changed = any(a is not b for a, b in zip(new, kids))
+        return e.with_children(new) if changed else None
+
+    def to_double(k):
+        return DoubleT if isinstance(k.dtype, (NumericType, StringType)) \
+            and not isinstance(k.dtype, DecimalType) else None
+
+    if isinstance(e, (M._DoubleUnary, M._LogBase, M._DoubleBinary)):
+        return recast([to_double(k) for k in kids])
+    if isinstance(e, M.Ceil) and isinstance(kids[0].dtype, StringType):
+        return recast([DoubleT])
+    if isinstance(e, (CO.Greatest, CO.Least, N.NaNvl, BW.BitwiseAnd,
+                      BW.BitwiseOr, BW.BitwiseXor)):
+        common = kids[0].dtype
+        for k in kids[1:]:
+            common = _common_type(common, k.dtype) or common
+        return recast([common] * len(kids))
+    if isinstance(e, (BW.ShiftLeft, BW.ShiftRight, BW.ShiftRightUnsigned)):
+        lt = kids[0].dtype
+        narrow = isinstance(lt, IntegralType) and lt.np_dtype.itemsize < 4
+        return recast([IntegerT if narrow else None, IntegerT])
+    if isinstance(e, (DT.Hour, DT.Minute, DT.Second, DT.DateFormatClass,
+                      DT.UnixTimestampFromTs)):
+        return recast([TimestampT if isinstance(kids[0].dtype, StringType)
+                       else None] + [None] * (len(kids) - 1))
+    if isinstance(e, (DT._DateField, DT.LastDay)):
+        return recast([DateT if isinstance(kids[0].dtype, StringType)
+                       else None])
+    if isinstance(e, (DT.DateAdd, DT.AddMonths)):
+        return recast([DateT if isinstance(kids[0].dtype, StringType)
+                       else None, None])
+    if isinstance(e, DT.DateDiff):
+        return recast([DateT if isinstance(k.dtype, StringType) else None
+                       for k in kids])
+    return None
 
 
 def _cast_if(e: Expression, to: DataType) -> Expression:

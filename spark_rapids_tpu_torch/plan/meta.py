@@ -57,8 +57,10 @@ class ExprMeta(RapidsMeta):
                         f"expression {type(e).__name__} produces an "
                         f"unsupported type: {r}")
             if not getattr(e, "tpu_supported", True):
+                why = getattr(e, "tpu_unsupported_reason", None)
                 self.will_not_work_on_tpu(
-                    f"expression {type(e).__name__} is disabled on TPU")
+                    f"expression {type(e).__name__} is disabled on TPU"
+                    + (f": {why}" if why else ""))
             key = f"spark.rapids.sql.expression.{type(e).__name__}"
             if not self.conf.is_op_enabled(key, True):
                 self.will_not_work_on_tpu(

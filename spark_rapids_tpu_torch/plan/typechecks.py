@@ -2,7 +2,8 @@
 ``spark_rapids_tpu/plan/typechecks.py``).
 
 ``register_expr`` records, for each expression class the port can evaluate
-on the device, the TypeSig its result may take. The tagging layer
+on the device, the TypeSig its result may take (the reference's rules,
+descriptions, ``incompat`` notes and ``host_assisted`` flags). The tagging layer
 (plan/meta.py) keeps an operator on the CPU when one of its expressions is
 unregistered, produces an unsupported type, is switched off by
 ``spark.rapids.sql.expression.<Name>=false``, or is gated by
@@ -62,9 +63,10 @@ def _register_builtin_exprs() -> None:
     from ..expressions import strings as S
     from ..types import TypeEnum, TypeSig
     sig_all = TypeSigs.all_basic
-    register_expr(B.Literal, sig_all, "literal value")
-    register_expr(B.AttributeReference, sig_all, "column reference")
-    register_expr(B.Alias, sig_all, "named expression")
+    ts = TypeSig([TypeEnum.TIMESTAMP])
+    register_expr(B.Literal, sig_all + ts, "literal value")
+    register_expr(B.AttributeReference, sig_all + ts, "column reference")
+    register_expr(B.Alias, sig_all + ts, "named expression")
     register_expr(C.Cast, sig_all + TypeSig([TypeEnum.TIMESTAMP]),
                   "cast between numeric, boolean and date types; to and "
                   "from strings through the host",
@@ -185,6 +187,96 @@ def _register_builtin_exprs() -> None:
                   "grouping set marker")
     register_expr(GEN.GroupingID, TypeSigs.integral,
                   "grouping_id (lowered to the Expand gid column)")
+    _register_scalar_functions(sig_all, ts)
+
+
+def _register_scalar_functions(sig_all, ts) -> None:
+    """The scalar functions (the reference's rules for them)."""
+    from ..expressions import arithmetic as A
+    from ..expressions import bitwise as BW
+    from ..expressions import conditional as CO
+    from ..expressions import datetime as DT
+    from ..expressions import hashexprs as H
+    from ..expressions import mathexprs as M
+    from ..expressions import misc as MISC
+    from ..expressions import nullexprs as N
+    sig_num = TypeSigs.numeric
+    register_expr(A.IntegralDivide, sig_num, "integral division")
+    register_expr(A.Remainder, sig_num, "remainder (java sign semantics)")
+    register_expr(A.Pmod, sig_num, "positive modulus")
+    register_expr(A.UnaryMinus, sig_num, "negation")
+    register_expr(A.UnaryPositive, sig_num, "unary plus")
+    register_expr(N.IsNaN, TypeSigs.BOOLEAN, "IS NaN")
+    register_expr(N.NaNvl, TypeSigs.fp, "NaN replacement")
+    register_expr(N.AtLeastNNonNulls, TypeSigs.BOOLEAN,
+                  "at-least-n-non-nulls filter (na.drop)")
+    register_expr(N.KnownNotNull, sig_all + ts, "known-not-null marker")
+    register_expr(N.KnownFloatingPointNormalized, TypeSigs.fp,
+                  "known-normalized marker (passthrough)")
+    register_expr(N.NormalizeNaNAndZero, TypeSigs.fp,
+                  "NaN/-0.0 canonicalization")
+    minmax = sig_num + TypeSigs.BOOLEAN + TypeSigs.DATE + ts + TypeSigs.NULL
+    register_expr(CO.Greatest, minmax, "row-wise greatest")
+    register_expr(CO.Least, minmax, "row-wise least")
+    for cls in (M.Sqrt, M.Cbrt, M.Exp, M.Expm1, M.Sin, M.Cos, M.Tan, M.Asin,
+                M.Acos, M.Atan, M.Sinh, M.Cosh, M.Tanh, M.Log, M.Log10,
+                M.Log2, M.Log1p, M.Pow, M.Atan2, M.Signum, M.Ceil, M.Asinh,
+                M.Acosh, M.Atanh, M.Cot, M.ToDegrees, M.ToRadians, M.Rint,
+                M.Hypot):
+        register_expr(cls, sig_num, f"math fn {cls.__name__.lower()}")
+    register_expr(M.Logarithm, TypeSigs.fp,
+                  "log(base, x) — null on domain error")
+    register_expr(M.BRound, sig_num, "bround (HALF_EVEN)")
+    register_expr(H.XxHash64, TypeSigs.integral,
+                  "spark xxhash64 (device XXH64 over the string bytes)")
+    register_expr(H.HiveHash, TypeSigs.integral,
+                  "hive bucketing hash (device 31h+b fold)")
+    register_expr(H.Md5, TypeSigs.STRING, "md5 hex digest",
+                  host_assisted=True)
+    for cls in (BW.BitwiseOr, BW.BitwiseXor):
+        register_expr(cls, TypeSigs.integral, f"bitwise {cls.symbol}")
+    register_expr(BW.BitwiseNot, TypeSigs.integral, "bitwise NOT")
+    register_expr(BW.BitwiseCount, TypeSigs.integral, "bit_count")
+    for cls in (BW.ShiftLeft, BW.ShiftRightUnsigned):
+        register_expr(cls, TypeSigs.integral, f"shift {cls.symbol}")
+    for cls in (DT.Year, DT.Month, DT.DayOfMonth, DT.Quarter, DT.DayOfWeek,
+                DT.WeekDay, DT.DayOfYear, DT.WeekOfYear, DT.Hour, DT.Minute,
+                DT.Second, DT.DateDiff):
+        register_expr(cls, TypeSigs.integral,
+                      f"datetime field {cls.__name__.lower()}")
+    register_expr(DT.LastDay, TypeSigs.DATE, "last day of month")
+    register_expr(DT.DateAdd, TypeSigs.DATE, "date add/sub days")
+    register_expr(DT.DateSub, TypeSigs.DATE, "date_sub")
+    register_expr(DT.AddMonths, TypeSigs.DATE, "add months (day-clamped)")
+    register_expr(DT.UnixTimestampFromTs, TypeSigs.integral, "unix seconds")
+    register_expr(DT.ToUnixMicros, TypeSigs.integral, "unix micros")
+    for cls in (DT.SecondsToTimestamp, DT.MillisToTimestamp,
+                DT.MicrosToTimestamp):
+        register_expr(cls, ts, f"{cls.__name__.lower()} (device scaling)")
+    register_expr(DT.FromUnixTime, TypeSigs.STRING,
+                  "from_unixtime (device byte assembly, session tz)",
+                  incompat="non-numeric pattern tokens via host path")
+    register_expr(DT.DateFormatClass, TypeSigs.STRING,
+                  "date_format (device byte assembly, session tz)",
+                  incompat="non-numeric pattern tokens via host path")
+    register_expr(DT.ToUnixTimestamp, TypeSigs.integral,
+                  "to_unix_timestamp (device for ts/date)",
+                  incompat="string parsing via host path")
+    register_expr(DT.UnixTimestamp, TypeSigs.integral,
+                  "unix_timestamp (device for ts/date)",
+                  incompat="string parsing via host path")
+    register_expr(MISC.SparkPartitionID, TypeSigs.integral,
+                  "spark_partition_id()")
+    register_expr(MISC.MonotonicallyIncreasingID, TypeSigs.integral,
+                  "monotonically_increasing_id()")
+    register_expr(MISC.Rand, TypeSigs.fp,
+                  "rand(seed) — device threefry PRNG",
+                  incompat="sequence differs from Spark XORShiftRandom")
+    register_expr(MISC.InputFileName, TypeSigs.STRING, "input_file_name()")
+    register_expr(MISC.InputFileBlockStart, TypeSigs.integral,
+                  "input_file_block_start()")
+    register_expr(MISC.InputFileBlockLength, TypeSigs.integral,
+                  "input_file_block_length()")
 
 
 _register_builtin_exprs()

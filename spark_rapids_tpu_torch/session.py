@@ -63,6 +63,14 @@ class Column:
         from .expressions.arithmetic import Multiply
         return self._bin(Multiply, other, True)
 
+    def __mod__(self, other):
+        from .expressions.arithmetic import Remainder
+        return self._bin(Remainder, other)
+
+    def __neg__(self):
+        from .expressions.arithmetic import UnaryMinus
+        return Column(UnaryMinus(self._expr))
+
     def __truediv__(self, other):
         from .expressions.arithmetic import Divide
         return self._bin(Divide, other)

@@ -89,10 +89,11 @@ prints no result):
    physical plan;
 9. the parquet scan (session.read.parquet → the device page decode →
    the device operators), in a temporary directory deleted at exit:
-   (a) the port's datagen lineitem at 2^23 rows (bench.py: 2^24; halved
-       for phase 16's room in the script's time) written in bench.py's
-       layout (parts of 2^21 rows through one writer, snappy, row groups
-       of 2^20: 8 row groups), its size printed; the pinned
+   (a) the port's datagen lineitem at 2^22 rows (bench.py: 2^24; halved
+       for phase 16's room in the script's time, again for phase 18's)
+       written in bench.py's layout (parts of 2^21 rows through one
+       writer, snappy, row groups of 2^20: 4 row groups), its size
+       printed; the pinned
        host-to-device copy rate;
    (b) bench.py's two scan_agg queries (a filter and a group by
        l_returnflag; a group by three string columns) with the device
@@ -171,16 +172,16 @@ prints no result):
        same query through the port on the CPU over the same tables (a
        second process, ``chip_smoke.py --tpcds-cpu``), with the tests'
        compare (rows sorted, floats to 4 places, rel/abs 1e-4);
-   (b) every query at 2^21 store_sales rows (the other tables at
-       load_tables' ratios; 2^22 until PR 13, halved for phase 16's room
-       in the script's time) in test mode (an operator left off the card
-       fails): rows (q75's answer, the brands whose yearly sales count
+   (b) every query at 2^20 store_sales rows (the other tables at
+       load_tables' ratios; 2^22 before phase 16, 2^21 before phase 18:
+       halved for each in the script's time) in test mode (an operator
+       left off the card fails): rows (q75's answer, the brands whose yearly sales count
        fell 10 %, is empty at this size: then every brand's ratio from
        q75_brand_years must be at least 0.9), two collects identical;
        q98, q47, q51, q44, q22,
        q38, q87 and q39 against numpy float64 oracles (integers, strings
        and nulls exact, floats rtol 1e-9, rows in the query's order);
-   (c) a timing line a query at 2^21: one warm collect(); the
+   (c) a timing line a query at 2^20: one warm collect(); the
        first collect, profiled (its rows are (b)'s), for the busy, HtoD,
        idle share (busy over the best warm collect) and device ops; the
        opTime of the window, Expand and union execs and the compiled
@@ -278,6 +279,27 @@ prints no result):
    neither Q1 kernel launches; nothing leaks. ``python3 chip_smoke.py
    --phase17`` runs phase 1 and phase 17 alone.
 
+18. decimals in test mode:
+   (a) TPC-H Q1 and Q6 as Spark types them over bench.py's lineitem at
+       2^24 rows with the four measures decimal(12, 2) (the same draws
+       rounded to cents, seed 42), ``device_cache()``d: every row exact
+       against numpy int64 oracles of the unscaled values and Spark's
+       HALF_UP avg, the collects identical when repeated, no decimal host
+       hop; best warm collect, device busy, idle share and device ops a
+       query, and the limb primitives alone (``decimal_limb_ops_ms``);
+   (b) the table's first 2^23 rows written INT64-backed and as
+       FIXED_LEN_BYTE_ARRAY, read back for Q1 and Q6, exact; the scan's
+       device and host-decoded column counts;
+   (c) a sweep over a 2^22-row table (seed 18): + - * neg abs, a
+       two-limb product past 10^38 (null; ANSI raises), comparisons
+       across scales, casts each way, sum/avg/min/max by a decimal key
+       and ungrouped over four chunks (their states merged), a decimal
+       join key and sort key, murmur3 of decimal64 and
+       decimal128, and / % pmod in the host engine over the first 2^12
+       rows, each checked.
+   Neither Q1 kernel launches. ``python3 chip_smoke.py --phase18`` runs
+   phase 1 and phase 18 alone.
+
 After each phase a phase_wall line gives its wall, its collects, their
 planning ms and the batches the spill catalog registered.
 
@@ -303,11 +325,15 @@ import torch
 
 N_BIG = 1 << 24
 #: phase 9's parquet file (bench.py's scan_agg: 2^24; halved to make room
-#: for phase 16 in the script's time)
-SCAN_ROWS = 1 << 23
+#: for phase 16 in the script's time, and again for phase 18)
+SCAN_ROWS = 1 << 22
 SIZES = (100, 12345, 1 << 15, N_BIG)
 RTOL_KERNEL = 1e-4  # f32 sums in another order (tests/test_q1_kernels.py)
 RTOL_FRAMEWORK = 1e-9  # float64 sums in another order
+#: host seconds of idle card before and after the calls of a trace that
+#: profile_device takes again, so that no device event sits at the edge
+#: of its window
+PAD_S = 0.05
 BYTES_PER_ROW = 29  # four int32/f32 + three f32 + one bool, read once
 #: f32 ops a row in q1_agg_simt: 8 for the measures, 6 adds into the slots
 SIMT_OPS_PER_ROW = 14
@@ -380,7 +406,8 @@ def time_ms(fn, iters: int, reps: int = 5, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def profile_device(fn, iters: int, warm: bool = True):
+def profile_device(fn, iters: int, warm: bool = True, need: str = None,
+                   tries: int = 3):
     """The card's activity over `iters` calls: (device-busy ms per call,
     every device op as (name, ms per call), most time first, device ops a
     call). Busy time sums the device time of every kernel and copy. With
@@ -391,7 +418,15 @@ def profile_device(fn, iters: int, warm: bool = True):
     are summed by name as the tracer returns them: torch.profiler's own
     summary builds a Python event tree over the host ops too, about a
     millisecond a device op, so a query of 70,000 ops spent a minute in it
-    (NVIDIA H100 80GB HBM3, 700 W)."""
+    (NVIDIA H100 80GB HBM3, 700 W).
+
+    A trace has come back with no device event at all, or without one
+    kernel's records, while the calls had run and their launch counters
+    had risen: both times in phase 5's traces of a few milliseconds. So a
+    trace that holds no device event, or none whose name holds `need`,
+    is taken again, up to `tries` traces in all, each retry's calls
+    inside a window padded by PAD_S of idle card on either side (each
+    retry runs `fn` `iters` times more). Only then does the check fail."""
     from torch._C._profiler import ProfilerActivity, _ExperimentalConfig
     from torch.autograd import (DeviceType, ProfilerConfig, ProfilerState,
                                 _disable_profiler, _enable_profiler,
@@ -402,23 +437,35 @@ def profile_device(fn, iters: int, warm: bool = True):
     config = ProfilerConfig(ProfilerState.KINETO, False, False, False, False,
                             False, _ExperimentalConfig())
     activities = {ProfilerActivity.CUDA}
-    _prepare_profiler(config, activities)
-    _enable_profiler(config, activities)
-    try:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    finally:
-        result = _disable_profiler()
-    by_name: dict = {}
-    n = 0
-    for ev in result.events():
-        if ev.device_type() != DeviceType.CUDA:
-            continue
-        n += 1
-        by_name[ev.name()] = by_name.get(ev.name(), 0.0) \
-            + ev.duration_ns() / 1e6 / iters
-    check(n > 0, "the profiler traced no device activity")
+    for attempt in range(1, tries + 1):
+        _prepare_profiler(config, activities)
+        _enable_profiler(config, activities)
+        pad = PAD_S if attempt > 1 else 0.0
+        try:
+            time.sleep(pad)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        finally:
+            result = _disable_profiler()
+        by_name: dict = {}
+        n = 0
+        for ev in result.events():
+            if ev.device_type() != DeviceType.CUDA:
+                continue
+            n += 1
+            by_name[ev.name()] = by_name.get(ev.name(), 0.0) \
+                + ev.duration_ns() / 1e6 / iters
+        missing = "no device event" if n == 0 else (
+            f"no {need}" if need and not any(need in k for k in by_name)
+            else None)
+        if missing is None:
+            break
+        print(f"profiler: trace {attempt} of {tries} holds {missing}",
+              flush=True)
+    check(n > 0, f"the profiler traced no device activity in {tries} "
+          "traces")
     per_op = sorted(((k, ms) for k, ms in by_name.items() if ms > 0),
                     key=lambda kv: -kv[1])
     return sum(ms for _, ms in per_op), per_op, n / iters
@@ -2826,9 +2873,10 @@ def lifecycle_paths(F, TorchSession, smi, tables, df6, cols6, oracle6,
 TPCDS_ORACLE_QUERIES = ("q98", "q47", "q51", "q44", "q22", "q38", "q87",
                         "q39")
 TPCDS_SMALL = 12_000
-#: phase 12's (b) and (c), and phase 14's TPC-DS cases (2^22 until PR 13;
-#: halved to make room for phase 16 in the script's time)
-TPCDS_BIG = 1 << 21
+#: phase 12's (b) and (c), and phase 14's TPC-DS cases (2^22 before phase
+#: 16, 2^21 before phase 18: halved to make room for each in the script's
+#: time)
+TPCDS_BIG = 1 << 20
 
 
 def tpcds_cpu_answers(rows: int, path: str) -> None:
@@ -6195,6 +6243,559 @@ def scalar_paths(F, TorchSession, smi, tmpdir: str, device: str = "cuda",
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: decimals
+# ---------------------------------------------------------------------------
+
+DEC_ROWS = 1 << 24
+#: (b)'s parquet files: the first half of (a)'s table
+DEC_FILE_ROWS = 1 << 23
+DEC_SWEEP_ROWS = 1 << 22
+DEC_SAMPLE = 1 << 12
+#: the sweep's / % pmod run in the host engine (tagged off the card,
+#: ROADMAP A6) over the table's first rows, each one checked
+DEC_DIV_ROWS = DEC_SAMPLE
+
+
+def _half_up_div(n: int, d: int) -> int:
+    q, r = divmod(abs(n), d)
+    q += 2 * r >= d
+    return q if n >= 0 else -q
+
+
+def _np_half_up(v: np.ndarray, m: int) -> np.ndarray:
+    """HALF_UP of int64 ``v / m`` (ties away from zero)."""
+    q = (np.abs(v) + m // 2) // m
+    return np.where(v < 0, -q, q)
+
+
+def decimal_q1_oracle(c):
+    """Spark's decimal Q1 over ``lineitem_decimal``'s unscaled columns by
+    numpy int64 (the per-row charge, at scale 6, fits): {(rf, ls): unscaled
+    sums, Spark's HALF_UP averages (the quotient at scale 18, then 6) and
+    the count}."""
+    keep = c["l_shipdate"] <= 10471
+    key = np.char.add(c["l_returnflag"][keep], c["l_linestatus"][keep])
+    keys, inv = np.unique(key, return_inverse=True)
+    order = np.argsort(inv, kind="stable")
+    starts = np.searchsorted(inv[order], np.arange(len(keys)))
+    qty, price, disc, tax = (c[k][keep][order] for k in (
+        "l_quantity", "l_extendedprice", "l_discount", "l_tax"))
+    disc_price = price * (100 - disc)
+    measures = {"sum_qty": (qty, 2), "sum_base_price": (price, 2),
+                "sum_disc_price": (disc_price, 4),
+                "sum_charge": (disc_price * (100 + tax), 6)}
+    sums = {k: np.add.reduceat(v, starts) for k, (v, _) in measures.items()}
+    disc_sum = np.add.reduceat(disc, starts)
+    counts = np.diff(np.append(starts, len(order)))
+    out = {}
+    for g, k in enumerate(keys):
+        n = int(counts[g])
+        row = {name: (int(sums[name][g]), scale)
+               for name, (_, scale) in measures.items()}
+        for name, total in (("avg_qty", sums["sum_qty"][g]),
+                            ("avg_price", sums["sum_base_price"][g]),
+                            ("avg_disc", disc_sum[g])):
+            q18 = _half_up_div(int(total) * 10 ** 16, n)
+            row[name] = (_half_up_div(q18, 10 ** 12), 6)
+        row["count_order"] = n
+        out[(k[:1].decode(), k[1:].decode())] = row
+    return out
+
+
+def decimal_q6_oracle(c) -> int:
+    """Q6's revenue (decimal(35, 4)) as its unscaled int."""
+    keep = ((c["l_shipdate"] >= 8766) & (c["l_shipdate"] < 9131)
+            & (c["l_discount"] >= 5) & (c["l_discount"] <= 7)
+            & (c["l_quantity"] < 2400))
+    return int((c["l_extendedprice"][keep] * c["l_discount"][keep]).sum())
+
+
+def _unscaled(v, scale: int, what: str) -> int:
+    check(isinstance(v, decimal.Decimal)
+          and v.as_tuple().exponent == -scale, f"{what}: {v!r} is not a "
+          f"decimal of scale {scale}")
+    return int(v.scaleb(scale, context=decimal.Context(prec=100)))
+
+
+def check_decimal_q1(rows, oracle, what: str) -> None:
+    check(len(rows) == len(oracle), f"{what}: {len(rows)} groups, "
+          f"want {len(oracle)}")
+    for r in rows:
+        want = oracle[(r["l_returnflag"], r["l_linestatus"])]
+        check(r["count_order"] == want["count_order"], f"{what}: count")
+        for name, value in want.items():
+            if name == "count_order":
+                continue
+            v, scale = value
+            got = _unscaled(r[name], scale, f"{what} {name}")
+            check(got == v, f"{what}: {name} {got} != {v}")
+
+
+def check_decimal_q6(rows, want: int, what: str) -> None:
+    check(len(rows) == 1, f"{what}: {len(rows)} rows")
+    got = _unscaled(rows[0]["revenue"], 4, f"{what} revenue")
+    check(got == want, f"{what}: revenue {got} != {want}")
+
+
+def arrow_unscaled(table, name: str):
+    """A result column's unscaled values as int64 (a two-limb column must
+    hold int64 values: its high limb the low one's sign) and its nulls."""
+    from spark_rapids_tpu_torch.columnar.vector import decimal_from_arrow
+    from spark_rapids_tpu_torch.types import DecimalType
+    arr = table.column(name).combine_chunks()
+    t = arr.type
+    vals = decimal_from_arrow(arr, DecimalType(t.precision, t.scale))
+    null = np.asarray(arr.is_null()) if arr.null_count else \
+        np.zeros(len(arr), bool)
+    if vals.ndim == 2:
+        fits = vals[:, 0] == (vals[:, 1] >> 63)
+        check(bool(fits[~null].all()), f"{name}: values past int64")
+        vals = vals[:, 1]
+    return vals, null
+
+
+def check_unscaled(table, name: str, want, want_null, what: str) -> None:
+    got, null = arrow_unscaled(table, name)
+    check(np.array_equal(null, want_null), f"{what}: {name} nulls differ")
+    bad = np.nonzero((got != want) & ~null)[0]
+    check(not bad.size, f"{what}: {name} differs at {bad[:5]} "
+          f"({got[bad[:5]]} != {np.asarray(want)[bad[:5]]})")
+
+
+def spark_hash_long(v: np.ndarray) -> np.ndarray:
+    """Spark's ``hash`` of int64 values (``hashLong``: the low word, then
+    the high word, seed 42), by numpy: int64 values of the int32
+    hashes."""
+    u = np.uint32
+
+    def rotl(x, r):
+        return (x << u(r)) | (x >> u(32 - r))
+
+    def mix(h, k):
+        k = rotl(k * u(0xCC9E2D51), 15) * u(0x1B873593)
+        return rotl(h ^ k, 13) * u(5) + u(0xE6546B64)
+    w = v.astype(np.int64).view(u).reshape(-1, 2)
+    h = mix(mix(np.full(len(v), 42, u), w[:, 0]), w[:, 1])
+    h ^= u(8)
+    h ^= h >> u(16)
+    h *= u(0x85EBCA6B)
+    h ^= h >> u(13)
+    h *= u(0xC2B2AE35)
+    h ^= h >> u(16)
+    return h.view(np.int32).astype(np.int64)
+
+
+def sweep_table(n: int, seed: int = 18):
+    """(c)'s table: decimal(12, 2) ``a`` and ``b`` (b: zeros and nulls),
+    decimal(10, 4) ``c``, a decimal(10, 2) key ``k`` of 100 values, a
+    decimal(38, 4) ``w`` with 1 row in 4096 past 10^33 (unscaled), int
+    ``i`` and double ``x`` (three places, so ties at two)."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar.vector import decimal_to_arrow
+    from spark_rapids_tpu_torch.kernels.decimal128 import int_to_limbs
+    from spark_rapids_tpu_torch.types import DecimalType
+    rng = np.random.default_rng(seed)
+    ids = np.arange(n)
+    a = rng.integers(-10 ** 9, 10 ** 9, n)
+    b = rng.integers(-10 ** 9, 10 ** 9, n)
+    b[ids % 64 == 3] = 0
+    b_null = ids % 32 == 5
+    b[b_null] = 0
+    c = rng.integers(-10 ** 9, 10 ** 9, n)
+    k = rng.integers(0, 100, n) * 25 - 1000
+    w_small = rng.integers(-10 ** 13, 10 ** 13, n)
+    big_rows = np.nonzero(ids % 4096 == 7)[0]
+    big = {int(r): (1 if r % 2 else -1) * (10 ** 33 + int(r))
+           for r in big_rows}
+    w = np.stack([w_small >> 63, w_small], 1)
+    for r, v in big.items():
+        w[r] = int_to_limbs(v)
+    cols = {"a": a, "b": b, "b_null": b_null, "c": c, "k": k,
+            "w_small": w_small, "w_big": big,
+            "i": rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32),
+            "x": np.round(rng.uniform(-1e5, 1e5, n), 3)}
+    table = pa.table({
+        "a": decimal_to_arrow(a, DecimalType(12, 2), None),
+        "b": decimal_to_arrow(b, DecimalType(12, 2), ~b_null),
+        "c": decimal_to_arrow(c, DecimalType(10, 4), None),
+        "k": decimal_to_arrow(k, DecimalType(10, 2), None),
+        "w": decimal_to_arrow(w, DecimalType(38, 4), None),
+        "i": pa.array(cols["i"]), "x": pa.array(cols["x"])})
+    return table, cols
+
+
+def decimal_limb_ops_line(smi: str, rows: int) -> None:
+    """The limb primitives alone on the card at ``rows`` (CUDA events):
+    what a later PR weighs a hand-written kernel against (ROADMAP Queue
+    B)."""
+    from spark_rapids_tpu_torch.kernels import decimal128 as D
+    g = torch.Generator(device="cuda").manual_seed(5)
+    h = torch.randint(-2 ** 40, 2 ** 40, (rows,), device="cuda", generator=g)
+    l = torch.randint(-2 ** 62, 2 ** 62, (rows,), device="cuda", generator=g)
+    seg = torch.sort(torch.randint(0, 6, (rows,), device="cuda",
+                                   generator=g)).values
+    bounds = torch.searchsorted(seg, torch.arange(7, device="cuda"))
+
+    def int_sum(x):
+        c = torch.zeros(rows + 1, dtype=torch.int64, device="cuda")
+        c[1:] = torch.cumsum(x, 0)
+        return c[bounds[1:]] - c[bounds[:-1]]
+    cnt = torch.full((rows,), 12345, dtype=torch.int64, device="cuda")
+    ops = {"mul128": lambda: D.mul128(h, l, h, l),
+           "add128": lambda: D.add128(h, l, h, l),
+           "cmp128": lambda: D.cmp128(h, l, l, h),
+           "rescale_down_2": lambda: D.rescale_down(h, l, 2),
+           "precision_overflow": lambda: D.precision_overflow(h, l, 38),
+           "segment_sum128": lambda: D.segment_sum128(h, l, int_sum),
+           "div_half_up_16": lambda: D.div_half_up(h, l, cnt, 16)}
+    print(json.dumps({"decimal_limb_ops_ms": {
+        "rows": rows, **{k: time_ms(fn, 5, reps=3, warmup=1)
+                         for k, fn in ops.items()}}, "card": smi}),
+        flush=True)
+
+
+def decimal_paths(F, TorchSession, smi, tmpdir: str, device: str = "cuda",
+                  rows: int = DEC_ROWS, file_rows: int = DEC_FILE_ROWS,
+                  sweep_rows: int = DEC_SWEEP_ROWS,
+                  div_rows: int = DEC_DIV_ROWS) -> None:
+    """Phase 18: (a)-(c) in test mode. With ``device="cpu"`` and small
+    sizes it checks the script's own logic off the card (no timing
+    lines)."""
+    import os
+
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch import datagen, tpch
+    from spark_rapids_tpu_torch.expressions.base import ExpressionError
+    on_card = device != "cpu"
+    test = {"spark.rapids.sql.test.enabled": "true"}
+
+    # (a) Q1 and Q6 over the cached decimal lineitem
+    cols = datagen.lineitem_decimal(rows)
+    table = datagen.decimal_lineitem_arrow(cols)
+    s = TorchSession({**test, "spark.rapids.sql.batchSizeRows": str(rows)},
+                     device=device)
+    t0 = time.perf_counter()
+    df = s.createDataFrame(table).device_cache()
+    if on_card:
+        torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    q1 = tpch.q1_decimal({"lineitem": df}, F)
+    q6 = tpch.q6_decimal({"lineitem": df}, F)
+    plan = quiet_plan(q1)
+    check("TorchHashAggregate" in plan
+          and "TorchCompiledAggStage" not in plan,
+          "decimal Q1 is not on the general aggregate")
+    o1, o6 = decimal_q1_oracle(cols), decimal_q6_oracle(cols)
+    r1 = q1.collect()
+    check_decimal_q1(r1, o1, f"(18a) decimal Q1 at {rows}")
+    check(q1.collect() == r1, "(18a) decimal Q1 differs when repeated")
+    r6 = q6.collect()
+    check_decimal_q6(r6, o6, f"(18a) decimal Q6 at {rows}")
+    check(q6.collect() == r6, "(18a) decimal Q6 differs when repeated")
+    check(s.counters["decimal.hostPath"] == 0,
+          "(18a) a decimal host hop in Q1/Q6")
+    print(f"(18a) decimal Q1 and Q6 at {rows} ok (exact, repeated)",
+          flush=True)
+    if on_card:
+        timed_line("decimal_q1", q1, rows, smi, device_cache_s=cache_s)
+        timed_line("decimal_q6", q6, rows, smi)
+        decimal_limb_ops_line(smi, rows)
+    del df, q1, q6
+    if on_card:
+        release_plans()
+
+    # (b) the same table's first rows from parquet, INT64-backed and
+    # FIXED_LEN_BYTE_ARRAY
+    sub = {k: v[:file_rows] for k, v in cols.items()}
+    o1, o6 = decimal_q1_oracle(sub), decimal_q6_oracle(sub)
+    for kind in ("int64", "flba"):
+        p = os.path.join(tmpdir, f"decimal_{kind}.parquet")
+        pq.write_table(table.slice(0, file_rows), p,
+                       store_decimal_as_integer=kind == "int64")
+        fs = TorchSession(test, device=device)
+        fdf = fs.read.parquet(p)
+        r1 = tpch.q1_decimal({"lineitem": fdf}, F).collect()
+        check_decimal_q1(r1, o1, f"(18b) decimal Q1 from {kind} parquet")
+        r6 = tpch.q6_decimal({"lineitem": fdf}, F).collect()
+        check_decimal_q6(r6, o6, f"(18b) decimal Q6 from {kind} parquet")
+        groups = pq.ParquetFile(p).metadata.num_row_groups
+        fallback = fs.counters["fallback_columns"]
+        # Q1 reads the 7 columns, Q6 4, each of every row group
+        read = 11 * groups
+        want_fallback = 0 if kind == "int64" else 7 * groups
+        check(fallback == want_fallback, f"(18b) {kind}: {fallback} "
+              f"columns decoded on the host, want {want_fallback}")
+        print(json.dumps({f"decimal_scan_{kind}": {
+            "rows": file_rows, "row_groups": groups,
+            "device_columns": read - fallback, "fallback_columns": fallback,
+            "file_bytes": os.path.getsize(p)}, "card": smi}), flush=True)
+        os.remove(p)
+    del table, cols, sub
+    if on_card:
+        release_plans()
+
+    # (c) the expression sweep
+    st, c = sweep_table(sweep_rows)
+    n = sweep_rows
+    s = TorchSession({**test, "spark.rapids.sql.batchSizeRows": str(n)},
+                     device=device)
+    df = s.createDataFrame(st)
+    D_ = decimal.Decimal
+    a, b, bn, cc, k = c["a"], c["b"], c["b_null"], c["c"], c["k"]
+    none = np.zeros(n, bool)
+    big_idx = np.array(sorted(c["w_big"]), np.int64)
+    # arithmetic: + - * unary, and the two-limb product past 10^38
+    q = df.select((F.col("a") + F.col("b")).alias("add"),
+                  (F.col("a") - F.col("b")).alias("sub"),
+                  (F.col("a") * F.col("b")).alias("mul"),
+                  (-F.col("a")).alias("neg"), F.abs(F.col("c")).alias("abs"),
+                  (F.col("w") * F.col("w")).alias("ww"))
+    out = q.to_arrow()
+    check_unscaled(out, "add", a + b, bn, "(18c) a + b")
+    check_unscaled(out, "sub", a - b, bn, "(18c) a - b")
+    check_unscaled(out, "mul", a * b, bn, "(18c) a * b")
+    check_unscaled(out, "neg", -a, none, "(18c) -a")
+    check_unscaled(out, "abs", np.abs(cc), none, "(18c) abs(c)")
+    ws = c["w_small"]
+    ww_null = none.copy()
+    ww_null[big_idx] = True
+    # w*w: (38,4)·(38,4) is (38, 6): the exact product at scale 8 HALF_UP
+    ws2 = [(_half_up_div(int(v) * int(v), 100)) for v in ws[:DEC_SAMPLE]]
+    got = [None if v is None else _unscaled(v, 6, "w*w") for v in
+           out.column("ww").slice(0, DEC_SAMPLE).to_pylist()]
+    check([g is None for g in got] == ww_null[:DEC_SAMPLE].tolist(),
+          "(18c) w*w nulls")
+    check(all(g == w for g, w in zip(got, ws2) if g is not None),
+          "(18c) w*w differs")
+    check(bool(np.asarray(out.column("ww").is_null())[big_idx].all()),
+          "(18c) a product past 10^38 is not null")
+    check(s.counters["decimal.hostPath.Multiply.product past 10^38"] >= 1,
+          "(18c) the product past 10^38 took no host hop")
+    print(f"(18c) + - * neg abs at {n} ok; {len(big_idx)} products past "
+          "10^38 null", flush=True)
+    if on_card:
+        best_of_2_line("decimal_arith", reduced(F, q.select(
+            "add", "sub", "mul", "neg", "abs")), n, smi)
+    ansi = TorchSession({**test, "spark.sql.ansi.enabled": "true",
+                         "spark.rapids.sql.batchSizeRows": str(n)},
+                        device=device)
+    try:
+        ansi.createDataFrame(st).select(
+            (F.col("w") * F.col("w")).alias("ww")).collect()
+        check(False, "(18c) ANSI decimal overflow did not raise")
+    except ExpressionError as e:
+        check("decimal overflow in multiply" in str(e), f"(18c) ANSI: {e}")
+    print("(18c) ANSI decimal overflow raises", flush=True)
+    # comparisons across scales: a (12,2) against c (10,4) at (14,4)
+    q = df.select((F.col("a") < F.col("c")).alias("lt"),
+                  (F.col("a") == F.col("c")).alias("eq"),
+                  (F.col("a") >= F.lit(D_("0.50"))).alias("ge"))
+    out = q.to_arrow()
+    for name, want in (("lt", a * 100 < cc), ("eq", a * 100 == cc),
+                       ("ge", a >= 50)):
+        got = np.asarray(out.column(name).to_numpy(zero_copy_only=False))
+        check(np.array_equal(got, want), f"(18c) comparison {name}")
+    # casts each way
+    q = df.select(F.col("a").cast("decimal(10,1)").alias("a1"),
+                  F.col("c").cast("decimal(8,2)").alias("c2"),
+                  F.col("a").cast("int").alias("ai"),
+                  F.col("i").cast("decimal(12,2)").alias("id"),
+                  F.col("a").cast("double").alias("ad"),
+                  F.col("x").cast("decimal(12,2)").alias("xd"),
+                  F.col("w").cast("decimal(20,2)").alias("w2"))
+    out = q.to_arrow()
+    check_unscaled(out, "a1", _np_half_up(a, 10), none, "(18c) a as (10,1)")
+    check_unscaled(out, "c2", _np_half_up(cc, 100), none, "(18c) c as (8,2)")
+    got = np.asarray(out.column("ai").to_numpy(zero_copy_only=False))
+    check(np.array_equal(got, np.where(a < 0, -(-a // 100), a // 100)),
+          "(18c) a as int")
+    check_unscaled(out, "id", c["i"].astype(np.int64) * 100, none,
+                   "(18c) i as (12,2)")
+    got = np.asarray(out.column("ad").to_numpy(zero_copy_only=False))
+    check(np.array_equal(got, a / 100.0), "(18c) a as double")
+    xs = c["x"][:DEC_SAMPLE]
+    want = [int(D_(repr(float(v))).quantize(
+        D_("0.01"), rounding=decimal.ROUND_HALF_UP).scaleb(2)) for v in xs]
+    got, _ = arrow_unscaled(out.slice(0, DEC_SAMPLE), "xd")
+    check(got.tolist() == want, "(18c) x as (12,2)")
+    w2_null = none.copy()
+    w2_null[big_idx] = True  # past 18 integral digits
+    check_unscaled(out, "w2", _np_half_up(ws, 100), w2_null,
+                   "(18c) w as (20,2)")
+    print("(18c) comparisons and casts ok", flush=True)
+    if on_card:
+        best_of_2_line("decimal_casts", reduced(F, q), n, smi)
+    # sum/avg/min/max by a decimal key; a decimal join key; a sort key
+    q = df.groupBy("k").agg(F.sum(F.col("a")).alias("sa"),
+                            F.avg(F.col("a")).alias("ma"),
+                            F.min(F.col("w")).alias("mn"),
+                            F.max(F.col("w")).alias("mx"),
+                            F.sum(F.col("w")).alias("sw"),
+                            F.count(F.col("a")).alias("n")).orderBy("k")
+    rows_ = q.collect()
+    keys, inv = np.unique(k, return_inverse=True)
+    check([_unscaled(r["k"], 2, "key") for r in rows_] == keys.tolist(),
+          "(18c) group keys")
+    order = np.argsort(inv, kind="stable")
+    starts = np.searchsorted(inv[order], np.arange(len(keys)))
+    sa = np.add.reduceat(a[order], starts)
+    cnt = np.diff(np.append(starts, n))
+    wsmall = ws.copy()
+    wsmall[big_idx] = 0
+    sw = np.add.reduceat(wsmall[order], starts).tolist()
+    wmin = np.where(np.isin(np.arange(n), big_idx), 2 ** 62, ws)
+    wmax = np.where(np.isin(np.arange(n), big_idx), -2 ** 62, ws)
+    mn = np.minimum.reduceat(wmin[order], starts).tolist()
+    mx = np.maximum.reduceat(wmax[order], starts).tolist()
+    for r_, v in c["w_big"].items():
+        g = int(inv[r_])
+        sw[g] += v
+        mn[g] = min(mn[g], v)
+        mx[g] = max(mx[g], v)
+    for g, r in enumerate(rows_):
+        check(_unscaled(r["sa"], 2, "sum(a)") == int(sa[g]), "(18c) sum(a)")
+        q18 = _half_up_div(int(sa[g]) * 10 ** 16, int(cnt[g]))
+        check(_unscaled(r["ma"], 6, "avg(a)") == _half_up_div(q18, 10 ** 12),
+              "(18c) avg(a)")
+        for name, want in (("mn", mn[g]), ("mx", mx[g]), ("sw", sw[g])):
+            got = _unscaled(r[name], 4, name)
+            check(got == want, f"(18c) {name} of group {g}: {got} != "
+                  f"{want}")
+        check(r["n"] == int(cnt[g]), "(18c) count")
+    if on_card:
+        best_of_2_line("decimal_group", q, n, smi)
+    # the same aggregates ungrouped over four partitions of n / 4 rows
+    # under batchSizeRows n / 4: per-chunk states merged
+    gs = TorchSession({**test, "spark.rapids.sql.batchSizeRows":
+                       str(max(n // 4, 1))}, device=device)
+    gq = gs.createDataFrame(st, num_partitions=4).agg(
+        F.sum(F.col("a")).alias("sa"), F.avg(F.col("a")).alias("ma"),
+        F.min(F.col("w")).alias("mn"), F.max(F.col("w")).alias("mx"),
+        F.sum(F.col("w")).alias("sw"))
+    g = gq.collect()[0]
+    check(gs.counters["global_chunked_runs"] == 1,
+          "(18c) the ungrouped decimal aggregate did not merge chunks")
+    total_a = sum(int(v) for v in sa.tolist())
+    q18 = _half_up_div(total_a * 10 ** 16, n)
+    for name, scale, want in (("sa", 2, total_a),
+                              ("ma", 6, _half_up_div(q18, 10 ** 12)),
+                              ("mn", 4, min(mn)), ("mx", 4, max(mx)),
+                              ("sw", 4, sum(sw))):
+        check(_unscaled(g[name], scale, name) == want,
+              f"(18c) ungrouped {name}")
+    print("(18c) sum/avg/min/max by group and merged over chunks ok",
+          flush=True)
+    del gs, gq
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar.vector import decimal_to_arrow
+    from spark_rapids_tpu_torch.types import DecimalType
+    dim_keys = keys[::2]
+    dim = s.createDataFrame(pa.table({
+        "k2": decimal_to_arrow(dim_keys, DecimalType(10, 2), None),
+        "v": pa.array(np.arange(len(dim_keys), dtype=np.int64))}))
+    jq = df.join(dim, df["k"] == dim["k2"]).agg(
+        F.count(F.col("v")).alias("n"), F.sum(F.col("v")).alias("sv"),
+        F.sum(F.col("a")).alias("sa"))
+    jr = jq.collect()[0]
+    hit = np.isin(k, dim_keys)
+    vpos = np.searchsorted(dim_keys, k[hit])
+    check(jr["n"] == int(hit.sum()) and jr["sv"] == int(vpos.sum())
+          and _unscaled(jr["sa"], 2, "join sum") == int(a[hit].sum()),
+          "(18c) decimal join key")
+    sq = df.orderBy(F.col("k").desc(), F.col("i")).select("k", "i")
+    out = sq.to_arrow()
+    want = np.lexsort((c["i"], -k))
+    got, _ = arrow_unscaled(out, "k")
+    check(np.array_equal(got, k[want]) and np.array_equal(
+        np.asarray(out.column("i").to_numpy()), c["i"][want]),
+        "(18c) decimal sort key")
+    hq = df.select(F.hash(F.col("a")).alias("h"),
+                   F.hash(F.col("w")).alias("hw"))
+    out = hq.to_arrow()
+    check(np.array_equal(np.asarray(out.column("h").to_numpy()),
+                         spark_hash_long(a)), "(18c) murmur3 of decimal64")
+    hw = np.asarray(out.column("hw").to_numpy())[:DEC_SAMPLE]
+    from spark_rapids_tpu_torch.kernels.decimal128 import limbs_to_int
+    wv = np.stack([ws >> 63, ws], 1)[:DEC_SAMPLE]
+    want = []
+    for j, (h_, l_) in enumerate(wv.tolist()):
+        u = c["w_big"].get(j, limbs_to_int(h_, l_))
+        nb = (u.bit_length() if u >= 0 else (~u).bit_length()) // 8 + 1
+        want.append(murmur3_bytes(u.to_bytes(nb, "big", signed=True)))
+    check(hw.tolist() == want, "(18c) murmur3 of decimal128")
+    print("(18c) group, join, sort and murmur3 ok", flush=True)
+    if on_card:
+        best_of_2_line("decimal_sort", reduced(F, sq), n, smi)
+    # / % pmod: the host engine's exact integers (tagged off the card)
+    dq = s.createDataFrame(st.slice(0, div_rows)).select(
+        (F.col("a") / F.col("b")).alias("div"),
+        (F.col("a") % F.col("b")).alias("rem"),
+        F.pmod(F.col("a"), F.col("b")).alias("pmod"))
+    check("CpuProject" in physical_plan(dq), "(18c) / left no host node")
+    t0 = time.perf_counter()
+    out = dq.to_arrow()
+    div_s = time.perf_counter() - t0
+    got = {name: out.column(name).to_pylist()
+           for name in ("div", "rem", "pmod")}
+    ctx = decimal.Context(prec=100, rounding=decimal.ROUND_HALF_UP)
+    for j in range(div_rows):
+        x, y = int(a[j]), int(b[j])
+        if bn[j] or y == 0:
+            check(all(got[m][j] is None for m in got), "(18c) / by 0")
+            continue
+        # Spark: the quotient at scale 38 HALF_UP, then at the type's 15
+        qv = ctx.divide(D_(x), D_(y)).quantize(D_(1).scaleb(-38),
+                                               context=ctx)
+        want_div = qv.quantize(D_(1).scaleb(-15), context=ctx)
+        r = _java_rem_int(x, y)
+        pm = r if r >= 0 else _java_rem_int(r + y, y)
+        check(got["div"][j] == want_div, f"(18c) a / b row {j}")
+        check(got["rem"][j] == D_(r).scaleb(-2), f"(18c) a % b row {j}")
+        check(got["pmod"][j] == D_(pm).scaleb(-2), f"(18c) pmod row {j}")
+    print(f"(18c) / % pmod in the host engine at {div_rows} ok "
+          f"({div_s:.2f} s)", flush=True)
+    del df, st, c
+    if on_card:
+        release_plans()
+
+
+def _java_rem_int(p: int, q: int) -> int:
+    """Java's ``%`` of two Python ints: the dividend's sign."""
+    r = abs(p) % abs(q)
+    return -r if p < 0 else r
+
+
+def murmur3_bytes(data: bytes, seed: int = 42) -> int:
+    """Spark's ``Murmur3_x86_32.hashUnsafeBytes`` in Python (4-byte
+    blocks, then each tail byte sign-extended)."""
+    M = 0xFFFFFFFF
+
+    def mix_k(k):
+        k = (k * 0xCC9E2D51) & M
+        return (((k << 15) | (k >> 17)) & M) * 0x1B873593 & M
+
+    def mix_h(h, k):
+        h ^= k
+        h = ((h << 13) | (h >> 19)) & M
+        return (h * 5 + 0xE6546B64) & M
+    h = seed
+    n4 = len(data) // 4 * 4
+    for i in range(0, n4, 4):
+        h = mix_h(h, mix_k(int.from_bytes(data[i:i + 4], "little")))
+    for b in data[n4:]:
+        h = mix_h(h, mix_k((b - 256 if b > 127 else b) & M))
+    h ^= len(data)
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & M
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & M
+    h ^= h >> 16
+    return h - (1 << 32) if h >= 1 << 31 else h
+
+
+
 def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--strings-prep":
         # phase 13's CPU answers, tables and oracles, beside the card's run
@@ -6228,6 +6829,14 @@ def main() -> int:
     print(f"import pandas: {'ok' if has_pandas else 'fails'}", flush=True)
     check(has_pyarrow, "pyarrow does not import: the parquet scan needs it")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
+    if sys.argv[1:] == ["--phase18"]:
+        # phase 18 alone (no kernel build, no contract line)
+        import spark_rapids_tpu_torch.functions as F
+        from spark_rapids_tpu_torch.session import TorchSession
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_decimal_") as d:
+            decimal_paths(F, TorchSession, smi, d)
+        print("phase 18 alone: ok", flush=True)
+        return 0
     if sys.argv[1:] == ["--phase17"]:
         # phase 17 alone (no kernel build, no contract line): the quickest
         # look at the scalar functions on the card
@@ -6253,7 +6862,7 @@ def main() -> int:
 
 def run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
                cpu_answers, prep) -> int:
-    """Phases 2-17 (``main`` prints phase 1 and starts phase 12's CPU
+    """Phases 2-18 (``main`` prints phase 1 and starts phase 12's CPU
     answers and phase 13's host work)."""
     from spark_rapids_tpu_torch.entry import entry
     from spark_rapids_tpu_torch.kernels import build, q1_cuda
@@ -6382,8 +6991,8 @@ def run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
         bytes_ms = (BYTES_PER_ROW * N_BIG + 16 * q1_cuda.WIDTH[kname] * 4) \
             / mem_bps * 1e3
         ops_ms = ops_per_row * N_BIG / peak * 1e3
-        device_ms, per_op, _ = profile_device(lambda: kernel(big, big_cut),
-                                              10)
+        device_ms, per_op, _ = profile_device(
+            lambda: kernel(big, big_cut), 50, need=f"{kname}_kernel")
         before = q1_cuda.launches[kname]
         (q1_cuda.q1_step_simt if kname == "q1_agg_simt"
          else q1_cuda.q1_step_mma)(big, big_cut)
@@ -6447,7 +7056,7 @@ def run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
     clock.mark(8)
 
     # 9. the parquet scan: bench.py's scan_agg queries and Q1 from parquet,
-    # at 2^23 rows (bench.py: 2^24; cut for phase 16's time)
+    # at 2^22 rows (bench.py: 2^24; cut for phases 16 and 18's time)
     scan_keep: dict = {}  # the file phase 15 reads again
     scan_paths(F, TorchSession, smi, rows=SCAN_ROWS, keep=scan_keep)
     release_plans()
@@ -6468,7 +7077,7 @@ def run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
     release_plans()
 
     # 12. the 99 TPC-DS queries: the card against the port's CPU answers
-    # at 12,000 rows; at 2^21 rows in test mode, eight against numpy
+    # at 12,000 rows; at 2^20 rows in test mode, eight against numpy
     # oracles, and a timing line each. It launches neither Q1 kernel.
     before = dict(q1_cuda.launches)
     tpcds_paths(F, TorchSession, smi, cpu_answers=cpu_answers, keep=keep)
@@ -6530,6 +7139,16 @@ def run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
     check(dict(q1_cuda.launches) == before, "phase 17 launched a Q1 kernel")
     release_plans()
     clock.mark(17)
+
+    # 18. decimals: Q1 and Q6 over decimal(12, 2) measures, cached and from
+    # parquet (INT64-backed and FIXED_LEN_BYTE_ARRAY), and an expression
+    # sweep, in test mode. It launches neither Q1 kernel.
+    before = dict(q1_cuda.launches)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_decimal_") as d:
+        decimal_paths(F, TorchSession, smi, d)
+    check(dict(q1_cuda.launches) == before, "phase 18 launched a Q1 kernel")
+    release_plans()
+    clock.mark(18)
 
     print(kernels_line, flush=True)  # again, near the end of the output
     print(nvidia_smi())

@@ -14,11 +14,12 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..types import (BinaryType, BooleanType, StringT, StringType,
-                     StructField, StructType, TimestampT, from_arrow,
-                     from_numpy_dtype)
+from ..types import (BinaryType, BooleanType, DecimalType, StringT,
+                     StringType, StructField, StructType, TimestampT,
+                     from_arrow, from_numpy_dtype)
 from .vector import (HostStrings, TorchColumnVector, audited_device_get,
-                     bucket_capacity, column_to_arrow)
+                     bucket_capacity, column_to_arrow, decimal_from_arrow,
+                     lane_mask)
 
 
 class TorchColumnarBatch:
@@ -71,7 +72,7 @@ class TorchColumnarBatch:
             elif isinstance(c.dtype, BooleanType):
                 total += (n + 7) // 8
             else:
-                total += n * c.data.element_size()
+                total += c.data[:n].numel() * c.data.element_size()
         return total
 
     def device_memory_size(self) -> int:
@@ -124,9 +125,11 @@ class TorchColumnarBatch:
     def from_pylist(rows: List[dict]) -> "TorchColumnarBatch":
         """List of dicts → host table; python int → bigint, float → double,
         str → string, bool → boolean, ``datetime.date`` → date,
-        ``datetime.datetime`` → timestamp (a naive one read as UTC), None →
-        null (pyarrow's inference)."""
+        ``datetime.datetime`` → timestamp (a naive one read as UTC),
+        ``decimal.Decimal`` → decimal(38, 18) (PySpark's inference; a
+        schema gives another), None → null (pyarrow's inference)."""
         import datetime as _dt
+        import decimal as _decimal
         names: List[str] = []
         for r in rows:
             names.extend(k for k in r if k not in names)
@@ -162,6 +165,9 @@ class TorchColumnarBatch:
                                        for v in vals], np.float64)
             elif kinds <= {str}:
                 cols[name] = np.array(vals, dtype=object)
+            elif kinds <= {_decimal.Decimal, int}:
+                times[name] = decimal_column(vals, DecimalType(38, 18))
+                cols[name] = np.zeros(len(rows), np.int64)
             else:
                 raise NotImplementedError(
                     f"column {name!r} of {sorted(k.__name__ for k in kinds)} "
@@ -209,6 +215,8 @@ class TorchColumnarBatch:
             if isinstance(dtype, BooleanType):
                 vals = np.asarray(arr.fill_null(False)
                                   .to_numpy(zero_copy_only=False))
+            elif isinstance(dtype, DecimalType):
+                vals = decimal_from_arrow(arr, dtype)
             elif dtype.np_dtype is None:
                 raise NotImplementedError(f"arrow column {arr.type} not yet "
                                           "ported")
@@ -292,10 +300,23 @@ class TorchColumnarBatch:
                 cols.append(TorchColumnVector(c.dtype, data, v, n,
                                               offsets=offs))
             else:
-                data = torch.zeros(cap, dtype=c.data.dtype, device=device)
+                data = torch.zeros((cap,) + c.data.shape[1:],
+                                   dtype=c.data.dtype, device=device)
                 data[:n] = c.data[:n]
                 cols.append(TorchColumnVector(c.dtype, data, v, n))
         return TorchColumnarBatch(cols, n, self.names)
+
+
+def decimal_column(values, dtype: DecimalType) -> TorchColumnVector:
+    """Python ``Decimal``/int values (None for null) as a host column of
+    ``dtype`` (exact; digits past the scale are truncated)."""
+    from ..kernels.decimal128 import int_to_limbs, unscaled_int
+    ok = np.array([v is not None for v in values], np.bool_)
+    ints = [0 if v is None else unscaled_int(v, dtype.scale) for v in values]
+    vals = np.array([int_to_limbs(i) for i in ints], np.int64).reshape(
+        len(ints), 2) if dtype.wide else np.array(ints, np.int64)
+    return TorchColumnVector.from_numpy(dtype, vals, ok, capacity=len(ints),
+                                        bucket=False)
 
 
 def gather(batch: TorchColumnarBatch, indices: torch.Tensor, out_rows: int,
@@ -328,7 +349,7 @@ def gather(batch: TorchColumnarBatch, indices: torch.Tensor, out_rows: int,
     for c in batch.columns:
         v = mask if c.validity is None else (c.validity[safe] & mask)
         if c.offsets is None:
-            data = torch.where(v, c.data[safe],
+            data = torch.where(lane_mask(v, c.data), c.data[safe],
                                torch.zeros((), dtype=c.data.dtype, device=dev))
             cols.append(TorchColumnVector(c.dtype, data, v, out_rows))
         else:
@@ -398,7 +419,8 @@ def concat_batches(batches: List[TorchColumnarBatch]) -> TorchColumnarBatch:
             for p, off in zip(parts, row_off):
                 v[off:off + p.num_rows] = p.validity_or_true()[:p.num_rows]
         if c0.offsets is None:
-            data = torch.zeros(cap, dtype=c0.data.dtype, device=dev)
+            data = torch.zeros((cap,) + c0.data.shape[1:],
+                               dtype=c0.data.dtype, device=dev)
             for p, off in zip(parts, row_off):
                 data[off:off + p.num_rows] = p.data[:p.num_rows]
             cols.append(TorchColumnVector(c0.dtype, data, v, total))

@@ -15,8 +15,8 @@ from typing import Any, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..types import (BinaryType, DataType, DateType, NullType, StringT,
-                     StringType, TimestampType, is_fixed_width)
+from ..types import (BinaryType, DataType, DateType, DecimalType, NullType,
+                     StringT, StringType, TimestampType, is_fixed_width)
 
 
 def bucket_capacity(n: int, enabled: bool = True, minimum: int = 16) -> int:
@@ -94,6 +94,76 @@ def host_arrays(tensors: Sequence[Optional[torch.Tensor]],
     """``host_tensors`` as numpy arrays (host tensors: a view, no copy)."""
     return [None if t is None else t.numpy()
             for t in host_tensors(tensors, kind)]
+
+
+def lane_mask(mask: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """A row mask shaped to select rows of ``data`` (a two-limb decimal
+    column is [n, 2])."""
+    return mask.unsqueeze(-1) if data.dim() == 2 and mask.dim() == 1 \
+        else mask
+
+
+# ---------------------------------------------------------------------------
+# decimals: the unscaled value, [n] int64 up to precision 18, [n, 2]
+# (hi, lo) past it; Arrow's decimal128 is 16 little-endian bytes a row
+# ---------------------------------------------------------------------------
+
+
+def decimal_from_arrow(arr, dtype: DecimalType) -> np.ndarray:
+    """An Arrow decimal array's unscaled values in ``dtype``'s carrier,
+    read through views of its 16-byte values (null slots zeroed). The
+    array must hold ``dtype``'s scale."""
+    import pyarrow as pa
+    n = len(arr)
+    if arr.type != pa.decimal128(dtype.precision, dtype.scale):
+        if arr.type.scale != dtype.scale:
+            raise ValueError(f"decimal {arr.type} read as {dtype}")
+        arr = arr.cast(pa.decimal128(38, dtype.scale))
+    words = np.frombuffer(arr.buffers()[1], np.int64, 2 * n,
+                          arr.offset * 16).reshape(n, 2) if n \
+        else np.zeros((0, 2), np.int64)
+    out = words[:, 0].copy() if not dtype.wide else words[:, ::-1].copy()
+    if arr.null_count:
+        out[~np.asarray(arr.is_valid())] = 0
+    return out
+
+
+def decimal_to_arrow(vals: np.ndarray, dtype: DecimalType,
+                     valid: Optional[np.ndarray]):
+    """Unscaled values in ``dtype``'s carrier → an Arrow decimal128 array
+    (no per-row Python)."""
+    import pyarrow as pa
+    n = len(vals)
+    words = np.empty((n, 2), np.int64)
+    if vals.ndim == 2:
+        words[:, 0], words[:, 1] = vals[:, 1], vals[:, 0]
+    else:
+        words[:, 0], words[:, 1] = vals, vals >> 63
+    bitmap, nulls = None, 0
+    if valid is not None and not valid.all():
+        bitmap = pa.py_buffer(np.packbits(valid, bitorder="little").tobytes())
+        nulls = int((~valid).sum())
+    return pa.Array.from_buffers(
+        pa.decimal128(dtype.precision, dtype.scale), n,
+        [bitmap, pa.py_buffer(words.tobytes())], null_count=nulls)
+
+
+def decimal_values(vals: np.ndarray, dtype: DecimalType) -> list:
+    """Unscaled carrier values → ``decimal.Decimal`` at the scale."""
+    from ..kernels.decimal128 import limbs_to_int, scaled_decimal
+    if vals.ndim == 2:
+        ints = [limbs_to_int(h, l) for h, l in vals.tolist()]
+    else:
+        ints = vals.tolist()
+    return [scaled_decimal(v, dtype.scale) for v in ints]
+
+
+def decimal_carrier(value, dtype: DecimalType):
+    """A Python Decimal (or int) as ``dtype``'s carrier value: an int, or
+    a [hi, lo] list past precision 18."""
+    from ..kernels.decimal128 import int_to_limbs, unscaled_int
+    u = unscaled_int(value, dtype.scale)
+    return list(int_to_limbs(u)) if dtype.wide else u
 
 
 class HostStrings(NamedTuple):
@@ -190,6 +260,9 @@ class TorchColumnVector:
                     for i in range(n)]
         valid, vals = host_arrays([v, self.data[:n]], kind)
         valid = np.ones(n, np.bool_) if valid is None else valid
+        if isinstance(self.dtype, DecimalType):
+            return [d if ok else None for d, ok in
+                    zip(decimal_values(vals, self.dtype), valid)]
         if isinstance(self.dtype, DateType):
             import datetime
             epoch = datetime.date(1970, 1, 1)
@@ -221,7 +294,7 @@ class TorchColumnVector:
                 capacity, device, bucket)
         n = len(values)
         cap = capacity if capacity is not None else bucket_capacity(n, bucket)
-        buf = np.zeros(cap, dtype=dtype.np_dtype)
+        buf = np.zeros((cap,) + values.shape[1:], dtype=dtype.np_dtype)
         buf[:n] = values.astype(dtype.np_dtype, copy=False)
         vmask = None
         if validity is not None and not validity.all():
@@ -264,11 +337,16 @@ class TorchColumnVector:
         if not is_fixed_width(dtype) and not isinstance(dtype, NullType):
             raise NotImplementedError(f"{dtype} scalar column not yet ported")
         carrier = dtype.torch_dtype or torch.bool
+        shape = (cap, 2) if isinstance(dtype, DecimalType) and dtype.wide \
+            else (cap,)
         if value is None:
             return TorchColumnVector(
-                dtype, torch.zeros(cap, dtype=carrier, device=device),
+                dtype, torch.zeros(shape, dtype=carrier, device=device),
                 torch.zeros(cap, dtype=torch.bool, device=device), num_rows)
-        data = torch.zeros(cap, dtype=carrier, device=device)
+        if isinstance(dtype, DecimalType):
+            value = torch.tensor(decimal_carrier(value, dtype),
+                                 dtype=carrier, device=device)
+        data = torch.zeros(shape, dtype=carrier, device=device)
         data[:num_rows] = value
         return TorchColumnVector(dtype, data, None, num_rows)
 
@@ -341,4 +419,6 @@ def column_to_arrow(col: TorchColumnVector, kind: Optional[str] = "fetch"):
     if isinstance(col.dtype, TimestampType):
         return pa.array(vals.astype(np.int64), type=pa.timestamp("us"),
                         mask=mask)
+    if isinstance(col.dtype, DecimalType):
+        return decimal_to_arrow(vals, col.dtype, valid)
     return pa.array(vals, mask=mask)

@@ -887,3 +887,53 @@ def tpcds_host_tables(rows: int, parts: int = 4,
 def tpcds_tables(session, rows: int, parts: int = 4):
     """``tpcds_host_tables`` as the session's DataFrames."""
     return tpch_frames(session, tpcds_host_tables(rows, parts))
+
+
+# ---------------------------------------------------------------------------
+# lineitem with decimal(12, 2) measures (Spark's TPC-H schema)
+# ---------------------------------------------------------------------------
+
+#: the measures Spark's TPC-H schema declares decimal(12, 2)
+DECIMAL_MEASURES = ("l_quantity", "l_extendedprice", "l_discount", "l_tax")
+
+
+def lineitem_decimal(n: int, seed: int = 42) -> Dict[str, np.ndarray]:
+    """bench.py's Q1-shaped lineitem draws (``chip_smoke.lineitem``: the
+    same generator calls, seed 42) with the four measures rounded to cents
+    and held as their unscaled int64 (decimal(12, 2)): quantity 1–50,
+    price 900.00–100,000.00, discount 0.00–0.10, tax 0.00–0.08. Flags are
+    bytes, ``l_shipdate`` int32 day numbers."""
+    rng = np.random.default_rng(seed)
+    cents = lambda x: np.rint(x * 100.0).astype(np.int64)  # noqa: E731
+    return {
+        "l_returnflag": np.array([b"A", b"N", b"R"])[rng.integers(0, 3, n)],
+        "l_linestatus": np.array([b"F", b"O"])[rng.integers(0, 2, n)],
+        "l_quantity": cents(rng.uniform(1, 50, n)),
+        "l_extendedprice": cents(rng.uniform(900, 100000, n)),
+        "l_discount": cents(rng.uniform(0, 0.1, n)),
+        "l_tax": cents(rng.uniform(0, 0.08, n)),
+        "l_shipdate": rng.integers(8766, 10957, n).astype(np.int32),
+    }
+
+
+def decimal_lineitem_arrow(cols: Dict[str, np.ndarray], start: int = 0,
+                           stop: Optional[int] = None):
+    """Rows [start, stop) of ``lineitem_decimal``'s columns as an Arrow
+    table, the measures decimal128(12, 2) built from their unscaled
+    values (no per-row Python)."""
+    import pyarrow as pa
+    from .columnar.vector import decimal_to_arrow
+    from .types import DecimalType
+    from .columnar.vector import strings_to_buffers
+    out = {}
+    for name, v in cols.items():
+        v = v[start:stop]
+        if name in DECIMAL_MEASURES:
+            out[name] = decimal_to_arrow(v, DecimalType(12, 2), None)
+        elif v.dtype.kind == "S":
+            offs, chars, _ = strings_to_buffers(v)
+            out[name] = pa.StringArray.from_buffers(
+                len(v), pa.py_buffer(offs), pa.py_buffer(chars))
+        else:
+            out[name] = pa.array(v)
+    return pa.table(out)

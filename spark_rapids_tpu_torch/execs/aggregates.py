@@ -37,13 +37,15 @@ import torch
 
 from ..columnar.batch import TorchColumnarBatch, concat_batches, gather
 from ..columnar.vector import (TorchColumnVector, audited_sync_int,
-                               bucket_capacity, host_arrays, row_mask)
+                               bucket_capacity, host_arrays, lane_mask,
+                               row_mask)
 from ..expressions.aggregates import (VARIANCE_OPS, AggregateFunction,
                                       Count)
 from ..expressions.base import (AttributeReference, Expression, arrow_column,
                                 to_column)
 from ..expressions.strings import longest_string, string_key_codes
-from ..types import DoubleT, LongT, StringType, is_fixed_width
+from ..types import (DecimalType, DoubleT, LongT, StringType, is_fixed_width,
+                     sum_decimal_type)
 from .base import (DEBUG, CpuExec, PhysicalPlan, TaskContext, TorchExec,
                    bind_all, bind_references, counts_output, op_time)
 from .cpu import concat_child, host_batch
@@ -145,7 +147,7 @@ class CpuHashAggregateExec(CpuExec):
             flat = pa.Table.from_arrays(list(cols.values()),
                                         names=list(cols)) if cols \
                 else pa.table({"_": pa.nulls(n)}).select([])
-            agg = _arrow_aggregate(flat, keys, specs)
+            agg = _arrow_aggregate(flat, keys, specs, ectx.ansi)
             ng = len(self.grouping)
             out = [agg.column(i) for i in range(ng)]
             for expr in result_exprs:
@@ -171,7 +173,7 @@ _ARROW_AGG = {"sum": "sum", "count": "count", "min": "min", "max": "max",
               "var_samp": "variance", "var_pop": "variance"}
 
 
-def _arrow_aggregate(flat, keys: List[str], specs):
+def _arrow_aggregate(flat, keys: List[str], specs, ansi: bool = False):
     """Grouped (or global) aggregation of ``flat`` by ``keys`` with Spark's
     semantics over Arrow's kernels (reference ``_arrow_aggregate``): a
     table of the keys, then one column an aggregate. Spark orders NaN
@@ -192,7 +194,32 @@ def _arrow_aggregate(flat, keys: List[str], specs):
             opts = pc.VarianceOptions(ddof=0)
         elif fn.update_op in ("first", "last"):
             opts = pc.ScalarAggregateOptions(skip_nulls=fn.ignore_nulls)
-        if pa.types.is_floating(col.type) and fn.update_op in ("min", "max"):
+        if pa.types.is_decimal(col.type) and fn.update_op in ("first",
+                                                              "last"):
+            # Arrow has no decimal first/last: the chosen row's index
+            # (min or max among the rows it may take), then a take
+            idx = pa.array(np.arange(len(col), dtype=np.int64))
+            if fn.ignore_nulls and col.null_count:
+                idx = pc.if_else(pc.is_valid(col), idx,
+                                 pa.scalar(None, pa.int64()))
+            work[f"c{i}"] = idx
+            op = "min" if fn.update_op == "first" else "max"
+            calls.append((f"c{i}", op, None))
+            plans.append(("pick", i, op, fn))
+        elif pa.types.is_decimal(col.type) and fn.update_op in ("sum",
+                                                                "avg"):
+            # Arrow's decimal sum wraps past 2^127: the unscaled values'
+            # 32-bit words summed in int64 as on the card, and the count,
+            # finished to Spark's types by ``_decimal_finish``
+            from ..expressions.decimals import arrow_words
+            for j, w in enumerate(arrow_words(col)):
+                work[f"c{i}w{j}"] = w
+                calls.append((f"c{i}w{j}", "sum", None))
+            work[f"c{i}"] = col
+            calls.append((f"c{i}", "count", None))
+            plans.append(("dec", i, "count", fn))
+        elif pa.types.is_floating(col.type) and fn.update_op in ("min",
+                                                                  "max"):
             nan = pc.fill_null(pc.is_nan(col), False)
             neutral = pa.scalar(np.inf if fn.update_op == "min" else -np.inf,
                                 col.type)
@@ -241,6 +268,13 @@ def _arrow_aggregate(flat, keys: List[str], specs):
         out = []
     for mode, i, op, fn in plans:
         red = get(f"c{i}", op)
+        if mode == "dec":
+            out.append(_decimal_finish(
+                fn, [get(f"c{i}w{j}", "sum") for j in range(4)], red, ansi))
+            continue
+        if mode == "pick":
+            out.append(flat.column(specs[i][0]).take(red))
+            continue
         if mode == "fp":
             flag = get(f"n{i}", "min" if fn.update_op == "min" else "max")
             red = pc.if_else(pc.equal(pc.fill_null(flag, 0), 1),
@@ -250,6 +284,20 @@ def _arrow_aggregate(flat, keys: List[str], specs):
     return pa.Table.from_arrays(
         [o.combine_chunks() if isinstance(o, pa.ChunkedArray) else o
          for o in out], names=names)
+
+
+def _decimal_finish(fn, words, counts, ansi: bool):
+    """Spark's decimal sum or avg (``decimals.finish_sum_avg``) from the
+    groups' summed 32-bit words (``arrow_words``) and counts."""
+    import pyarrow.compute as pc
+    from ..expressions import decimals as DEC
+    w = [np.asarray(pc.fill_null(x, 0).to_numpy(zero_copy_only=False),
+                    np.int64).astype(object) for x in words]
+    n = np.asarray(pc.fill_null(counts, 0).to_numpy(zero_copy_only=False),
+                   np.int64).astype(object)
+    v, ok = DEC.finish_sum_avg(
+        fn, w[0] + (w[1] << 32) + (w[2] << 64) + (w[3] << 96), n, ansi)
+    return DEC.ints_to_arrow(v, fn.dtype, ok)
 
 
 # ---------------------------------------------------------------------------
@@ -457,6 +505,8 @@ def _segment_update(fn: AggregateFunction, col: Optional[TorchColumnVector],
         if op in ("min", "max"):
             return _host_string_minmax(op, col, segs, ctx)
         raise NotImplementedError(f"{op} of strings not yet ported")
+    if isinstance(col.dtype, DecimalType):
+        return _decimal_state(fn, col, segs, valid)
     data = col.data[segs.perm]
     nn = segs.count(valid)
     if op in VARIANCE_OPS:
@@ -532,10 +582,109 @@ def _segment_pick(fn: AggregateFunction, col: TorchColumnVector,
     return {"column": picked.columns[0]}
 
 
+def _decimal_state(fn: AggregateFunction, col: TorchColumnVector,
+                   segs: _Segments, valid: Optional[torch.Tensor]) -> Dict:
+    """The partial state of a decimal sum/avg/min/max by groups, with the
+    non-null count; states of chunks merge (``_merge_global_states``) and
+    ``_decimal_result`` finishes one:
+
+    * sum/avg: each value's four 32-bit words summed exactly in int64 by
+      the segments' prefix sums (``decimal128.segment_words128``), merged
+      by addition;
+    * min/max: one lane by ``scatter_reduce``; two limbs the high limb
+      first, then the low limb (unsigned) among the rows that hold the
+      group's high limb; merged by ``cmp128``."""
+    from ..kernels import decimal128 as D
+    op = fn.update_op
+    data = col.data[segs.perm]
+    nn = segs.count(valid)
+    if valid is not None:
+        data = torch.where(lane_mask(valid, data), data,
+                           torch.zeros((), dtype=data.dtype,
+                                       device=data.device))
+    if op in ("min", "max"):
+        return {op: _decimal_minmax(op, data, valid, segs), "nonnull": nn}
+    h, l = D.limbs_of(data)
+    return {"words": D.segment_words128(h, l, segs.int_sum), "nonnull": nn}
+
+
+def _decimal_result(fn: AggregateFunction, state: Dict, n_groups: int,
+                    cap: int, ansi: bool) -> TorchColumnVector:
+    """Spark's result of a decimal aggregate's state: min/max as they
+    are; sum one carry pass (``decimal128.carry_words128``), past the sum
+    type's precision (p + 10) null, ANSI an error; avg that sum over the
+    count as Spark's decimal ``Divide`` gives it (HALF_UP at the
+    quotient's scale, ``decimal128.div_half_up``), then cast HALF_UP to
+    the avg type (p + 4, s + 4)."""
+    from ..expressions.decimals import overflow_check
+    from ..kernels import decimal128 as D
+    from ..types import decimal_result_type
+    op, out_t = fn.update_op, fn.dtype
+    nn = state["nonnull"]
+    ok = (nn > 0) & row_mask(n_groups, cap, nn.device)
+    if op in ("min", "max"):
+        out, v = state[op], ok
+    else:
+        sh, sl, ovf = D.carry_words128(state["words"])
+        if op == "sum":
+            ovf = ovf | D.precision_overflow(sh, sl, out_t.precision)
+            qh, ql = sh, sl
+        else:
+            # Spark's sum type, then Divide(sum, count as decimal(20, 0))
+            sum_t = sum_decimal_type(fn.children[0].dtype)
+            q_t = decimal_result_type("/", sum_t, DecimalType(20, 0))
+            ovf = ovf | D.precision_overflow(sh, sl, sum_t.precision)
+            qh, ql, qo = D.div_half_up(sh, sl, torch.where(nn > 0, nn, 1),
+                                       q_t.scale - sum_t.scale)
+            ovf = ovf | qo | D.precision_overflow(qh, ql, q_t.precision)
+            k = q_t.scale - out_t.scale
+            if k > 0:
+                qh, ql = D.rescale_down(qh, ql, k)
+            elif k < 0:
+                qh, ql, o2 = D.rescale_up(qh, ql, -k)
+                ovf = ovf | o2
+            ovf = ovf | D.precision_overflow(qh, ql, out_t.precision)
+        v = overflow_check(ovf & ok, ok, ansi, f"decimal overflow in {op}")
+        out = D.join(qh, ql) if out_t.wide else ql
+    return TorchColumnVector(out_t, torch.where(
+        lane_mask(v, out), out, torch.zeros((), dtype=out.dtype,
+                                            device=out.device)), v, n_groups)
+
+
+def _decimal_minmax(op: str, data: torch.Tensor,
+                    valid: Optional[torch.Tensor], segs: _Segments
+                    ) -> torch.Tensor:
+    """Per-group min/max of a decimal carrier in sorted order (null rows
+    excluded; a group with none gives 0, masked by the caller)."""
+    red = "amin" if op == "min" else "amax"
+    neutral = (2 ** 63 - 1) if op == "min" else -2 ** 63
+    dev = data.device
+
+    def reduce(x):
+        if valid is not None:
+            x = torch.where(valid, x, neutral)
+        return torch.full((segs.g_cap,), neutral, dtype=torch.int64,
+                          device=dev).scatter_reduce(
+            0, segs.seg_ids, x, reduce=red, include_self=True)
+
+    if data.dim() == 1:
+        return reduce(data)
+    hi = reduce(data[:, 0])
+    at = data[:, 0] == hi[segs.seg_ids]
+    # the low limb as unsigned: flip the sign bit, reduce, flip back
+    lo = data[:, 1] ^ (-2 ** 63)
+    lo = torch.where(at, lo, neutral)
+    lo = reduce(lo) ^ (-2 ** 63)
+    return torch.stack([hi, lo], -1)
+
+
 def _evaluate_agg(fn: AggregateFunction, state: Dict[str, torch.Tensor],
-                  n_groups: int, cap: int) -> TorchColumnVector:
+                  n_groups: int, cap: int, ansi: bool) -> TorchColumnVector:
     if "column" in state:  # first/last, a string min/max: the chosen rows
         return state["column"]
+    if fn.children and isinstance(fn.children[0].dtype, DecimalType) \
+            and fn.update_op != "count":
+        return _decimal_result(fn, state, n_groups, cap, ansi)
     dev = next(iter(state.values())).device
     gmask = row_mask(n_groups, cap, dev)
     op = fn.update_op
@@ -576,10 +725,10 @@ def _global_mergeable(fn: AggregateFunction) -> bool:
     """Whether the ungrouped chunked-merge path can combine this
     aggregate's partial states."""
     op = fn.update_op
+    child = fn.children[0] if fn.children else None
     if op in ("count", "sum", "avg") or op in VARIANCE_OPS:
         return True
     if op in ("min", "max"):
-        child = fn.children[0] if fn.children else None
         return child is None or is_fixed_width(child.dtype)
     return False
 
@@ -594,6 +743,10 @@ def _merge_global_states(fn: AggregateFunction,
     stk = {k: torch.stack([s[k] for s in states]) for k in states[0]}
     if op == "count":
         return {"count": stk["count"].sum(0)}
+    if "words" in stk:  # a decimal sum/avg: word sums and counts add
+        return {k: v.sum(0) for k, v in stk.items()}
+    if op in ("min", "max") and stk[op].dim() == 3:
+        return _merge_decimal128_minmax(op, stk[op], stk["nonnull"])
     if op == "sum":
         return {"sum": stk["sum"].sum(0), "nonnull": stk["nonnull"].sum(0)}
     if op == "avg":
@@ -621,6 +774,20 @@ def _merge_global_states(fn: AggregateFunction,
         m = clean.amin(0) if op == "min" else clean.amax(0)
         return {op: m, "nonnull": nonnull}
     raise NotImplementedError(f"merge of {op} not yet ported")
+
+
+def _merge_decimal128_minmax(op: str, red: torch.Tensor,
+                             nn: torch.Tensor) -> Dict:
+    """Two-limb decimal min/max states of chunks (``[chunks, groups,
+    2]``) merged by ``cmp128``, among the chunks that saw a value."""
+    from ..kernels import decimal128 as D
+    m, seen = red[0], nn[0] > 0
+    for r, has in zip(red[1:], nn[1:] > 0):
+        c = D.cmp128(r[..., 0], r[..., 1], m[..., 0], m[..., 1])
+        take = has & (~seen | ((c < 0) if op == "min" else (c > 0)))
+        m = torch.where(take[..., None], r, m)
+        seen = seen | has
+    return {op: m, "nonnull": nn.sum(0)}
 
 
 # ---------------------------------------------------------------------------
@@ -690,6 +857,7 @@ class TorchHashAggregateExec(TorchExec):
                 and all(_global_mergeable(fn) for fn in agg_fns):
             # per-chunk partial states merged into one final state: the
             # whole input is never concatenated
+            ctx.counters["global_chunked_runs"] += 1
             yield self._global_chunked(batches, agg_fns, result_exprs, ctx,
                                        max_rows)
             return
@@ -754,7 +922,8 @@ class TorchHashAggregateExec(TorchExec):
                                          chunk_states)
             for i in range(len(agg_fns)):
                 per_fn[i].append(states[i])
-        agg_cols = [_evaluate_agg(fn, _merge_global_states(fn, sts), 1, g_cap)
+        agg_cols = [_evaluate_agg(fn, _merge_global_states(fn, sts), 1, g_cap,
+                                  ctx.eval_ctx.ansi)
                     for fn, sts in zip(agg_fns, per_fn)]
         return self._project_result(TorchColumnarBatch(agg_cols, 1), [],
                                     result_exprs, ctx)
@@ -802,7 +971,8 @@ class TorchHashAggregateExec(TorchExec):
             segs = _Segments(perm, seg_ids, bounds, n, n_groups, g_cap)
         states = [_segment_update(fn, self._eval_agg_input(fn, batch, ctx),
                                   segs, ctx) for fn in agg_fns]
-        agg_cols = [_evaluate_agg(fn, st, segs.n_groups, segs.g_cap)
+        agg_cols = [_evaluate_agg(fn, st, segs.n_groups, segs.g_cap,
+                                  ctx.eval_ctx.ansi)
                     for fn, st in zip(agg_fns, states)]
         out_keys: List[TorchColumnVector] = []
         if self.grouping:

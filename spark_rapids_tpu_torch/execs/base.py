@@ -69,7 +69,8 @@ class TorchMetric:
 class TaskContext:
     """Per-task execution context: partition id, conf, the session's device
     (where ``HostToDeviceExec`` uploads) and the session's event counters
-    (``fallback_runs``, ``fallbackReruns``, ``sort_fallback_runs``).
+    (``fallback_runs``, ``fallbackReruns``, ``sort_fallback_runs``,
+    ``global_chunked_runs``).
     Completion listeners run at ``complete()`` (reference
     ScalableTaskCompletion): the device semaphore releases a task's permit
     through one."""

@@ -48,7 +48,7 @@ from ..window import (CURRENT_ROW, UNBOUNDED_FOLLOWING, UNBOUNDED_PRECEDING,
                       Rank, RowNumber, WindowExpression, WindowSpec)
 from ..expressions.strings import string_key_codes, string_sides
 from ..kernels.strings import concat_columns
-from ..types import StringType
+from ..types import DecimalType, StringType
 from .aggregates import encode_group_keys, lex_sort_permutation
 from .base import (PhysicalPlan, TaskContext, TorchExec, bind_references,
                    op_time)
@@ -573,6 +573,26 @@ def _frame_aggregates(op: str, vals: list, bounds, integral: bool) -> list:
     return out
 
 
+def _decimal_sum_avg(fn) -> bool:
+    return isinstance(fn, AggregateFunction) and fn.update_op in (
+        "sum", "avg") and isinstance(fn.children[0].dtype, DecimalType)
+
+
+def _decimal_frames(fn, vals: list, bounds, ansi: bool) -> list:
+    """A decimal sum/avg of every frame from the rows' unscaled ints:
+    exact frame sums and counts, finished as the aggregate finishes them
+    (``decimals.finish_sum_avg``), as ``decimal.Decimal`` values."""
+    from ..expressions.decimals import finish_sum_avg
+    from ..kernels.decimal128 import scaled_decimal
+    sums = np.empty(len(bounds), dtype=object)
+    sums[:] = [v or 0 for v in _frame_aggregates("sum", vals, bounds, False)]
+    counts = np.empty(len(bounds), dtype=object)
+    counts[:] = _frame_aggregates("count", vals, bounds, False)
+    v, ok = finish_sum_avg(fn, sums, counts, ansi)
+    return [scaled_decimal(int(x), fn.dtype.scale) if k else None
+            for x, k in zip(v, ok)]
+
+
 def cpu_window_column(we: WindowExpression, table, ctx: TaskContext, attr):
     """One window expression over an Arrow table on the host: the rows in
     (partition keys ascending, nulls first; order keys) order by the host
@@ -611,6 +631,11 @@ def cpu_window_column(we: WindowExpression, table, ctx: TaskContext, attr):
             values = parse_string(arrow_column(child.eval_cpu(table, ectx),
                                                n, child.dtype),
                                   DoubleT).to_pylist()
+        elif _decimal_sum_avg(fn):
+            # the unscaled Python ints: exact sums, finished by Spark's rule
+            from ..expressions.decimals import arrow_ints
+            values = arrow_ints(arrow_column(child.eval_cpu(table, ectx), n,
+                                             child.dtype), child.dtype)
         else:
             values = rows(child)
     results = [None] * n
@@ -677,8 +702,11 @@ def _host_partition(fn, spec, rows, okey, values, results, table, ectx):
         integral = bool(fn.children) and isinstance(fn.children[0].dtype,
                                                      IntegralType)
         bounds = _frame_bounds(spec, n, peers_lo, peers_hi)
-        for r, v in zip(rows, _frame_aggregates(fn.update_op, vals, bounds,
-                                                integral)):
+        if _decimal_sum_avg(fn):
+            out = _decimal_frames(fn, vals, bounds, ectx.ansi)
+        else:
+            out = _frame_aggregates(fn.update_op, vals, bounds, integral)
+        for r, v in zip(rows, out):
             results[r] = v
     else:
         raise NotImplementedError(

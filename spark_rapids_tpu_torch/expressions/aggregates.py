@@ -5,7 +5,8 @@ aggregate execs, not evaluated directly."""
 
 from __future__ import annotations
 
-from ..types import DataType, DecimalType, DoubleT, IntegralType, LongT
+from ..types import (DataType, DecimalType, DoubleT, IntegralType, LongT,
+                     avg_decimal_type, sum_decimal_type)
 from .base import Expression
 
 
@@ -34,7 +35,7 @@ class Sum(AggregateFunction):
         if isinstance(ct, IntegralType):
             return LongT
         if isinstance(ct, DecimalType):
-            return DecimalType(min(ct.precision + 10, 38), ct.scale)
+            return sum_decimal_type(ct)
         return DoubleT
 
 
@@ -73,7 +74,7 @@ class Average(AggregateFunction):
     def dtype(self) -> DataType:
         ct = self.child.dtype
         if isinstance(ct, DecimalType):
-            return DecimalType(min(ct.precision + 4, 38), min(ct.scale + 4, 38))
+            return avg_decimal_type(ct)
         return DoubleT
 
 

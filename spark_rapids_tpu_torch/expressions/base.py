@@ -21,10 +21,11 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..columnar.vector import TorchColumnVector, TorchScalar, row_mask
+from ..columnar.vector import (TorchColumnVector, TorchScalar,
+                               decimal_carrier, lane_mask, row_mask)
 from ..config import RapidsConf
-from ..types import (BooleanT, DataType, DoubleT, IntegerT, LongT, NullT,
-                     StringT)
+from ..types import (BooleanT, DataType, DecimalType, DoubleT, IntegerT,
+                     LongT, NullT, StringT)
 
 
 class EvalContext:
@@ -167,7 +168,24 @@ def infer_literal_type(value: Any) -> DataType:
         return DoubleT
     if isinstance(value, str):
         return StringT
+    import decimal
+    if isinstance(value, decimal.Decimal):
+        return decimal_literal_type(value)
     raise NotImplementedError(f"literal {value!r} not yet ported")
+
+
+def decimal_literal_type(value) -> DecimalType:
+    """Spark's type of a ``BigDecimal`` literal (``Decimal.set``): its
+    digits and scale, the precision at least the scale; a negative
+    exponent widens the integral digits at scale 0 (``1E+2`` is
+    decimal(3, 0))."""
+    _, digits, exp = value.as_tuple()
+    if not isinstance(exp, int):
+        raise ValueError(f"decimal literal {value!r} is not finite")
+    if exp > 0:
+        return DecimalType(len(digits) + exp, 0)
+    scale = -exp
+    return DecimalType(max(len(digits), scale), scale)
 
 
 @dataclass(init=False)
@@ -279,10 +297,14 @@ def device_parts(x: ColOrScalar, capacity: int, device):
     Fixed-width only."""
     if isinstance(x, TorchScalar):
         carrier = x.dtype.torch_dtype or torch.bool
+        wide = isinstance(x.dtype, DecimalType) and x.dtype.wide
         if x.value is None:
-            return (torch.zeros((), dtype=carrier, device=device),
+            return (torch.zeros((2,) if wide else (), dtype=carrier,
+                                device=device),
                     torch.zeros(capacity, dtype=torch.bool, device=device))
-        return torch.tensor(x.value, dtype=carrier, device=device), None
+        value = decimal_carrier(x.value, x.dtype) \
+            if isinstance(x.dtype, DecimalType) else x.value
+        return torch.tensor(value, dtype=carrier, device=device), None
     return x.data, x.validity
 
 
@@ -299,8 +321,9 @@ def make_column(dtype: DataType, data: torch.Tensor, validity,
                 num_rows: int) -> TorchColumnVector:
     """Column with null slots zeroed, so no consumer sees garbage."""
     if validity is not None:
-        data = torch.where(validity, data, torch.zeros((), dtype=data.dtype,
-                                                       device=data.device))
+        data = torch.where(lane_mask(validity, data), data,
+                           torch.zeros((), dtype=data.dtype,
+                                       device=data.device))
     return TorchColumnVector(dtype, data, validity, num_rows)
 
 
@@ -357,6 +380,15 @@ def arrow_numpy(x, n: int, dtype: DataType):
     return vals, null
 
 
+def scalar_value(data: torch.Tensor, dtype: DataType):
+    """Row 0 of a one-row host result as a Python value (a decimal as
+    ``decimal.Decimal``)."""
+    if isinstance(dtype, DecimalType):
+        from ..columnar.vector import decimal_values
+        return decimal_values(data[:1].numpy(), dtype)[0]
+    return data[0].item()
+
+
 class BinaryExpression(Expression):
     """Binary op with standard null propagation (null if either side is)."""
 
@@ -387,7 +419,8 @@ class BinaryExpression(Expression):
         data, valid = self._eval_parts(cols[0], cols[1], one, ctx)
         ok = valid is None or bool(valid[0])
         # a one-row host batch: no device transfer
-        return TorchScalar(self.dtype, data[0].item() if ok else None)
+        return TorchScalar(self.dtype, scalar_value(data, self.dtype)
+                           if ok else None)
 
     def _eval_parts(self, l, r, batch, ctx):
         cap, dev = batch.capacity, batch.device
@@ -469,7 +502,9 @@ class UnaryExpression(Expression):
         """Null in, null out: ``_compute`` over the child's data."""
         cap, dev = batch.capacity, batch.device
         d, v = device_parts(self.child.eval_device(batch, ctx), cap, dev)
-        d = torch.broadcast_to(d, (cap,))
+        wide = isinstance(self.child.dtype, DecimalType) \
+            and self.child.dtype.wide
+        d = torch.broadcast_to(d, (cap, 2) if wide else (cap,))
         valid = combine_validity(v, row_mask(batch.num_rows, cap, dev))
         return make_column(self.dtype, self._compute(d, ctx, valid), valid,
                            batch.num_rows)

@@ -20,8 +20,18 @@ and Arrow's agree (plain digits, plain decimals, ISO dates, floats in
 [1e-3, 1e7)), and a row at a time elsewhere. Where the reference departs
 from Spark (an integral parse of "1.5", "1_000" or a value past the type's
 range as a literal) the port gives Spark's answer (ROADMAP C-ref-15).
-Decimal string casts wait with ``decimal128``; ANSI mode waits too. A
-literal casts by the same rules as a column.
+A literal casts by the same rules as a column.
+
+Decimals (``_decimal_cast``), on the card: integral ↔ decimal, decimal ↔
+decimal (a finer scale multiplies with an overflow check, a coarser one
+rounds HALF_UP), decimal → boolean, decimal → double where the float64
+quotient ``unscaled / 10^s`` is correctly rounded (|unscaled| < 2^53,
+s <= 22), double → decimal (Spark's ``BigDecimal(Double.toString)``
+HALF_UP) for the rows clear of a tie. The other rows of the float casts,
+and string ↔ decimal, go through the host (``decimal.hostPath``). A
+value past the target's precision is null; under ANSI it raises
+``ExpressionError``, the same on the host. ANSI mode waits for the other
+casts.
 
 Host evaluation (``eval_cpu``, the host engine) runs the same rules over
 the Arrow rows: the string casts' host code as it is, and the numeric
@@ -37,7 +47,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..columnar.vector import TorchScalar, row_mask
+from ..columnar.vector import (TorchScalar, audited_sync_int,
+                               audited_tolist, lane_mask, row_mask)
 from ..types import (BooleanType, DataType, DateType, DecimalType,
                      DoubleType, FloatType, FractionalType, IntegralType,
                      NullType, NumericType, StringType, TimestampType)
@@ -58,9 +69,7 @@ def _castable(src: DataType, dst: DataType) -> bool:
 
 
 def string_castable(src: DataType, dst: DataType) -> bool:
-    """A cast to or from a string the port carries (not decimals)."""
-    if isinstance(src, DecimalType) or isinstance(dst, DecimalType):
-        return False
+    """A cast to or from a string the port carries."""
     if isinstance(dst, StringType):
         return isinstance(src, (NumericType, BooleanType, DateType,
                                 TimestampType, StringType, NullType))
@@ -86,12 +95,20 @@ class Cast(UnaryExpression):
     def pretty(self) -> str:
         return f"cast({self.child.pretty()} AS {self._to.simple_string()})"
 
+    def _ansi_on(self, ctx) -> bool:
+        return self._ansi if self._ansi is not None else ctx.ansi
+
+    @property
+    def is_decimal(self) -> bool:
+        src, dst = self.child.dtype, self._to
+        return src != dst and (isinstance(src, DecimalType)
+                               or isinstance(dst, DecimalType))
+
     def _check(self, ctx) -> bool:
         """Whether the cast is a string cast; raises where the port has no
         such cast."""
         src, dst = self.child.dtype, self._to
-        ansi = self._ansi if self._ansi is not None else ctx.ansi
-        if ansi:
+        if self._ansi_on(ctx) and not self.is_decimal:
             raise NotImplementedError(
                 "ANSI-mode cast not yet ported (ROADMAP A6, decimals with "
                 "decimal128 and the ANSI casts)")
@@ -111,6 +128,8 @@ class Cast(UnaryExpression):
         import pyarrow as pa
         from ..types import to_arrow
         src, dst = self.child.dtype, self._to
+        if self.is_decimal:
+            return self._decimal_cpu(table, ctx)
         strings = self._check(ctx)
         c = self.child.eval_cpu(table, ctx)
         if not is_arrow(c):
@@ -127,8 +146,61 @@ class Cast(UnaryExpression):
         return pa.array(out.numpy(), type=to_arrow(dst),
                         mask=null if null.any() else None)
 
+    def _decimal_cpu(self, table, ctx):
+        """A decimal cast on the host: a string side through the text
+        rules, the others through the card's code over CPU tensors."""
+        from .base import eval_cpu_on_host_tensors
+        src, dst = self.child.dtype, self._to
+        if not isinstance(src, StringType) \
+                and not isinstance(dst, StringType):
+            return eval_cpu_on_host_tensors(self, table, ctx)
+        c = self.child.eval_cpu(table, ctx)
+        if not is_arrow(c):
+            return self._decimal_constant(c, ctx)
+        return _decimal_string_cast(arrow_column(c, len(c), src), src, dst,
+                                    self._ansi_on(ctx))
+
+    def _decimal_constant(self, v, ctx):
+        """A literal's decimal cast, by the column rules on one host
+        row."""
+        import pyarrow as pa
+        from ..types import to_arrow
+        if v is None:
+            return None
+        src = self.child.dtype
+        arr = pa.array([v], type=to_arrow(src))
+        if isinstance(src, StringType) or isinstance(self._to, StringType):
+            return _decimal_string_cast(arr, src, self._to,
+                                        self._ansi_on(ctx))[0].as_py()
+        from .base import host_column
+        from ..columnar.batch import TorchColumnarBatch
+        from ..columnar.vector import column_to_arrow
+        col = host_column(arr, src)
+        batch = TorchColumnarBatch([col], 1)
+        data, valid = _decimal_cast(col.data, col.validity, src, self._to,
+                                    self._ansi_on(ctx), ctx, self, batch)
+        out = make_column(self._to, data, valid, 1)
+        return column_to_arrow(out, kind=None)[0].as_py()
+
     def eval_device(self, batch, ctx=_DEFAULT_CTX):
         src, dst = self.child.dtype, self._to
+        if self.is_decimal:
+            c = self.child.eval_device(batch, ctx)
+            if isinstance(c, TorchScalar):
+                return TorchScalar(dst, self._decimal_constant(c.value, ctx))
+            if isinstance(src, StringType) or isinstance(dst, StringType):
+                from .strings import column_from_arrow, column_to_arrow
+                from .decimals import host_path
+                host_path(ctx, self, "string cast")
+                out = _decimal_string_cast(column_to_arrow(c), src, dst,
+                                           self._ansi_on(ctx))
+                return column_from_arrow(out, dst, batch)
+            cap, dev = batch.capacity, batch.device
+            d, v = device_parts(c, cap, dev)
+            valid = combine_validity(v, row_mask(batch.num_rows, cap, dev))
+            data, valid = _decimal_cast(d, valid, src, dst,
+                                        self._ansi_on(ctx), ctx, self, batch)
+            return make_column(dst, data, valid, batch.num_rows)
         strings = self._check(ctx)
         c = self.child.eval_device(batch, ctx)
         if isinstance(c, TorchScalar):
@@ -147,6 +219,180 @@ class Cast(UnaryExpression):
         valid = combine_validity(v, row_mask(batch.num_rows, cap, dev))
         return make_column(dst, _numeric_cast(d, src, dst), valid,
                            batch.num_rows)
+
+
+# ---------------------------------------------------------------------------
+# decimal casts (Spark's Cast over DecimalType)
+# ---------------------------------------------------------------------------
+
+_TWO53 = 2 ** 53
+
+
+def _decimal_cast(d: torch.Tensor, valid, src: DataType, dst: DataType,
+                  ansi: bool, ctx, expr, batch):
+    """(data, validity) of a cast with a decimal side, on ``d``'s device.
+    Past the target's range: null, under ANSI ``ExpressionError``."""
+    from . import decimals as DEC
+    from ..kernels import decimal128 as D
+    cap = batch.capacity
+    message = f"decimal overflow in cast to {dst.simple_string()}"
+
+    def checked(data, ovf):
+        return data, DEC.overflow_check(ovf, valid, ansi, message)
+
+    d = DEC.broadcast_rows(d, cap, src)
+    if valid is not None:  # null slots stay clear of the host routes
+        d = torch.where(lane_mask(valid, d), d, torch.zeros((), dtype=d.dtype,
+                                                          device=d.device))
+    if isinstance(dst, DecimalType):
+        if isinstance(src, (DecimalType, IntegralType, BooleanType)):
+            s = DEC.as_decimal_type(src) if not isinstance(src, BooleanType) \
+                else DecimalType(1, 0)
+            return checked(*DEC.change_scale(d.to(torch.int64), s, dst))
+        if isinstance(src, (FloatType, DoubleType)):
+            return _float_to_decimal(d.to(torch.float64), valid, dst, ansi,
+                                     ctx, expr, message)
+        raise NotImplementedError(f"cast {src} -> {dst} not yet ported")
+    # from a decimal
+    if isinstance(dst, BooleanType):
+        if d.dim() == 2:
+            return (d[:, 0] != 0) | (d[:, 1] != 0), valid
+        return d != 0, valid
+    if isinstance(dst, IntegralType):
+        # Spark's Decimal.toLong (truncated toward zero, the low 64 bits)
+        # then Java's narrowing; ANSI: past the type's range raises
+        h, l = D.limbs_of(d)
+        if src.scale:
+            h, l = D.rescale_trunc(h, l, src.scale)
+        out = l.to(dst.torch_dtype)
+        if not ansi:
+            return out, valid
+        lo, hi = _INT_BOUNDS[np.dtype(dst.np_dtype)]
+        return checked(out, (D.cmp128(h, l, *D.const(lo, d.device)) < 0)
+                       | (D.cmp128(h, l, *D.const(hi, d.device)) > 0))
+    if isinstance(dst, (FloatType, DoubleType)):
+        out = _decimal_to_double(d, src, ctx, expr)
+        return out.to(dst.torch_dtype), valid
+    raise NotImplementedError(f"cast {src} -> {dst} not yet ported")
+
+
+def _decimal_to_double(d: torch.Tensor, src: DecimalType, ctx, expr
+                       ) -> torch.Tensor:
+    """``unscaled / 10^s`` in float64, correctly rounded where both are
+    exact doubles (|unscaled| < 2^53, s <= 22); the other rows through
+    Python's correctly rounded ``float(Decimal)`` on the host."""
+    from . import decimals as DEC
+    from ..kernels import decimal128 as D
+    h, l = D.limbs_of(d)
+    small = (h == (l >> 63)) & (l.abs() < _TWO53) & (l != -2 ** 63)
+    p10 = torch.full((), 10.0 ** src.scale, dtype=torch.float64,
+                     device=d.device)
+    out = l.to(torch.float64) / p10
+    if src.scale > 22:
+        slow = torch.ones_like(small)
+    else:
+        slow = ~small
+    idx = DEC.host_rows(slow)
+    if idx is not None:
+        DEC.host_path(ctx, expr, "decimal to double")
+        vals = [float(D.scaled_decimal(v, src.scale))
+                for v in DEC.carrier_ints(d, idx)]
+        out[idx] = torch.tensor(vals, dtype=torch.float64).to(out.device)
+    return out
+
+
+def _float_to_decimal(x: torch.Tensor, valid, dst: DecimalType, ansi: bool,
+                      ctx, expr, message: str):
+    """Spark's ``changePrecision(Decimal(BigDecimal(Double.toString(x))))``
+    HALF_UP: x·10^s rounded on the card where it is clear of a tie and
+    under 2^52, the other rows through the value's shortest text on the
+    host. NaN and infinities are null (ANSI: an error)."""
+    from . import decimals as DEC
+    from ..kernels import decimal128 as D
+    from .base import ExpressionError
+    p10 = torch.full((), 10.0 ** dst.scale, dtype=torch.float64,
+                     device=x.device)
+    finite = torch.isfinite(x)
+    y = torch.where(finite, x * p10, torch.zeros((), dtype=torch.float64,
+                                                 device=x.device))
+    ay = torch.abs(y)
+    near = (torch.abs(ay - torch.floor(ay) - 0.5) <= ay * 2.0 ** -44
+            + 2.0 ** -60) | ~(ay < 2.0 ** 52)
+    k = torch.trunc(y + torch.where(y >= 0, 0.5, -0.5)).to(torch.int64)
+    ok_valid = finite if valid is None else valid & finite
+    if ansi and audited_sync_int((~finite if valid is None
+                                  else valid & ~finite).any(), "scalar"):
+        raise ExpressionError(message)
+    kh, kl = D.from_int64(k)
+    ovf = D.precision_overflow(kh, kl, dst.precision)
+    data = DEC.to_carrier(kh, kl, dst) if dst.wide else k
+    slow = near & ok_valid
+    idx = DEC.host_rows(slow)
+    if idx is not None:
+        DEC.host_path(ctx, expr, "double to decimal")
+        vals = [_double_text_unscaled(v, dst)
+                for v in audited_tolist(x[idx], "fetch")]
+        DEC.put_ints(data, idx, [0 if v is None else v for v in vals])
+        ovf[idx] = torch.tensor([v is None for v in vals], device=ovf.device)
+    return data, DEC.overflow_check(ovf, ok_valid, ansi, message)
+
+
+def _half_up_unscaled(d, dst: DecimalType):
+    """A finite ``decimal.Decimal`` HALF_UP at ``dst``'s scale as its
+    unscaled int, None past its precision."""
+    import decimal
+    if d.adjusted() >= dst.precision - dst.scale:
+        return None  # integral digits past the type's
+    ctx = decimal.Context(prec=100, rounding=decimal.ROUND_HALF_UP)
+    q = d.quantize(decimal.Decimal(1).scaleb(-dst.scale), context=ctx)
+    u = int(q.scaleb(dst.scale, context=ctx))
+    return u if abs(u) < 10 ** dst.precision else None
+
+
+def _double_text_unscaled(v: float, dst: DecimalType):
+    """A double's shortest text (Java's ``Double.toString`` digits) HALF_UP
+    at ``dst``'s scale."""
+    import decimal
+    return _half_up_unscaled(decimal.Decimal(repr(float(v))), dst)
+
+
+def _parse_spark_decimal(s: str, dst: DecimalType):
+    """Spark's string → decimal (the reference's ``_parse_spark_decimal``,
+    ``GpuCast`` castStringToDecimal): the trimmed text parsed, HALF_UP to
+    the scale; the unscaled value, or None for garbage or past the
+    precision."""
+    import decimal
+    try:
+        d = decimal.Decimal(s.strip())
+    except decimal.InvalidOperation:
+        return None
+    return _half_up_unscaled(d, dst) if d.is_finite() else None
+
+
+def _decimal_string_cast(arr, src: DataType, dst: DataType, ansi: bool):
+    """string → decimal by ``_parse_spark_decimal`` (null for garbage or
+    overflow; ANSI raises), decimal → string as Java's
+    ``BigDecimal.toPlainString`` (the scale's digits kept)."""
+    import pyarrow as pa
+    from . import decimals as DEC
+    from .base import ExpressionError
+    if isinstance(dst, StringType):
+        vals = DEC.arrow_ints(arr, src)
+        from ..kernels.decimal128 import scaled_decimal
+        return pa.array([None if v is None else
+                         format(scaled_decimal(v, src.scale), "f")
+                         for v in vals], pa.string())
+    texts = arr.cast(pa.string()).to_pylist() \
+        if not pa.types.is_string(arr.type) else arr.to_pylist()
+    out = []
+    for t in texts:
+        v = None if t is None else _parse_spark_decimal(t, dst)
+        if v is None and t is not None and ansi:
+            raise ExpressionError(
+                f"invalid input or overflow in cast to "
+                f"{dst.simple_string()}: {t!r}")
+        out.append(v)
+    return DEC.ints_to_arrow(out, dst)
 
 
 def _numeric_cast(d: torch.Tensor, src: DataType, dst: DataType):

@@ -34,9 +34,9 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..columnar.vector import TorchColumnVector, row_mask
-from ..types import (DataType, NullT, NullType, NumericType, StringT,
-                     StringType, numeric_promote)
+from ..columnar.vector import TorchColumnVector, lane_mask, row_mask
+from ..types import (DataType, DecimalType, NullT, NullType, NumericType,
+                     StringT, StringType, numeric_promote)
 from .base import (_DEFAULT_CTX, Expression, arrow_column, device_parts,
                    eval_cpu_on_host_tensors, make_column)
 
@@ -106,6 +106,11 @@ def _value(expr: Expression, dtype: DataType, batch, ctx):
         raise NotImplementedError(
             f"CASE WHEN with {dtype.simple_string()} branches not yet ported")
     cap, dev = batch.capacity, batch.device
+    if isinstance(dtype, DecimalType):
+        from .decimals import rows_as
+        d, v = rows_as(expr.eval_device(batch, ctx), expr.dtype, dtype, cap,
+                       dev)
+        return d, (row_mask(batch.num_rows, cap, dev) if v is None else v)
     d, v = device_parts(expr.eval_device(batch, ctx), cap, dev)
     carrier = dtype.torch_dtype or torch.bool
     d = torch.broadcast_to(d, (cap,)).to(carrier)
@@ -138,7 +143,7 @@ class If(Expression):
         td, tv = _value(self.children[1], dt, batch, ctx)
         fd, fv = _value(self.children[2], dt, batch, ctx)
         mask = row_mask(batch.num_rows, batch.capacity, batch.device)
-        return make_column(dt, torch.where(cond, td, fd),
+        return make_column(dt, torch.where(lane_mask(cond, td), td, fd),
                            torch.where(cond, tv, fv) & mask, batch.num_rows)
 
     def eval_cpu(self, table, ctx=_DEFAULT_CTX):
@@ -194,20 +199,20 @@ class CaseWhen(Expression):
             if self._has_else:
                 pairs.append((~decided, self.else_value))
             return string_branches(pairs, batch, ctx)
-        carrier = dt.torch_dtype or torch.bool
-        data = torch.zeros(cap, dtype=carrier, device=dev)
+        from .decimals import zeros_rows
+        data = zeros_rows(cap, dt, dev)
         valid = torch.zeros(cap, dtype=torch.bool, device=dev)
         decided = torch.zeros(cap, dtype=torch.bool, device=dev)
         for pred, value in self.branches:
             cond = _condition(pred, batch, ctx)
             take = cond & ~decided
             vd, vv = _value(value, dt, batch, ctx)
-            data = torch.where(take, vd, data)
+            data = torch.where(lane_mask(take, data), vd, data)
             valid = torch.where(take, vv, valid)
             decided = decided | cond
         if self._has_else:
             ed, ev = _value(self.else_value, dt, batch, ctx)
-            data = torch.where(decided, data, ed)
+            data = torch.where(lane_mask(decided, data), data, ed)
             valid = torch.where(decided, valid, ev)
         # no ELSE: the rows no branch took stay null
         mask = row_mask(batch.num_rows, cap, dev)
@@ -226,7 +231,11 @@ class CaseWhen(Expression):
 
 
 def _nan_lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a < b`` with NaN the largest value (Spark's ordering)."""
+    """``a < b`` with NaN the largest value (Spark's ordering); two-limb
+    decimals by their 128-bit order."""
+    if a.dim() == 2:
+        from .decimals import compare_sign
+        return compare_sign(a, b) < 0
     if not a.is_floating_point():
         return a < b
     return (a < b) | (torch.isnan(b) & ~torch.isnan(a))
@@ -258,7 +267,7 @@ class _MinMaxOf(Expression):
                 cur, cur_v = d, v
                 continue
             take = v & (~cur_v | self._better(d, cur))
-            cur = torch.where(take, d, cur)
+            cur = torch.where(lane_mask(take, cur), d, cur)
             cur_v = cur_v | v
         mask = row_mask(batch.num_rows, batch.capacity, batch.device)
         return make_column(dt, cur, cur_v & mask, batch.num_rows)

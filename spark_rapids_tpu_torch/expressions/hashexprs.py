@@ -38,8 +38,8 @@ from typing import Sequence
 import torch
 
 from ..columnar.vector import TorchColumnVector
-from ..types import (BooleanType, ByteType, DataType, DateType, DoubleType,
-                     FloatType, IntegerT, IntegerType, LongT, LongType,
+from ..types import (BooleanType, ByteType, DataType, DateType, DecimalType,
+                     DoubleType, FloatType, IntegerT, IntegerType, LongT, LongType,
                      ShortType, StringT, StringType, TimestampType)
 from .base import (_DEFAULT_CTX, Expression, UnaryExpression, arrow_column,
                    eval_cpu_on_host_tensors, make_column, to_column)
@@ -128,11 +128,47 @@ def _murmur3_string(col: TorchColumnVector, seed: torch.Tensor
     return _fmix(h1, lens & _MASK)
 
 
+def _bitlen64(x: torch.Tensor) -> torch.Tensor:
+    """Bit length of each int64 read as unsigned (0 for 0), by a binary
+    search over the shifts."""
+    n = torch.zeros_like(x)
+    for k in (32, 16, 8, 4, 2, 1):
+        hi = (x >> k) & ((1 << (64 - k)) - 1)  # logical shift
+        up = hi != 0
+        n = n + torch.where(up, k, 0)
+        x = torch.where(up, hi, x)
+    return n + (x != 0).to(torch.int64)
+
+
+def decimal_hash_bytes(col: TorchColumnVector) -> TorchColumnVector:
+    """A two-limb decimal column as the bytes Spark hashes:
+    ``BigInteger.toByteArray()`` of the unscaled value, big-endian
+    minimal two's complement (1 to 16 bytes a row), in the string layout
+    (offsets + bytes) the byte hashes read."""
+    h, l = col.data[:, 0], col.data[:, 1]
+    neg = h < 0
+    mh, ml = torch.where(neg, ~h, h), torch.where(neg, ~l, l)
+    bits = torch.where(mh != 0, 64 + _bitlen64(mh), _bitlen64(ml))
+    nbytes = bits // 8 + 1
+    shifts = torch.arange(56, -8, -8, device=col.device)
+    be = torch.cat([(h[:, None] >> shifts) & 0xFF,
+                    (l[:, None] >> shifts) & 0xFF], 1).to(torch.uint8)
+    keep = torch.arange(16, device=col.device)[None, :] >= (16 - nbytes)[:, None]
+    offs = torch.zeros(col.capacity + 1, dtype=torch.int64, device=col.device)
+    offs[1:] = torch.cumsum(nbytes, 0)
+    return TorchColumnVector(col.dtype, be[keep], col.validity, col.num_rows,
+                offsets=offs.to(torch.int32))
+
+
 def murmur3_col(col: TorchColumnVector, seed: torch.Tensor) -> torch.Tensor:
     """Hash one column into the running per-row seeds; null rows keep
-    their incoming seed (Spark skips nulls)."""
+    their incoming seed (Spark skips nulls). A decimal hashes its
+    unscaled long up to precision 18, its ``BigInteger`` bytes past it."""
     dt, d = col.dtype, col.data
-    if isinstance(dt, BooleanType):
+    if isinstance(dt, DecimalType):
+        h = murmur3_long(d, seed) if not dt.wide else \
+            _murmur3_string(decimal_hash_bytes(col), seed)
+    elif isinstance(dt, BooleanType):
         h = murmur3_int(d.to(torch.int64), seed)
     elif isinstance(dt, (ByteType, ShortType, IntegerType, DateType)):
         h = murmur3_int(d.to(torch.int64) & _MASK, seed)
@@ -332,8 +368,11 @@ def xxhash64_col(col: TorchColumnVector, seed: torch.Tensor) -> torch.Tensor:
     """Hash one column into the running per-row seeds; null rows keep
     their incoming seed."""
     dt, d = col.dtype, col.data
-    if isinstance(dt, (BooleanType, ByteType, ShortType, IntegerType,
-                       DateType)):
+    if isinstance(dt, DecimalType):
+        h = xxhash64_long(d, seed) if not dt.wide else \
+            _xxhash64_string(decimal_hash_bytes(col), seed)
+    elif isinstance(dt, (BooleanType, ByteType, ShortType, IntegerType,
+                         DateType)):
         h = xxhash64_int(d.to(torch.int64), seed)
     elif isinstance(dt, (LongType, TimestampType)):
         h = xxhash64_long(d, seed)

@@ -101,6 +101,16 @@ def round_float_half_up(d: torch.Tensor, scale: int,
     return out.to(d.dtype)
 
 
+def _no_decimal(expr, child) -> None:
+    """``round``/``bround``/``floor``/``ceil`` of a decimal wait (Spark
+    gives a decimal; ROADMAP A6)."""
+    from ..types import DecimalType
+    if isinstance(child.dtype, DecimalType):
+        from .decimals import A6_REASON
+        raise NotImplementedError(
+            A6_REASON.format(what=type(expr).__name__))
+
+
 class Round(Expression):
     rounding = decimal.ROUND_HALF_UP
     fn_name = "round"
@@ -113,6 +123,7 @@ class Round(Expression):
         return self.children[0].dtype
 
     def _scale(self) -> int:
+        _no_decimal(self, self.children[0])
         s = self.children[1]
         if not isinstance(s, Literal) or s.value is None:
             raise NotImplementedError(
@@ -208,7 +219,12 @@ class _ToLong(UnaryExpression):
             return d
         return java_double_to_long(type(self)._fn(d.to(torch.float64)))
 
+    def eval_device(self, batch, ctx=_DEFAULT_CTX):
+        _no_decimal(self, self.child)
+        return super().eval_device(batch, ctx)
+
     def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        _no_decimal(self, self.child)
         return eval_cpu_on_host_tensors(self, table, ctx)
 
 

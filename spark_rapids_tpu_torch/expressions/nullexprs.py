@@ -11,8 +11,10 @@ from __future__ import annotations
 
 import torch
 
-from ..columnar.vector import TorchColumnVector, TorchScalar, row_mask
-from ..types import BooleanT, DataType, FractionalType, StringT, StringType
+from ..columnar.vector import TorchColumnVector, TorchScalar, lane_mask, row_mask
+from ..types import (BooleanT, DataType, DecimalType, FractionalType,
+                     StringT, StringType)
+from .decimals import rows_as, zeros_rows
 from .base import (_DEFAULT_CTX, Expression, UnaryExpression, arrow_column,
                    combine_validity, device_parts, eval_cpu_on_host_tensors,
                    is_arrow, make_column)
@@ -109,14 +111,18 @@ class Coalesce(Expression):
             return TorchColumnVector(StringT, data, taken, batch.num_rows,
                                      offsets=offs)
         carrier = self.dtype.torch_dtype or torch.bool
-        data = torch.zeros(cap, dtype=carrier, device=dev)
+        dec = isinstance(self.dtype, DecimalType)
+        data = zeros_rows(cap, self.dtype, dev)
         valid = torch.zeros(cap, dtype=torch.bool, device=dev)
-        for v in values:
-            d, vv = device_parts(v, cap, dev)
+        for c, v in zip(self.children, values):
+            if dec:  # each argument at the result's scale
+                d, vv = rows_as(v, c.dtype, self.dtype, cap, dev)
+            else:
+                d, vv = device_parts(v, cap, dev)
+                d = torch.broadcast_to(d, (cap,)).to(carrier)
             vv = mask if vv is None else vv & mask
             take = vv & ~valid
-            data = torch.where(take, torch.broadcast_to(d, (cap,)).to(carrier),
-                               data)
+            data = torch.where(lane_mask(take, data), d, data)
             valid = valid | vv
         return make_column(self.dtype, data, valid, batch.num_rows)
 

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from ..columnar.vector import TorchScalar, row_mask
-from ..types import BooleanT, DataType, StringType
+from ..types import BooleanT, DataType, DecimalType, StringType
+from .decimals import compare_sign
 from .base import (BinaryExpression, Expression, UnaryExpression,
                    _DEFAULT_CTX, arrow_column, arrow_numpy, device_parts,
                    is_arrow, make_column, to_column)
@@ -40,6 +41,21 @@ def nan_aware_le(l, r):
     if l.dtype.is_floating_point:
         return torch.isnan(r) | (~torch.isnan(l) & (l <= r))
     return l <= r
+
+
+def decimal_sides(expr, l, r, batch):
+    """Two decimal operands of a comparison at their wider type (the
+    planner casts them already; an ``IN`` item may differ): (left data,
+    right data, validity)."""
+    from ..types import decimal_wider_type
+    from .base import combine_validity
+    from .decimals import rows_as
+    lt, rt = expr.left.dtype, expr.right.dtype
+    w = lt if lt == rt else decimal_wider_type(lt, rt)
+    cap, dev = batch.capacity, batch.device
+    ld, lv = rows_as(l, lt, w, cap, dev)
+    rd, rv = rows_as(r, rt, w, cap, dev)
+    return ld, rd, combine_validity(lv, rv)
 
 
 class BinaryComparison(BinaryExpression):
@@ -68,6 +84,29 @@ class BinaryComparison(BinaryExpression):
 
     def _compute(self, l, r, ctx, valid):
         return self._device_cmp(l, r)
+
+    @property
+    def is_decimal(self) -> bool:
+        return isinstance(self.left.dtype, DecimalType) \
+            and isinstance(self.right.dtype, DecimalType)
+
+    def _eval_parts(self, l, r, batch, ctx):
+        if not self.is_decimal:
+            return super()._eval_parts(l, r, batch, ctx)
+        from .base import combine_validity
+        ld, rd, valid = decimal_sides(self, l, r, batch)
+        sign = compare_sign(ld, rd)
+        out = self._device_cmp(ld, rd) if sign is None \
+            else self._sign_cmp(sign)
+        return out, combine_validity(valid, row_mask(batch.num_rows,
+                                                     batch.capacity,
+                                                     batch.device))
+
+    def eval_cpu(self, table, ctx=_DEFAULT_CTX):
+        if self.is_decimal:
+            from .base import eval_cpu_on_host_tensors
+            return eval_cpu_on_host_tensors(self, table, ctx)
+        return super().eval_cpu(table, ctx)
 
     def _cpu_compute(self, l, r, ctx):
         import pyarrow as pa
@@ -182,6 +221,10 @@ class EqualNullSafe(BinaryComparison):
         elif isinstance(self.left.dtype, StringType):
             from .strings import compare_strings
             eq = compare_strings(l, r, cap, dev)[0] == 0
+        elif self.is_decimal:
+            ld, rd, _ = decimal_sides(self, l, r, batch)
+            sign = compare_sign(ld, rd)
+            eq = ld == rd if sign is None else sign == 0
         else:
             ld, _ = device_parts(l, cap, dev)
             rd, _ = device_parts(r, cap, dev)
@@ -192,6 +235,9 @@ class EqualNullSafe(BinaryComparison):
     def eval_cpu(self, table, ctx=_DEFAULT_CTX):
         import pyarrow as pa
         import pyarrow.compute as pc
+        if self.is_decimal:
+            from .base import eval_cpu_on_host_tensors
+            return eval_cpu_on_host_tensors(self, table, ctx)
         n = table.num_rows
         l = arrow_column(self.left.eval_cpu(table, ctx), n, self.left.dtype)
         r = arrow_column(self.right.eval_cpu(table, ctx), n,
@@ -309,6 +355,21 @@ class _Evaluated(Expression):
         return self._result
 
 
+def _decimal_item(item: Expression) -> Expression:
+    """An ``IN`` item beside a decimal value: a numeric literal as the
+    decimal literal of its digits (Spark widens the list to the value's
+    decimal type)."""
+    import decimal
+    from .base import Literal, decimal_literal_type
+    if isinstance(item, Literal) and item.value is not None \
+            and not isinstance(item.dtype, DecimalType) \
+            and isinstance(item.value, (int, float)):
+        v = decimal.Decimal(repr(item.value)) \
+            if isinstance(item.value, float) else decimal.Decimal(item.value)
+        return Literal(v, decimal_literal_type(v))
+    return item
+
+
 class In(Expression):
     """``value IN (item, ...)`` with Spark's nulls (reference ``In``): a
     null value gives null; no match with a null in the list gives null.
@@ -326,6 +387,8 @@ class In(Expression):
 
     @property
     def items(self):
+        if isinstance(self.value.dtype, DecimalType):
+            return [_decimal_item(i) for i in self.children[1:]]
         return self.children[1:]
 
     @property
@@ -399,6 +462,9 @@ class InSet(Expression):
             return In(self.value, [Literal(i, self.value.dtype)
                                    for i in self.items]).eval_device(batch,
                                                                     ctx)
+        if isinstance(self.value.dtype, DecimalType):
+            return In(self.value, [Literal(i) for i in self.items]
+                      ).eval_device(batch, ctx)
         cap, dev = batch.capacity, batch.device
         mask = row_mask(batch.num_rows, cap, dev)
         vd, vv = device_parts(self.value.eval_device(batch, ctx), cap, dev)
@@ -417,6 +483,9 @@ class InSet(Expression):
 
     def eval_cpu(self, table, ctx=_DEFAULT_CTX):
         from .base import Literal
+        if isinstance(self.value.dtype, DecimalType):
+            return In(self.value, [Literal(i) for i in self.items]
+                      ).eval_cpu(table, ctx)
         return In(self.value, [Literal(i, self.value.dtype)
                                for i in self.items]).eval_cpu(table, ctx)
 

@@ -235,7 +235,7 @@ def column_from_arrow(arr, dtype: DataType, batch) -> TorchColumnVector:
     """An Arrow result of the batch's rows as a column at the batch's
     capacity on its device (the host hop's upload)."""
     import pyarrow as pa
-    from ..types import DateType, StringType, TimestampType
+    from ..types import DateType, DecimalType, StringType, TimestampType
     if isinstance(arr, pa.ChunkedArray):
         arr = arr.combine_chunks()
     n = len(arr)
@@ -254,6 +254,11 @@ def column_from_arrow(arr, dtype: DataType, batch) -> TorchColumnVector:
         return TorchColumnVector.from_strings(
             dtype, offsets, chars, validity, capacity=batch.capacity,
             device=batch.device)
+    if isinstance(dtype, DecimalType):
+        from ..columnar.vector import decimal_from_arrow
+        return TorchColumnVector.from_numpy(
+            dtype, decimal_from_arrow(arr, dtype), validity,
+            capacity=batch.capacity, device=batch.device)
     if isinstance(dtype, DateType):
         arr = arr.cast(pa.int32())
     elif isinstance(dtype, TimestampType):

@@ -55,9 +55,9 @@ from ..columnar.vector import (TorchColumnVector, audited_device_get,
 from ..obs import tracer as _obs
 from ..kernels.parquet_decode import RUN_COLS, RUN_PAD_START, RUN_START
 from ..types import (BinaryType, BooleanType, ByteType, DataType, DateType,
-                     DoubleType, FloatType, IntegerType, LongType, ShortType,
-                     StringType, TimestampType, from_arrow as arrow_to_type,
-                     to_arrow as type_to_arrow)
+                     DecimalType, DoubleType, FloatType, IntegerType,
+                     LongType, ShortType, StringType, TimestampType,
+                     from_arrow as arrow_to_type, to_arrow as type_to_arrow)
 
 
 class ParquetEncryptedException(RuntimeError):
@@ -547,6 +547,11 @@ def _column_plan(attr, leaf_idx: int, sc, cc, field_type) -> _ColPlan:
         if not isinstance(src, (StringType, BinaryType)) \
                 or type(src) is not type(attr.dtype):
             raise DeviceDecodeError(f"byte-array type {src} -> {attr.dtype}")
+    elif isinstance(src, DecimalType):
+        # an INT32/INT64-backed decimal (Spark's writer for p <= 18) is
+        # its unscaled integers; FIXED_LEN_BYTE_ARRAY stopped above
+        if src != attr.dtype:
+            raise DeviceDecodeError(f"cast {src} -> {attr.dtype}")
     elif not isinstance(src, (BooleanType, ByteType, ShortType, IntegerType,
                               LongType, FloatType, DoubleType, DateType,
                               TimestampType)):

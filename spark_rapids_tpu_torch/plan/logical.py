@@ -16,8 +16,8 @@ from ..expressions import predicates as P
 from ..expressions.base import (Alias, AttributeReference, Expression,
                                 UnresolvedAttribute, output_name)
 from ..expressions.cast import Cast
-from ..types import (BooleanT, DataType, DecimalType, DoubleT, IntegralType,
-                     LongT, NullType, NumericType, StringType,
+from ..types import (BooleanT, DataType, DecimalType, DoubleT, DoubleType,
+                     IntegralType, LongT, NullType, NumericType, StringType,
                      numeric_promote)
 
 
@@ -448,6 +448,9 @@ def coerce_types(expr: Expression) -> Expression:
     a narrow integer for the shifts) argument cast as Spark casts it."""
 
     def rule(e: Expression):
+        dec = _coerce_decimal(e)
+        if dec is not None:
+            return dec if dec is not e else None
         if isinstance(e, A.Divide):
             l, r = e.children
             lt, rt = l.dtype, r.dtype
@@ -468,6 +471,60 @@ def coerce_types(expr: Expression) -> Expression:
         return _coerce_functions(e)
 
     return expr.transform(rule)
+
+
+_DECIMAL_ARITHMETIC = (A.Add, A.Subtract, A.Multiply, A.Divide,
+                       A.Remainder, A.Pmod)
+_COMPARISONS = (P.EqualTo, P.EqualNullSafe, P.LessThan, P.LessThanOrEqual,
+                P.GreaterThan, P.GreaterThanOrEqual)
+
+
+def _decimal_operand_type(e: Expression) -> DataType:
+    """An integral operand beside a decimal as a decimal (Spark's
+    DecimalPrecision): a literal takes its own digits (``lit(1)`` is
+    decimal(1, 0)), a column its type's (int is decimal(10, 0))."""
+    from ..expressions.base import Literal
+    from ..types import integral_decimal
+    if isinstance(e, Literal) and e.value is not None:
+        return DecimalType(max(len(str(abs(int(e.value)))), 1), 0)
+    return integral_decimal(e.dtype)
+
+
+def _coerce_decimal(e: Expression) -> Optional[Expression]:
+    """Spark's decimal widening for a binary arithmetic or comparison with
+    a decimal side: an integral side widens to a decimal, a float or double
+    takes the decimal side to double; a comparison brings both sides to
+    the wider decimal. None when neither side is a decimal; ``e`` itself
+    when nothing changes."""
+    if not isinstance(e, _DECIMAL_ARITHMETIC + _COMPARISONS):
+        return None
+    l, r = e.children
+    lt, rt = l.dtype, r.dtype
+    if not (isinstance(lt, DecimalType) or isinstance(rt, DecimalType)):
+        return None
+    if not (isinstance(lt, (NumericType, NullType))
+            and isinstance(rt, (NumericType, NullType))):
+        return e  # a string side: the comparison's own rule (none here)
+    from ..types import FloatType
+    if isinstance(lt, (FloatType, DoubleType)) \
+            or isinstance(rt, (FloatType, DoubleType)):
+        new = [_cast_if(l, DoubleT), _cast_if(r, DoubleT)]
+    else:
+        lt2 = _decimal_operand_type(l) if isinstance(lt, IntegralType) \
+            else lt
+        rt2 = _decimal_operand_type(r) if isinstance(rt, IntegralType) \
+            else rt
+        if isinstance(lt2, NullType):
+            lt2 = rt2
+        if isinstance(rt2, NullType):
+            rt2 = lt2
+        if isinstance(e, _COMPARISONS) and lt2 != rt2:
+            from ..types import decimal_wider_type
+            lt2 = rt2 = decimal_wider_type(lt2, rt2)
+        new = [_cast_if(l, lt2), _cast_if(r, rt2)]
+    if all(a is b for a, b in zip(new, e.children)):
+        return e
+    return e.with_children(new)
 
 
 _COMMON_TYPE_BINARY = (A.Add, A.Subtract, A.Multiply, A.Remainder, A.Pmod,
@@ -495,7 +552,7 @@ def _coerce_functions(e: Expression) -> Optional[Expression]:
 
     def to_double(k):
         return DoubleT if isinstance(k.dtype, (NumericType, StringType)) \
-            and not isinstance(k.dtype, DecimalType) else None
+            else None
 
     if isinstance(e, (M._DoubleUnary, M._LogBase, M._DoubleBinary)):
         return recast([to_double(k) for k in kids])
@@ -538,8 +595,7 @@ def _common_type(a: DataType, b: DataType) -> Optional[DataType]:
         return b
     if isinstance(b, NullType):
         return a
-    if isinstance(a, NumericType) and isinstance(b, NumericType) \
-            and not isinstance(a, DecimalType) and not isinstance(b, DecimalType):
+    if isinstance(a, NumericType) and isinstance(b, NumericType):
         return numeric_promote(a, b)
     if isinstance(a, StringType) and isinstance(b, NumericType):
         return DoubleT if not isinstance(b, DecimalType) else b

@@ -14,7 +14,8 @@ from typing import List, Sequence
 
 from ..config import RapidsConf
 from ..expressions.base import Expression
-from .typechecks import conf_gate_reason, expr_sig_for, is_expr_registered
+from .typechecks import (conf_gate_reason, decimal_input_reason,
+                         expr_sig_for, is_expr_registered)
 
 
 class RapidsMeta:
@@ -69,6 +70,9 @@ class ExprMeta(RapidsMeta):
             gate = conf_gate_reason(e, self.conf)
             if gate:
                 self.will_not_work_on_tpu(gate)
+            dec = decimal_input_reason(e)
+            if dec:
+                self.will_not_work_on_tpu(dec)
         for c in self.child_exprs:
             c.tag_for_tpu()
 
@@ -131,6 +135,9 @@ class PlanMeta(RapidsMeta):
             self.converted = self.plan
         else:
             self.converted = _rewire(self.plan, new_children)
+        # why it stays on the host (test mode admits the tagged decimal
+        # host-only operators)
+        self.converted.tagged_reasons = list(self.reasons)
         return self.converted
 
     def collect_fallback_reasons(self, out: List[str]) -> None:

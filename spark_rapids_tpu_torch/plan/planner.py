@@ -111,7 +111,7 @@ def plan_physical(plan: L.LogicalPlan, conf: RapidsConf) -> PhysicalPlan:
 
 def _plan_file_scan(plan: L.FileScan, pushed) -> PhysicalPlan:
     """The CPU file scan of the columns a query reads; a column whose type
-    the port cannot carry (decimal, nested) stops the query here."""
+    the port cannot carry (a nested type) stops the query here."""
     from ..io.parquet import CpuFileScanExec
     from .typechecks import scan_type_error
     error = scan_type_error(plan.output)

@@ -13,6 +13,7 @@ registered. ``scan_type_error`` is the file scan's type check.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 from ..types import TypeSig, TypeSigs
@@ -64,17 +65,20 @@ def _register_builtin_exprs() -> None:
     from ..types import TypeEnum, TypeSig
     sig_all = TypeSigs.all_basic
     ts = TypeSig([TypeEnum.TIMESTAMP])
-    register_expr(B.Literal, sig_all + ts, "literal value")
-    register_expr(B.AttributeReference, sig_all + ts, "column reference")
-    register_expr(B.Alias, sig_all + ts, "named expression")
-    register_expr(C.Cast, sig_all + TypeSig([TypeEnum.TIMESTAMP]),
-                  "cast between numeric, boolean and date types; to and "
-                  "from strings through the host",
+    d128 = TypeSigs.DECIMAL_128
+    register_expr(B.Literal, sig_all + ts + d128, "literal value")
+    register_expr(B.AttributeReference, sig_all + ts + d128,
+                  "column reference")
+    register_expr(B.Alias, sig_all + ts + d128, "named expression")
+    register_expr(C.Cast, sig_all + TypeSig([TypeEnum.TIMESTAMP]) + d128,
+                  "cast between numeric, decimal, boolean and date types; "
+                  "to and from strings through the host",
                   incompat="string casts run on the host")
     for cls in (A.Add, A.Subtract, A.Multiply):
-        register_expr(cls, TypeSigs.numeric,
-                      f"{cls.__name__.lower()} of numerics")
-    register_expr(A.Divide, TypeSigs.numeric, "fractional division")
+        register_expr(cls, TypeSigs.numeric + d128,
+                      f"{cls.__name__.lower()} of numerics (decimal128 "
+                      "as two int64 limbs)")
+    register_expr(A.Divide, TypeSigs.numeric + d128, "fractional division")
     for cls in (P.EqualTo, P.EqualNullSafe, P.LessThan, P.LessThanOrEqual,
                 P.GreaterThan, P.GreaterThanOrEqual):
         register_expr(cls, TypeSigs.BOOLEAN, f"comparison {cls.symbol}")
@@ -87,8 +91,8 @@ def _register_builtin_exprs() -> None:
     register_expr(N.IsNotNull, TypeSigs.BOOLEAN, "IS NOT NULL")
     branch = TypeSigs.numeric + TypeSigs.BOOLEAN + TypeSigs.DATE \
         + TypeSigs.STRING + TypeSigs.NULL
-    register_expr(CO.If, branch, "if/else")
-    register_expr(CO.CaseWhen, branch, "CASE WHEN")
+    register_expr(CO.If, branch + d128, "if/else")
+    register_expr(CO.CaseWhen, branch + d128, "CASE WHEN")
     register_expr(M.Round, TypeSigs.numeric, "round (HALF_UP)")
     register_expr(H.Murmur3Hash, TypeSigs.integral, "spark murmur3 hash")
     register_expr(S.Like, TypeSigs.BOOLEAN, "SQL LIKE with % and _",
@@ -146,27 +150,28 @@ def _register_builtin_exprs() -> None:
                   "regex extract: group 0 via device DFA span matching; "
                   "capture groups on the host",
                   incompat="capture groups run on host")
-    register_expr(AGG.Sum, TypeSigs.numeric, "sum aggregate")
-    register_expr(AGG.Average, TypeSigs.numeric, "average aggregate")
+    register_expr(AGG.Sum, TypeSigs.numeric + d128, "sum aggregate")
+    register_expr(AGG.Average, TypeSigs.numeric + d128, "average aggregate")
     # min/max of strings reduce in a host-assisted segment, as the
     # reference's (execs/aggregates._host_string_minmax)
     minmax = TypeSigs.numeric + TypeSigs.DATE + TypeSigs.STRING \
-        + TypeSigs.NULL
+        + TypeSigs.NULL + d128
     register_expr(AGG.Min, minmax, "min aggregate")
     register_expr(AGG.Max, minmax, "max aggregate")
     register_expr(AGG.Count, TypeSigs.integral, "count aggregate")
-    register_expr(AGG.First, TypeSigs.all_basic + TypeSigs.NULL,
+    register_expr(AGG.First, TypeSigs.all_basic + TypeSigs.NULL + d128,
                   "first(ignoreNulls) aggregate")
-    register_expr(AGG.Last, TypeSigs.all_basic + TypeSigs.NULL,
+    register_expr(AGG.Last, TypeSigs.all_basic + TypeSigs.NULL + d128,
                   "last(ignoreNulls) aggregate")
     for cls in (AGG.StddevSamp, AGG.StddevPop, AGG.VarianceSamp,
                 AGG.VariancePop):
         register_expr(cls, TypeSigs.fp,
                       f"{cls.update_op} ((n, sum, sumsq) state)")
-    register_expr(A.Abs, TypeSigs.numeric, "absolute value")
+    register_expr(A.Abs, TypeSigs.numeric + TypeSigs.DECIMAL_128,
+                  "absolute value")
     register_expr(M.Floor, TypeSigs.numeric, "floor")
     register_expr(N.Coalesce, TypeSigs.numeric + TypeSigs.BOOLEAN
-                  + TypeSigs.DATE + TypeSigs.STRING + TypeSigs.NULL,
+                  + TypeSigs.DATE + TypeSigs.STRING + TypeSigs.NULL + d128,
                   "first non-null")
     register_expr(S.ConcatStr, TypeSigs.STRING,
                   "concat (device ragged gather, UTF-8 safe)")
@@ -202,10 +207,12 @@ def _register_scalar_functions(sig_all, ts) -> None:
     from ..expressions import nullexprs as N
     sig_num = TypeSigs.numeric
     register_expr(A.IntegralDivide, sig_num, "integral division")
-    register_expr(A.Remainder, sig_num, "remainder (java sign semantics)")
-    register_expr(A.Pmod, sig_num, "positive modulus")
-    register_expr(A.UnaryMinus, sig_num, "negation")
-    register_expr(A.UnaryPositive, sig_num, "unary plus")
+    d128 = TypeSigs.DECIMAL_128
+    register_expr(A.Remainder, sig_num + d128,
+                  "remainder (java sign semantics)")
+    register_expr(A.Pmod, sig_num + d128, "positive modulus")
+    register_expr(A.UnaryMinus, sig_num + d128, "negation")
+    register_expr(A.UnaryPositive, sig_num + d128, "unary plus")
     register_expr(N.IsNaN, TypeSigs.BOOLEAN, "IS NaN")
     register_expr(N.NaNvl, TypeSigs.fp, "NaN replacement")
     register_expr(N.AtLeastNNonNulls, TypeSigs.BOOLEAN,
@@ -216,8 +223,8 @@ def _register_scalar_functions(sig_all, ts) -> None:
     register_expr(N.NormalizeNaNAndZero, TypeSigs.fp,
                   "NaN/-0.0 canonicalization")
     minmax = sig_num + TypeSigs.BOOLEAN + TypeSigs.DATE + ts + TypeSigs.NULL
-    register_expr(CO.Greatest, minmax, "row-wise greatest")
-    register_expr(CO.Least, minmax, "row-wise least")
+    register_expr(CO.Greatest, minmax + d128, "row-wise greatest")
+    register_expr(CO.Least, minmax + d128, "row-wise least")
     for cls in (M.Sqrt, M.Cbrt, M.Exp, M.Expm1, M.Sin, M.Cos, M.Tan, M.Asin,
                 M.Acos, M.Atan, M.Sinh, M.Cosh, M.Tanh, M.Log, M.Log10,
                 M.Log2, M.Log1p, M.Pow, M.Atan2, M.Signum, M.Ceil, M.Asinh,
@@ -282,6 +289,66 @@ def _register_scalar_functions(sig_all, ts) -> None:
 _register_builtin_exprs()
 
 
+# ---------------------------------------------------------------------------
+# decimal inputs: which expressions evaluate decimal children on the card
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _decimal_input_classes() -> frozenset:
+    """The expression classes whose device code takes decimal children,
+    one lane (precision <= 18) or two limbs."""
+    from ..expressions import aggregates as AGG
+    from ..expressions import arithmetic as A
+    from ..expressions import base as B
+    from ..expressions import cast as C
+    from ..expressions import conditional as CO
+    from ..expressions import hashexprs as H
+    from ..expressions import nullexprs as N
+    from ..expressions import predicates as P
+    return frozenset({
+        B.Alias, C.Cast, A.Add, A.Subtract, A.Multiply, A.UnaryMinus,
+        A.UnaryPositive, A.Abs, P.EqualTo, P.EqualNullSafe, P.LessThan,
+        P.LessThanOrEqual, P.GreaterThan, P.GreaterThanOrEqual, P.In,
+        P.InSet, N.IsNull, N.IsNotNull, CO.If, CO.CaseWhen, CO.Greatest,
+        CO.Least, N.Coalesce, AGG.Sum, AGG.Average, AGG.Min, AGG.Max,
+        AGG.Count, AGG.First, AGG.Last, H.Murmur3Hash, H.XxHash64,
+        # tagged off the card by their own reason (ROADMAP A6)
+        A.Divide, A.Remainder, A.Pmod})
+
+
+def decimal_input_reason(e) -> Optional[str]:
+    """Why ``e`` cannot run on the card over its decimal children (None
+    when it can): the port's device code carries decimals through the
+    expressions above; anything else over a decimal waits (ROADMAP A6)."""
+    from ..types import DecimalType
+    for c in e.children:
+        try:
+            dt = c.dtype
+        except (ValueError, NotImplementedError):
+            continue
+        if isinstance(dt, DecimalType) \
+                and type(e) not in _decimal_input_classes():
+            name = type(e).__name__
+            return (f"expression {name} over {dt.simple_string()} is not "
+                    f"supported on TPU (decimal {name} not yet ported, "
+                    "ROADMAP A6)")
+    return None
+
+
+def decimal_key_reason(what: str, exprs) -> Optional[str]:
+    """Why a key of ``what`` (group, sort, join, partition) stays off the
+    card: a two-limb decimal key (ROADMAP A6; one-lane decimal keys order
+    as their int64)."""
+    from ..types import DecimalType
+    for e in exprs:
+        dt = e.dtype
+        if isinstance(dt, DecimalType) and dt.wide:
+            return (f"{what} key {e.pretty()} of {dt.simple_string()} is "
+                    "not supported on TPU (decimal128 keys not yet ported, "
+                    "ROADMAP A6)")
+    return None
+
+
 def conf_gate_reason(e, conf) -> Optional[str]:
     """Config-driven expression gates beyond the per-class switch
     (reference RapidsConf incompatibility switches: castFloatToString,
@@ -321,8 +388,8 @@ def conf_gate_reason(e, conf) -> Optional[str]:
 
 def scan_type_error(attrs) -> Optional[str]:
     """Why a file scan cannot read its columns: the first one whose type
-    the port has no carrier for (``TypeSigs.scan``: no decimal, no nested
-    type). The planner raises it."""
+    the port has no carrier for (``TypeSigs.scan``: no nested type). The
+    planner raises it."""
     from ..types import TypeSigs
     for a in attrs:
         try:

@@ -611,7 +611,7 @@ class DataFrame:
         the host."""
         import pyarrow as pa
         from .columnar.batch import concat_batches
-        from .columnar.vector import column_to_arrow
+        from .columnar.vector import column_to_arrow, lane_mask
         from .types import to_arrow
         batches = self.to_device_batches()
         dev = self.session.device
@@ -628,7 +628,8 @@ class DataFrame:
                 out[name] = column_to_arrow(col)
             elif col.validity is not None:
                 v = col.validity[:n]
-                out[name] = torch.where(v, col.data[:n],
+                out[name] = torch.where(lane_mask(v, col.data[:n]),
+                                        col.data[:n],
                                         torch.zeros((), dtype=col.data.dtype,
                                                     device=col.data.device))
                 out[f"{name}__valid"] = v
@@ -768,11 +769,16 @@ def _coerce_join_keys(lk: List[Expression], rk: List[Expression]):
             out_r.append(b)
             continue
         if isinstance(ta, DecimalType) or isinstance(tb, DecimalType):
-            if repr(ta) != repr(tb):
+            # Spark's wider decimal (an integral side as its decimal; a
+            # float side takes both to double)
+            from .types import NumericType, decimal_common_type
+            if ta != tb and not (isinstance(ta, NumericType)
+                                 and isinstance(tb, NumericType)):
                 raise ValueError(f"join key type mismatch {ta} vs {tb}: "
                                  "cast one side explicitly")
-            out_l.append(a)
-            out_r.append(b)
+            common = ta if ta == tb else decimal_common_type(ta, tb)
+            out_l.append(a if ta == common else Cast(a, common))
+            out_r.append(b if tb == common else Cast(b, common))
             continue
         if type(ta) is type(tb):
             out_l.append(a)
@@ -1009,7 +1015,8 @@ class TorchSession:
     counts the session's runtime events: ``fallback_runs`` (a compiled
     aggregation stage re-ran on the general path), ``fallbackReruns`` (a
     compiled join stage did), ``sort_fallback_runs`` (a grouped aggregate
-    sorted out of core), and the parquet scan's ``fallback_columns``,
+    sorted out of core), ``global_chunked_runs`` (an ungrouped one merged
+    per-chunk states), and the parquet scan's ``fallback_columns``,
     ``fallback_row_groups`` and ``fallback_files`` (demotions to the host
     decode) and ``scan.*`` time split (``io/parquet.TorchFileScanExec``).
     ``last_task_metrics()`` holds the last query's retry, split, spill and

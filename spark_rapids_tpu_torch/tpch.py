@@ -530,3 +530,54 @@ QUERIES = {"q1": q1, "q2": q2, "q3": q3, "q4": q4, "q5": q5, "q6": q6,
            "q7": q7, "q8": q8, "q9": q9, "q10": q10, "q11": q11, "q12": q12,
            "q13": q13, "q14": q14, "q15": q15, "q16": q16, "q17": q17,
            "q18": q18, "q19": q19, "q20": q20, "q21": q21, "q22": q22}
+
+
+# ---------------------------------------------------------------------------
+# Q1 and Q6 as Spark's SQL types them over decimal(12, 2) measures (Spark's
+# TPC-H schema, databricks/spark-sql-perf TPCH.scala): the SQL's numeric
+# literals are decimals (``0.06 - 0.01`` is decimal(3, 2)), so the
+# arithmetic and the filters stay decimal end to end. ``l_shipdate`` is
+# the day number, as in the benchmark's lineitem.
+# ---------------------------------------------------------------------------
+
+
+def q1_decimal(t, F=_F):
+    """TPC-H Q1 over decimal measures: ``1 - l_discount`` is
+    decimal(13, 2), ``disc_price`` decimal(26, 4), ``charge`` decimal(38,
+    6); the sums (22, 2)/(36, 4)/(38, 6), the averages (16, 6)."""
+    import decimal
+    li = t["lineitem"]
+    one = F.lit(decimal.Decimal(1))
+    return (li.filter(F.col("l_shipdate") <= 10471)
+            .withColumn("disc_price",
+                        F.col("l_extendedprice") * (one - F.col("l_discount")))
+            .withColumn("charge",
+                        F.col("l_extendedprice") * (one - F.col("l_discount"))
+                        * (one + F.col("l_tax")))
+            .groupBy("l_returnflag", "l_linestatus")
+            .agg(F.sum(F.col("l_quantity")).alias("sum_qty"),
+                 F.sum(F.col("l_extendedprice")).alias("sum_base_price"),
+                 F.sum(F.col("disc_price")).alias("sum_disc_price"),
+                 F.sum(F.col("charge")).alias("sum_charge"),
+                 F.avg(F.col("l_quantity")).alias("avg_qty"),
+                 F.avg(F.col("l_extendedprice")).alias("avg_price"),
+                 F.avg(F.col("l_discount")).alias("avg_disc"),
+                 F.count(F.col("l_quantity")).alias("count_order"))
+            .sort("l_returnflag", "l_linestatus"))
+
+
+def q6_decimal(t, F=_F):
+    """TPC-H Q6 over decimal measures: ``l_discount between 0.06 - 0.01
+    and 0.06 + 0.01``, ``l_quantity < 24``; revenue is decimal(35, 4)."""
+    import decimal
+    d = decimal.Decimal
+    li = t["lineitem"]
+    lo = F.lit(d("0.06")) - F.lit(d("0.01"))
+    hi = F.lit(d("0.06")) + F.lit(d("0.01"))
+    return (li.filter((F.col("l_shipdate") >= 8766)
+                      & (F.col("l_shipdate") < 9131)
+                      & (F.col("l_discount") >= lo)
+                      & (F.col("l_discount") <= hi)
+                      & (F.col("l_quantity") < 24))
+            .agg(F.sum(F.col("l_extendedprice") * F.col("l_discount"))
+                 .alias("revenue")))

@@ -100,14 +100,23 @@ class DoubleType(FractionalType):
 
 @dataclass(frozen=True, eq=False)
 class DecimalType(FractionalType):
-    """Declared so the eligibility checks can name it; no decimal
-    expression is ported yet."""
+    """decimal(precision, scale): the unscaled value in int64 lanes, one a
+    row ``[n]`` up to precision 18, two a row ``[n, 2]`` (hi, lo) past it
+    (``kernels/decimal128.py``; reference types.py:108-119)."""
     precision: int = 10
     scale: int = 0
 
+    MAX_PRECISION = 38
+    MAX_LONG_DIGITS = 18  # the one-lane carrier
+
     @property
     def np_dtype(self):  # type: ignore[override]
-        return None
+        return np.dtype(np.int64)
+
+    @property
+    def wide(self) -> bool:
+        """Carried as two limbs a row."""
+        return self.precision > self.MAX_LONG_DIGITS
 
     def simple_string(self) -> str:
         return f"decimal({self.precision},{self.scale})"
@@ -345,6 +354,8 @@ def to_arrow(dt: DataType):
              BinaryType: pa.binary(), DateType: pa.date32(),
              TimestampType: pa.timestamp("us", tz="UTC"),
              NullType: pa.null()}
+    if isinstance(dt, DecimalType):
+        return pa.decimal128(dt.precision, dt.scale)
     if type(dt) not in fixed:
         raise NotImplementedError(f"arrow type of {dt} not yet ported")
     return fixed[type(dt)]
@@ -367,7 +378,8 @@ class TypeEnum:
     TIMESTAMP = "TIMESTAMP"
     STRING = "STRING"
     BINARY = "BINARY"
-    DECIMAL = "DECIMAL"
+    DECIMAL_64 = "DECIMAL_64"
+    DECIMAL_128 = "DECIMAL_128"
     NULL = "NULL"
     STRUCT = "STRUCT"
 
@@ -378,11 +390,12 @@ _TYPE_ENUMS = ((BooleanType, TypeEnum.BOOLEAN), (ByteType, TypeEnum.BYTE),
                (DoubleType, TypeEnum.DOUBLE), (DateType, TypeEnum.DATE),
                (TimestampType, TypeEnum.TIMESTAMP),
                (StringType, TypeEnum.STRING), (BinaryType, TypeEnum.BINARY),
-               (DecimalType, TypeEnum.DECIMAL),
                (NullType, TypeEnum.NULL), (StructType, TypeEnum.STRUCT))
 
 
 def _type_enum_of(dt: DataType) -> str:
+    if isinstance(dt, DecimalType):
+        return TypeEnum.DECIMAL_128 if dt.wide else TypeEnum.DECIMAL_64
     for cls, te in _TYPE_ENUMS:
         if isinstance(dt, cls):
             return te
@@ -414,28 +427,111 @@ class TypeSig:
 
 
 class TypeSigs:
-    """Standard signatures over the types the port carries. No decimal
-    expression is ported, so DECIMAL is in no signature and a decimal
-    column keeps its operator on the CPU."""
+    """Standard signatures over the types the port carries (reference
+    types.py:379-394): DECIMAL_64 is numeric and comparable; DECIMAL_128
+    is in ``scan`` and in the signatures of the expressions that carry
+    two-limb values (``plan/typechecks.py``)."""
     BOOLEAN = TypeSig([TypeEnum.BOOLEAN])
     integral = TypeSig([TypeEnum.BYTE, TypeEnum.SHORT, TypeEnum.INT,
                         TypeEnum.LONG])
     fp = TypeSig([TypeEnum.FLOAT, TypeEnum.DOUBLE])
-    numeric = integral + fp
+    DECIMAL_64 = TypeSig([TypeEnum.DECIMAL_64])
+    DECIMAL_128 = TypeSig([TypeEnum.DECIMAL_64, TypeEnum.DECIMAL_128])
+    numeric = integral + fp + DECIMAL_64
     STRING = TypeSig([TypeEnum.STRING])
     DATE = TypeSig([TypeEnum.DATE])
     NULL = TypeSig([TypeEnum.NULL])
     comparable = numeric + BOOLEAN + STRING + DATE + NULL
     all_basic = comparable
     #: what a file scan can carry: the basic types, timestamps and binary
-    scan = all_basic + TypeSig([TypeEnum.TIMESTAMP, TypeEnum.BINARY])
+    scan = all_basic + DECIMAL_128 + TypeSig([TypeEnum.TIMESTAMP,
+                                              TypeEnum.BINARY])
 
 
 def numeric_promote(a: DataType, b: DataType) -> DataType:
-    """Spark's binary-arithmetic common type for non-decimal numerics."""
+    """Spark's binary-arithmetic common type: the wider of two
+    non-decimal numerics; with a decimal, ``decimal_common_type``."""
     order = [ByteT, ShortT, IntegerT, LongT, FloatT, DoubleT]
     if a == b:
         return a
     if isinstance(a, DecimalType) or isinstance(b, DecimalType):
-        raise NotImplementedError("decimal promotion not yet ported")
+        return decimal_common_type(a, b)
     return order[max(order.index(a), order.index(b))]
+
+
+# ---------------------------------------------------------------------------
+# Spark's decimal types (DecimalPrecision, allowPrecisionLoss=true)
+# ---------------------------------------------------------------------------
+
+#: digits of each integral type as a decimal (Spark's
+#: DecimalType.forType)
+_INTEGRAL_DIGITS = {ByteType: 3, ShortType: 5, IntegerType: 10,
+                    LongType: 20}
+
+
+def integral_decimal(dt: DataType) -> "DecimalType":
+    """An integral type as the decimal that holds it: byte (3,0), short
+    (5,0), int (10,0), long (20,0)."""
+    return DecimalType(_INTEGRAL_DIGITS[type(dt)], 0)
+
+
+def adjust_precision_scale(precision: int, scale: int) -> "DecimalType":
+    """Spark's ``DecimalType.adjustPrecisionScale``: past 38 digits keep
+    the integral digits and at least min(scale, 6) fraction digits."""
+    if precision <= DecimalType.MAX_PRECISION:
+        return DecimalType(precision, scale)
+    int_digits = precision - scale
+    min_scale = min(scale, 6)
+    return DecimalType(DecimalType.MAX_PRECISION,
+                       max(DecimalType.MAX_PRECISION - int_digits, min_scale))
+
+
+def decimal_result_type(op: str, a: "DecimalType",
+                        b: "DecimalType") -> "DecimalType":
+    """The result type of ``a op b`` over two decimals, ``op`` one of
+    ``+ - * / % pmod``."""
+    p1, s1, p2, s2 = a.precision, a.scale, b.precision, b.scale
+    if op in ("+", "-"):
+        s = max(s1, s2)
+        return adjust_precision_scale(max(p1 - s1, p2 - s2) + s + 1, s)
+    if op == "*":
+        return adjust_precision_scale(p1 + p2 + 1, s1 + s2)
+    if op == "/":
+        s = max(6, s1 + p2 + 1)
+        return adjust_precision_scale(p1 - s1 + s2 + s, s)
+    if op in ("%", "pmod"):
+        s = max(s1, s2)
+        return adjust_precision_scale(min(p1 - s1, p2 - s2) + s, s)
+    raise ValueError(op)
+
+
+def decimal_wider_type(a: "DecimalType", b: "DecimalType") -> "DecimalType":
+    """The decimal both sides of a comparison (or a branch) widen to:
+    ``s = max(s1, s2)``, ``p = min(38, max(p1-s1, p2-s2) + s)``."""
+    s = max(a.scale, b.scale)
+    p = max(a.precision - a.scale, b.precision - b.scale) + s
+    return DecimalType(min(p, DecimalType.MAX_PRECISION), s)
+
+
+def decimal_common_type(a: DataType, b: DataType) -> DataType:
+    """The common type of a decimal and another numeric: double with a
+    float or double, else the wider decimal (an integral widened by
+    ``integral_decimal``)."""
+    if isinstance(a, (FloatType, DoubleType)) \
+            or isinstance(b, (FloatType, DoubleType)):
+        return DoubleT
+    if isinstance(a, IntegralType):
+        a = integral_decimal(a)
+    if isinstance(b, IntegralType):
+        b = integral_decimal(b)
+    return decimal_wider_type(a, b)
+
+
+def sum_decimal_type(t: "DecimalType") -> "DecimalType":
+    """Spark's ``sum`` of a decimal: (min(38, p + 10), s)."""
+    return DecimalType(min(t.precision + 10, 38), t.scale)
+
+
+def avg_decimal_type(t: "DecimalType") -> "DecimalType":
+    """Spark's ``avg`` of a decimal: (min(38, p + 4), min(38, s + 4))."""
+    return DecimalType(min(t.precision + 4, 38), min(t.scale + 4, 38))

@@ -295,10 +295,29 @@ prints no result):
        across scales, casts each way, sum/avg/min/max by a decimal key
        and ungrouped over four chunks (their states merged), a decimal
        join key and sort key, murmur3 of decimal64 and
-       decimal128, and / % pmod in the host engine over the first 2^12
-       rows, each checked.
+       decimal128, and / % pmod on the card over the first 2^12 rows,
+       each checked against Python ``decimal``;
+   (d) over a 2^22-row decimal(12, 2) table (seed 19, 1 row in 10 with
+       a null, rounding ties at scales -1, 0 and 1, zero divisors, and
+       divisors that put a / b exactly halfway at its last place): round
+       and bround at scales -1, 0, 1 and 3, floor and ceil; a / b, a % b
+       and pmod(a, b); a window sum/avg/min/max over a partitioned,
+       ordered frame. Numpy oracles for every row of the rounding family,
+       % and pmod; each query's first 2^16 rows exactly the port's host
+       engine's; no decimal host hop. A timing line each (best of 2 warm
+       collects, busy, idle, device ops, host hops by class) and
+       ``decimal_divmod_ms`` (the 128-bit divmod alone).
    Neither Q1 kernel launches. ``python3 chip_smoke.py --phase18`` runs
    phase 1 and phase 18 alone.
+
+19. Queue C's faults C8-C13, in test mode on the card, exact: a union's
+   wider types (int and double, int and bigint, two decimals; intersect
+   and except), string <-> timestamp casts in the session zone with the
+   year padded, date_format's letters (D, E, MMMM, y, hh, Q, SSS, XXX)
+   and the week-based refusal, coalesce/isnull of column names, date and
+   datetime literals, -0.0 group, distinct, join and window keys.
+   Neither Q1 kernel launches. ``python3 chip_smoke.py --phase19`` runs
+   phase 1 and phase 19 alone (``--phase18 --phase19`` both).
 
 After each phase a phase_wall line gives its wall, its collects, their
 planning ms and the batches the spill catalog registered.
@@ -6252,9 +6271,13 @@ DEC_ROWS = 1 << 24
 DEC_FILE_ROWS = 1 << 23
 DEC_SWEEP_ROWS = 1 << 22
 DEC_SAMPLE = 1 << 12
-#: the sweep's / % pmod run in the host engine (tagged off the card,
-#: ROADMAP A6) over the table's first rows, each one checked
+#: the sweep's / % pmod on the card over the table's first rows, each one
+#: checked against Python ``decimal``
 DEC_DIV_ROWS = DEC_SAMPLE
+#: (d)'s table: the rounding family, / % pmod and windows over decimal(12,
+#: 2), checked against the host engine over its first rows
+DEC_REST_ROWS = 1 << 22
+DEC_REST_CHECK = 1 << 16
 
 
 def _half_up_div(n: int, d: int) -> int:
@@ -6458,8 +6481,10 @@ def decimal_limb_ops_line(smi: str, rows: int) -> None:
 def decimal_paths(F, TorchSession, smi, tmpdir: str, device: str = "cuda",
                   rows: int = DEC_ROWS, file_rows: int = DEC_FILE_ROWS,
                   sweep_rows: int = DEC_SWEEP_ROWS,
-                  div_rows: int = DEC_DIV_ROWS) -> None:
-    """Phase 18: (a)-(c) in test mode. With ``device="cpu"`` and small
+                  div_rows: int = DEC_DIV_ROWS,
+                  rest_rows: int = DEC_REST_ROWS,
+                  rest_check: int = DEC_REST_CHECK) -> None:
+    """Phase 18: (a)-(d) in test mode. With ``device="cpu"`` and small
     sizes it checks the script's own logic off the card (no timing
     lines)."""
     import os
@@ -6728,12 +6753,12 @@ def decimal_paths(F, TorchSession, smi, tmpdir: str, device: str = "cuda",
     print("(18c) group, join, sort and murmur3 ok", flush=True)
     if on_card:
         best_of_2_line("decimal_sort", reduced(F, sq), n, smi)
-    # / % pmod: the host engine's exact integers (tagged off the card)
+    # / % pmod on the card, each row against Python decimal
     dq = s.createDataFrame(st.slice(0, div_rows)).select(
         (F.col("a") / F.col("b")).alias("div"),
         (F.col("a") % F.col("b")).alias("rem"),
         F.pmod(F.col("a"), F.col("b")).alias("pmod"))
-    check("CpuProject" in physical_plan(dq), "(18c) / left no host node")
+    check("CpuProject" not in physical_plan(dq), "(18c) / left the card")
     t0 = time.perf_counter()
     out = dq.to_arrow()
     div_s = time.perf_counter() - t0
@@ -6754,11 +6779,322 @@ def decimal_paths(F, TorchSession, smi, tmpdir: str, device: str = "cuda",
         check(got["div"][j] == want_div, f"(18c) a / b row {j}")
         check(got["rem"][j] == D_(r).scaleb(-2), f"(18c) a % b row {j}")
         check(got["pmod"][j] == D_(pm).scaleb(-2), f"(18c) pmod row {j}")
-    print(f"(18c) / % pmod in the host engine at {div_rows} ok "
+    print(f"(18c) / % pmod on the card at {div_rows} ok "
           f"({div_s:.2f} s)", flush=True)
     del df, st, c
     if on_card:
         release_plans()
+
+    # (d) the rounding family, / % pmod and windows
+    decimal_rest_paths(F, TorchSession, smi, device, rest_rows, rest_check)
+    if on_card:
+        release_plans()
+
+
+def rest_table(n: int, seed: int = 19):
+    """(d)'s table: decimal(12, 2) ``a`` and ``b`` over their whole range
+    (1 row in 10 with a null), rounding ties placed at scales -1, 0 and 1
+    (a ending in 500, 50 or 5, both signs), zero divisors, divisors of
+    655.36 under odd dividends (a / b then lies exactly halfway at the
+    quotient's 15th place: HALF_UP ties), a partition key ``g`` of 64
+    rows each and an order key ``o``."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar.vector import decimal_to_arrow
+    from spark_rapids_tpu_torch.types import DecimalType
+    rng = np.random.default_rng(seed)
+    ids = np.arange(n)
+    top = 10 ** 12 - 1
+    a = rng.integers(-top, top + 1, n)
+    b = rng.integers(-top, top + 1, n)
+    sign = np.where(a < 0, -1, 1)
+    for rem, unit in ((1, 1000), (2, 100), (3, 10)):
+        r = ids % 10 == rem
+        a[r] = (np.abs(a[r]) // unit * unit + unit // 2) % (top + 1) \
+            * sign[r]
+    tie = ids % 64 == 9
+    b[tie] = np.where(ids[tie] % 128 == 9, 65536, -65536)
+    a[tie] |= 1
+    b[ids % 64 == 3] = 0
+    a_null = ids % 20 == 7
+    b_null = ids % 20 == 17
+    a[a_null] = 0
+    b[b_null] = 0
+    cols = {"a": a, "b": b, "a_null": a_null, "b_null": b_null}
+    t = DecimalType(12, 2)
+    table = pa.table({
+        "a": decimal_to_arrow(a, t, ~a_null),
+        "b": decimal_to_arrow(b, t, ~b_null),
+        "g": pa.array(ids // 64), "o": pa.array(ids)})
+    return table, cols
+
+
+def _np_round(v: np.ndarray, k: int, mode: str) -> np.ndarray:
+    """int64 ``v / 10^k`` rounded HALF_UP, HALF_EVEN, floor or ceiling."""
+    m = 10 ** k
+    q, r = np.abs(v) // m, np.abs(v) % m
+    if mode == "half_up":
+        up = 2 * r >= m
+    elif mode == "half_even":
+        up = (2 * r > m) | ((2 * r == m) & (q % 2 == 1))
+    else:
+        up = (r != 0) & ((v < 0) if mode == "floor" else (v > 0))
+    q = q + up
+    return np.where(v < 0, -q, q)
+
+
+#: (d)'s rounding columns: (name, function, scale)
+ROUND_CASES = [(f"{fn}_{tag}", fn, sc) for fn in ("round", "bround")
+               for tag, sc in (("m1", -1), ("0", 0), ("1", 1), ("3", 3))] \
+    + [("floor", "floor", 0), ("ceil", "ceil", 0)]
+
+
+def _round_oracle(a: np.ndarray, fn: str, scale: int):
+    """(unscaled int64 values, their scale) of ``fn(a, scale)`` over
+    decimal(12, 2) ``a`` (Spark 3.4's result types: scale min(2, s') for
+    s' >= 0, else 0 with the value a multiple of 10^-s')."""
+    mode = {"round": "half_up", "bround": "half_even", "floor": "floor",
+            "ceil": "ceil"}[fn]
+    if scale >= 2:
+        return a, 2
+    v = _np_round(a, 2 - scale, mode)
+    return (v * 10 ** -scale, 0) if scale < 0 else (v, scale)
+
+
+def host_path_delta(before: dict, counters) -> dict:
+    """``decimal.hostPath.<class>.<reason>`` batches since ``before``."""
+    now = {k: v for k, v in counters.items()
+           if k.startswith("decimal.hostPath.")}
+    return {k[len("decimal.hostPath."):]: v - before.get(k, 0)
+            for k, v in now.items() if v != before.get(k, 0)}
+
+
+def decimal_divmod_line(smi: str, rows: int) -> None:
+    """``decimal128.divmod128`` and ``round_pow10`` alone on the card at
+    ``rows`` (CUDA events): decimal(12, 2) / decimal(12, 2)'s shape (a
+    90-bit dividend, a 40-bit divisor: three digits of long division),
+    and a two-limb divisor (127 bits by 100: bit by bit)."""
+    from spark_rapids_tpu_torch.kernels import decimal128 as D
+    g = torch.Generator(device="cuda").manual_seed(6)
+    nh = torch.randint(0, 2 ** 26, (rows,), device="cuda", generator=g)
+    nl = torch.randint(-2 ** 63, 2 ** 63 - 1, (rows,), device="cuda",
+                       generator=g)
+    dl = torch.randint(1, 2 ** 40, (rows,), device="cuda", generator=g)
+    wh = torch.randint(0, 2 ** 62, (rows,), device="cuda", generator=g)
+    dh = torch.randint(1, 2 ** 35, (rows,), device="cuda", generator=g)
+    zero = torch.zeros_like(dl)
+    ops = {"divmod128_90_by_40": lambda: D.divmod128(nh, nl, zero, dl,
+                                                     90, 40),
+           "divmod128_127_by_100": lambda: D.divmod128(wh, nl, dh, dl,
+                                                       127, 100),
+           "round_pow10_3_half_even": lambda: D.round_pow10(nh, nl, 3,
+                                                            "half_even")}
+    print(json.dumps({"decimal_divmod_ms": {
+        "rows": rows, **{k: time_ms(fn, 3, reps=3, warmup=1)
+                         for k, fn in ops.items()}}, "card": smi}),
+        flush=True)
+
+
+def decimal_rest_paths(F, TorchSession, smi, device: str, rows: int,
+                       check_rows: int) -> None:
+    """Phase 18 (d), in test mode over ``rest_table(rows)``: round and
+    bround at scales -1, 0, 1 and 3, floor and ceil; a / b, a % b and
+    pmod(a, b); a window sum/avg/min/max over a partitioned, ordered
+    frame. Every row of the rounding family, % and pmod against numpy
+    oracles; each query's first ``check_rows`` rows (whole partitions)
+    exactly equal to the port's host engine over those rows; no decimal
+    host hop. On the card a timing line each: best of 2 warm collects,
+    busy, idle, device ops, the host-hop batches by class."""
+    from spark_rapids_tpu_torch.window import Window
+    on_card = device != "cpu"
+    st, c = rest_table(rows)
+    a, b, an, bn = c["a"], c["b"], c["a_null"], c["b_null"]
+    test = {"spark.rapids.sql.test.enabled": "true",
+            "spark.rapids.sql.batchSizeRows": str(rows)}
+    s = TorchSession(test, device=device)
+    host = TorchSession({"spark.rapids.sql.enabled": "false"},
+                        device=device)
+    df = s.createDataFrame(st)
+    hdf = host.createDataFrame(st.slice(0, check_rows))
+    fns = {"round": F.round, "bround": F.bround}
+
+    def rounding(d):
+        return d.select(*[
+            (fns[fn](F.col("a"), sc) if fn in fns else
+             getattr(F, fn)(F.col("a"))).alias(name)
+            for name, fn, sc in ROUND_CASES])
+
+    def divmod_(d):
+        return d.select((F.col("a") / F.col("b")).alias("div"),
+                        (F.col("a") % F.col("b")).alias("rem"),
+                        F.pmod(F.col("a"), F.col("b")).alias("pmod"))
+    run = Window.partitionBy("g").orderBy("o")
+    near = Window.partitionBy("g").orderBy("o").rowsBetween(-8, 8)
+
+    def window(d):
+        return d.select("o", F.sum(F.col("a")).over(run).alias("ws"),
+                        F.avg(F.col("a")).over(run).alias("wa"),
+                        F.min(F.col("a")).over(near).alias("wmin"),
+                        F.max(F.col("a")).over(near).alias("wmax"))
+    for key, build in (("decimal_round", rounding),
+                       ("decimal_divmod", divmod_),
+                       ("decimal_window", window)):
+        q = build(df)
+        check("Cpu" not in physical_plan(q).replace(
+            "CpuLocalTableScanExec", ""), f"(18d) {key} left the card")
+        before = {k: v for k, v in s.counters.items()
+                  if k.startswith("decimal.hostPath.")}
+        out = q.to_arrow()
+        if key == "decimal_window":
+            out = out.sort_by("o")
+        hops = host_path_delta(before, s.counters)
+        check(not hops, f"(18d) {key}: decimal host hops {hops}")
+        want = build(hdf).to_arrow()
+        if key == "decimal_window":
+            want = want.sort_by("o")
+        check(out.slice(0, check_rows).equals(want),
+              f"(18d) {key}: the card differs from the host engine over "
+              f"the first {check_rows} rows")
+        if key == "decimal_round":
+            for name, fn, sc in ROUND_CASES:
+                v, scale = _round_oracle(a, fn, sc)
+                check(out.schema.field(name).type.scale == scale,
+                      f"(18d) {name}: scale")
+                check_unscaled(out, name, v, an, f"(18d) {name}")
+        elif key == "decimal_divmod":
+            zero = bn | (b == 0)
+            safe = np.where(zero, 1, b)
+            rem = np.fmod(a, safe)
+            pm = np.where((rem < 0) & (safe > 0), rem + safe, rem)
+            check_unscaled(out, "rem", rem, an | zero, "(18d) a % b")
+            check_unscaled(out, "pmod", pm, an | zero, "(18d) pmod(a, b)")
+        print(f"(18d) {key} at {rows} ok (numpy oracles; the host engine "
+              f"over {check_rows} rows; no host hop)", flush=True)
+        if on_card:
+            before = {k: v for k, v in s.counters.items()
+                      if k.startswith("decimal.hostPath.")}
+            timed_line(key, reduced(F, q), rows, smi,
+                       host_path=host_path_delta(before, s.counters))
+        del q, out, want
+    if on_card:
+        decimal_divmod_line(smi, rows)
+    del df, hdf, st, c
+
+
+# ---------------------------------------------------------------------------
+# phase 19: Queue C's faults C8-C13 on the card
+# ---------------------------------------------------------------------------
+
+
+def fault_paths(F, TorchSession, device: str = "cuda") -> None:
+    """Phase 19: C8-C13's inputs in test mode on the card, each exact:
+    a union's wider types (and intersect, except), string <-> timestamp
+    casts in the session zone, the date_format letters and the
+    week-based refusal, coalesce/isnull of column names, date and
+    datetime literals, and -0.0 group, distinct, join and partition
+    keys."""
+    import datetime as _dt
+    import math
+
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.window import Window
+    D_ = decimal.Decimal
+    utc = _dt.timezone.utc
+    test = {"spark.rapids.sql.test.enabled": "true"}
+    la = {**test, "spark.sql.session.timeZone": "America/Los_Angeles"}
+    s = TorchSession(test, device=device)
+    # C8: a union column takes its sides' wider type
+    i32 = s.createDataFrame(pa.table({"x": pa.array([1, 2], pa.int32())}))
+    f64 = s.createDataFrame(pa.table({"x": pa.array([2.75, 5e9])}))
+    i64 = s.createDataFrame(pa.table({"x": pa.array([2 ** 40], pa.int64())}))
+    d12 = s.createDataFrame(pa.table({"x": pa.array(
+        [D_("1.50")], pa.decimal128(12, 2))}))
+    d10 = s.createDataFrame(pa.table({"x": pa.array(
+        [D_("1.4999")], pa.decimal128(10, 4))}))
+    u = i32.union(f64)
+    check(u.to_arrow().schema.field("x").type == pa.float64()
+          and [r["x"] for r in u.collect()] == [1.0, 2.0, 2.75, 5e9],
+          "(19) C8 int union double")
+    check([r["x"] for r in i32.union(i64).collect()] == [1, 2, 2 ** 40],
+          "(19) C8 int union bigint")
+    got = d12.union(d10).to_arrow()
+    check(got.schema.field("x").type == pa.decimal128(14, 4)
+          and got.column("x").to_pylist() == [D_("1.5000"), D_("1.4999")],
+          "(19) C8 decimal(12,2) union decimal(10,4)")
+    f2 = s.createDataFrame(pa.table({"x": pa.array([1.5, 2.0, 2.75])}))
+    check([r["x"] for r in i32.intersect(f2).collect()] == [2.0]
+          and [r["x"] for r in i32.subtract(f2).collect()] == [1.0],
+          "(19) C8 intersect and except")
+    print("(19) C8 union types ok", flush=True)
+    # C9: string <-> timestamp casts in the session zone
+    z = TorchSession(la, device=device)
+    t = z.createDataFrame([{"t": _dt.datetime(2020, 3, 8, 10, 30,
+                                              tzinfo=utc),
+                            "s": "2020-02-29 12:00:00"}])
+    r = t.select(F.col("t").cast("string").alias("ts"),
+                 F.col("s").cast("timestamp").alias("p")).collect()[0]
+    check(r["ts"] == "2020-03-08 03:30:00"
+          and r["p"] == _dt.datetime(2020, 2, 29, 20, 0, tzinfo=utc),
+          f"(19) C9 casts in the session zone: {r}")
+    one = s.createDataFrame([{"t": _dt.datetime(1, 1, 1, tzinfo=utc)}])
+    r = one.select(F.col("t").cast("string").alias("ts")).collect()[0]
+    check(r["ts"] == "0001-01-01 00:00:00", f"(19) C9 year padding: {r}")
+    print("(19) C9 timestamp casts ok", flush=True)
+    # C10: the pattern letters, and Spark 3's refusal of week-based ones
+    df = s.createDataFrame([{
+        "d": _dt.date(2020, 1, 31),
+        "t": _dt.datetime(2020, 3, 8, 10, 30, 0, 123000, tzinfo=utc)}])
+    pats = {"D": "31", "E": "Fri", "MMMM": "January", "y": "2020",
+            "hh": "12", "Q": "1"}
+    r = df.select(*[F.date_format("d", p).alias(f"p{i}")
+                    for i, p in enumerate(pats)],
+                  F.date_format("t", "SSS").alias("sss"),
+                  F.date_format("t", "XXX").alias("xxx")).collect()[0]
+    check([r[f"p{i}"] for i in range(len(pats))] == list(pats.values())
+          and r["sss"] == "123" and r["xxx"] == "Z",
+          f"(19) C10 date_format letters: {r}")
+    try:
+        df.select(F.date_format("d", "YYYY").alias("w")).collect()
+        check(False, "(19) C10 a week-based pattern did not raise")
+    except ValueError as e:
+        check("week-based" in str(e), f"(19) C10: {e}")
+    print("(19) C10 date_format letters ok", flush=True)
+    # C11: coalesce and isnull read column names
+    n = s.createDataFrame([{"a": None, "b": "y"}, {"a": "x", "b": "z"}])
+    r = n.select(F.coalesce("a", "b").alias("c"),
+                 F.isnull("a").alias("n")).collect()
+    check(r == [{"c": "y", "n": True}, {"c": "x", "n": False}],
+          f"(19) C11 coalesce/isnull of names: {r}")
+    print("(19) C11 coalesce and isnull ok", flush=True)
+    # C12: date and datetime literals
+    r = t.select(F.datediff(F.lit(_dt.date(2020, 3, 8)),
+                            F.lit(_dt.date(2000, 1, 1))).alias("dd"),
+                 F.lit(_dt.datetime(2020, 1, 1, 12, 0)).cast(
+                     "string").alias("wall"),
+                 F.lit(_dt.datetime(2020, 1, 1, 12, 0, tzinfo=utc)).cast(
+                     "string").alias("inst")).collect()[0]
+    check(r == {"dd": 7372, "wall": "2020-01-01 12:00:00",
+                "inst": "2020-01-01 04:00:00"},
+          f"(19) C12 date and datetime literals: {r}")
+    print("(19) C12 literals ok", flush=True)
+    # C13: -0.0 keys come out 0.0 and meet 0.0
+    fk = s.createDataFrame(pa.table({
+        "f": pa.array([float("nan"), 1.0, -0.0, 0.0, None]),
+        "v": pa.array([1, 2, 3, 4, 5])}))
+    g = {(None if r["f"] is None else
+          (math.copysign(1.0, r["f"]), r["f"] if r["f"] == r["f"] else
+           "nan")): r["count"] for r in fk.groupBy("f").count().collect()}
+    check(g == {None: 1, (1.0, 1.0): 1, (1.0, 0.0): 2, (1.0, "nan"): 1},
+          f"(19) C13 group keys: {g}")
+    signs = sorted(math.copysign(1.0, r["f"]) for r in
+                   fk.select("f").distinct().collect() if r["f"] is not None)
+    check(signs == [1.0, 1.0, 1.0], f"(19) C13 distinct keys: {signs}")
+    zero = s.createDataFrame(pa.table({"z": pa.array([0.0])}))
+    j = sorted(r["v"] for r in fk.join(zero, fk["f"] == zero["z"]).collect())
+    check(j == [3, 4], f"(19) C13 join keys: {j}")
+    w = {r["v"]: r["c"] for r in fk.select(
+        "v", F.count("v").over(Window.partitionBy("f")).alias("c")).collect()}
+    check(w[3] == 2 and w[4] == 2, f"(19) C13 window partitions: {w}")
+    print("(19) C13 float keys ok", flush=True)
 
 
 def _java_rem_int(p: int, q: int) -> int:
@@ -6829,13 +7165,18 @@ def main() -> int:
     print(f"import pandas: {'ok' if has_pandas else 'fails'}", flush=True)
     check(has_pyarrow, "pyarrow does not import: the parquet scan needs it")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
-    if sys.argv[1:] == ["--phase18"]:
-        # phase 18 alone (no kernel build, no contract line)
+    if sys.argv[1:] and set(sys.argv[1:]) <= {"--phase18", "--phase19"}:
+        # phase 18 and/or 19 alone (no kernel build, no contract line)
         import spark_rapids_tpu_torch.functions as F
         from spark_rapids_tpu_torch.session import TorchSession
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_decimal_") as d:
-            decimal_paths(F, TorchSession, smi, d)
-        print("phase 18 alone: ok", flush=True)
+        if "--phase18" in sys.argv:
+            with tempfile.TemporaryDirectory(
+                    prefix="chip_smoke_decimal_") as d:
+                decimal_paths(F, TorchSession, smi, d)
+            print("phase 18 alone: ok", flush=True)
+        if "--phase19" in sys.argv:
+            fault_paths(F, TorchSession)
+            print("phase 19 alone: ok", flush=True)
         return 0
     if sys.argv[1:] == ["--phase17"]:
         # phase 17 alone (no kernel build, no contract line): the quickest
@@ -6862,7 +7203,7 @@ def main() -> int:
 
 def run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
                cpu_answers, prep) -> int:
-    """Phases 2-18 (``main`` prints phase 1 and starts phase 12's CPU
+    """Phases 2-19 (``main`` prints phase 1 and starts phase 12's CPU
     answers and phase 13's host work)."""
     from spark_rapids_tpu_torch.entry import entry
     from spark_rapids_tpu_torch.kernels import build, q1_cuda
@@ -7141,14 +7482,23 @@ def run_phases(smi, name, mem_bps, f32_ops, tf32_ops, clock,
     clock.mark(17)
 
     # 18. decimals: Q1 and Q6 over decimal(12, 2) measures, cached and from
-    # parquet (INT64-backed and FIXED_LEN_BYTE_ARRAY), and an expression
-    # sweep, in test mode. It launches neither Q1 kernel.
+    # parquet (INT64-backed and FIXED_LEN_BYTE_ARRAY), an expression
+    # sweep, and the rounding family, / % pmod and windows, in test mode.
+    # It launches neither Q1 kernel.
     before = dict(q1_cuda.launches)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_decimal_") as d:
         decimal_paths(F, TorchSession, smi, d)
     check(dict(q1_cuda.launches) == before, "phase 18 launched a Q1 kernel")
     release_plans()
     clock.mark(18)
+
+    # 19. Queue C's faults C8-C13 on the card, exact. It launches neither
+    # Q1 kernel.
+    before = dict(q1_cuda.launches)
+    fault_paths(F, TorchSession)
+    check(dict(q1_cuda.launches) == before, "phase 19 launched a Q1 kernel")
+    release_plans()
+    clock.mark(19)
 
     print(kernels_line, flush=True)  # again, near the end of the output
     print(nvidia_smi())

@@ -330,6 +330,18 @@ def _sortable_bits(col: TorchColumnVector) -> torch.Tensor:
     return d
 
 
+def _normalize_fp_key(col: TorchColumnVector) -> TorchColumnVector:
+    """A float key column with -0.0 as 0.0 and every NaN canonical, as
+    Spark's ``NormalizeFloatingNumbers`` leaves a group key (the output
+    key is a group's first row; ``_sortable_bits`` already groups them
+    alike)."""
+    if not col.data.is_floating_point():
+        return col
+    from ..expressions.nullexprs import normalize_nan_zero
+    return TorchColumnVector(col.dtype, normalize_nan_zero(col.data),
+                             col.validity, col.num_rows)
+
+
 def encode_group_keys(cols: List[TorchColumnVector], num_rows: int,
                       capacity: int):
     """Per-key (sortable_value, validity) pairs; strings take their key
@@ -956,8 +968,9 @@ class TorchHashAggregateExec(TorchExec):
             segs = self._global_segments(batch, bucket_capacity(1))
             key_cols: List[TorchColumnVector] = []
         else:
-            key_cols = [to_column(g.eval_device(batch, ctx.eval_ctx), batch,
-                                  g.dtype) for g in self.grouping]
+            key_cols = [_normalize_fp_key(to_column(
+                g.eval_device(batch, ctx.eval_ctx), batch, g.dtype))
+                for g in self.grouping]
             enc = encode_group_keys(key_cols, n, cap)
             perm = lex_sort_permutation(enc, n, cap)
             _, seg_ids, ng = segment_boundaries(enc, perm,

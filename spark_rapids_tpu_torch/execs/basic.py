@@ -146,26 +146,13 @@ class TorchRangeExec(TorchExec):
 
 class TorchUnionExec(TorchExec):
     """UNION ALL: partition i is the i-th partition of the children read in
-    turn, each batch renamed to the union's columns. A child column of
-    another type than the union's (the first child's) is cast to it; the
-    reference passes such a column through in its own type."""
+    turn, each batch renamed to the union's columns (the logical union
+    casts a child of another type below it, ``plan/logical.Union``)."""
 
     def __init__(self, children: Sequence[PhysicalPlan],
                  output: List[AttributeReference]):
         super().__init__(list(children))
         self._output = output
-        self._casts = [self._child_casts(c) for c in children]
-
-    def _child_casts(self, child: PhysicalPlan):
-        """The projection that casts a child's batches to the union's
-        types, or None when they already agree."""
-        from ..expressions.cast import Cast
-        if all(a.dtype == o.dtype for a, o in zip(child.output,
-                                                   self._output)):
-            return None
-        return [bind_references(a if a.dtype == o.dtype
-                                else Cast(a, o.dtype), child.output)
-                for a, o in zip(child.output, self._output)]
 
     @property
     def output(self):
@@ -177,17 +164,11 @@ class TorchUnionExec(TorchExec):
     def internal_do_execute_columnar(self, idx: int,
                                      ctx: TaskContext) -> Iterator:
         names = [a.name for a in self._output]
-        for c, casts in zip(self.children, self._casts):
+        for c in self.children:
             n = c.num_partitions()
             if idx < n:
                 for b in c.execute_partition(idx, ctx):
                     with op_time(ctx, self):
-                        if casts is not None:
-                            b = TorchColumnarBatch(
-                                [to_column(e.eval_device(b, ctx.eval_ctx),
-                                           b, a.dtype)
-                                 for e, a in zip(casts, self._output)],
-                                b.num_rows)
                         out = b.rename(names)
                     yield out
                 return

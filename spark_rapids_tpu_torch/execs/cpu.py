@@ -402,8 +402,8 @@ class CpuTopNExec(CpuExec):
 
 
 class CpuUnionExec(CpuExec):
-    """UNION ALL: the children's partitions in turn, each column cast to
-    the union's type where a child's differs."""
+    """UNION ALL: the children's partitions in turn, renamed to the union's
+    columns (the logical union casts a child of another type below it)."""
 
     def __init__(self, children: Sequence[PhysicalPlan],
                  output: List[AttributeReference]):
@@ -423,16 +423,8 @@ class CpuUnionExec(CpuExec):
         for c in self.children:
             n = c.num_partitions()
             if idx < n:
-                same = all(a.dtype == o.dtype
-                           for a, o in zip(c.output, self._output))
                 for b in c.execute_partition(idx, ctx):
-                    if same:
-                        yield b.rename(names)
-                        continue
-                    t = b.to_arrow()
-                    with op_time(ctx, self):
-                        out = table_batch(t, self._output)
-                    yield out
+                    yield b.rename(names)
                 return
             idx -= n
 

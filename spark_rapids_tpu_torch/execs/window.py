@@ -23,6 +23,12 @@ segment end by a ``cummin`` over the reversed array. Then:
   values agree);
 * lead and lag as a row gather inside the segment.
 
+Decimals (``_decimal_frames_device``): sum and avg from the prefix sums of
+each value's four 32-bit words, finished as the aggregate finishes a
+group; min and max over one lane as int64, over two limbs by each value's
+rank among the column's distinct values. A two-limb decimal partition or
+order key stays off the card (``plan/overrides._tag_window``).
+
 The result scatters back to input order. ``collect_list`` and
 ``collect_set`` over a window, and the reference's host-assisted path for
 them, are not yet ported: the override engine keeps such a window off the
@@ -38,10 +44,11 @@ import torch
 
 from ..columnar.batch import TorchColumnarBatch, concat_batches, gather
 from ..columnar.vector import (TorchColumnVector, audited_sync_int,
-                               bucket_capacity, row_mask)
+                               bucket_capacity, lane_mask, row_mask)
 from ..expressions.aggregates import AggregateFunction
 from ..expressions.base import (AttributeReference, Literal, arrow_column,
                                 device_parts, to_column)
+from ..expressions.decimals import rows_as
 from ..plan.logical import SortOrder
 from ..window import (CURRENT_ROW, UNBOUNDED_FOLLOWING, UNBOUNDED_PRECEDING,
                       CumeDist, DenseRank, Lag, Lead, NTile, PercentRank,
@@ -176,7 +183,7 @@ class TorchWindowExec(TorchExec):
         mask = row_mask(n, cap, dev)
         valid = mask if validity is None else validity[inv] & mask
         data = result[inv]
-        data = torch.where(valid, data,
+        data = torch.where(lane_mask(valid, data), data,
                            torch.zeros((), dtype=data.dtype, device=dev))
         return TorchColumnVector(fn.dtype, data, valid, n)
 
@@ -241,18 +248,20 @@ class TorchWindowExec(TorchExec):
         if fn.default is None:
             return out
         take = outside & row_mask(n, cap, dev)
+        default = fn.default.eval_device(batch, ctx.eval_ctx)
         if out.offsets is not None:
-            return _string_default(out, take, fn.default.eval_device(
-                batch, ctx.eval_ctx), batch)
-        dd, dv = device_parts(fn.default.eval_device(batch, ctx.eval_ctx),
-                              cap, dev)
-        data = torch.where(take, torch.broadcast_to(dd, (cap,)).to(
-            out.data.dtype), out.data)
+            return _string_default(out, take, default, batch)
+        if isinstance(out.dtype, DecimalType):  # the column's carrier
+            dd, dv = rows_as(default, fn.default.dtype, out.dtype, cap, dev)
+        else:
+            dd, dv = device_parts(default, cap, dev)
+            dd = torch.broadcast_to(dd, (cap,)).to(out.data.dtype)
+        data = torch.where(lane_mask(take, out.data), dd, out.data)
         valid = out.validity_or_true() | (take if dv is None
                                           else take & dv)
         return TorchColumnVector(out.dtype, torch.where(
-            valid, data, torch.zeros((), dtype=data.dtype, device=dev)),
-            valid, n)
+            lane_mask(valid, data), data,
+            torch.zeros((), dtype=data.dtype, device=dev)), valid, n)
 
     def _string_minmax(self, fn, spec, batch, ctx, perm, idxs, seg_start,
                        seg_end, is_new_order) -> TorchColumnVector:
@@ -335,43 +344,34 @@ class TorchWindowExec(TorchExec):
         else:
             hi = torch.minimum(idxs + hi_off, seg_end - 1)
 
+        if op not in ("sum", "count", "avg", "min", "max"):
+            raise NotImplementedError(f"window aggregate {op} not yet ported")
+        if values is None and fn.children and op != "count" \
+                and isinstance(fn.children[0].dtype, DecimalType):
+            return _decimal_frames_device(fn, sdata, svalid, lo, hi,
+                                          ctx.eval_ctx.ansi)
         if op in ("min", "max"):
             return _bounded_minmax(op, sdata, svalid, lo, hi)
-        if op not in ("sum", "count", "avg"):
-            raise NotImplementedError(f"window aggregate {op} not yet ported")
+        if sdata.dim() == 2:  # a two-limb decimal's count: its validity
+            sdata = svalid
         is_fp = sdata.is_floating_point()
         acc = torch.float64 if op == "avg" or is_fp else torch.int64
         zero = torch.zeros((), dtype=sdata.dtype, device=dev)
         x = torch.where(svalid, sdata, zero).to(acc)
 
-        def range_sum(prefix, lo, hi):
-            """The sum over sorted positions [lo, hi]; 0 when lo > hi."""
-            hi_v = prefix[hi.clamp(0, cap - 1)]
-            lo_v = torch.where(lo > 0, prefix[(lo - 1).clamp(0, cap - 1)],
-                               torch.zeros((), dtype=prefix.dtype,
-                                           device=dev))
-            return torch.where(hi >= lo, hi_v - lo_v,
-                               torch.zeros((), dtype=prefix.dtype,
-                                           device=dev))
-
-        def prefix(t):
-            if t.is_floating_point():
-                return _float_prefix_sum(t)
-            return torch.cumsum(t.to(torch.int64), 0)
-
-        c = range_sum(prefix(svalid), lo, hi)
+        c = _range_sum(_prefix(svalid), lo, hi)
         if op == "count":
             return c, None
         if is_fp:
             # NaN and infinities would poison the prefix sums across
             # partitions: count them apart and put them back
-            n_nan = range_sum(prefix(svalid & torch.isnan(sdata)), lo, hi)
-            n_pinf = range_sum(prefix(svalid & torch.isposinf(sdata)),
-                               lo, hi)
-            n_ninf = range_sum(prefix(svalid & torch.isneginf(sdata)),
-                               lo, hi)
+            n_nan = _range_sum(_prefix(svalid & torch.isnan(sdata)), lo, hi)
+            n_pinf = _range_sum(_prefix(svalid & torch.isposinf(sdata)),
+                                lo, hi)
+            n_ninf = _range_sum(_prefix(svalid & torch.isneginf(sdata)),
+                                lo, hi)
             x = torch.where(torch.isfinite(x), x, 0.0)
-        s = range_sum(prefix(x), lo, hi)
+        s = _range_sum(_prefix(x), lo, hi)
         if is_fp:
             s = torch.where((n_nan > 0) | ((n_pinf > 0) & (n_ninf > 0)),
                             float("nan"),
@@ -384,6 +384,72 @@ class TorchWindowExec(TorchExec):
             return torch.where(valid, s, 0).to(out), valid
         avg = s.to(torch.float64) / torch.where(valid, c, 1).to(torch.float64)
         return torch.where(valid, avg, 0.0), valid
+
+
+def _prefix(t: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums: a float column's in a fixed order, an
+    integral (or boolean) one's in int64."""
+    if t.is_floating_point():
+        return _float_prefix_sum(t)
+    return torch.cumsum(t.to(torch.int64), 0)
+
+
+def _range_sum(prefix: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor
+               ) -> torch.Tensor:
+    """The sum over each row's sorted positions [lo, hi] (0 when lo >
+    hi) from the prefix sums: a difference (an int64 one wraps, exact
+    while the frame's own sum fits)."""
+    cap = prefix.shape[0]
+    zero = torch.zeros((), dtype=prefix.dtype, device=prefix.device)
+    hi_v = prefix[hi.clamp(0, cap - 1)]
+    lo_v = torch.where(lo > 0, prefix[(lo - 1).clamp(0, cap - 1)], zero)
+    return torch.where(hi >= lo, hi_v - lo_v, zero)
+
+
+def _decimal_frames_device(fn, sdata: torch.Tensor, svalid: torch.Tensor,
+                           lo: torch.Tensor, hi: torch.Tensor, ansi: bool):
+    """A decimal sum, avg, min or max over every row's frame, in sorted
+    order: (result carrier, validity). Sum and avg take each value's four
+    32-bit words (``decimal128.segment_words128``) summed over the frame
+    by prefix-sum differences, finished as the aggregate finishes its
+    groups (``aggregates._decimal_result``: null past the sum type, avg's
+    quotient by ``div_half_up``). Min and max of one lane are the int64
+    sparse tables; of two limbs, the same over each value's rank among
+    the column's distinct values, mapped back."""
+    from ..kernels import decimal128 as D
+    from .aggregates import _decimal_result
+    op, cap = fn.update_op, sdata.shape[0]
+    if op in ("min", "max"):
+        if sdata.dim() == 1:
+            return _bounded_minmax(op, sdata, svalid, lo, hi)
+        codes, table = _distinct_codes128(sdata)
+        red, valid = _bounded_minmax(op, codes, svalid, lo, hi)
+        return table[red], valid
+    h, l = D.limbs_of(sdata)
+    h, l = torch.where(svalid, h, 0), torch.where(svalid, l, 0)
+    state = {"words": D.segment_words128(
+        h, l, lambda w: _range_sum(_prefix(w), lo, hi)),
+             "nonnull": _range_sum(_prefix(svalid), lo, hi)}
+    out = _decimal_result(fn, state, cap, cap, ansi)
+    return out.data, out.validity
+
+
+def _distinct_codes128(data: torch.Tensor):
+    """Each two-limb value's rank among the distinct values (signed
+    128-bit order) and the table of values by rank: (codes [n], table [n,
+    2])."""
+    h, l = data[:, 0], data[:, 1]
+    o1 = torch.sort(l ^ -2 ** 63, stable=True).indices  # unsigned low limb
+    order = o1[torch.sort(h[o1], stable=True).indices]
+    sh, sl = h[order], l[order]
+    new = torch.ones_like(sh, dtype=torch.bool)
+    new[1:] = (sh[1:] != sh[:-1]) | (sl[1:] != sl[:-1])
+    ranked = torch.cumsum(new.to(torch.int64), 0) - 1
+    codes = torch.empty_like(ranked)
+    codes[order] = ranked
+    table = torch.zeros_like(data)
+    table[ranked] = data[order]
+    return codes, table
 
 
 def _float_prefix_sum(x: torch.Tensor) -> torch.Tensor:

@@ -18,8 +18,10 @@ null, or under ANSI an ``ExpressionError`` ("decimal overflow in add", the
 same on the host). A product past 10^38 before its rescale is computed on
 the host with exact integers (Spark rounds it to 38 digits first), so no
 row is null where Spark has a value. ``/``, ``%`` and ``pmod`` of decimals
-stay off the card (ROADMAP A6) and run in the host engine, exactly, with
-Spark's HALF_UP.
+run on the card too (``decimals.divmod_decimals``: a 128-bit long
+division, Spark's two HALF_UP roundings of ``/`` in one test on the
+remainder); the rows whose scaled operands pass 2^127 are computed on the
+host by the host engine's exact rules, which every other row equals.
 
 ``Long.MinValue / -1`` traps on x86 and is undefined on CUDA, so a
 divisor of -1 is replaced by 1 and the quotient negated with wrap
@@ -272,14 +274,6 @@ class _DivModLike(BinaryArithmetic):
     def nullable(self) -> bool:
         return True
 
-    @property
-    def tpu_supported(self) -> bool:
-        return not self.is_decimal
-
-    @property
-    def tpu_unsupported_reason(self) -> str:
-        return DEC.A6_REASON.format(what=type(self).__name__)
-
     #: the exact host rule of a decimal operand pair
     _decimal_rule = None
 
@@ -288,13 +282,43 @@ class _DivModLike(BinaryArithmetic):
 
     def _eval_parts(self, l, r, batch, ctx):
         if self.is_decimal:
-            raise NotImplementedError(self.tpu_unsupported_reason)
+            return self._decimal_device(l, r, batch, ctx)
         ld, rd, valid, zero = _div_parts(l, r, batch)
         _ansi_check(zero, valid, ctx, "division by zero")
         one = torch.ones((), dtype=rd.dtype, device=rd.device)
         data = self._op(ld, torch.where(zero, one, rd), ctx, valid)
         mask = row_mask(batch.num_rows, batch.capacity, batch.device)
         return data, combine_validity(valid, ~zero & mask)
+
+    def _decimal_device(self, l, r, batch, ctx):
+        """Two decimals on the card (``decimals.divmod_decimals``); the
+        rows whose scaled operands pass 2^127 through the host rule."""
+        cap, dev = batch.capacity, batch.device
+        lt, rt, out = self.left.dtype, self.right.dtype, self.dtype
+        ld, lv = device_parts(l, cap, dev)
+        rd, rv = device_parts(r, cap, dev)
+        valid = combine_validity(lv, rv, row_mask(batch.num_rows, cap, dev))
+        a = DEC.broadcast_rows(ld, cap, lt)
+        b = DEC.broadcast_rows(rd, cap, rt)
+        zero = (b == 0).all(-1) if b.dim() == 2 else b == 0
+        _ansi_check(zero, valid, ctx, "division by zero")
+        data, ovf, big = DEC.divmod_decimals(self.symbol, a, b, lt, rt, out)
+        idx = DEC.host_rows(big & ~zero if valid is None
+                            else big & ~zero & valid)
+        if idx is not None:
+            DEC.host_path(ctx, self, "operand past 2^127")
+            xa = np.empty(len(idx), dtype=object)
+            xa[:] = DEC.carrier_ints(a, idx)
+            xb = np.empty(len(idx), dtype=object)
+            xb[:] = DEC.carrier_ints(b, idx)
+            vals, ok = type(self)._decimal_rule(xa, xb, lt.scale, rt.scale,
+                                                out)
+            DEC.put_ints(data, idx, [int(v) if k else 0
+                                     for v, k in zip(vals, ok)])
+            ovf[idx] = torch.from_numpy(~ok).to(ovf.device)
+        valid = combine_validity(valid, ~zero)
+        return data, DEC.overflow_check(ovf, valid, ctx.ansi,
+                                        f"decimal overflow in {self.what}")
 
     def eval_cpu(self, table, ctx=_DEFAULT_CTX):
         if self.is_decimal:
@@ -313,7 +337,8 @@ class _DivModLike(BinaryArithmetic):
         n = 1 if scalar else len(l if is_arrow(l) else r)
         rule = type(self)._decimal_rule
         if rule is None:
-            raise NotImplementedError(self.tpu_unsupported_reason)
+            raise NotImplementedError(
+                DEC.A6_REASON.format(what=type(self).__name__))
         a, av = DEC.arrow_object(arrow_column(l, n, lt))
         b, bv = DEC.arrow_object(arrow_column(r, n, rt))
         valid = av & bv
@@ -329,8 +354,7 @@ class _DivModLike(BinaryArithmetic):
 
 class Divide(_DivModLike):
     """Spark `/`: inputs coerced to double, or two decimals (Spark's
-    decimal quotient, on the host); a zero divisor gives null for every
-    type."""
+    decimal quotient); a zero divisor gives null for every type."""
     symbol = "/"
     what = "divide"
     _decimal_rule = staticmethod(DEC.divide_arr)
@@ -365,6 +389,14 @@ class IntegralDivide(_DivModLike):
     @property
     def dtype(self) -> DataType:
         return LongT
+
+    @property
+    def tpu_supported(self) -> bool:
+        return not self.is_decimal
+
+    @property
+    def tpu_unsupported_reason(self) -> str:
+        return DEC.A6_REASON.format(what=type(self).__name__)
 
     def _op(self, l, r, ctx, valid):
         l, r = l.to(torch.int64), r.to(torch.int64)

@@ -24,8 +24,8 @@ import torch
 from ..columnar.vector import (TorchColumnVector, TorchScalar,
                                decimal_carrier, lane_mask, row_mask)
 from ..config import RapidsConf
-from ..types import (BooleanT, DataType, DecimalType, DoubleT, IntegerT,
-                     LongT, NullT, StringT)
+from ..types import (BooleanT, DataType, DateT, DecimalType, DoubleT,
+                     IntegerT, LongT, NullT, StringT, TimestampT)
 
 
 class EvalContext:
@@ -131,11 +131,27 @@ class Expression:
 
 @dataclass(init=False)
 class Literal(Expression):
+    """A constant. A ``datetime.date`` is a DateType day number; an aware
+    ``datetime.datetime`` a TimestampType instant; a naive one a wall
+    time in the session zone (``wall``, as a SQL ``TIMESTAMP '…'``
+    literal), turned into its instant when evaluated."""
     value: Any
     _dtype: DataType
+    wall: bool = False
 
     def __init__(self, value: Any, dtype: Optional[DataType] = None):
+        import datetime
         self.children = ()
+        self.wall = False
+        if isinstance(value, datetime.datetime):
+            self.wall = value.tzinfo is None
+            epoch = datetime.datetime(1970, 1, 1, tzinfo=None if self.wall
+                                      else datetime.timezone.utc)
+            value = (value - epoch) // datetime.timedelta(microseconds=1)
+            dtype = dtype or TimestampT
+        elif isinstance(value, datetime.date):
+            value = (value - datetime.date(1970, 1, 1)).days
+            dtype = dtype or DateT
         self.value = value
         self._dtype = dtype if dtype is not None else infer_literal_type(value)
 
@@ -147,11 +163,20 @@ class Literal(Expression):
     def nullable(self) -> bool:
         return self.value is None
 
+    def value_in(self, ctx):
+        """The value in the session of ``ctx`` (a wall time's instant)."""
+        if not self.wall or self.value is None:
+            return self.value
+        from .datetime import session_zone
+        db = session_zone(ctx)
+        return self.value if db is None else int(db.local_to_utc_np(
+            np.array([self.value], np.int64))[0])
+
     def eval_device(self, batch, ctx=_DEFAULT_CTX):
-        return TorchScalar(self._dtype, self.value)
+        return TorchScalar(self._dtype, self.value_in(ctx))
 
     def eval_cpu(self, table, ctx=_DEFAULT_CTX):
-        return self.value
+        return self.value_in(ctx)
 
     def pretty(self) -> str:
         return repr(self.value)

@@ -12,8 +12,12 @@ To and from strings through the host, as the reference
 * numeric, boolean, date and timestamp → string in Spark's text: Java's
   ``Double.toString``/``Float.toString`` for floats (``_spark_float_str``),
   ``true``/``false``, ISO dates, timestamps with their fraction trimmed;
-* string → integral, fractional, boolean, date and timestamp (UTC session
-  zone), null where Spark's non-ANSI cast is null.
+* string → integral, fractional, boolean, date and timestamp, null where
+  Spark's non-ANSI cast is null.
+
+Timestamps read and write their text in the session zone
+(``spark.sql.session.timeZone``, ``tzdb.py``'s tables with java.time's gap
+and overlap rules); a text with its own zone or offset keeps it.
 
 The host work is vectorized through pyarrow and numpy where Spark's rules
 and Arrow's agree (plain digits, plain decimals, ISO dates, floats in
@@ -52,6 +56,7 @@ from ..columnar.vector import (TorchScalar, audited_sync_int,
 from ..types import (BooleanType, DataType, DateType, DecimalType,
                      DoubleType, FloatType, FractionalType, IntegralType,
                      NullType, NumericType, StringType, TimestampType)
+from ..tzdb import zone_table
 from .base import (_DEFAULT_CTX, Expression, UnaryExpression, arrow_column,
                    arrow_numpy, combine_validity, device_parts, is_arrow,
                    make_column)
@@ -118,10 +123,10 @@ class Cast(UnaryExpression):
             raise NotImplementedError(f"cast {src} -> {dst} not yet ported")
         return strings
 
-    def _cast_constant(self, v, strings: bool):
+    def _cast_constant(self, v, strings: bool, ctx):
         src, dst = self.child.dtype, self._to
         if strings and src != dst:
-            return _cast_scalar_string(v, src, dst)
+            return _cast_scalar_string(v, src, dst, ctx.tz)
         return _cast_scalar(v, dst)
 
     def eval_cpu(self, table, ctx=_DEFAULT_CTX):
@@ -133,13 +138,14 @@ class Cast(UnaryExpression):
         strings = self._check(ctx)
         c = self.child.eval_cpu(table, ctx)
         if not is_arrow(c):
-            return self._cast_constant(c, strings)
+            return self._cast_constant(c, strings, ctx)
         arr = arrow_column(c, len(c), src)
         if src == dst:
             return arr
         if strings:
-            return format_to_string(arr, src) if isinstance(dst, StringType) \
-                else parse_string(arr, dst)
+            return format_to_string(arr, src, ctx.tz) \
+                if isinstance(dst, StringType) \
+                else parse_string(arr, dst, ctx.tz)
         vals, null = arrow_numpy(arr, len(arr), src)
         out = _numeric_cast(torch.from_numpy(np.array(vals)), src, dst)
         # a host tensor (eval_cpu): no device transfer
@@ -204,15 +210,17 @@ class Cast(UnaryExpression):
         strings = self._check(ctx)
         c = self.child.eval_device(batch, ctx)
         if isinstance(c, TorchScalar):
-            return TorchScalar(dst, self._cast_constant(c.value, strings))
+            return TorchScalar(dst, self._cast_constant(c.value, strings,
+                                                        ctx))
         if src == dst:
             return c
         if strings:
             from .strings import column_from_arrow, column_to_arrow, host_path
             host_path(ctx, self, "string cast")
             arr = column_to_arrow(c)
-            out = format_to_string(arr, src) if isinstance(dst, StringType) \
-                else parse_string(arr, dst)
+            out = format_to_string(arr, src, ctx.tz) \
+                if isinstance(dst, StringType) \
+                else parse_string(arr, dst, ctx.tz)
             return column_from_arrow(out, dst, batch)
         cap, dev = batch.capacity, batch.device
         d, v = device_parts(c, cap, dev)
@@ -436,9 +444,11 @@ def _cast_scalar(v, dst: DataType):
 _ASCII = re.ASCII
 
 
-def _cast_scalar_string(v, src: DataType, dst: DataType):
+def _cast_scalar_string(v, src: DataType, dst: DataType,
+                        tz: Optional[str] = None):
     """A literal's string cast, by the column rules (a date literal is its
-    day number, a timestamp its microseconds)."""
+    day number, a timestamp its microseconds), in the session zone
+    ``tz``."""
     if v is None:
         return None
     import pyarrow as pa
@@ -450,8 +460,8 @@ def _cast_scalar_string(v, src: DataType, dst: DataType):
             arr = pa.array([v], pa.int64()).cast(pa.timestamp("us"))
         else:
             arr = pa.array([v], type=to_arrow(src))
-        return format_to_string(arr, src)[0].as_py()
-    out = parse_string(pa.array([v], pa.string()), dst)
+        return format_to_string(arr, src, tz)[0].as_py()
+    out = parse_string(pa.array([v], pa.string()), dst, tz)
     if isinstance(dst, DateType):
         out = out.cast(pa.int32())
     elif isinstance(dst, TimestampType):
@@ -459,10 +469,10 @@ def _cast_scalar_string(v, src: DataType, dst: DataType):
     return out[0].as_py()
 
 
-def format_to_string(arr, src: DataType):
+def format_to_string(arr, src: DataType, tz: Optional[str] = None):
     """Spark's text of each value (reference ``_format_to_string_arrow``):
     Java's shortest round-trip float text, ``true``/``false``, ISO dates,
-    timestamps with a trimmed fraction."""
+    timestamps in the session zone ``tz`` with a trimmed fraction."""
     import pyarrow as pa
     import pyarrow.compute as pc
     if isinstance(arr, pa.ChunkedArray):
@@ -478,22 +488,23 @@ def format_to_string(arr, src: DataType):
     if isinstance(src, (FloatType, DoubleType)):
         return _float_strings(arr, isinstance(src, FloatType))
     if isinstance(src, TimestampType):
-        return _timestamp_strings(arr)
+        return _timestamp_strings(arr, zone_table(tz))
     raise NotImplementedError(f"cast {src} -> string not yet ported")
 
 
-def _timestamp_strings(arr):
-    """``y-MM-dd HH:mm:ss[.f]`` of each timestamp (the year unpadded, as
-    the reference's ``strftime`` gives it), the fraction's trailing zeros
-    trimmed, with numpy over the microseconds: no Python ``datetime`` a
-    row."""
+def _timestamp_strings(arr, db=None):
+    """``yyyy-MM-dd HH:mm:ss[.f]`` of each timestamp as a wall time in the
+    zone ``db`` (None: UTC), the fraction's trailing zeros trimmed, with
+    numpy over the microseconds: no Python ``datetime`` a row."""
     import pyarrow as pa
     us = np.asarray(arr.cast(pa.int64()).fill_null(0).to_numpy(
         zero_copy_only=False), np.int64)
+    if db is not None:
+        us = db.utc_to_local_np(us)
     secs = np.floor_divide(us, 1_000_000)
     frac = us - secs * 1_000_000
-    text = np.char.lstrip(np.char.replace(np.datetime_as_string(
-        secs.astype("datetime64[s]"), unit="s"), "T", " "), "0")
+    text = np.char.replace(np.datetime_as_string(
+        secs.astype("datetime64[s]"), unit="s"), "T", " ")
     digits = np.char.rstrip(np.char.zfill(frac.astype(str), 6), "0")
     text = np.where(frac != 0, np.char.add(np.char.add(text, "."), digits),
                     text)
@@ -631,10 +642,11 @@ def _parse_spark_date(s: str):
         return None
 
 
-def _parse_spark_timestamp(s: str):
-    """Spark's ``stringToTimestamp`` in the UTC session zone: the date as in
-    ``stringToDate``, ``[h]h[:[m]m[:[s]s[.f{1,9}]]]`` after ' ' or 'T', an
-    optional zone ``Z``/``UTC``/``GMT``/``[+-]h[h][:mm]``; ``epoch``. Epoch
+def _parse_spark_timestamp(s: str, db=None):
+    """Spark's ``stringToTimestamp``: the date as in ``stringToDate``,
+    ``[h]h[:[m]m[:[s]s[.f{1,9}]]]`` after ' ' or 'T', an optional zone
+    ``Z``/``UTC``/``GMT``/``[+-]h[h][:mm]``; ``epoch``. A text without a
+    zone is a wall time in the session zone ``db`` (None: UTC). Epoch
     microseconds or None."""
     import datetime
     s = s.strip()
@@ -667,8 +679,11 @@ def _parse_spark_timestamp(s: str):
     except ValueError:
         return None
     epoch_days = (day - datetime.date(1970, 1, 1)).days
-    return (epoch_days * 86_400_000_000
-            + (hh * 3600 + mi * 60 + ss) * 1_000_000 + us) - off_us
+    local = epoch_days * 86_400_000_000 \
+        + (hh * 3600 + mi * 60 + ss) * 1_000_000 + us
+    if not zone and db is not None:
+        return int(db.local_to_utc_np(np.array([local], np.int64))[0])
+    return local - off_us
 
 
 def _fast_then_rows(trimmed, fast_re: str, fast, dummy: str, slow,
@@ -690,10 +705,11 @@ def _fast_then_rows(trimmed, fast_re: str, fast, dummy: str, slow,
         [slow(t) for t in texts], out_type))
 
 
-def parse_string(arr, dst: DataType):
+def parse_string(arr, dst: DataType, tz: Optional[str] = None):
     """Spark's non-ANSI string → ``dst`` (reference
     ``_parse_string_arrow``): surrounding whitespace trimmed, null where
-    the text is not a value of ``dst``."""
+    the text is not a value of ``dst``; a timestamp's text without a zone
+    is a wall time in the session zone ``tz``."""
     import pyarrow as pa
     import pyarrow.compute as pc
     from ..types import to_arrow
@@ -733,7 +749,8 @@ def parse_string(arr, dst: DataType):
         return _fast_then_rows(trimmed, r"^[0-9]{4}-[0-9]{2}-[0-9]{2}$", iso,
                                "1970-01-01", _parse_spark_date, pa.date32())
     if isinstance(dst, TimestampType):
-        vals = [None if s is None else _parse_spark_timestamp(s)
+        db = zone_table(tz)
+        vals = [None if s is None else _parse_spark_timestamp(s, db)
                 for s in trimmed.to_pylist()]
         return pa.array(vals, type=pa.int64()).cast(pa.timestamp("us"))
     raise NotImplementedError(f"cast string -> {dst} not yet ported")

@@ -14,18 +14,18 @@ raises, naming the zone.
 Formatting (``date_format``, ``from_unixtime``) of a pattern made only of
 the fixed-width tokens ``yyyy MM dd HH mm ss`` and single-byte literals
 runs on the card: each row's digits and literal bytes are assembled into
-one byte matrix (``_assemble``). Any other pattern of the supported set
-(names of days and months, ``yy``, ``a``, quoted text), a year outside
-1..9999 and every string parse (``unix_timestamp``/``to_unix_timestamp``
-of a string) take the host hop: the wall-clock micros come down once, the
-same assembly (with name tables) formats the column on the host, or
-pyarrow parses it, and the batch counts in
-``session.counters["datetime.hostPath"]``
-(``datetime.hostPath.<class>.<reason>``). A pattern outside the supported
-set (``_java_to_strftime``: ``SSS``, ``D``, ...) or a non-literal pattern
-is rejected for the card when the expression is built, so the override
-engine keeps its operator in the host engine and ``explain_fallback()``
-names it.
+one byte matrix (``_assemble``). Any other pattern (``_pattern_tokens``:
+runs of one Java letter, names of days and months, unpadded numbers,
+fractions, zone offsets, quoted text), a year outside 1..9999 and every
+string parse (``unix_timestamp``/``to_unix_timestamp`` of a string) take
+the host hop: the wall-clock micros come down once, the same assembly
+(with name tables) formats the column on the host, or pyarrow parses it,
+and the batch counts in ``session.counters["datetime.hostPath"]``
+(``datetime.hostPath.<class>.<reason>``). A week-based letter (``Y w W u
+e c``) raises as in Spark 3. A parse pattern outside
+``_java_to_strftime``'s set, or a non-literal pattern, is rejected for
+the card when the expression is built, so the override engine keeps its
+operator in the host engine and ``explain_fallback()`` names it.
 
 Host evaluation (``eval_cpu``, the host engine's) runs this module's own
 tensor code over CPU tensors read from the Arrow rows
@@ -107,9 +107,8 @@ def days_from_civil(y: torch.Tensor, m: torch.Tensor, d: torch.Tensor
 def session_zone(ctx):
     """The session's zone table, or None for UTC (raises for a zone
     without a TZif file)."""
-    from ..tzdb import TimeZoneDB, is_utc
-    tz = getattr(ctx, "tz", None)
-    return None if is_utc(tz) else TimeZoneDB.require(tz)
+    from ..tzdb import zone_table
+    return zone_table(getattr(ctx, "tz", None))
 
 
 def local_micros(d: torch.Tensor, dtype: DataType, ctx) -> torch.Tensor:
@@ -471,7 +470,7 @@ def _java_to_strftime(pattern: str) -> str:
 
 
 def _pattern_error(fmt) -> Optional[str]:
-    """Why the card cannot take this pattern argument, or None."""
+    """Why the card cannot parse by this pattern argument, or None."""
     if not isinstance(fmt, Literal):
         return "a non-literal datetime pattern runs in the host engine"
     if fmt.value is None:
@@ -483,41 +482,63 @@ def _pattern_error(fmt) -> Optional[str]:
     return None
 
 
-_FMT_WIDTH = {"yyyy": 4, "MM": 2, "dd": 2, "HH": 2, "mm": 2, "ss": 2,
-              "yy": 2}
+#: Spark 3 rejects the week-based letters (``DateTimeFormatterHelper``)
+_WEEK_LETTERS = set("YwWuec")
+#: the letters the formatter writes: Java's ``DateTimeFormatter`` fields
+_FORMAT_LETTERS = set("GyMLdDQqEaHhKkmsSXxZ")
 _DEVICE_FIELDS = {"yyyy", "MM", "dd", "HH", "mm", "ss"}
+_MONTHS = ["January", "February", "March", "April", "May", "June", "July",
+           "August", "September", "October", "November", "December"]
+_DAYS = ["Monday", "Tuesday", "Wednesday", "Thursday", "Friday",
+         "Saturday", "Sunday"]
 _NAMES = {
-    "MMM": ["Jan", "Feb", "Mar", "Apr", "May", "Jun", "Jul", "Aug", "Sep",
-            "Oct", "Nov", "Dec"],
-    "EEE": ["Mon", "Tue", "Wed", "Thu", "Fri", "Sat", "Sun"],
-    "EEEE": ["Monday", "Tuesday", "Wednesday", "Thursday", "Friday",
-             "Saturday", "Sunday"],
-    "a": ["AM", "PM"]}
+    "M3": [m[:3] for m in _MONTHS], "M4": _MONTHS,
+    "M5": [m[0] for m in _MONTHS],
+    "E3": [d[:3] for d in _DAYS], "E4": _DAYS, "E5": [d[0] for d in _DAYS],
+    "a": ["AM", "PM"],
+    "Q3": ["Q1", "Q2", "Q3", "Q4"],
+    "Q4": ["1st quarter", "2nd quarter", "3rd quarter", "4th quarter"],
+    "G3": ["AD"], "G4": ["Anno Domini"], "G5": ["A"]}
 
 
 def _pattern_tokens(pattern: str):
-    """A pattern of the supported set as [("f", token) | ("l", bytes)]
-    (``_java_to_strftime``'s reading)."""
+    """A Java datetime pattern as [("f", run) | ("l", bytes)], a run being
+    one letter repeated (``"MMMM"``). Quoted text copies through. A
+    week-based letter raises ValueError, as Spark 3 does; a letter the
+    port does not write (a zone name) raises NotImplementedError."""
     toks = []
     i = 0
     while i < len(pattern):
-        if pattern[i] == "'":
+        ch = pattern[i]
+        if ch == "'":
             if pattern.startswith("''", i):
                 toks.append(("l", b"'"))
                 i += 2
                 continue
             j = pattern.find("'", i + 1)
+            if j < 0:
+                raise ValueError("unterminated quote in datetime pattern")
             lit = pattern[i + 1: j]
             toks.append(("l", lit.encode() if lit else b"'"))
             i = j + 1
             continue
-        tok = next((t for t in _TOKENS if pattern.startswith(t, i)), None)
-        if tok is not None:
-            toks.append(("f", tok))
-            i += len(tok)
+        if not ch.isalpha():
+            toks.append(("l", ch.encode()))
+            i += 1
             continue
-        toks.append(("l", pattern[i].encode()))
-        i += 1
+        if ch in _WEEK_LETTERS:
+            raise ValueError(
+                f"All week-based patterns are unsupported since Spark 3.0, "
+                f"detected: {ch}, Please use the SQL function EXTRACT "
+                "instead")
+        if ch not in _FORMAT_LETTERS:
+            raise NotImplementedError(
+                f"datetime pattern letter {ch!r} not yet ported")
+        j = i
+        while j < len(pattern) and pattern[j] == ch:
+            j += 1
+        toks.append(("f", pattern[i:j]))
+        i = j
     return toks
 
 
@@ -533,49 +554,146 @@ def _device_fmt_plan(fmt: Optional[str]):
     return toks if ok and toks else None
 
 
-def _assemble(local: torch.Tensor, valid, n: int, cap: int, toks
+def _needs_offset(toks) -> bool:
+    return any(k == "f" and v[0] in "XxZ" for k, v in toks)
+
+
+def _digits(v: torch.Tensor, width: int, min_width: int):
+    """The decimal digits of non-negative ``v`` in ``width`` bytes, and a
+    keep mask dropping leading zeros down to ``min_width`` digits (None
+    when every byte stays)."""
+    block = torch.stack([(torch.remainder(_fdiv(v, 10 ** (width - 1 - k)),
+                                          10) + 48).to(torch.uint8)
+                         for k in range(width)], dim=1)
+    if min_width >= width:
+        return block, None
+    keep = torch.stack([v >= 10 ** (width - 1 - k)
+                        if k < width - min_width else torch.ones_like(
+                            v, dtype=torch.bool) for k in range(width)],
+                       dim=1)
+    return block, keep
+
+
+def _named(names, index: torch.Tensor, dev):
+    """Each row's name from a table (a byte block and its length mask)."""
+    w = max(len(x) for x in names)
+    table = torch.tensor([list(x.encode().ljust(w, b"\0")) for x in names],
+                         dtype=torch.uint8, device=dev)
+    lens = torch.tensor([len(x) for x in names], device=dev)
+    keep = torch.arange(w, device=dev)[None, :] < lens[index][:, None]
+    return table[index], keep
+
+
+def _offset_block(off_s: torch.Tensor, letter: str, count: int):
+    """A zone offset (seconds east of UTC) in Java's ``X``/``x``/``Z``
+    forms of one to three letters: ±HH[mm] (one letter: the minutes only
+    when not zero), ±HHMM, ±HH:MM; ``X`` writes Z for zero."""
+    if count > 3:
+        raise NotImplementedError(
+            f"datetime pattern {letter * count!r} not yet ported")
+    dev = off_s.device
+    neg = off_s < 0
+    a = torch.abs(off_s)
+    hh, mm = _fdiv(a, 3600), torch.remainder(_fdiv(a, 60), 60)
+    sign = torch.where(neg, ord("-"), ord("+")).to(torch.uint8)[:, None]
+    parts = [sign, _digits(hh, 2, 2)[0]]
+    keeps = [torch.ones_like(sign, dtype=torch.bool),
+             torch.ones(a.shape[0], 2, dtype=torch.bool, device=dev)]
+    if count == 3 and letter != "Z":
+        parts.append(torch.full_like(sign, ord(":")))
+        keeps.append(torch.ones_like(sign, dtype=torch.bool))
+    parts.append(_digits(mm, 2, 2)[0])
+    mkeep = (mm != 0)[:, None].expand(-1, 2) if count == 1 \
+        and letter != "Z" else torch.ones(a.shape[0], 2, dtype=torch.bool,
+                                          device=dev)
+    keeps.append(mkeep)
+    block, keep = torch.cat(parts, 1), torch.cat(keeps, 1)
+    if letter == "X":  # "Z" alone for a zero offset
+        zero = (off_s == 0)[:, None]
+        block = torch.where(zero & (torch.arange(block.shape[1],
+                                                 device=dev) == 0),
+                            torch.full_like(block, ord("Z")), block)
+        keep = torch.where(zero, torch.arange(block.shape[1], device=dev)
+                           == 0, keep)
+    return block, keep
+
+
+def _field_block(run: str, f: dict, dev):
+    """One pattern run's bytes: (block [n, W], keep mask or None)."""
+    c, k = run[0], len(run)
+    if c == "y":
+        if k == 2:
+            return _digits(torch.remainder(f["y"], 100), 2, 2)
+        return _digits(f["y"], max(k, 4), k)
+    if c in "ML":
+        if k >= 3:
+            return _named(_NAMES[f"M{min(k, 5)}"], f["mo"] - 1, dev)
+        return _digits(f["mo"], 2, k)
+    if c in "Qq":
+        q = _fdiv(f["mo"] - 1, 3)
+        if k >= 3:
+            return _named(_NAMES[f"Q{min(k, 4)}"], q, dev)
+        return _digits(q + 1, 2, k)
+    if c == "E":
+        return _named(_NAMES[f"E{max(min(k, 5), 3)}"], f["dow"], dev)
+    if c == "a":
+        return _named(_NAMES["a"], (f["hour"] >= 12).to(torch.int64), dev)
+    if c == "G":
+        return _named(_NAMES[f"G{max(min(k, 5), 3)}"],
+                      torch.zeros_like(f["y"]), dev)
+    if c == "S":
+        frac = f["frac"]  # micros into the second: the first k digits
+        digits = frac * 10 ** (k - 6) if k >= 6 else _fdiv(frac,
+                                                          10 ** (6 - k))
+        return _digits(digits, k, k)
+    if c in "XxZ":
+        return _offset_block(f["off"], c, k)
+    v = {"d": f["d"], "D": f["doy"], "H": f["hour"],
+         "k": torch.where(f["hour"] == 0, 24, f["hour"]),
+         "K": torch.remainder(f["hour"], 12),
+         "h": torch.where(torch.remainder(f["hour"], 12) == 0, 12,
+                          torch.remainder(f["hour"], 12)),
+         "m": f["minute"], "s": f["sec"]}[c]
+    return _digits(v, 3 if c == "D" else max(k, 2), k)
+
+
+def _assemble(local: torch.Tensor, valid, n: int, cap: int, toks,
+              offset: Optional[torch.Tensor] = None
               ) -> Optional[TorchColumnVector]:
     """Wall-clock micros → the formatted strings: one byte block a token
-    (digits, a name from a table, literal bytes), the blocks side by side
-    in a (cap, W) matrix; a name of varying width (``EEEE``) masks its
-    padding out. None when a valid row's year lies outside 1..9999 (Java
-    widens ``yyyy`` there); that check is the one host read."""
+    (digits, a name from a table, an offset, literal bytes), the blocks
+    side by side in a (cap, W) matrix; a field of varying width (an
+    unpadded number, a name) masks its unused bytes out. ``offset`` is
+    each row's zone offset in micros (for ``X``/``x``/``Z``). None when a
+    valid row's year lies outside 1..9999 (Java widens ``yyyy`` there);
+    that check is the one host read."""
     dev = local.device
     days = _fdiv(local, MICROS_PER_DAY)
     y, mo, d = civil_from_days(days)
     live = row_mask(n, cap, dev) if valid is None else valid
     if audited_sync_int(((y < 1) | (y > 9999))[live].any(), "scalar"):
         return None
-    secs = _fdiv(local - days * MICROS_PER_DAY, MICROS_PER_SECOND)
-    hour = _fdiv(secs, 3600)
-    fields = {"yyyy": y, "yy": torch.remainder(y, 100), "MM": mo, "dd": d,
-              "HH": hour, "mm": torch.remainder(_fdiv(secs, 60), 60),
-              "ss": torch.remainder(secs, 60)}
-    index = {"MMM": mo - 1, "EEE": torch.remainder(days + 3, 7),
-             "EEEE": torch.remainder(days + 3, 7),
-             "a": (hour >= 12).to(torch.int64)}
+    in_day = local - days * MICROS_PER_DAY
+    secs = _fdiv(in_day, MICROS_PER_SECOND)
+    f = {"y": y, "mo": mo, "d": d, "hour": _fdiv(secs, 3600),
+         "minute": torch.remainder(_fdiv(secs, 60), 60),
+         "sec": torch.remainder(secs, 60),
+         "frac": in_day - secs * MICROS_PER_SECOND,
+         "dow": torch.remainder(days + 3, 7),
+         "doy": days - days_from_civil(y, torch.ones_like(mo),
+                                       torch.ones_like(d)) + 1,
+         "off": (torch.zeros_like(local) if offset is None
+                 else _fdiv(offset, MICROS_PER_SECOND))}
     blocks, keeps = [], []
     for kind, v in toks:
         if kind == "l":
             word = torch.tensor(list(v), dtype=torch.uint8, device=dev)
             blocks.append(word.expand(cap, len(v)))
             keeps.append(None)
-        elif v in fields:
-            w = _FMT_WIDTH[v]
-            blocks.append(torch.stack(
-                [(torch.remainder(_fdiv(fields[v], 10 ** (w - 1 - k)), 10)
-                  + 48).to(torch.uint8) for k in range(w)], dim=1))
-            keeps.append(None)
         else:
-            names = _NAMES[v]
-            w = max(len(x) for x in names)
-            table = torch.tensor([list(x.encode().ljust(w, b"\0"))
-                                  for x in names], dtype=torch.uint8,
-                                 device=dev)
-            blocks.append(table[index[v]])
-            lens = torch.tensor([len(x) for x in names], device=dev)
-            keeps.append(torch.arange(w, device=dev)[None, :]
-                         < lens[index[v]][:, None])
+            b, k = _field_block(v, f, dev)
+            blocks.append(b)
+            keeps.append(k)
     mat = torch.cat(blocks, dim=1)[:n]
     width = mat.shape[1]
     if all(k is None for k in keeps):
@@ -594,20 +712,21 @@ def _assemble(local: torch.Tensor, valid, n: int, cap: int, toks
                              offsets=offs.to(torch.int32))
 
 
-def _format_host(local: torch.Tensor, valid, n: int, toks, batch
-                 ) -> TorchColumnVector:
-    """The host hop of a format: the wall-clock micros down once, the
-    byte assembly on the host, the strings back up. Rows whose year lies
-    outside 1..9999 (no Python calendar holds them) are null."""
+def _format_host(local: torch.Tensor, valid, n: int, toks, batch,
+                 offset: Optional[torch.Tensor] = None) -> TorchColumnVector:
+    """The host hop of a format: the wall-clock micros (and zone offsets)
+    down once, the byte assembly on the host, the strings back up. Rows
+    whose year lies outside 1..9999 (no Python calendar holds them) are
+    null."""
     cap = batch.capacity
-    loc, v = audited_device_get([local, valid], "fetch")
-    out = _assemble(loc, v, n, cap, toks)
+    loc, v, off = audited_device_get([local, valid, offset], "fetch")
+    out = _assemble(loc, v, n, cap, toks, off)
     if out is None:
         y = civil_from_days(_fdiv(loc, MICROS_PER_DAY))[0]
         ok = (y >= 1) & (y <= 9999)
         v = ok if v is None else v & ok
         out = _assemble(torch.where(ok, loc, torch.zeros_like(loc)), v, n,
-                        cap, toks)
+                        cap, toks, off)
     return TorchColumnVector(
         StringT, out.data.to(batch.device),
         None if out.validity is None else out.validity.to(batch.device), n,
@@ -627,7 +746,9 @@ class _Formatter(Expression):
 
     @property
     def tpu_unsupported_reason(self) -> Optional[str]:
-        return _pattern_error(self.children[1])
+        if not isinstance(self.children[1], Literal):
+            return "a non-literal datetime pattern runs in the host engine"
+        return None
 
     @property
     def tpu_supported(self) -> bool:
@@ -638,6 +759,11 @@ class _Formatter(Expression):
         return StringT
 
     def _local(self, d: torch.Tensor, ctx) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _offset(self, d: torch.Tensor, local: torch.Tensor, ctx
+                ) -> torch.Tensor:
+        """Each row's zone offset in micros (local minus UTC)."""
         raise NotImplementedError
 
     def _eval(self, batch, ctx, count: bool):
@@ -651,17 +777,14 @@ class _Formatter(Expression):
                             dev)
         d = torch.broadcast_to(d, (cap,))
         valid = combine_validity(v, row_mask(n, cap, dev))
-        if fmt is None or _pattern_error(self.children[1]):
-            # a null pattern, or one outside the supported set (kept off
-            # the card; the host engine's answer is null, as the
-            # reference's)
+        if fmt is None:
             return TorchColumnVector.from_scalar(None, StringT, n, cap, dev)
+        toks = _pattern_tokens(fmt)  # raises for a letter Spark rejects
         if valid is not None:
             d = torch.where(valid, d, torch.zeros((), dtype=d.dtype,
                                                   device=dev))
         local = self._local(d, ctx)
-        toks = _device_fmt_plan(fmt)
-        if toks is not None:
+        if _device_fmt_plan(fmt) is not None:
             out = _assemble(local, valid, n, cap, toks)
             if out is not None:
                 return out
@@ -670,7 +793,9 @@ class _Formatter(Expression):
             reason = "pattern outside the device set"
         if count:
             host_path(ctx, self, reason)
-        return _format_host(local, valid, n, _pattern_tokens(fmt), batch)
+        offset = self._offset(d, local, ctx) if _needs_offset(toks) \
+            else None
+        return _format_host(local, valid, n, toks, batch, offset)
 
     def eval_device(self, batch, ctx=_DEFAULT_CTX):
         return self._eval(batch, ctx, count=True)
@@ -696,10 +821,14 @@ class _Formatter(Expression):
         out = []
         for i in range(n):
             fmt = fmts[i]
-            if fmt is None or null[i] or _pattern_error(Literal(fmt)):
+            if fmt is None or null[i]:
                 out.append(None)
                 continue
-            col = _assemble(local[i:i + 1], None, 1, 1, _pattern_tokens(fmt))
+            toks = _pattern_tokens(fmt)
+            d = torch.from_numpy(np.array(vals[i:i + 1]))
+            off = self._offset(d, local[i:i + 1], ctx) \
+                if _needs_offset(toks) else None
+            col = _assemble(local[i:i + 1], None, 1, 1, toks, off)
             out.append(None if col is None else col.to_pylist(None)[0])
         arr = pa.array(out, pa.string())
         return arr if (is_arrow(c) or is_arrow(f)) else arr[0].as_py()
@@ -718,6 +847,9 @@ class FromUnixTime(_Formatter):
         db = session_zone(ctx)
         return micros if db is None else db.utc_to_local(micros)
 
+    def _offset(self, d, local, ctx):
+        return local - d.to(torch.int64) * MICROS_PER_SECOND
+
     def pretty(self) -> str:
         return f"from_unixtime({self.children[0].pretty()}, " \
             f"{self.children[1].pretty()})"
@@ -728,6 +860,13 @@ class DateFormatClass(_Formatter):
 
     def _local(self, d, ctx):
         return local_micros(d, self.children[0].dtype, ctx)
+
+    def _offset(self, d, local, ctx):
+        if isinstance(self.children[0].dtype, TimestampType):
+            return local - d.to(torch.int64)
+        db = session_zone(ctx)  # a date: its local midnight's offset
+        return torch.zeros_like(local) if db is None \
+            else local - db.local_to_utc(local)
 
     def pretty(self) -> str:
         return f"date_format({self.children[0].pretty()}, " \

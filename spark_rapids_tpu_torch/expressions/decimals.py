@@ -9,15 +9,19 @@ precision is null (non-ANSI) or an ``ExpressionError`` (ANSI), the same
 message on the card and on the host.
 
 On the card: rescaling (up: a multiply with an overflow check; down:
-HALF_UP through ``decimal128.rescale_down``), ``+ - *``, comparisons, the
+HALF_UP through ``decimal128.rescale_down``), ``+ - * / % pmod``
+(``/``, ``%`` and ``pmod`` by ``decimal128.divmod128``), ``round``,
+``bround``, ``floor`` and ``ceil`` (``round_decimal``), comparisons, the
 casts between decimals and integers, decimal → double where the float64
 quotient is correctly rounded, double → decimal for the rows clear of a
 tie. The rest goes to the host a batch at a time, through exact Python
 integers, and is counted in ``session.counters["decimal.hostPath"]``
 (``decimal.hostPath.<class>.<reason>``): a product past 10^38 before its
-rescale, the float conversions' remaining rows, and the string casts.
-``/``, ``%`` and ``pmod`` of decimals run in the host engine alone
-(tagged off the card, ROADMAP A6), exactly, HALF_UP.
+rescale, a dividend or divisor that its scaling takes past 2^127, the
+float conversions' remaining rows, and the string casts. The host
+engine's ``/ % pmod`` and rounding run the exact integer rules below
+(``divide_arr``, ``remainder_arr``, ``pmod_arr``, ``round_arr``), which
+the card's rows equal.
 """
 
 from __future__ import annotations
@@ -175,6 +179,133 @@ def put_ints(out: torch.Tensor, idx: torch.Tensor, values: List[int]) -> None:
     out[idx] = vals.to(out.device)
 
 
+def round_decimal(data: torch.Tensor, src: DecimalType, dst: DecimalType,
+                  scale: int, mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Values of ``src`` rounded at ``scale`` fraction digits (negative: to
+    a multiple of 10^-scale) by ``mode`` (``decimal128.round_pow10``'s),
+    in ``dst``'s carrier: (carrier, overflow past ``dst``'s precision).
+    One int64 lane when the source has one and the dropped digits fit it,
+    else the limbs."""
+    k = src.scale - scale  # digits dropped
+    if k <= 0:  # nothing to round: the value as it is
+        return change_scale(data, src, dst)
+    if not src.wide and k <= 18:
+        m = 10 ** k
+        a = torch.abs(data)
+        q = torch.div(a, m, rounding_mode="floor")
+        r = a - q * m
+        neg = data < 0
+        if mode == "half_up":
+            up = 2 * r >= m
+        elif mode == "half_even":
+            up = (2 * r > m) | ((2 * r == m) & ((q & 1) == 1))
+        else:
+            up = (r != 0) & (neg if mode == "floor" else ~neg)
+        q = q + up.to(torch.int64)
+        # a negative scale multiplies back: |q| * 10^-scale <= 10^(p - s)
+        # + 10^-scale < 2^63 (p <= 18, -scale <= k <= 18)
+        v = torch.where(neg, -q, q) * 10 ** max(-scale, 0)
+        ovf = torch.abs(v) >= 10 ** dst.precision if dst.precision < 19 \
+            else torch.zeros_like(neg)
+        return (D.join(*D.from_int64(v)) if dst.wide else v), ovf
+    h, l = D.limbs_of(data)
+    if k > 38:  # |v| < 10^38: under a tenth of the unit, so 0
+        h, l = torch.zeros_like(h), torch.zeros_like(l)
+    else:
+        h, l = D.round_pow10(h, l, k, mode)
+    h, l, ovf = D.rescale_up(h, l, max(-scale, 0))
+    ovf = ovf | D.precision_overflow(h, l, dst.precision)
+    return to_carrier(h, l, dst), ovf
+
+
+def _bit_bound(digits: int) -> int:
+    """Bits of the largest value under 10^digits (at most 127)."""
+    return min((10 ** digits - 1).bit_length(), 127)
+
+
+def _scaled_magnitude(data: torch.Tensor, k: int):
+    """|value| · 10^k of a carrier: (hi, lo, negative, past 2^127)."""
+    h, l = D.limbs_of(data)
+    mh, ml, neg = D._magnitude(h, l)
+    mh, ml, big = D.rescale_up(mh, ml, k)
+    return mh, ml, neg, big
+
+
+def _uge(ah, al, bh, bl, narrow: bool):
+    """a >= b of non-negative values (one lane each when ``narrow``)."""
+    if narrow:
+        return al >= bl
+    return ~D._ult128(ah, al, bh, bl)
+
+
+def divmod_decimals(op: str, a: torch.Tensor, b: torch.Tensor,
+                    lt: DecimalType, rt: DecimalType, out: DecimalType):
+    """Spark's decimal ``/``, ``%`` or ``pmod`` of two carriers on the
+    card: (result carrier, overflow past ``out``'s precision, rows whose
+    scaled operands pass 2^127 — the caller's host rows, zero divisors
+    already excluded by its validity).
+
+    ``/`` rounds twice in Spark: the quotient at scale 38 HALF_UP, then to
+    the result scale s_r HALF_UP. With N = |a|·10^(s_r − s_a + s_b) (or
+    the divisor scaled when that exponent is negative), D = |b|, q, r =
+    divmod(N, D) and T = 10^(38 − s_r), the two roundings together round
+    q up exactly when D − 2r <= floor(D / T) for T >= 10, and when 2r >= D
+    for T = 1 (as for T past every D, where floor(D / T) is 0). ``%``
+    aligns both sides to max(s_a, s_b) and keeps the dividend's sign;
+    ``pmod`` adds the divisor to a negative remainder of a positive
+    divisor."""
+    if op == "/":
+        k = out.scale - lt.scale + rt.scale
+        ka, kb = max(k, 0), max(-k, 0)
+    else:
+        s = max(lt.scale, rt.scale)
+        ka, kb = s - lt.scale, s - rt.scale
+    nh, nl, a_neg, big_a = _scaled_magnitude(a, ka)
+    dh, dl, b_neg, big_b = _scaled_magnitude(b, kb)
+    n_bits = _bit_bound(lt.precision + ka)
+    d_bits = _bit_bound(rt.precision + kb)
+    big = big_a | big_b
+    zero = (dh == 0) & (dl == 0)
+    bad = big | zero  # computed on dummies: 0 / 1
+    nh = torch.where(bad, 0, nh)
+    nl = torch.where(bad, 0, nl)
+    dh = torch.where(bad, 0, dh)
+    dl = torch.where(bad, 1, dl)
+    narrow = d_bits <= 62
+    qh, ql, rh, rl = D.divmod128(nh, nl, dh, dl, n_bits, d_bits)
+    if op == "/":
+        t_digits = 38 - out.scale
+        eh, el, _ = D.sub128(dh, dl, rh, rl)  # D − r > 0
+        if t_digits == 0 or (10 ** t_digits).bit_length() > d_bits:
+            # T = 1 (one rounding: 2r >= D), or T past every D
+            fh, fl = torch.zeros_like(rh), torch.zeros_like(rl)
+        elif narrow:
+            fh = torch.zeros_like(rh)
+            fl = torch.div(dl, 10 ** t_digits, rounding_mode="floor")
+        else:
+            fh, fl = D.rescale_trunc(dh, dl, t_digits)
+        sh, sl, _ = D.add128(rh, rl, fh, fl)  # r + floor(D / T) < 2^128
+        up = _uge(sh, sl, eh, el, narrow)
+        vh, vl, _ = D.add128(qh, ql, torch.zeros_like(qh),
+                             up.to(torch.int64))
+        neg = a_neg != b_neg
+    else:
+        vh, vl = rh, rl
+        if op == "pmod":  # a negative remainder of a positive divisor
+            wrap = a_neg & ~b_neg & ((rh != 0) | (rl != 0))
+            yh, yl, _ = D.sub128(dh, dl, rh, rl)
+            vh, vl = torch.where(wrap, yh, vh), torch.where(wrap, yl, vl)
+            neg = a_neg & ~wrap
+        else:
+            neg = a_neg
+    ovf = D.precision_overflow(vh, vl, out.precision)
+    nh_, nl_ = D.neg128(vh, vl)
+    vh, vl = torch.where(neg, nh_, vh), torch.where(neg, nl_, vl)
+    # % and pmod: Spark's type keeps the common scale (its precision,
+    # min(p1 - s1, p2 - s2) + s, never passes 38)
+    return to_carrier(vh, vl, out), ovf, big
+
+
 # ---------------------------------------------------------------------------
 # exact integer rules (host; Spark's java.math.BigDecimal operations)
 # ---------------------------------------------------------------------------
@@ -279,6 +410,23 @@ def pmod_arr(a, b, sa: int, sb: int, dst: DecimalType):
     r = _rem_arr(x, y)
     r = np.where(r < 0, _rem_arr(r + y, y), r)
     return _finish_arr(rescale_arr(r, s, dst.scale), zero, dst)
+
+
+def round_arr(v, k: int, mode: str, mult: int):
+    """``round_decimal``'s rule over an object array of Python ints: ``v``
+    / 10^k (k >= 1) rounded by ``mode``, times ``mult``."""
+    m = 10 ** k
+    a = np.abs(v)
+    q, r = a // m, a % m
+    neg = (v < 0).astype(bool)
+    if mode == "half_up":
+        up = (2 * r >= m).astype(bool)
+    elif mode == "half_even":
+        up = ((2 * r > m) | ((2 * r == m) & (q % 2 == 1))).astype(bool)
+    else:
+        up = (r != 0).astype(bool) & (neg if mode == "floor" else ~neg)
+    q = q + up.astype(object)
+    return np.where(neg, -q, q) * mult
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,9 @@
 """Math expressions (port of ``spark_rapids_tpu/expressions/mathexprs.py``,
 with their host evaluation): ``round`` (HALF_UP) and ``bround``
-(HALF_EVEN), ``floor`` and ``ceil``, and the double functions: the
+(HALF_EVEN), ``floor`` and ``ceil`` (of a decimal: Spark 3.4's decimal
+result types and exact rounding on the unscaled integer,
+``decimals.round_decimal`` on the card, ``decimals.round_arr`` in the
+host engine), and the double functions: the
 ``sqrt``/``exp``/trigonometric family (``_DoubleUnary``), the log family
 (``_LogBase``, ``Logarithm``; Spark's null for a value at or below the
 asymptote), ``pow``, ``atan2``, ``hypot``, ``signum``, ``rint``, ``cot``,
@@ -101,14 +104,50 @@ def round_float_half_up(d: torch.Tensor, scale: int,
     return out.to(d.dtype)
 
 
-def _no_decimal(expr, child) -> None:
-    """``round``/``bround``/``floor``/``ceil`` of a decimal wait (Spark
-    gives a decimal; ROADMAP A6)."""
+def _is_decimal(e) -> bool:
     from ..types import DecimalType
-    if isinstance(child.dtype, DecimalType):
-        from .decimals import A6_REASON
-        raise NotImplementedError(
-            A6_REASON.format(what=type(expr).__name__))
+    return isinstance(e.dtype, DecimalType)
+
+
+def _decimal_round_device(expr, batch, ctx, scale: int, mode: str):
+    """A decimal child rounded on the card (``decimals.round_decimal``): a
+    value past the result's precision is null, under ANSI an error."""
+    from . import decimals as DEC
+    child, dst = expr.children[0], expr.dtype
+    cap, dev = batch.capacity, batch.device
+    d, v = device_parts(child.eval_device(batch, ctx), cap, dev)
+    d = DEC.broadcast_rows(d, cap, child.dtype)
+    valid = combine_validity(v, row_mask(batch.num_rows, cap, dev))
+    data, ovf = DEC.round_decimal(d, child.dtype, dst, scale, mode)
+    valid = DEC.overflow_check(ovf, valid, ctx.ansi,
+                               f"decimal overflow in {expr.fn_name}")
+    return make_column(dst, data, valid, batch.num_rows)
+
+
+def _decimal_round_cpu(expr, table, ctx, scale: int, mode: str):
+    """The host engine's decimal rounding: the unscaled Python ints by
+    ``decimals.round_arr``, Spark's result type."""
+    from . import decimals as DEC
+    from .base import ExpressionError, arrow_column
+    child, dst = expr.children[0], expr.dtype
+    src = child.dtype
+    c = child.eval_cpu(table, ctx)
+    n = len(c) if is_arrow(c) else 1
+    v, ok = DEC.arrow_object(arrow_column(c, n, src))
+    k = src.scale - scale
+    if k <= 0:
+        out = DEC.rescale_arr(v, src.scale, dst.scale)
+    else:
+        out = DEC.round_arr(v, k, mode, 10 ** max(-scale, 0))
+    fits = (np.abs(out) < 10 ** dst.precision).astype(bool)
+    if ctx.ansi and (ok & ~fits).any():
+        raise ExpressionError(f"decimal overflow in {expr.fn_name}")
+    arr = DEC.ints_to_arrow(out, dst, ok & fits)
+    return arr if is_arrow(c) else arr[0].as_py()
+
+
+_DECIMAL_MODES = {decimal.ROUND_HALF_UP: "half_up",
+                  decimal.ROUND_HALF_EVEN: "half_even"}
 
 
 class Round(Expression):
@@ -120,10 +159,12 @@ class Round(Expression):
 
     @property
     def dtype(self) -> DataType:
+        if _is_decimal(self.children[0]):
+            from ..types import round_decimal_type
+            return round_decimal_type(self.children[0].dtype, self._scale())
         return self.children[0].dtype
 
     def _scale(self) -> int:
-        _no_decimal(self, self.children[0])
         s = self.children[1]
         if not isinstance(s, Literal) or s.value is None:
             raise NotImplementedError(
@@ -134,6 +175,9 @@ class Round(Expression):
     def eval_device(self, batch, ctx=_DEFAULT_CTX):
         cap, dev = batch.capacity, batch.device
         scale = self._scale()
+        if _is_decimal(self.children[0]):
+            return _decimal_round_device(self, batch, ctx, scale,
+                                         _DECIMAL_MODES[self.rounding])
         d, v = device_parts(self.children[0].eval_device(batch, ctx), cap,
                             dev)
         d = torch.broadcast_to(d, (cap,))
@@ -149,6 +193,9 @@ class Round(Expression):
         import pyarrow as pa
         from ..types import to_arrow
         scale = self._scale()
+        if _is_decimal(self.children[0]):
+            return _decimal_round_cpu(self, table, ctx, scale,
+                                      _DECIMAL_MODES[self.rounding])
         c = self.children[0].eval_cpu(table, ctx)
         n = len(c) if is_arrow(c) else 1
         vals, null = arrow_numpy(c, n, self.dtype)
@@ -206,11 +253,16 @@ def java_double_to_long(v: torch.Tensor) -> torch.Tensor:
 
 class _ToLong(UnaryExpression):
     """``floor``/``ceil``: a double → bigint with Java's (long)
-    conversion; integers pass through."""
+    conversion; integers pass through; a decimal rounds to scale 0 in
+    Spark's decimal type (``types.floor_ceil_decimal_type``)."""
     _fn = None
+    fn_name = "?"
 
     @property
     def dtype(self) -> DataType:
+        from ..types import DecimalType, floor_ceil_decimal_type
+        if isinstance(self.child.dtype, DecimalType):
+            return floor_ceil_decimal_type(self.child.dtype)
         return LongT if isinstance(self.child.dtype, FractionalType) \
             else self.child.dtype
 
@@ -220,20 +272,24 @@ class _ToLong(UnaryExpression):
         return java_double_to_long(type(self)._fn(d.to(torch.float64)))
 
     def eval_device(self, batch, ctx=_DEFAULT_CTX):
-        _no_decimal(self, self.child)
+        if _is_decimal(self.child):
+            return _decimal_round_device(self, batch, ctx, 0, self.fn_name)
         return super().eval_device(batch, ctx)
 
     def eval_cpu(self, table, ctx=_DEFAULT_CTX):
-        _no_decimal(self, self.child)
+        if _is_decimal(self.child):
+            return _decimal_round_cpu(self, table, ctx, 0, self.fn_name)
         return eval_cpu_on_host_tensors(self, table, ctx)
 
 
 class Floor(_ToLong):
     _fn = staticmethod(torch.floor)
+    fn_name = "floor"
 
 
 class Ceil(_ToLong):
     _fn = staticmethod(torch.ceil)
+    fn_name = "ceil"
 
 
 # ---------------------------------------------------------------------------

@@ -261,18 +261,21 @@ class KnownFloatingPointNormalized(_Marker):
     """NaN and -0.0 already normalized: a pass-through."""
 
 
+def normalize_nan_zero(d: torch.Tensor) -> torch.Tensor:
+    """Every NaN to the canonical NaN and -0.0 to 0.0 (a float tensor)."""
+    zero = torch.zeros((), dtype=d.dtype, device=d.device)
+    d = torch.where(d == 0, zero, d)
+    return torch.where(torch.isnan(d), torch.full((), float("nan"),
+                                                  dtype=d.dtype,
+                                                  device=d.device), d)
+
+
 class NormalizeNaNAndZero(UnaryExpression):
     """Every NaN to the canonical NaN and -0.0 to 0.0, so float keys
     compare by equality."""
 
     def _compute(self, d, ctx, valid):
-        if not d.is_floating_point():
-            return d
-        zero = torch.zeros((), dtype=d.dtype, device=d.device)
-        d = torch.where(d == 0, zero, d)
-        return torch.where(torch.isnan(d), torch.full((), float("nan"),
-                                                      dtype=d.dtype,
-                                                      device=d.device), d)
+        return normalize_nan_zero(d) if d.is_floating_point() else d
 
     def eval_cpu(self, table, ctx=_DEFAULT_CTX):
         if not isinstance(self.child.dtype, FractionalType):

@@ -100,11 +100,11 @@ def substring(c, pos: int, length: int) -> Column:
 
 
 def coalesce(*cols) -> Column:
-    return Column(_N.Coalesce(*[_expr(c) for c in cols]))
+    return Column(_N.Coalesce(*[_expr_or_col(c) for c in cols]))
 
 
 def isnull(c) -> Column:
-    return Column(_N.IsNull(_expr(c)))
+    return Column(_N.IsNull(_expr_or_col(c)))
 
 
 def floor(c) -> Column:

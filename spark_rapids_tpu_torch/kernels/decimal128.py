@@ -19,8 +19,13 @@ the device:
 
 * ``divmod_small``: 128 ÷ a positive divisor under 2^31 by long division
   over 32-bit digits; ``rescale_down`` (HALF_UP to fewer digits: casts,
-  the product's rescale) and ``div_half_up`` (``avg``'s quotient at a
-  scale) are built on it;
+  the product's rescale), ``round_pow10`` (HALF_UP, HALF_EVEN, floor or
+  ceiling to fewer digits: ``round``, ``bround``, ``floor``, ``ceil``)
+  and ``div_half_up`` (``avg``'s quotient at a scale) are built on it;
+* ``divmod128``: 128 ÷ 128 bits, unsigned, for ``/``, ``%`` and ``pmod``
+  of decimals: long division over k-bit digits when the divisor fits
+  63 − k bits (one int64 lane holds the remainder), bit by bit with a
+  two-limb remainder past that;
 * ``segment_sum128``: a segmented sum of 128-bit values, each value split
   into four 32-bit words summed in int64 by the caller's segment
   reduction (``segment_words128``: partial word sums merge by addition),
@@ -306,6 +311,99 @@ def div_half_up(h, l, d, extra: int):
     ovf = ovf | o3 | (qh < 0)
     nh, nl = neg128(qh, ql)
     return torch.where(neg, nh, qh), torch.where(neg, nl, ql), ovf
+
+
+def round_pow10(h, l, k: int, mode: str):
+    """(h, l) / 10^k (k >= 1) rounded to an integer: ``half_up`` (ties
+    away from zero, Spark's ``round``), ``half_even`` (``bround``),
+    ``floor`` or ``ceil``. The magnitude is truncated by 10^(k-1) in steps
+    of at most nine digits (a sticky flag keeps whether any dropped digit
+    was non-zero), then its last digit and the flag decide."""
+    mh, ml, neg = _magnitude(h, l)
+    sticky = torch.zeros_like(neg)
+    for f in _pow10_steps(k - 1):
+        mh, ml, r = divmod_small(mh, ml, f)
+        sticky = sticky | (r != 0)
+    mh, ml, digit = divmod_small(mh, ml, 10)
+    if mode == "half_up":
+        up = digit >= 5
+    elif mode == "half_even":
+        up = (digit > 5) | ((digit == 5) & (sticky | ((ml & 1) == 1)))
+    else:
+        inexact = sticky | (digit != 0)
+        up = inexact & (neg if mode == "floor" else ~neg)
+    mh, ml, _ = add128(mh, ml, torch.zeros_like(mh), up.to(torch.int64))
+    nh, nl = neg128(mh, ml)
+    return torch.where(neg, nh, mh), torch.where(neg, nl, ml)
+
+
+# ---------------------------------------------------------------------------
+# 128 ÷ 128 bits (unsigned): ``/``, ``%`` and ``pmod`` of decimals
+# ---------------------------------------------------------------------------
+
+
+def _bits_of(h, l, start: int, width: int):
+    """Bits [start, start + width) of the non-negative (h, l), width <= 62,
+    as an int64."""
+    mask = (1 << width) - 1
+    if start >= 64:
+        return (h >> (start - 64)) & mask
+    if start + width <= 64:
+        return (l >> start) & mask
+    low = (l >> start) & ((1 << (64 - start)) - 1)
+    return low | ((h & ((1 << (start + width - 64)) - 1)) << (64 - start))
+
+
+def _place(qh, ql, v, start: int):
+    """(qh, ql) with the non-negative int64 ``v`` (< 2^62) or-ed in at bit
+    ``start`` (its bits past 127 dropped: the caller's quotient has
+    none)."""
+    if start >= 64:
+        return qh | (v << (start - 64)), ql
+    ql = ql | (v << start)  # the bits past 63 drop out of the low limb
+    if start > 0:  # and reach the high limb
+        qh = qh | (v >> (64 - start))
+    return qh, ql
+
+
+def _ult128(ah, al, bh, bl):
+    """unsigned 128-bit a < b (each limb an unsigned bit pattern)."""
+    return _ult(ah, bh) | ((ah == bh) & _ult(al, bl))
+
+
+def divmod128(nh, nl, dh, dl, n_bits: int = 127, d_bits: int = 127):
+    """Unsigned N ÷ D for 0 <= N < 2^n_bits and 0 < D < 2^d_bits (static
+    bounds from the operands' types, each at most 127): (quotient hi, lo,
+    remainder hi, lo).
+
+    When the divisor fits 62 bits, long division over k-bit digits of N,
+    k = 63 − d_bits: each step divides r·2^k + digit (under 2^63, since
+    r < D) by D in int64, about eight ops a digit; the first digit, while
+    r is 0, takes up to 62 bits. Past 62 bits, restoring division a bit
+    at a time with a two-limb remainder (n_bits steps)."""
+    zero = torch.zeros_like(nh)
+    if d_bits <= 62:
+        k = 63 - d_bits
+        qh, ql, r = zero, zero, zero
+        pos, w = n_bits, min(62, n_bits)  # the first digit: r is 0
+        while pos > 0:
+            pos -= w
+            cur = (r << w) | _bits_of(nh, nl, pos, w)
+            qd = torch.div(cur, dl, rounding_mode="floor")
+            r = cur - qd * dl
+            qh, ql = _place(qh, ql, qd, pos)
+            w = min(k, pos)
+        return qh, ql, zero, r
+    rh, rl, qh, ql = zero, zero, zero, zero
+    for i in range(n_bits - 1, -1, -1):
+        bit = _bits_of(nh, nl, i, 1)
+        rh = (rh << 1) | ((rl >> 63) & 1)
+        rl = (rl << 1) | bit
+        ge = ~_ult128(rh, rl, dh, dl)
+        sh, sl, _ = sub128(rh, rl, dh, dl)
+        rh, rl = torch.where(ge, sh, rh), torch.where(ge, sl, rl)
+        qh, ql = _place(qh, ql, ge.to(torch.int64), i)
+    return qh, ql, rh, rl
 
 
 def segment_words128(h, l, int_sum: Callable[[torch.Tensor], torch.Tensor]

@@ -322,18 +322,38 @@ class Join(LogicalPlan):
 
 
 class Union(LogicalPlan):
-    """UNION ALL by position: the first child's names and types, nullable
-    where any child is."""
+    """UNION ALL by position: the first child's names; each column takes
+    its children's wider type (Spark's ``WidenSetOperationTypes``,
+    ``types.wider_type``), and a child of another type is projected
+    through ``Cast`` to it, so both engines cast alike; nullable where
+    any child is."""
 
     def __init__(self, plans: Sequence[LogicalPlan]):
-        self.children = tuple(plans)
+        from ..types import wider_type
         first = plans[0]
         for p in plans[1:]:
             if len(p.output) != len(first.output):
                 raise ValueError("UNION requires same number of columns")
+        types = []
+        for i, a in enumerate(first.output):
+            t = a.dtype
+            for p in plans[1:]:
+                w = wider_type(t, p.output[i].dtype)
+                if w is None:
+                    raise ValueError(
+                        f"UNION column {i} ({a.name}): no common type of "
+                        f"{t.simple_string()} and "
+                        f"{p.output[i].dtype.simple_string()}")
+                t = w
+            types.append(t)
+        self.children = tuple(
+            p if all(o.dtype == t for o, t in zip(p.output, types))
+            else Project([o if o.dtype == t else Alias(Cast(o, t), o.name)
+                          for o, t in zip(p.output, types)], p)
+            for p in plans)
         self._output = [AttributeReference(
-            a.name, a.dtype, any(p.output[i].nullable for p in plans))
-            for i, a in enumerate(first.output)]
+            a.name, t, any(p.output[i].nullable for p in self.children))
+            for i, (a, t) in enumerate(zip(first.output, types))]
 
     @property
     def output(self) -> List[AttributeReference]:

@@ -18,8 +18,6 @@ output. Segment fusion (``execs/fusion.py``) and batch coalescing
 
 from __future__ import annotations
 
-import re
-
 import logging
 from typing import Callable, Dict, List
 
@@ -297,12 +295,15 @@ def _tag_window(meta: PlanMeta) -> None:
     for we in meta.plan.window_exprs:
         fn = we.function
         name = type(fn).__name__
-        if any(isinstance(e.dtype, DecimalType) for e in
-               (fn,) + tuple(fn.children) + tuple(we.spec.partition_by)
+        if any(isinstance(e.dtype, DecimalType) and e.dtype.wide for e in
+               tuple(we.spec.partition_by)
                + tuple(o.child for o in we.spec.order_by)):
+            # the card sorts and segments by one-lane keys; the reference
+            # has no device key for a two-limb decimal either
             meta.will_not_work_on_tpu(
-                f"window function {name} over a decimal is not supported "
-                "on TPU (decimal windows not yet ported, ROADMAP A6)")
+                f"window function {name} partitioned or ordered by a "
+                "decimal128 key is not supported on TPU (decimal128 keys "
+                "not yet ported, ROADMAP A6)")
         if isinstance(fn, AggregateFunction):
             if fn.update_op not in DEVICE_AGGREGATES:
                 # collect_list / collect_set over a window, among others
@@ -452,13 +453,6 @@ class TorchOverrides:
         return "\n".join(reasons)
 
 
-#: the reasons test mode admits off the card: decimal ``/``, ``%`` and
-#: ``pmod`` run in the host engine alone (ROADMAP A6)
-_HOST_ONLY_DECIMAL = re.compile(
-    r"decimal (Divide|Remainder|Pmod) not yet ported to the device "
-    r"\(ROADMAP A6\)")
-
-
 class TorchTransitionOverrides:
     """Final boundary fixups + the everything-on-the-device test assertion
     (reference GpuTransitionOverrides)."""
@@ -476,10 +470,6 @@ class TorchTransitionOverrides:
                        CE.CpuLocalTableScanExec, CE.CpuCachedScanExec)
         for node in plan.collect_nodes():
             if isinstance(node, CpuExec) and not isinstance(node, allowed_cpu):
-                reasons = getattr(node, "tagged_reasons", None)
-                if reasons and all(_HOST_ONLY_DECIMAL.search(r)
-                                   for r in reasons):
-                    continue  # decimal / % pmod: the host engine's alone
                 raise AssertionError(
                     f"Part of the plan is not columnar: {node.node_desc()}\n"
                     + plan.tree_string())

@@ -93,7 +93,7 @@ def _register_builtin_exprs() -> None:
         + TypeSigs.STRING + TypeSigs.NULL
     register_expr(CO.If, branch + d128, "if/else")
     register_expr(CO.CaseWhen, branch + d128, "CASE WHEN")
-    register_expr(M.Round, TypeSigs.numeric, "round (HALF_UP)")
+    register_expr(M.Round, TypeSigs.numeric + d128, "round (HALF_UP)")
     register_expr(H.Murmur3Hash, TypeSigs.integral, "spark murmur3 hash")
     register_expr(S.Like, TypeSigs.BOOLEAN, "SQL LIKE with % and _",
                   incompat="'_' over non-ASCII handled via host path")
@@ -169,7 +169,8 @@ def _register_builtin_exprs() -> None:
                       f"{cls.update_op} ((n, sum, sumsq) state)")
     register_expr(A.Abs, TypeSigs.numeric + TypeSigs.DECIMAL_128,
                   "absolute value")
-    register_expr(M.Floor, TypeSigs.numeric, "floor")
+    register_expr(M.Floor, TypeSigs.numeric + TypeSigs.DECIMAL_128,
+                  "floor")
     register_expr(N.Coalesce, TypeSigs.numeric + TypeSigs.BOOLEAN
                   + TypeSigs.DATE + TypeSigs.STRING + TypeSigs.NULL + d128,
                   "first non-null")
@@ -227,13 +228,14 @@ def _register_scalar_functions(sig_all, ts) -> None:
     register_expr(CO.Least, minmax + d128, "row-wise least")
     for cls in (M.Sqrt, M.Cbrt, M.Exp, M.Expm1, M.Sin, M.Cos, M.Tan, M.Asin,
                 M.Acos, M.Atan, M.Sinh, M.Cosh, M.Tanh, M.Log, M.Log10,
-                M.Log2, M.Log1p, M.Pow, M.Atan2, M.Signum, M.Ceil, M.Asinh,
+                M.Log2, M.Log1p, M.Pow, M.Atan2, M.Signum, M.Asinh,
                 M.Acosh, M.Atanh, M.Cot, M.ToDegrees, M.ToRadians, M.Rint,
                 M.Hypot):
         register_expr(cls, sig_num, f"math fn {cls.__name__.lower()}")
     register_expr(M.Logarithm, TypeSigs.fp,
                   "log(base, x) — null on domain error")
-    register_expr(M.BRound, sig_num, "bround (HALF_EVEN)")
+    register_expr(M.Ceil, sig_num + d128, "math fn ceil")
+    register_expr(M.BRound, sig_num + d128, "bround (HALF_EVEN)")
     register_expr(H.XxHash64, TypeSigs.integral,
                   "spark xxhash64 (device XXH64 over the string bytes)")
     register_expr(H.HiveHash, TypeSigs.integral,
@@ -303,6 +305,7 @@ def _decimal_input_classes() -> frozenset:
     from ..expressions import cast as C
     from ..expressions import conditional as CO
     from ..expressions import hashexprs as H
+    from ..expressions import mathexprs as M
     from ..expressions import nullexprs as N
     from ..expressions import predicates as P
     return frozenset({
@@ -312,8 +315,7 @@ def _decimal_input_classes() -> frozenset:
         P.InSet, N.IsNull, N.IsNotNull, CO.If, CO.CaseWhen, CO.Greatest,
         CO.Least, N.Coalesce, AGG.Sum, AGG.Average, AGG.Min, AGG.Max,
         AGG.Count, AGG.First, AGG.Last, H.Murmur3Hash, H.XxHash64,
-        # tagged off the card by their own reason (ROADMAP A6)
-        A.Divide, A.Remainder, A.Pmod})
+        A.Divide, A.Remainder, A.Pmod, M.Round, M.BRound, M.Floor, M.Ceil})
 
 
 def decimal_input_reason(e) -> Optional[str]:

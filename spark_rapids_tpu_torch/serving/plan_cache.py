@@ -106,10 +106,11 @@ def _expr_sig(e: Expression, id_map: Dict[int, int], punch: bool,
     """Normalized expression signature. ``punch=True`` hole-punches
     Literals into parameter slots (dtype kept, value collected)."""
     if isinstance(e, Literal):
+        wall = ":wall" if e.wall else ""  # a session-zone wall time
         if punch:
             params.append(e)
-            return f"?{e.dtype}"
-        return f"lit:{e.dtype}:{_safe_repr(e.value)}"
+            return f"?{e.dtype}{wall}"
+        return f"lit:{e.dtype}{wall}:{_safe_repr(e.value)}"
     if isinstance(e, AttributeReference):
         cid = id_map.setdefault(e.expr_id, len(id_map))
         return f"a{cid}:{e.name}:{e.dtype}:{int(e.nullable)}"

@@ -459,6 +459,29 @@ def numeric_promote(a: DataType, b: DataType) -> DataType:
     return order[max(order.index(a), order.index(b))]
 
 
+def wider_type(a: DataType, b: DataType) -> Optional[DataType]:
+    """Spark's ``findWiderTypeForTwo`` (``WidenSetOperationTypes``: the
+    type a union column takes from its children): the wider numeric (a
+    decimal with an integral widens to the decimal that holds both, with
+    a float or double to double), timestamp over date, string over any
+    other atomic type but boolean and binary; None when there is none."""
+    if a == b:
+        return a
+    if isinstance(a, NullType):
+        return b
+    if isinstance(b, NullType):
+        return a
+    if isinstance(a, NumericType) and isinstance(b, NumericType):
+        return numeric_promote(a, b)
+    if {type(a), type(b)} == {DateType, TimestampType}:
+        return TimestampT
+    for s, o in ((a, b), (b, a)):
+        if isinstance(s, StringType) and not isinstance(
+                o, (BooleanType, BinaryType, StructType)):
+            return StringT
+    return None
+
+
 # ---------------------------------------------------------------------------
 # Spark's decimal types (DecimalPrecision, allowPrecisionLoss=true)
 # ---------------------------------------------------------------------------
@@ -525,6 +548,30 @@ def decimal_common_type(a: DataType, b: DataType) -> DataType:
     if isinstance(b, IntegralType):
         b = integral_decimal(b)
     return decimal_wider_type(a, b)
+
+
+def round_decimal_type(t: "DecimalType", scale: int) -> "DecimalType":
+    """``round``/``bround`` of a decimal at ``scale`` (Spark 3.4's
+    ``RoundBase.dataType``, SPARK-39226: one more integral digit for the
+    carry): (min(38, p − s + 1 + min(s, scale)), min(s, scale)) for a
+    scale >= 0, else (min(38, max(p − s + 1, 1 − scale)), 0)."""
+    p, s = t.precision, t.scale
+    if scale < 0:
+        return DecimalType(min(max(p - s + 1, 1 - scale),
+                               DecimalType.MAX_PRECISION), 0)
+    new_s = min(s, scale)
+    return DecimalType(min(p - s + 1 + new_s, DecimalType.MAX_PRECISION),
+                       new_s)
+
+
+def floor_ceil_decimal_type(t: "DecimalType") -> "DecimalType":
+    """``floor``/``ceil`` of a decimal (Spark's ``Floor``/``Ceil``
+    ``dataType``): the type itself at scale 0, else (min(38, p − s + 1),
+    0)."""
+    if t.scale == 0:
+        return t
+    return DecimalType(min(t.precision - t.scale + 1,
+                           DecimalType.MAX_PRECISION), 0)
 
 
 def sum_decimal_type(t: "DecimalType") -> "DecimalType":

@@ -158,6 +158,12 @@ def _rule_transitions(rule, after: int, until_year: int = 2200):
     return sorted(out)
 
 
+def zone_table(tz: Optional[str]) -> Optional["TimeZoneDB"]:
+    """The zone's table, or None for UTC (raises for a zone without a
+    TZif file)."""
+    return None if is_utc(tz) else TimeZoneDB.require(tz)
+
+
 class TimeZoneDB:
     """One zone's transition table: numpy on the host, a tensor copy per
     device made on first use."""

@@ -320,10 +320,11 @@ def test_unknown_zone_raises_clearly():
 
 
 def test_unsupported_patterns_stay_off_the_card():
-    """``SSS`` is outside the supported set and a column pattern is not a
-    literal: the override engine keeps the operator on the CPU and names
-    the reason; the host engine answers (``SSS``: null, as the
-    reference)."""
+    """A column pattern is not a literal: the override engine keeps the
+    operator on the CPU and names the reason, and the host engine answers.
+    ``SSS`` (outside the card's byte set) formats in the host hop with
+    Spark's answer (the reference's is null, ROADMAP C-ref-46); the
+    parser's pattern set still refuses it."""
     with pytest.raises(ValueError):
         PDT._java_to_strftime("HH:mm:ss.SSS")
     assert PDT._java_to_strftime("yyyy-MM-dd") == "%Y-%m-%d"
@@ -333,8 +334,8 @@ def test_unsupported_patterns_stay_off_the_card():
                              "f": "yyyy"}])
     q = df.select(TF.date_format("ts", "HH:mm:ss.SSS").alias("a"))
     why = q.explain_fallback()
-    assert "DateFormatClass is disabled on TPU" in why and "SSS" in why, why
-    assert q.collect() == [{"a": None}]
+    assert "DateFormatClass is disabled on TPU" not in why, why
+    assert q.collect() == [{"a": "03:04:05.000"}]
     q2 = df.select(TF.date_format(TF.col("ts"), TF.col("f")).alias("a"))
     assert "non-literal datetime pattern" in q2.explain_fallback()
     assert q2.collect() == [{"a": "2024"}]

@@ -166,9 +166,11 @@ def test_reference_q1_answers_recorded(table, oracles):
 
 def test_chip_smoke_phase18_rehearsal(tmp_path):
     """chip_smoke's phase 18 off the card at small sizes: every check of
-    (a)-(c) against its numpy and Python oracles (no timing lines)."""
+    (a)-(d) against its numpy and Python oracles and the host engine (no
+    timing lines)."""
     import chip_smoke
     from spark_rapids_tpu_torch import functions as TF
     chip_smoke.decimal_paths(TF, TorchSession, "cpu", str(tmp_path),
                              device="cpu", rows=1 << 12, file_rows=1 << 11,
-                             sweep_rows=1 << 13, div_rows=1 << 11)
+                             sweep_rows=1 << 13, div_rows=1 << 11,
+                             rest_rows=1 << 13, rest_check=1 << 11)

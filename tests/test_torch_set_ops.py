@@ -105,9 +105,10 @@ def test_set_ops_are_null_safe_and_distinct():
 
 
 def test_union_casts_a_side_to_the_union_types():
-    """A union's types are its first side's; a side of another numeric
-    type is cast to them (the reference passes it through uncast, Queue
-    C C-ref-14)."""
+    """A union column takes its sides' wider type (Spark's
+    ``WidenSetOperationTypes``); a side of another numeric type is cast to
+    it (the reference keeps the first side's type and passes the other
+    through uncast, Queue C C-ref-14)."""
     s = TorchSession({}, device="cpu")
     a = s.createDataFrame({"x": np.array([1, 2], np.int64)})
     b = s.createDataFrame({"x": np.array([3, -4], np.int32)})

@@ -127,9 +127,20 @@ def _cast_rows(name, to):
     return got.to_pylist(), want
 
 
+def _pad_year(text):
+    """A timestamp's text with its year padded to four digits, as Spark
+    writes it (the reference leaves it unpadded, ROADMAP C-ref-45)."""
+    if text is None:
+        return None
+    year, rest = text.split("-", 1)
+    return year.zfill(4) + "-" + rest
+
+
 @pytest.mark.parametrize("name", sorted(TYPES))
 def test_to_string_equals_the_reference(name):
     got, want = _cast_rows(name, "string")
+    if name == "ts":
+        want = [_pad_year(w) for w in want]
     assert got == want
 
 

@@ -10,7 +10,7 @@ device run on the CPU:
 * ``coalesce`` (integers, doubles, dates), ``abs`` (the smallest long
   stays itself), ``floor`` (NaN, infinities and values past the long
   range, as Java's (long) casts them), ``concat`` of strings with nulls
-  and empty strings, ``isnull``.
+  and empty strings, ``isnull`` (of a column, and of a column's name).
 
 Integers, strings and nulls exact, floats within rtol 1e-9."""
 
@@ -116,7 +116,11 @@ def _expressions(F, df):
         F.concat(F.col("s"), F.lit(", "), F.col("t")).alias("cat"),
         F.concat(F.col("t"), F.col("s")).alias("cat2"),
         F.concat(F.lit(""), F.col("s")).alias("cat3"),
-        F.isnull(F.col("s")).alias("nul_s"), F.isnull("a").alias("nul_a"))
+        F.isnull(F.col("s")).alias("nul_s"),
+        # A name reads as its column (Spark's ``ColumnOrName``); the
+        # reference reads it as a string literal (ROADMAP C-ref-47), so it
+        # is handed the column.
+        F.isnull("a" if F is PF else F.col("a")).alias("nul_a"))
 
 
 CASES = {"variance_by_group": (_variance_by_group, _variance_table),
